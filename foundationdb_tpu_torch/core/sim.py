@@ -1,0 +1,323 @@
+"""Deterministic cluster simulator: processes, network, faults.
+
+Reference: fdbrpc/sim2.actor.cpp — Sim2 swaps the global INetwork so the REAL
+server code runs on simulated NICs/disks/clock in one OS process
+(`sim2.actor.cpp:721`); connections have deterministic latency and can be
+clogged (`:133-179`); processes/machines can be killed and rebooted
+(`:1190-1213`, KillType ladder in simulator.h:41). RPC semantics come from
+fdbrpc/FlowTransport.actor.cpp + fdbrpc/fdbrpc.h: a RequestStream is a
+(address, token) endpoint, and a ReplyPromise inside a request is a
+network-traversing promise — the callee replies through it, and a dead callee
+surfaces as broken_promise to the caller (TOKEN_IGNORE path,
+FlowTransport.actor.cpp:455-487).
+
+Everything here is host-side control plane; device work (the conflict kernel)
+is invoked by roles built on top.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+from foundationdb_tpu_torch.core.eventloop import ActorTask, EventLoop, TaskPriority
+from foundationdb_tpu_torch.core.future import Future, Promise
+from foundationdb_tpu_torch.utils.errors import FDBError
+from foundationdb_tpu_torch.utils.knobs import KNOBS
+from foundationdb_tpu_torch.utils.rng import DeterministicRandom
+from foundationdb_tpu_torch.utils.trace import TraceEvent
+
+
+class KillType:
+    """simulator.h:41 KillType ladder (subset)."""
+
+    RebootProcess = "RebootProcess"  # process restarts, durable state kept
+    KillProcess = "KillProcess"  # process gone until explicitly rebooted
+    RebootAndDelete = "RebootAndDelete"  # restarts with durable state wiped
+
+
+@dataclass
+class Endpoint:
+    address: str
+    token: int
+
+
+class SimProcess:
+    """One simulated server/client process (sim2's ProcessInfo analogue)."""
+
+    def __init__(self, net: "SimNetwork", address: str, machine_id: str, dc_id: str):
+        self.net = net
+        self.address = address
+        self.machine_id = machine_id
+        self.dc_id = dc_id
+        self.alive = True
+        self.handlers: dict[int, Callable[[Any, Promise], None]] = {}
+        self.actors: list[ActorTask] = []
+        self.files: dict[str, "SimFile"] = {}
+        self.boot_fn: Callable[["SimProcess"], None] | None = None
+        self.reboots = 0
+
+    # -- actor management: actors die with the process --
+    def spawn(self, coro, name: str = "actor") -> ActorTask:
+        task = self.net.loop.spawn(coro, name=f"{self.address}/{name}")
+        self.actors.append(task)
+        # completed actors drop out of the kill list (long-lived processes
+        # spawn one actor per request; keeping them all would leak)
+        task.add_system_callback(lambda _f: self.actors.remove(task)
+                                 if task in self.actors else None)
+        return task
+
+    # -- endpoint registration (RequestStream server side) --
+    def register(self, token: int, handler: Callable[[Any, Promise], None]):
+        self.handlers[token] = handler
+
+    def deregister(self, token: int):
+        self.handlers.pop(token, None)
+
+
+class SimFile:
+    """Simulated durable file that loses unsynced writes on kill.
+
+    Reference: fdbrpc/AsyncFileNonDurable.actor.h:134 — on a machine failure,
+    writes that were not fsync'd are (deterministically-randomly) dropped,
+    which is how the reference proves its recovery handles torn/lost writes.
+    """
+
+    def __init__(self, name: str, rng: DeterministicRandom):
+        self.name = name
+        self.rng = rng
+        self.durable = b""
+        self.pending: list[bytes] = []  # appended, not yet synced
+
+    def append(self, data: bytes):
+        self.pending.append(data)
+
+    def sync(self):
+        self.durable += b"".join(self.pending)
+        self.pending.clear()
+
+    def read_all(self) -> bytes:
+        return self.durable + b"".join(self.pending)
+
+    def truncate(self):
+        """Discard all contents (durable and pending) — used by DiskQueue
+        file alternation; the truncate itself is treated as durable."""
+        self.durable = b""
+        self.pending.clear()
+
+    def truncate_to(self, size: int):
+        """Durably truncate to `size` bytes (ftruncate semantics)."""
+        self.durable = self.read_all()[:size]
+        self.pending.clear()
+
+    def on_kill(self):
+        """Each unsynced append independently survives or is lost; a lost
+        prefix truncates everything after it (append-only log semantics)."""
+        kept = []
+        for chunk in self.pending:
+            if self.rng.coinflip(0.5):
+                kept.append(chunk)
+            else:
+                break  # torn tail: later appends can't be durable either
+        self.durable += b"".join(kept)
+        self.pending.clear()
+
+
+class SimNetwork:
+    """Simulated transport + fault injection over one EventLoop."""
+
+    def __init__(self, loop: EventLoop, rng: DeterministicRandom):
+        self.loop = loop
+        self.rng = rng
+        self.processes: dict[str, SimProcess] = {}
+        self._clogged_until: dict[tuple[str, str], float] = {}
+        self._partitioned: set[tuple[str, str]] = set()
+        # invariant oracles observe only under simulation, with state scoped
+        # to THIS network so coexisting sims can't mix acked versions
+        # (fdbrpc/sim_validation.cpp pattern)
+        from foundationdb_tpu_torch.core import sim_validation
+        self.validation = sim_validation.SimValidation()
+        self._next_token = 1 << 32
+        # reply futures currently owed by each serving process, so a kill can
+        # break them (TOKEN_IGNORE / broken_promise semantics)
+        self._owed: dict[str, list[Promise]] = {}
+
+    # -- topology --
+    def new_process(self, address: str, machine_id: str | None = None, dc_id: str = "dc0") -> SimProcess:
+        p = SimProcess(self, address, machine_id or address, dc_id)
+        self.processes[address] = p
+        self._owed.setdefault(address, [])
+        return p
+
+    def temp_token(self) -> int:
+        self._next_token += 1
+        return self._next_token
+
+    # -- fault injection (sim2.actor.cpp:1190-1213, :133-179) --
+    def clog_pair(self, a: str, b: str, seconds: float):
+        until = self.loop.now() + seconds
+        for pair in ((a, b), (b, a)):
+            self._clogged_until[pair] = max(self._clogged_until.get(pair, 0.0), until)
+        TraceEvent("ClogPair").detail("A", a).detail("B", b).detail("Seconds", seconds).log()
+
+    def partition(self, a: str, b: str):
+        self._partitioned.add((a, b))
+        self._partitioned.add((b, a))
+
+    def heal(self):
+        self._partitioned.clear()
+        self._clogged_until.clear()
+
+    def kill(self, address: str, kill_type: str = KillType.KillProcess):
+        p = self.processes.get(address)
+        if p is None or not p.alive:
+            return
+        TraceEvent("SimKill", address).detail("KillType", kill_type).log()
+        p.alive = False
+        for task in p.actors:
+            task.cancel()
+        p.actors.clear()
+        p.handlers.clear()
+        for promise in self._owed[address]:
+            promise.break_promise()
+        self._owed[address].clear()
+        if kill_type == KillType.RebootAndDelete:
+            p.files.clear()
+        else:
+            for f in p.files.values():
+                f.on_kill()
+        if kill_type in (KillType.RebootProcess, KillType.RebootAndDelete):
+            self.loop._schedule(
+                self.rng.random() * 0.5 + 0.1,
+                TaskPriority.DefaultDelay,
+                lambda: self.reboot(address),
+            )
+
+    def reboot(self, address: str):
+        p = self.processes.get(address)
+        if p is None or p.alive:
+            return
+        p.alive = True
+        p.reboots += 1
+        TraceEvent("SimReboot", address).detail("Reboots", p.reboots).log()
+        if p.boot_fn is not None:
+            p.boot_fn(p)
+
+    def reboot_dead(self, addresses=None):
+        """Reboot every dead process (optionally restricted to `addresses`)
+        — the heal path shared by the spec runner's quiesce, region-kill
+        workloads, and whole-cluster restart tests."""
+        wanted = None if addresses is None else set(addresses)
+        for p in list(self.processes.values()):
+            if not p.alive and (wanted is None or p.address in wanted):
+                self.reboot(p.address)
+
+    # -- file API --
+    def open_file(self, process: SimProcess, name: str) -> SimFile:
+        if name not in process.files:
+            process.files[name] = SimFile(name, self.rng.fork())
+        return process.files[name]
+
+    # -- transport --
+    def _link_delay(self, src: str, dst: str) -> float | None:
+        """None = dropped (partition); otherwise extra delivery delay.
+
+        Clogging DELAYS packets instead of dropping them (Sim2Conn clogs the
+        connection; TCP retransmits underneath, sim2.actor.cpp:133-179) — a
+        clogged-then-healed link delivers everything late, which is what lets
+        version-chained pipelines (resolver prevVersion order, TLog version
+        order) drain instead of wedging on a gap. Partitions drop."""
+        if (src, dst) in self._partitioned:
+            return None
+        until = self._clogged_until.get((src, dst))
+        if until is not None and until > self.loop.now():
+            return until - self.loop.now()
+        return 0.0
+
+    def _latency(self) -> float:
+        lo, hi = KNOBS.SIM_MIN_LATENCY, KNOBS.SIM_MAX_LATENCY
+        return lo + (hi - lo) * self.rng.random()
+
+    def request(self, src: SimProcess, dest: Endpoint, payload: Any,
+                priority: int = TaskPriority.DefaultOnMainThread,
+                timeout: float | None = -1.0) -> Future:
+        """RequestStream::getReply — send `payload`, future of the reply.
+
+        The reply promise traverses the network (fdbrpc/fdbrpc.h:99): the
+        callee's handler fulfills it; if the callee is dead at delivery time or
+        dies before replying, the caller sees broken_promise.
+
+        A clogged/partitioned link DROPS the packet; without a bound every
+        such await would hang its actor forever, so requests carry a default
+        timeout (SIM_RPC_TIMEOUT_SECONDS) after which the caller sees
+        request_maybe_delivered — the reference surfaces the same through
+        connection failure + IFailureMonitor. Pass timeout=None for
+        deliberately unbounded waits (watches)."""
+        reply = Promise()
+        if not src.alive:
+            reply.send_error(FDBError("operation_cancelled"))
+            return reply.future
+        if timeout == -1.0:
+            timeout = KNOBS.SIM_RPC_TIMEOUT_SECONDS
+        if timeout is not None:
+            self.loop._schedule(
+                timeout, TaskPriority.DefaultDelay,
+                lambda: reply.send_error(FDBError("request_maybe_delivered"))
+                if not reply.is_set() else None)
+
+        def deliver():
+            dst = self.processes.get(dest.address)
+            if dst is None or not dst.alive or dest.token not in dst.handlers:
+                # TOKEN_IGNORE_PACKET path -> broken_promise at the caller
+                self._send_back(reply, FDBError("broken_promise"), is_error=True)
+                return
+            self._owed[dest.address].append(reply)
+
+            inner = Promise()
+
+            def on_reply(f: Future):
+                try:
+                    self._owed[dest.address].remove(reply)
+                except ValueError:
+                    return  # already broken by a kill
+                if f.is_error():
+                    self._send_back(reply, f._result, is_error=True)
+                else:
+                    self._send_back(reply, f._result, is_error=False)
+
+            inner.future.add_callback(on_reply)
+            dst.handlers[dest.token](payload, inner)
+
+        extra = self._link_delay(src.address, dest.address)
+        if extra is not None:
+            self.loop._schedule(extra + self._latency(), priority, deliver)
+        # else: partitioned; packet dropped — the caller's timeout or the
+        # failure monitor surfaces it
+        return reply.future
+
+    def _send_back(self, reply: Promise, result: Any, is_error: bool):
+        """Reply travels the network too (with latency); no link check on the
+        way back keeps fault semantics simple but still async."""
+        def arrive():
+            if reply.is_set():
+                return
+            if is_error:
+                reply.send_error(result)
+            else:
+                reply.send(result)
+
+        self.loop._schedule(self._latency(), TaskPriority.DefaultOnMainThread, arrive)
+
+    def one_way(self, src: SimProcess, dest: Endpoint, payload: Any):
+        """Fire-and-forget message (PromiseStream::send semantics)."""
+        def deliver():
+            dst = self.processes.get(dest.address)
+            if dst is None or not dst.alive or dest.token not in dst.handlers:
+                return
+            dst.handlers[dest.token](payload, Promise())
+
+        if src.alive:
+            extra = self._link_delay(src.address, dest.address)
+            if extra is not None:
+                self.loop._schedule(extra + self._latency(),
+                                    TaskPriority.DefaultOnMainThread, deliver)

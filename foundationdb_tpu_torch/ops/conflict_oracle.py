@@ -1,0 +1,191 @@
+"""CPU oracle for conflict detection — the obviously-correct reference.
+
+Plays the role the reference's naive structures play for its optimized engine:
+SkipList.cpp keeps a `MiniConflictSet2` (:1010-1026) and a naive interval map
+oracle so the fast path can be cross-checked for *identical abort decisions*
+(miniConflictSetTest :1394). Our device kernel is validated against this class
+the same way.
+
+Semantics implemented (from SkipList.cpp / Resolver.actor.cpp):
+
+- State is the max-commit-version step function over the keyspace: for any key
+  k, maxver(k) = max version of any committed write range covering k within
+  the MVCC window. (The skiplist's nodes+versions encode exactly this.)
+- A batch at commit version V:
+  1. too-old: a txn with read ranges whose read_snapshot < oldestVersion gets
+     TransactionTooOld (SkipList.cpp:985 — note: only if it HAS read ranges;
+     blind writes never expire).
+  2. history check: txn conflicts iff any read range [b,e) has
+     max(maxver over [b,e)) > read_snapshot (checkReadConflictRanges :1210).
+  3. intra-batch, in batch order: a not-yet-conflicting txn conflicts if a
+     read range overlaps a write range of an *earlier non-conflicting* txn in
+     this batch; surviving txns then publish their writes
+     (checkIntraBatchConflicts :1133 — earlier txns win; aborted txns'
+     writes are invisible).
+  4. surviving txns' write ranges are merged into the step function at V
+     (combine/mergeWriteConflictRanges :1260-1337).
+  5. window GC: oldestVersion advances to V - MAX_WRITE_TRANSACTION_LIFE;
+     values below the floor are clamped to it and equal-value segments
+     coalesce (removeBefore :665, done wholesale here).
+"""
+
+from __future__ import annotations
+
+from bisect import bisect_left, bisect_right
+
+from foundationdb_tpu_torch.ops.batch import COMMITTED, CONFLICT, TOO_OLD, TxnConflictInfo
+from foundationdb_tpu_torch.utils.knobs import KNOBS
+
+_FLOOR = -(1 << 62)
+
+
+class OracleConflictSet:
+    """Naive step-function interval map over byte-string keys."""
+
+    def __init__(self, oldest_version: int = 0):
+        # keys[i] begins segment i; segment i spans [keys[i], keys[i+1]) and
+        # the last segment extends to +infinity. keys[0] is always b"".
+        self.keys: list[bytes] = [b""]
+        self.vals: list[int] = [_FLOOR]
+        self.oldest_version = oldest_version
+        self._gc_countdown = 64  # batches between coalescing sweeps
+
+    # -- step function primitives --
+    def _seg_of(self, key: bytes) -> int:
+        return bisect_right(self.keys, key) - 1
+
+    def range_max(self, begin: bytes, end: bytes) -> int:
+        if end <= begin:
+            return _FLOOR
+        i0 = self._seg_of(begin)
+        i1 = bisect_left(self.keys, end)
+        return max(self.vals[i0:i1])
+
+    def _ensure_boundary(self, key: bytes):
+        i = self._seg_of(key)
+        if self.keys[i] != key:
+            self.keys.insert(i + 1, key)
+            self.vals.insert(i + 1, self.vals[i])
+
+    def add_range(self, begin: bytes, end: bytes, version: int):
+        if end <= begin:
+            return
+        # inlined double _ensure_boundary reusing the bisect positions:
+        # this is the resolver's per-write-range hot loop (one call per
+        # written key per committed transaction)
+        keys, vals = self.keys, self.vals
+        i0 = bisect_right(keys, begin) - 1
+        if keys[i0] != begin:
+            i0 += 1
+            keys.insert(i0, begin)
+            vals.insert(i0, vals[i0 - 1])
+        i1 = bisect_left(keys, end, i0)
+        if i1 == len(keys) or keys[i1] != end:
+            keys.insert(i1, end)
+            vals.insert(i1, vals[i1 - 1])
+        for i in range(i0, i1):
+            if vals[i] < version:
+                vals[i] = version
+
+    def remove_before(self, version: int, force: bool = False):
+        """Advance the window floor; clamp + coalesce (removeBefore :665).
+
+        The floor ALWAYS advances (it drives TooOld decisions). The
+        clamp-and-coalesce sweep is O(segments) and decision-neutral — a
+        stored value below the floor can never exceed an allowed snapshot —
+        so it runs only periodically (or when forced), the same
+        amortization the reference gets from incremental removeBefore."""
+        if version <= self.oldest_version:
+            return
+        self.oldest_version = version
+        self._gc_countdown -= 1
+        if not force and self._gc_countdown > 0 and len(self.keys) < 65536:
+            return
+        self._gc_countdown = 64
+        nk, nv = [], []
+        for k, v in zip(self.keys, self.vals):
+            # Clamping values below the floor up to the floor is decision-
+            # equivalent: queries always have read_snapshot >= oldest_version
+            # (older snapshots were rejected as TooOld), so `v > snapshot` is
+            # unchanged for every allowed query.
+            v = max(v, version)
+            if nv and nv[-1] == v:
+                continue  # coalesce equal-value neighbors
+            nk.append(k)
+            nv.append(v)
+        self.keys, self.vals = nk, nv
+        self.keys[0] = b""
+
+    # -- batch interface (ConflictBatch) --
+    def detect(self, txns: list[TxnConflictInfo], commit_version: int) -> list[int]:
+        statuses = [COMMITTED] * len(txns)
+        oldest = self.oldest_version
+
+        # 1+2: too-old and history conflicts
+        for t, txn in enumerate(txns):
+            if txn.read_ranges and txn.read_snapshot < oldest:
+                statuses[t] = TOO_OLD
+                continue
+            for b, e in txn.read_ranges:
+                if self.range_max(b, e) > txn.read_snapshot:
+                    statuses[t] = CONFLICT
+                    break
+
+        # 3: intra-batch, earlier txns win, aborted writers invisible
+        published = _RangeSet()
+        for t, txn in enumerate(txns):
+            if statuses[t] != COMMITTED:
+                continue
+            if any(published.overlaps(b, e) for b, e in txn.read_ranges):
+                statuses[t] = CONFLICT
+                continue
+            for b, e in txn.write_ranges:
+                published.add(b, e)
+
+        # 4: merge surviving writes at commit_version
+        for t, txn in enumerate(txns):
+            if statuses[t] == COMMITTED:
+                for b, e in txn.write_ranges:
+                    self.add_range(b, e, commit_version)
+
+        # 5: advance the MVCC window
+        self.remove_before(commit_version - KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS)
+        return statuses
+
+
+class _RangeSet:
+    """Set of half-open ranges with overlap query (intra-batch write set).
+    Kept as sorted disjoint intervals: add/overlaps are O(log n) instead of
+    the naive O(n) scan (which made big batches quadratic)."""
+
+    def __init__(self):
+        self._begins: list[bytes] = []
+        self._ends: list[bytes] = []
+
+    def add(self, begin: bytes, end: bytes):
+        if end <= begin:
+            return
+        bs, es = self._begins, self._ends
+        lo = bisect_right(bs, begin)
+        if lo > 0 and es[lo - 1] >= begin:
+            lo -= 1  # previous interval touches/overlaps
+        hi = lo
+        n = len(bs)
+        while hi < n and bs[hi] <= end:
+            hi += 1
+        if lo == hi:
+            bs.insert(lo, begin)
+            es.insert(lo, end)
+        else:
+            nb = min(begin, bs[lo])
+            ne = max(end, es[hi - 1])
+            bs[lo:hi] = [nb]
+            es[lo:hi] = [ne]
+
+    def overlaps(self, begin: bytes, end: bytes) -> bool:
+        if end <= begin or not self._begins:
+            return False
+        i = bisect_right(self._begins, begin)
+        if i > 0 and self._ends[i - 1] > begin:
+            return True
+        return i < len(self._begins) and self._begins[i] < end

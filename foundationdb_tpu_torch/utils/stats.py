@@ -1,0 +1,95 @@
+"""Counters: per-role metric registries with periodic trace dumps.
+
+Reference: flow/Stats.h:57-113 — Counter (value + rate tracking),
+CounterCollection (a named bag of counters), and traceCounters (a periodic
+TraceEvent with every counter's value and rate since the last dump).
+"""
+
+from __future__ import annotations
+
+from foundationdb_tpu_torch.utils.trace import TraceEvent
+
+
+class Counter:
+    def __init__(self, name: str, collection: "CounterCollection" = None):
+        self.name = name
+        self.value = 0
+        self._last_dumped = 0
+        if collection is not None:
+            collection.add(self)
+
+    def __iadd__(self, n: int):
+        self.value += n
+        return self
+
+    def increment(self, n: int = 1):
+        self.value += n
+
+    def set(self, v):
+        """Gauge-style assignment (last-sampled value, not monotonic)."""
+        self.value = v
+
+    def rate_since_dump(self, dt: float) -> float:
+        return (self.value - self._last_dumped) / dt if dt > 0 else 0.0
+
+
+class CounterCollection:
+    def __init__(self, name: str, ident: str = ""):
+        self.name = name
+        self.ident = ident
+        self.counters: list[Counter] = []
+        self._last_dump_time: float | None = None
+
+    def add(self, counter: Counter):
+        self.counters.append(counter)
+
+    def counter(self, name: str) -> Counter:
+        return Counter(name, self)
+
+    def as_dict(self) -> dict:
+        return {c.name: c.value for c in self.counters}
+
+    def trace(self, now: float, event: str | None = None,
+              extra: dict | None = None):
+        """traceCounters (Stats.h:113): one event with values + rates."""
+        ev = TraceEvent(event or f"{self.name}Metrics", self.ident)
+        dt = (now - self._last_dump_time) if self._last_dump_time else 0.0
+        for c in self.counters:
+            ev.detail(c.name, c.value)
+            if dt > 0:
+                ev.detail(c.name + "Rate", round(c.rate_since_dump(dt), 2))
+            c._last_dumped = c.value
+        if extra:
+            for k, v in extra.items():
+                ev.detail(k, v)
+        self._last_dump_time = now
+        ev.log()
+
+
+def fold_transport_counters(process, snap: dict) -> dict:
+    """Merge the process transport's counters (FramesIn/Out, BytesIn/Out,
+    ChecksumRejects, NativeFastPathHits, PySlowPathFalls, ...) into a role's
+    metrics snapshot. The transport is process-wide, so co-hosted roles
+    report the same tallies — the rollup dedupes by process address. A sim
+    network has no transport counters; the snapshot passes through."""
+    tc = getattr(getattr(process, "net", None), "transport_counters", None)
+    if tc is not None:
+        for k, v in tc().items():
+            snap["Transport" + k] = v
+    return snap
+
+
+def trace_counters_loop(process, collection: CounterCollection,
+                        interval: float = 5.0):
+    """Spawnable actor: dump the collection every `interval` seconds.
+    Real-network processes also carry the transport tallies in each dump
+    (Transport*-prefixed, same folding as the metrics RPC) so trace_analyze
+    can roll up wire-plane activity from the files alone."""
+    async def loop():
+        while True:
+            await process.net.loop.delay(interval)
+            tc = getattr(process.net, "transport_counters", None)
+            extra = ({"Transport" + k: v for k, v in tc().items()}
+                     if tc is not None else None)
+            collection.trace(process.net.loop.now(), extra=extra)
+    return process.spawn(loop(), f"traceCounters/{collection.name}")
