@@ -5,13 +5,16 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 Phases, each of which must pass:
 
   1. the card (nvidia-smi name and power limit, torch and CUDA versions);
-  2. the nvcc build of the four conflict-step kernels, with its seconds;
+  2. the nvcc build of the kernels (K1-K5 and the six probes), with its
+     seconds;
   3. each kernel against its plain PyTorch version on the card, on inputs
      captured from the main path at its full width (K=65,536, T=1,024,
      4/4, L=7) and on edge inputs, with EXACT equality (integer kernels),
      timed beside its plain version, its bound and a library yardstick;
      then the whole step with the kernels against the plain step, state
-     for state, over a small trajectory that overflows and rebases;
+     for state, over a small trajectory that overflows and rebases; K5
+     (the legacy evaluator) on the calls of one legacy step at the kernel
+     bench's T=16,384; and each probe at the Pallas scripts' shapes;
   4. the resolver role: the port's Resolver (CONFLICT_BACKEND=device,
      CONFLICT_DEVICE=cuda) in the port's EventLoop/SimNetwork answers
      chained ResolveTransactionBatchRequests from a proxy-like driver actor,
@@ -25,6 +28,19 @@ Phases, each of which must pass:
      launched during the phase (launch counts are zeroed just before each
      phase and read just after). Then each kernel is held to its plain
      version again on one more step from phase B's final state (K=2^20).
+  5. the kernel bench (foundationdb_tpu_torch/bench.py): run_kernel at
+     T=16,384 (200 batches in chunks of 100, K=2^18) and T=32,768 (100 in
+     chunks of 50, K=2^19: its window of history overflows 2^18), 16-byte
+     keys, the strided layout. Any overflow fails.
+     The warm chunk's first batches must equal the OracleConflictSet on the
+     same byte keys (8 batches at T=16,384, 2 at T=32,768: the oracle is
+     pure Python), and the first timed chunk must equal `conflict_scan`
+     with the plain phases on the card. The last step of that plain chunk
+     is captured, and K1-K4 are held to their plain versions on its calls
+     (K3 at M = 49,152 and 98,304). One step at T=16,384 is profiled.
+  6. the evaluator A/B: run_kernel_ab(16,384, 8), scan against legacy,
+     with equal statuses on every batch;
+  7. the probes' main (ops/probes.py), the Pallas scripts' top level.
 
 It prints a digest of the code it runs, the kernels line
 ({"kernels": [...]}), the nvidia-smi line, and last {"ok": true, "device":
@@ -164,10 +180,20 @@ def time_cuda(fn, reps: int) -> float:
 DEVICE_FUNCTIONS = {
     "sparse_table": ("table_low_kernel", "table_level_kernel"),
     "history_check": ("history_kernel",),
-    "intra_sweep": ("intra_sweep_kernel",),
+    "intra_sweep": ("sweep_reduce_kernel", "sweep_scan_kernel",
+                    "sweep_answer_kernel"),
     "merge_compact": ("merge_prep_kernel", "merge_scan_kernel",
                       "merge_fill_kernel"),
+    "legacy_blocked": ("legacy_kernel",),
+    "probe_add": ("probe_add_kernel",),
+    "probe_stream_rows": ("probe_stream_kernel<true>",),
+    "probe_join": ("probe_rank_kernel<true>",),
+    "probe_dynwrite": ("probe_dynwrite_kernel",),
+    "probe_stream_limbs": ("probe_stream_kernel<false>",),
+    "probe_lexjoin": ("probe_rank_kernel<false>",),
 }
+STEP_KERNELS = ("sparse_table", "history_check", "intra_sweep",
+                "merge_compact")
 
 
 def _device_us(evt) -> float:
@@ -245,13 +271,88 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         nbytes = (N * (L + 4) * 4 + 2 * L * NW * 4 + NW * 4 + T
                   + (L + 1) * K * 4)
         return float(nbytes), float(N * (2 * L + 24) + K * L)
+    if name == "legacy_blocked":
+        c, g, wtxn, rtxn, w_ok, r_ok = args[:6]
+        T, NW, NR = c.shape[0], wtxn.shape[0], rtxn.shape[0]
+        # every live read is tested against every committed live write
+        # (4 integer ops a pair); each input read once, the output written
+        active = int((w_ok & c[wtxn.clamp(max=T - 1).long()]).sum())
+        nbytes = 3 * T + NW * 13 + NR * 13
+        return float(nbytes), float(4 * active * int(r_ok.sum()))
+    if name == "probe_add":
+        (x,) = args
+        return 8.0 * x.numel(), float(x.numel())
+    if name.startswith("probe_stream"):
+        (state,) = args
+        return 4.0 * state.numel() + 4 * min(state.shape), \
+            float(state.numel())
+    if name == "probe_join":
+        state, queries = args
+        nt, qt, _ = queries.shape
+        pairs = nt * qt * (state.shape[0] // nt)
+        return 4.0 * (state.numel() + queries.numel() + nt * qt), \
+            3.0 * pairs
+    if name == "probe_lexjoin":
+        state, queries = args
+        return 4.0 * (state.numel() + queries.numel()
+                      + queries.shape[0] * queries.shape[2]), \
+            lexjoin_operations(state, queries, kw["limbs"])
+    if name == "probe_dynwrite":
+        off, x = args
+        return 4.0 * (x.numel() + kw["rows"] * x.shape[1] + 1), \
+            float(kw["rows"] * x.shape[1])
     raise KeyError(name)
 
 
-def library_call(name: str, args):
-    """One PyTorch yardstick for the same function, or None: for the
-    sparse table, the level doubling with max_pool1d (NEG padding)."""
+def lexjoin_operations(state, queries, limbs: int) -> float:
+    """Integer operations the early-exit lexicographic rank join does on
+    these inputs: per (state row, query) pair of a tile, one add and a
+    compare pair per limb examined, where a pair examines limb p + 1 only
+    if its first p + 1 limbs are equal. Equal-prefix pairs are counted per
+    tile by grouping the keys' prefixes."""
     import torch
+    nt, L, qt = queries.shape
+    tile = state.shape[1] // nt
+    s_tile = torch.arange(nt, device=state.device).repeat_interleave(tile)
+    q_tile = torch.arange(nt, device=state.device).repeat_interleave(qt)
+    s_keys = state[:limbs].T  # (K, limbs)
+    q_keys = queries.transpose(1, 2).reshape(nt * qt, L)[:, :limbs]
+    pairs = nt * qt * tile
+    ops = 3.0 * pairs
+    for p in range(1, limbs):
+        rows = torch.cat([torch.cat([s_tile[:, None], s_keys[:, :p]], 1),
+                          torch.cat([q_tile[:, None], q_keys[:, :p]], 1)])
+        _u, inv = torch.unique(rows, dim=0, return_inverse=True)
+        n = int(inv.max()) + 1
+        ns = torch.bincount(inv[:s_keys.shape[0]], minlength=n)
+        nq = torch.bincount(inv[s_keys.shape[0]:], minlength=n)
+        ops += 2.0 * float((ns * nq).sum())
+    return ops
+
+
+def library_call(name: str, args, kw=None):
+    """One PyTorch yardstick for the same function, or None: for the
+    sparse table, the level doubling with max_pool1d (NEG padding); for
+    the legacy evaluator, torch.mv of the materialised (NR, NW) overlap
+    matrix in fp16 with the committed-write vector (the matrix is built
+    once, outside the timed call); for add, torch.add; for the stream
+    probes, torch.amax over the rows (the probes' data lies below 2^31, so
+    the signed max is the unsigned one)."""
+    import torch
+    if name == "legacy_blocked":
+        c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer = args
+        T = c.shape[0]
+        overlap_t = ((wbr[None, :] < rer[:, None])
+                     & (rbr[:, None] < wer[None, :])
+                     & w_ok[None, :] & r_ok[:, None]
+                     & (wtxn[None, :] < rtxn[:, None])).to(torch.float16)
+        cw = (c[wtxn.clamp(max=T - 1).long()] & (wtxn < T)).to(torch.float16)
+        return lambda: torch.mv(overlap_t, cw)
+    if name == "probe_add":
+        return lambda: torch.add(args[0], 1)
+    if name.startswith("probe_stream"):
+        dim = 0 if kw["layout"] == "rows" else 1
+        return lambda: torch.amax(args[0], dim=dim, keepdim=True)
     if name != "sparse_table":
         return None
     from foundationdb_tpu_torch.ops import conflict_ref as ref
@@ -286,15 +387,18 @@ def clone_to(obj, device):
     return obj
 
 
-def spied_phases(calls: dict, dev):
+def spied_phases(calls: dict, dev, last_step_only=False):
     """The plain phases, each keeping a copy of every call's inputs on
-    `dev` in `calls[name]`."""
+    `dev` in `calls[name]`; with `last_step_only`, the calls of earlier
+    steps are dropped when a step begins (its history check)."""
     from types import SimpleNamespace
 
     from foundationdb_tpu_torch.ops import conflict_ref as ref
 
     def spy(name, fn):
         def wrapped(*a, **kw):
+            if last_step_only and name == "history_check":
+                calls.clear()
             calls.setdefault(name, []).append(clone_to((a, kw), dev))
             return fn(*a, **kw)
         return wrapped
@@ -302,7 +406,8 @@ def spied_phases(calls: dict, dev):
         build_table=spy("sparse_table", ref.build_table),
         history_check=spy("history_check", ref.history_check),
         intra_sweep=spy("intra_sweep", ref.intra_sweep),
-        merge_compact=spy("merge_compact", ref.merge_compact))
+        merge_compact=spy("merge_compact", ref.merge_compact),
+        legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
 
 
 def capture_main_path_calls(dev, batches):
@@ -354,12 +459,56 @@ def edge_calls(dev):
     return out
 
 
-def check_kernels(dev, calls, results, cell, edges=True):
-    """Hold each kernel to its plain version on every captured call of
-    `cell` (and, with `edges`, on the edge inputs), then time the cell's
-    main-path call: kernel, plain version, library yardstick, bound."""
+def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50):
+    """Hold kernel wrapper `kern` to its plain version on every call of
+    `calls` ((args, kwargs) pairs), with exact equality (integer kernels),
+    then time `main_call`: kernel, plain version, library yardstick,
+    device time and bound. Returns the numbers."""
     import torch
+    n, max_err = 0, 0
+    for a, kw in calls:
+        want = plain(*a, **kw)
+        got = kern(*a, **kw)
+        torch.cuda.synchronize()
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for i, (w, g_) in enumerate(zip(want, got)):
+            if w.shape != g_.shape or w.dtype != g_.dtype:
+                fail(f"{name} output {i}: {g_.dtype} {tuple(g_.shape)}, "
+                     f"plain {w.dtype} {tuple(w.shape)}")
+            err = int((w.long() - g_.long()).abs().max()) \
+                if w.numel() else 0
+            max_err = max(max_err, err)
+            if err:  # integer kernels: the tolerance is zero
+                fail(f"{name} output {i} differs from its plain version "
+                     f"(max |diff| {err})")
+        n += 1
+    a, kw = main_call
+    ms = time_cuda(lambda: kern(*a, **kw), reps)
+    plain_ms = time_cuda(lambda: plain(*a, **kw), max(reps // 5, 5))
+    lib = library_call(name, a, kw)
+    lib_ms = time_cuda(lib, reps) if lib is not None else None
+    del lib
+    by_name, _wall = profile_device(lambda: kern(*a, **kw), reps)
+    device_ms = device_ms_of(by_name, name, reps)
+    nbytes, nops = work_of(name, a, kw)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    log(f"cell {cell} kernel {name}: {n} calls equal to plain; "
+        f"kernel_ms={ms:.4f} "
+        f"(device-only {device_ms}) plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.5f} ({b_by}) library_ms={lib_ms}")
+    return {"checked_calls": n, "max_abs_err": max_err,
+            "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms,
+            "bytes": nbytes, "operations": nops}
 
+
+def check_kernels(dev, calls, results, cell, edges=True):
+    """Hold each step kernel (K1-K4) to its plain version on every captured
+    call of `cell` (and, with `edges`, on the edge inputs), then time the
+    cell's main-path call: the last one captured from the step (for the
+    sweep, the last evaluation that is not skipped)."""
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     from foundationdb_tpu_torch.ops import kernels
     wrappers = {"sparse_table": (kernels.build_table, ref.build_table),
@@ -370,47 +519,49 @@ def check_kernels(dev, calls, results, cell, edges=True):
     if edges:
         all_calls["sparse_table"] = calls["sparse_table"] + edge_calls(dev)
     for name, (kern, plain) in wrappers.items():
-        n, max_err = 0, 0
-        for a, kw in all_calls[name]:
-            want = plain(*a, **kw)
-            got = kern(*a, **kw)
-            torch.cuda.synchronize()
-            want = want if isinstance(want, tuple) else (want,)
-            got = got if isinstance(got, tuple) else (got,)
-            for i, (w, g_) in enumerate(zip(want, got)):
-                if w.shape != g_.shape or w.dtype != g_.dtype:
-                    fail(f"{name} output {i}: {g_.dtype} {tuple(g_.shape)}, "
-                         f"plain {w.dtype} {tuple(w.shape)}")
-                err = int((w.long() - g_.long()).abs().max()) \
-                    if w.numel() else 0
-                max_err = max(max_err, err)
-                if err:  # integer kernels: the tolerance is zero
-                    fail(f"{name} output {i} differs from its plain version "
-                         f"(max |diff| {err})")
-            n += 1
-        # time the main path's call: the last one captured from the step
-        # (for the sweep, an evaluation that is not skipped)
         main = [c for c in calls[name]
                 if name != "intra_sweep" or len(c[0]) < 9 or c[0][8] is None]
-        a, kw = main[-1]
-        reps = 20 if name == "merge_compact" else 50
-        ms = time_cuda(lambda: kern(*a, **kw), reps)
-        plain_ms = time_cuda(lambda: plain(*a, **kw), max(reps // 5, 5))
-        lib = library_call(name, a)
-        lib_ms = time_cuda(lib, reps) if lib is not None else None
-        by_name, _wall = profile_device(lambda: kern(*a, **kw), reps)
-        device_ms = device_ms_of(by_name, name, reps)
-        nbytes, nops = work_of(name, a, kw)
-        b_ms, b_by = bound_ms(nbytes, nops)
-        results[name] = {"checked_calls": n, "max_abs_err": max_err,
-                         "ms": ms, "device_ms": device_ms,
-                         "plain_ms": plain_ms, "bound_ms": b_ms,
-                         "bound_by": b_by, "library_ms": lib_ms,
-                         "bytes": nbytes, "operations": nops}
-        log(f"cell {cell} kernel {name}: {n} calls equal to plain; "
-            f"kernel_ms={ms:.4f} "
-            f"(device-only {device_ms}) plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by}) library_ms={lib_ms}")
+        results[name] = hold_to_plain(
+            name, kern, plain, all_calls[name], main[-1], cell,
+            reps=20 if name == "merge_compact" else 50)
+        if name == "intra_sweep":
+            results[name]["M"] = int(main[-1][0][2]["src"].shape[1])
+
+
+def check_legacy(dev, results, T=16384):
+    """K5 against its plain version on every evaluation of one legacy step
+    at the kernel bench's shape (T=16,384, strided, K=2^18), one batch
+    into the bench's A/B trajectory; the plain version materialises the
+    (NW, NR) matrix."""
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    batches = bench.stage(bench._encode_batches(2, seed=3,
+                                                version0=bench.WINDOW, T=T),
+                          dev)
+    state = ref.init_state(bench.CAPACITY, bench.LIMBS, dev)
+    calls: dict = {}
+    for i in range(2):
+        calls.clear()
+        state, _st, _info = ref.conflict_step(
+            state, {k: v[i] for k, v in batches.items()},
+            max_write_life=bench.WINDOW, intra_mode="legacy", strided=True,
+            phases=spied_phases(calls, dev))
+    legacy = calls["legacy_blocked"]
+    results["legacy_blocked"] = hold_to_plain(
+        "legacy_blocked", kernels.legacy_sweep, ref.legacy_sweep, legacy,
+        legacy[-1], f"bench T={T}", reps=20)
+    results["legacy_blocked"]["evaluations"] = len(legacy)
+    del calls, legacy, batches, state
+
+
+def check_probes(dev, results):
+    """Each probe against its plain version at the Pallas scripts' shapes."""
+    from foundationdb_tpu_torch.ops import probes
+    for name, call in probes.script_calls(dev).items():
+        results[name] = hold_to_plain(name, probes.WRAPPERS[name],
+                                      probes.PLAIN[name], [call], call,
+                                      "probes", reps=20)
 
 
 def profile_step(dev, batches):
@@ -449,7 +600,7 @@ def profile_step(dev, batches):
             by_name, wall = profile_device(one, 3)
             busy = sum(by_name.values()) / 1e3 / 3
             ours = sum(device_ms_of(by_name, k, 3) or 0.0
-                       for k in DEVICE_FUNCTIONS)
+                       for k in STEP_KERNELS)
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
             out.update(
                 device_busy_ms=busy, kernels_device_ms=ours,
@@ -622,7 +773,7 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     loop.run_future(proxy.spawn(drive(), "proxyDriver"), max_time=1e9)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = dict(kernels.LAUNCHES)
+    launches = {k: kernels.LAUNCHES[k] for k in STEP_KERNELS}
     chunks, unconverged = (kernel_metrics.as_dict()[k] - before[k]
                            for k in counted)
     resolver_mod.drain_and_collect = drain
@@ -671,6 +822,175 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
              f"converge on the device")
     resolver.shutdown()
     return out, resolver.conflict_set, extra
+
+
+# ---------------------------------------------------------------------------
+# phases 5-7: the kernel bench, the evaluator A/B and the probes
+# ---------------------------------------------------------------------------
+
+def bench_byte_keys(limbs, n_batches):
+    """The setK byte keys ('.' x 12, then the 4-byte big-endian integer of
+    limb 3) of the first `n_batches` of a stacked (n, L, T) limb array, in
+    batch-major order."""
+    from foundationdb_tpu_torch.utils import keys as keylib
+    v = keylib.from_signed_limbs(limbs[:n_batches, 3, :]).reshape(-1)
+    arr = np.full((v.size, 16), ord("."), dtype=np.uint8)
+    arr[:, 12:] = v.astype(">u4").view(np.uint8).reshape(-1, 4)
+    buf = arr.tobytes()
+    return [buf[i * 16:(i + 1) * 16] for i in range(v.size)]
+
+
+def bench_oracle_check(detail, T, n_check):
+    """The statuses of the warm chunk's first `n_check` batches against the
+    port's OracleConflictSet fed the same transactions as byte keys."""
+    from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
+    from foundationdb_tpu_torch.ops.conflict_oracle import OracleConflictSet
+    w = detail["warm_np"]
+    got = detail["warm_statuses"][:n_check].cpu().numpy()
+    rb, re, wb, we = (bench_byte_keys(w[k], n_check)
+                      for k in ("rb", "re", "wb", "we"))
+    oracle = OracleConflictSet()
+    for i in range(n_check):
+        o = i * T
+        txns = [TxnConflictInfo(int(w["snapshot"][i, t]),
+                                [(rb[o + t], re[o + t])],
+                                [(wb[o + t], we[o + t])]) for t in range(T)]
+        want = np.asarray(oracle.detect(txns, int(w["commit_version"][i])),
+                          dtype=np.int8)
+        if not np.array_equal(want, got[i]):
+            fail(f"kernel bench T={T}: warm batch {i} differs from the "
+                 f"oracle in {int((want != got[i]).sum())} txns")
+
+
+def bench_plain_check(dev, detail, T):
+    """The first timed chunk again, through `conflict_scan` with the plain
+    phases on the card from the same post-warm-up state: statuses and
+    committed counts must be equal. Returns the phase calls of the chunk's
+    last step (the kernels' inputs at the bench's shapes)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+    calls: dict = {}
+    _state, st, comm, ovf = ref.conflict_scan(
+        detail["state_after_warm"], detail["chunks"][0],
+        max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
+        strided=True, phases=spied_phases(calls, dev, last_step_only=True))
+    torch.cuda.synchronize()
+    if not torch.equal(st, detail["statuses"][0]):
+        fail(f"kernel bench T={T}: the first timed chunk's statuses differ "
+             f"between the kernels and the plain phases")
+    n = comm.shape[0]
+    if not np.array_equal(comm.cpu().numpy(), detail["committed"][:n]):
+        fail(f"kernel bench T={T}: committed counts differ from the plain "
+             f"phases")
+    if bool(ovf.any()):
+        fail(f"kernel bench T={T}: the plain phases overflowed")
+    return calls
+
+
+def profile_bench_step(dev, detail):
+    """Where one kernel-bench step's device time goes: one strided step
+    with the kernels from the post-warm-up state, under the profiler."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+    state = detail["state_after_warm"]
+    batch = {k: v[0] for k, v in detail["chunks"][0].items()}
+
+    def one():
+        ref.conflict_step(
+            state, batch,
+            max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
+            strided=True, phases=kernels.PHASES)
+    by_name, wall = profile_device(one, 3)
+    busy = sum(by_name.values()) / 1e3 / 3
+    wall_ms = wall / 3 * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / wall_ms),
+            "kernels_device_ms": {k: device_ms_of(by_name, k, 3)
+                                  for k in STEP_KERNELS},
+            "top_device_functions": [(k[:80], v / 1e3 / 3) for k, v in top]}
+
+
+def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
+    """Phase 5 at one batch size: the port's run_kernel on the card (its
+    launches counted), then the oracle and plain-phase checks of its
+    statuses, then K1-K4 held to their plain versions on the calls of the
+    plain chunk's last step. Returns (bench numbers, kernel numbers)."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+    KNOBS.reset()
+    detail: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = bench.run_kernel(T, n_batches, chunk, capacity=capacity,
+                           device=dev, detail=detail)
+    res["launches"] = {k: kernels.LAUNCHES[k] for k in STEP_KERNELS}
+    res["call_s"] = time.perf_counter() - t0
+    res["boundaries_final"] = int(detail["state"]["nb"])
+    res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"kernel bench T={T}: " + json.dumps(res))
+    if any(v <= 0 for v in res["launches"].values()):
+        fail(f"kernel bench T={T}: a kernel never launched: "
+             f"{res['launches']}")
+    t0 = time.perf_counter()
+    bench_oracle_check(detail, T, n_oracle)
+    res["oracle_batches"] = n_oracle
+    res["oracle_check_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    calls = bench_plain_check(dev, detail, T)
+    res["plain_chunk_check_s"] = time.perf_counter() - t0
+    log(f"kernel bench T={T}: {n_oracle} warm batches equal to the oracle "
+        f"({res['oracle_check_s']:.1f} s); the first timed chunk equal to "
+        f"the plain phases ({res['plain_chunk_check_s']:.1f} s)")
+    if T == 16384:
+        res["step_profile"] = profile_bench_step(dev, detail)
+        log(f"kernel bench T={T} step profile: "
+            + json.dumps(res["step_profile"]))
+    del detail
+    kres: dict = {}
+    check_kernels(dev, calls, kres, f"bench T={T}", edges=False)
+    del calls
+    torch.cuda.empty_cache()
+    return res, kres
+
+
+def ab_phase(dev, T=16384):
+    """Phase 6: scan against legacy at T=16,384 over 8 batches; equal
+    statuses on every batch, and K5 launched."""
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+    KNOBS.reset()
+    kernels.reset_launches()
+    out = bench.run_kernel_ab(T, 8, device=dev)
+    out["launches"] = {k: kernels.LAUNCHES[k]
+                       for k in STEP_KERNELS + ("legacy_blocked",)}
+    log("evaluator A/B: " + json.dumps(out))
+    if not out["statuses_equal"]:
+        fail("evaluator A/B: scan and legacy statuses differ")
+    if any(v <= 0 for v in out["launches"].values()):
+        fail(f"evaluator A/B: a kernel never launched: {out['launches']}")
+    return out
+
+
+def probes_phase(dev):
+    """Phase 7: the probes' main at the Pallas scripts' shapes."""
+    from foundationdb_tpu_torch.ops import kernels, probes
+    kernels.reset_launches()
+    out = {"ms_per_pass": probes.main(dev)}
+    out["launches"] = {k: kernels.LAUNCHES[k] for k in probes.WRAPPERS}
+    log("probes: " + json.dumps(out))
+    if any(v <= 0 for v in out["launches"].values()):
+        fail(f"probes: a kernel never launched: {out['launches']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -728,6 +1048,8 @@ def main(argv=None) -> int:
     report["step_trajectory"] = check_step_trajectory(dev)
     report["step_profile"] = profile_step(dev, make_batches(
         np.random.default_rng(args.seed + 200), cdf, keys, 24))
+    check_legacy(dev, kres)
+    check_probes(dev, kres)
 
     # 4. the resolver role, phases A and B; B starts with YCSB's load
     # phase, cut to 48 batches (196,608 of its 400,000 keys), so its state
@@ -745,22 +1067,50 @@ def main(argv=None) -> int:
     report["kernels_cell_b"] = kres_b
     del cs_b
 
+    # 5. the kernel bench; 6. the evaluator A/B; 7. the probes
+    # bench.py's K=2^18 holds the ~8 batches of history at T=16,384; at
+    # T=32,768 their ~450k boundaries overflow it, so that point runs at
+    # K=2^19
+    benches, kres_bench = {}, {}
+    for T, n, chunk, n_oracle, cap in ((16384, 200, 100, 8, 1 << 18),
+                                       (32768, 100, 50, 2, 1 << 19)):
+        benches[T], kres_bench[T] = kernel_bench_phase(dev, T, n, chunk,
+                                                       n_oracle, cap)
+    report["kernel_bench"] = benches
+    report["kernels_bench"] = kres_bench
+    ab = report["evaluator_ab"] = ab_phase(dev)
+    probe_run = report["probes"] = probes_phase(dev)
+
+    timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms")
     kernels_line = []
     for name, (source, replaces) in kernels.KERNELS.items():
-        r, rb = kres[name], kres_b[name]
-        kernels_line.append({
-            "name": name, "route": "cuda",
-            "source": f"foundationdb_tpu_torch/{source}",
-            "replaces": replaces.split(" ")[0],
-            "launches": phase_a["launches"][name],
-            "launches_phase_b": phase_b["launches"][name],
-            "max_abs_err": max(r["max_abs_err"], rb["max_abs_err"]),
-            "ms": r["ms"], "device_ms": r["device_ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "cell_b": {k: rb[k] for k in ("ms", "device_ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")}})
+        r = kres[name]
+        entry = {"name": name, "route": "cuda",
+                 "source": f"foundationdb_tpu_torch/{source}",
+                 "replaces": replaces.split(" ")[0]}
+        if name in STEP_KERNELS:
+            entry["launches"] = phase_a["launches"][name]
+            entry["launches_phase_b"] = phase_b["launches"][name]
+            for T in benches:
+                entry[f"launches_bench_{T}"] = benches[T]["launches"][name]
+            entry["launches_ab"] = ab["launches"][name]
+            errs = [r["max_abs_err"], kres_b[name]["max_abs_err"]]
+            errs += [kres_bench[T][name]["max_abs_err"] for T in benches]
+            entry["max_abs_err"] = max(errs)
+        elif name == "legacy_blocked":
+            entry["launches"] = ab["launches"][name]
+            entry["max_abs_err"] = r["max_abs_err"]
+        else:
+            entry["launches"] = probe_run["launches"][name]
+            entry["max_abs_err"] = r["max_abs_err"]
+        entry.update({k: r[k] for k in timing_keys})
+        if name in STEP_KERNELS:
+            entry["cell_b"] = {k: kres_b[name][k] for k in timing_keys}
+            for T in benches:
+                entry[f"bench_{T}"] = {k: kres_bench[T][name][k]
+                                       for k in timing_keys}
+        kernels_line.append(entry)
     report["kernels_line"] = kernels_line
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

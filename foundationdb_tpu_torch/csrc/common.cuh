@@ -79,6 +79,27 @@ struct FdbSumOp {
   }
 };
 
+// The last block of the grid to arrive writes out[t] = g[t] && !marks[t]
+// for every txn and clears `marks` and `counter` for the next launch (both
+// zero on entry). Every thread of every block must reach this call.
+__device__ __forceinline__ void fdb_fold_marks_last_block(
+    const uint8_t* g, int32_t* marks, unsigned int* counter, uint8_t* out,
+    int T) {
+  __shared__ bool am_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    am_last = atomicAdd(counter, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!am_last) return;
+  __threadfence();
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    out[t] = g[t] && !__ldcg(&marks[t]);
+    marks[t] = 0;
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
 // "Latest flagged value": the value at the latest position with has=1
 // (`_carry_last_flagged`'s monoid).
 struct FdbLast {

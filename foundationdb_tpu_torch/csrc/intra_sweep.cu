@@ -13,21 +13,25 @@
 // A blocked read with r_ok marks its txn (atomic OR); the last block to
 // finish writes out[t] = g[t] & !marked[t] and clears the marks.
 // With *skip set (the sandwich has pinched: `lax.cond` of :329), the
-// kernel copies prev to out instead, so the host never reads the flag.
+// kernels copy prev to out instead, so the host never reads the flag.
 //
-// Bound on H100: latency of the block-wide scans. Per evaluation it reads
-// about 10 B per level element plus 12 B per read and level (~1.7 MB at
-// M = 12,288, NR = 4,096, 10 levels: ~0.5 us of HBM time) and writes T
-// bytes; the work is O(levels * (M + NR)) integer ops. Design: one block
-// per level; the two scans run as one fused scan over (sum, max, reset)
-// in registers, four elements a thread, with the prefix carried across
-// tiles, into shared memory (2 * M int32, dynamic); the queries then read
-// shared memory only. Ten blocks leave most SMs idle: a later PR splits
-// levels across blocks with a decoupled look-back.
+// Bound on H100: bytes. Per evaluation it reads about 10 B per level
+// element plus 12 B per read and level, and writes T bytes (~1.7 MB at
+// M = 12,288, NR = 4,096, 10 levels: ~0.5 us of HBM time; ~17 MB at the
+// kernel bench's M = 98,304, 15 levels: ~5 us). Design: a grid over
+// (tile, level) and a three-step tiled scan of the fused (sum, max, reset)
+// monoid, so any M works and every SM has tiles:
+//   1. sweep_reduce: each tile of 1,024 elements reduces to its aggregate;
+//   2. sweep_scan: each tile folds the aggregates of the tiles before it
+//      into its carry, rescans itself and writes the level's prefix arrays
+//      (pref and segmax, n_levels x M x 2 int32 of global scratch);
+//   3. sweep_answer: one thread per read tests every level and marks its
+//      txn; the last block folds the marks.
 #include "common.cuh"
 
-#define SWEEP_THREADS 1024
+#define SWEEP_THREADS 256
 #define SWEEP_IPT 4
+#define SWEEP_TILE (SWEEP_THREADS * SWEEP_IPT)
 
 struct SweepElem {
   int sum;  // committed writes so far (case A)
@@ -43,116 +47,152 @@ struct SweepOp {
     return {a.sum + b.sum, b.r ? b.mv : max(a.mv, b.mv), a.r | b.r};
   }
 };
+__device__ __forceinline__ SweepElem sweep_id() { return {0, INT_MIN, 0}; }
 
-__global__ void __launch_bounds__(SWEEP_THREADS)
-intra_sweep_kernel(const uint8_t* __restrict__ c, const uint8_t* __restrict__ g,
-                   const int32_t* __restrict__ src,
-                   const uint8_t* __restrict__ is_w,
-                   const int32_t* __restrict__ werl,
-                   const uint8_t* __restrict__ bnd,
-                   const int32_t* __restrict__ qlo,
-                   const int32_t* __restrict__ qhi,
-                   const int32_t* __restrict__ wtxn_c,
-                   const uint8_t* __restrict__ w_ok,
-                   const uint8_t* __restrict__ r_ok,
-                   const int32_t* __restrict__ rtxn,
-                   const int32_t* __restrict__ rbr, const uint8_t* skip,
-                   const uint8_t* prev, int T, int M, int NR,
-                   int32_t* marks, unsigned int* counter, uint8_t* out) {
-  extern __shared__ int32_t smem[];
-  int32_t* pref = smem;        // [M]
-  int32_t* segmax = smem + M;  // [M]
-  __shared__ SweepElem sh_scan[32];
-  __shared__ bool am_last;
-
-  if (skip != nullptr && *skip) {
-    if (blockIdx.x == 0)
-      for (int t = threadIdx.x; t < T; t += blockDim.x) out[t] = prev[t];
-    return;
+// The level-sorted element gi, as a scan element under the committed set c.
+__device__ __forceinline__ SweepElem sweep_elem(
+    long long gi, const uint8_t* __restrict__ c,
+    const int32_t* __restrict__ src, const uint8_t* __restrict__ is_w,
+    const int32_t* __restrict__ werl, const uint8_t* __restrict__ bnd,
+    const int32_t* __restrict__ wtxn_c, const uint8_t* __restrict__ w_ok) {
+  bool cm = false;
+  if (is_w[gi]) {
+    const int s = src[gi];
+    cm = w_ok[s] && c[wtxn_c[s]];
   }
-  const long long lvl_off = (long long)blockIdx.x * M;
-  const SweepOp op;
-  const SweepElem id = {0, INT_MIN, 0};
-  SweepElem carry = id;
-  const int tile = SWEEP_THREADS * SWEEP_IPT;
-  for (int base = 0; base < M; base += tile) {
-    SweepElem e[SWEEP_IPT];
-    SweepElem agg = id;
-    const int i0 = base + threadIdx.x * SWEEP_IPT;
-#pragma unroll
-    for (int k = 0; k < SWEEP_IPT; ++k) {
-      const int i = i0 + k;
-      e[k] = id;
-      if (i < M) {
-        const long long gi = lvl_off + i;
-        bool cm = false;
-        if (is_w[gi]) {
-          const int s = src[gi];
-          cm = w_ok[s] && c[wtxn_c[s]];
-        }
-        e[k] = {cm ? 1 : 0, cm ? werl[gi] : -1, bnd[gi] ? 1 : 0};
-      }
-      agg = op(agg, e[k]);
-    }
-    SweepElem total;
-    SweepElem run = op(carry,
-                       fdb_block_exclusive_scan(agg, op, id, sh_scan, &total));
-#pragma unroll
-    for (int k = 0; k < SWEEP_IPT; ++k) {
-      const int i = i0 + k;
-      run = op(run, e[k]);
-      if (i < M) {
-        pref[i] = run.sum;
-        segmax[i] = run.mv;
-      }
-    }
-    carry = op(carry, total);
-  }
-  __syncthreads();
-
-  const long long q_off = (long long)blockIdx.x * NR;
-  for (int j = threadIdx.x; j < NR; j += blockDim.x) {
-    if (!r_ok[j]) continue;
-    const int lo = qlo[q_off + j], hi = qhi[q_off + j];
-    if (pref[hi] - pref[lo] > 0 || segmax[lo] > rbr[j])
-      atomicOr(&marks[rtxn[j]], 1);
-  }
-
-  // the last block to arrive folds the marks into the new committed set
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) am_last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!am_last) return;
-  __threadfence();
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    out[t] = g[t] && !__ldcg(&marks[t]);
-    marks[t] = 0;
-  }
-  if (threadIdx.x == 0) *counter = 0;
+  return {cm ? 1 : 0, cm ? werl[gi] : -1, bnd[gi] ? 1 : 0};
 }
 
-// marks: T int32 and counter: 1 uint32, both zero on entry; the kernel
-// leaves them zero again. skip and prev may both be null (no round skip).
+#define SWEEP_ELEM_ARGS                                              \
+  const uint8_t *__restrict__ c, const int32_t *__restrict__ src,    \
+      const uint8_t *__restrict__ is_w,                              \
+      const int32_t *__restrict__ werl,                              \
+      const uint8_t *__restrict__ bnd,                               \
+      const int32_t *__restrict__ wtxn_c,                            \
+      const uint8_t *__restrict__ w_ok
+
+// 1. tile (blockIdx.x) of level (blockIdx.y) -> its aggregate
+__global__ void __launch_bounds__(SWEEP_THREADS)
+sweep_reduce_kernel(SWEEP_ELEM_ARGS, const uint8_t* skip, int M, int n_tiles,
+                    SweepElem* agg) {
+  if (skip != nullptr && *skip) return;
+  __shared__ SweepElem sh_scan[32];
+  const SweepOp op;
+  const long long lvl_off = (long long)blockIdx.y * M;
+  const int i0 = blockIdx.x * SWEEP_TILE + threadIdx.x * SWEEP_IPT;
+  SweepElem acc = sweep_id();
+#pragma unroll
+  for (int k = 0; k < SWEEP_IPT; ++k)
+    if (i0 + k < M)
+      acc = op(acc, sweep_elem(lvl_off + i0 + k, c, src, is_w, werl, bnd,
+                               wtxn_c, w_ok));
+  SweepElem total;
+  fdb_block_exclusive_scan(acc, op, sweep_id(), sh_scan, &total);
+  if (threadIdx.x == 0) agg[(long long)blockIdx.y * n_tiles + blockIdx.x] = total;
+}
+
+// 2. carry from the earlier tiles' aggregates, rescan, write pref/segmax
+__global__ void __launch_bounds__(SWEEP_THREADS)
+sweep_scan_kernel(SWEEP_ELEM_ARGS, const uint8_t* skip, int M, int n_tiles,
+                  const SweepElem* __restrict__ agg, int32_t* prefseg) {
+  if (skip != nullptr && *skip) return;
+  __shared__ SweepElem sh_scan[32];
+  const SweepOp op;
+  const int tile = blockIdx.x;
+  const SweepElem* lagg = agg + (long long)blockIdx.y * n_tiles;
+  SweepElem carry = sweep_id(), total;
+  for (int base = 0; base < tile; base += SWEEP_THREADS) {
+    const int k = base + threadIdx.x;
+    fdb_block_exclusive_scan(k < tile ? lagg[k] : sweep_id(), op, sweep_id(),
+                             sh_scan, &total);
+    carry = op(carry, total);
+  }
+  const long long lvl_off = (long long)blockIdx.y * M;
+  const int i0 = tile * SWEEP_TILE + threadIdx.x * SWEEP_IPT;
+  SweepElem e[SWEEP_IPT];
+  SweepElem acc = sweep_id();
+#pragma unroll
+  for (int k = 0; k < SWEEP_IPT; ++k) {
+    e[k] = i0 + k < M ? sweep_elem(lvl_off + i0 + k, c, src, is_w, werl, bnd,
+                                   wtxn_c, w_ok)
+                      : sweep_id();
+    acc = op(acc, e[k]);
+  }
+  SweepElem run = op(carry, fdb_block_exclusive_scan(acc, op, sweep_id(),
+                                                     sh_scan, &total));
+  int32_t* pref = prefseg + 2 * lvl_off;
+  int32_t* segmax = pref + M;
+#pragma unroll
+  for (int k = 0; k < SWEEP_IPT; ++k) {
+    run = op(run, e[k]);
+    if (i0 + k < M) {
+      pref[i0 + k] = run.sum;
+      segmax[i0 + k] = run.mv;
+    }
+  }
+}
+
+// 3. one thread per read: blocked at any level -> mark its txn; then the
+// last block folds the marks into the new committed set
+__global__ void __launch_bounds__(SWEEP_THREADS)
+sweep_answer_kernel(const uint8_t* __restrict__ g,
+                    const int32_t* __restrict__ qlo,
+                    const int32_t* __restrict__ qhi,
+                    const uint8_t* __restrict__ r_ok,
+                    const int32_t* __restrict__ rtxn,
+                    const int32_t* __restrict__ rbr, const uint8_t* skip,
+                    const uint8_t* prev, int n_levels, int T, int M, int NR,
+                    const int32_t* __restrict__ prefseg, int32_t* marks,
+                    unsigned int* counter, uint8_t* out) {
+  if (skip != nullptr && *skip) {  // the same for every block
+    for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < T;
+         t += gridDim.x * blockDim.x)
+      out[t] = prev[t];
+    return;
+  }
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < NR && r_ok[j]) {
+    const int rb = rbr[j];
+    for (int l = 0; l < n_levels; ++l) {
+      const int32_t* pref = prefseg + 2LL * l * M;
+      const int lo = qlo[(long long)l * NR + j];
+      const int hi = qhi[(long long)l * NR + j];
+      if (pref[hi] - pref[lo] > 0 || pref[M + lo] > rb) {
+        atomicOr(&marks[rtxn[j]], 1);
+        break;
+      }
+    }
+  }
+  fdb_fold_marks_last_block(g, marks, counter, out, T);
+}
+
+// agg: n_levels * ceil(M / 1024) * 3 int32 and prefseg: n_levels * M * 2
+// int32, both overwritten; marks: T int32 and counter: 1 uint32, both zero
+// on entry and left zero again. skip and prev may both be null (no round
+// skip). Three launches on `stream`.
 extern "C" int fdb_intra_sweep(
     const uint8_t* c, const uint8_t* g, const int32_t* src, const uint8_t* is_w,
     const int32_t* werl, const uint8_t* bnd, const int32_t* qlo,
     const int32_t* qhi, const int32_t* wtxn_c, const uint8_t* w_ok,
     const uint8_t* r_ok, const int32_t* rtxn, const int32_t* rbr,
     const uint8_t* skip, const uint8_t* prev, int n_levels, int T, int M,
-    int NR, int32_t* marks, unsigned int* counter, uint8_t* out,
-    void* stream) {
-  const size_t smem = 2 * (size_t)M * sizeof(int32_t);
-  static size_t smem_allowed = 0;  // bytes opted in so far
-  if (smem > smem_allowed) {
-    cudaError_t e = cudaFuncSetAttribute(
-        intra_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_allowed = smem;
-  }
-  intra_sweep_kernel<<<n_levels, SWEEP_THREADS, smem, (cudaStream_t)stream>>>(
-      c, g, src, is_w, werl, bnd, qlo, qhi, wtxn_c, w_ok, r_ok, rtxn, rbr,
-      skip, prev, T, M, NR, marks, counter, out);
+    int NR, int32_t* agg, int32_t* prefseg, int32_t* marks,
+    unsigned int* counter, uint8_t* out, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int n_tiles = (M + SWEEP_TILE - 1) / SWEEP_TILE;
+  const dim3 grid(n_tiles, n_levels);
+  SweepElem* aggs = reinterpret_cast<SweepElem*>(agg);
+  sweep_reduce_kernel<<<grid, SWEEP_THREADS, 0, s>>>(
+      c, src, is_w, werl, bnd, wtxn_c, w_ok, skip, M, n_tiles, aggs);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  sweep_scan_kernel<<<grid, SWEEP_THREADS, 0, s>>>(
+      c, src, is_w, werl, bnd, wtxn_c, w_ok, skip, M, n_tiles, aggs, prefseg);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = NR > 0 ? (NR + SWEEP_THREADS - 1) / SWEEP_THREADS : 1;
+  sweep_answer_kernel<<<blocks, SWEEP_THREADS, 0, s>>>(
+      g, qlo, qhi, r_ok, rtxn, rbr, skip, prev, n_levels, T, M, NR, prefseg,
+      marks, counter, out);
   return (int)cudaGetLastError();
 }

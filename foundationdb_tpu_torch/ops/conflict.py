@@ -2,8 +2,9 @@
 detection on the card.
 
 Counterpart of foundationdb_tpu/ops/conflict.py:176-212 and 802-1328: the
-shapes, the host batch encoder (ring of pinned slots, four shape buckets,
-chunking), `detect_async_impl`, `DeviceConflictSet`, the single fused
+shapes, the host batch encoder (ring of pinned slots, four shape buckets or
+the strided layout's fixed slots, chunking), `detect_async_impl`,
+`DeviceConflictSet` (with the CONFLICT_INTRA_MODE evaluator), the single fused
 readback per chunk and the drain. The device step is
 `conflict_ref.conflict_step` with the phases of ops/kernels.py: on a CUDA
 state the four Hopper kernels run, on a CPU state their plain versions.
@@ -56,22 +57,30 @@ batch_from_numpy = ref.batch_from_numpy
 
 @dataclass(frozen=True)
 class ConflictShapes:
-    """Static shapes of one conflict batch (pooled layout).
+    """Static shapes of one conflict batch.
 
     `key_bytes` sets the exact-comparison width: keys longer than it
-    collapse conservatively onto their prefix (utils/keys.py)."""
+    collapse conservatively onto their prefix (utils/keys.py). `strided`
+    gives every txn a fixed run of reads // txns read slots and
+    writes // txns write slots, unused ones padded with empty ranges; the
+    encoder rejects a txn past its stride. Otherwise the layout is pooled:
+    ranges pack in order, each slot naming its txn."""
 
     capacity: int  # K: boundary slots in the step function
     txns: int  # T
-    reads: int  # NR: total read ranges per batch (pooled)
+    reads: int  # NR: total read ranges per batch
     writes: int  # NW: total write ranges per batch
     key_bytes: int = keylib.KEY_BYTES
+    strided: bool = False
 
     def __post_init__(self):
         if self.key_bytes % 4 or not 4 <= self.key_bytes <= 64:
             raise ValueError(
                 f"key_bytes must be a multiple of 4 in [4, 64], got "
                 f"{self.key_bytes} (the limb encoding is 4 bytes wide)")
+        if self.strided and (self.reads % self.txns or self.writes % self.txns):
+            raise ValueError(
+                "strided layout needs reads/writes divisible by txns")
 
     @property
     def limbs(self) -> int:
@@ -79,7 +88,8 @@ class ConflictShapes:
 
 
 def _resolve_shapes(capacity=None, txns=None, reads_per_txn=None,
-                    writes_per_txn=None, key_bytes=None) -> ConflictShapes:
+                    writes_per_txn=None, key_bytes=None,
+                    strided=False) -> ConflictShapes:
     k = KNOBS
     t = txns or k.CONFLICT_BATCH_TXNS
     return ConflictShapes(
@@ -88,6 +98,7 @@ def _resolve_shapes(capacity=None, txns=None, reads_per_txn=None,
         reads=t * (reads_per_txn or k.CONFLICT_BATCH_READS_PER_TXN),
         writes=t * (writes_per_txn or k.CONFLICT_BATCH_WRITES_PER_TXN),
         key_bytes=key_bytes or keylib.KEY_BYTES,
+        strided=strided,
     )
 
 
@@ -169,7 +180,9 @@ class BatchEncoder:
                      advance_floor: bool = True) -> dict:
         """One device batch (dict of tensors on the engine's device) from
         the chunk's transactions; `skip[t]` leaves txn t out (the host
-        already decided it TOO_OLD). Keys encode in bulk (utils/keys.py)."""
+        already decided it TOO_OLD). Keys encode in bulk (utils/keys.py).
+        In the strided layout txn t's i-th range lands in slot
+        t * stride + i, and rtxn/wtxn hold the fixed slot->txn map."""
         sh = shapes or self.shapes
         T, L = sh.txns, self.L
         if len(txns) > T:
@@ -183,6 +196,9 @@ class BatchEncoder:
             return _field(host, lay, name)
 
         rkeys_b, rkeys_e, wkeys_b, wkeys_e, rt, wt = [], [], [], [], [], []
+        # rs/ws: the strided layout's slot of each range
+        rs, ws = [], []
+        rpt, wpt = sh.reads // T, sh.writes // T
         snap, valid = view("snapshot"), view("txn_valid")
         snap.fill(0)
         valid.fill(0)
@@ -191,30 +207,38 @@ class BatchEncoder:
                 continue
             valid[t] = 1
             snap[t] = self._clamp_off(txn.read_snapshot)
-            for b, e in txn.read_ranges:
+            for i, (b, e) in enumerate(txn.read_ranges):
                 rkeys_b.append(b)
                 rkeys_e.append(e)
+                rs.append(t * rpt + i)
             rt.extend([t] * len(txn.read_ranges))
-            for b, e in txn.write_ranges:
+            for i, (b, e) in enumerate(txn.write_ranges):
                 wkeys_b.append(b)
                 wkeys_e.append(e)
+                ws.append(t * wpt + i)
             wt.extend([t] * len(txn.write_ranges))
         if len(rt) > sh.reads or len(wt) > sh.writes:
             raise FDBError("internal_error",
                            f"{len(rt)} reads / {len(wt)} writes exceed the "
                            f"chunk shape {sh.reads}/{sh.writes}")
         kb = sh.key_bytes
-        for name, keys, up in (("rb", rkeys_b, False), ("re", rkeys_e, True),
-                               ("wb", wkeys_b, False), ("we", wkeys_e, True)):
+        for name, keys, slots, up in (
+                ("rb", rkeys_b, rs, False), ("re", rkeys_e, rs, True),
+                ("wb", wkeys_b, ws, False), ("we", wkeys_e, ws, True)):
             out = view(name)
             out.fill(ref.PAD_LIMB)
             if keys:
-                out[:, :len(keys)] = keylib.to_signed_limbs(
+                idx = slots if sh.strided else slice(len(keys))
+                out[:, idx] = keylib.to_signed_limbs(
                     keylib.encode_keys_bulk(keys, kb, round_up=up))
-        for name, owners in (("rtxn", rt), ("wtxn", wt)):
+        for name, owners, n, per in (("rtxn", rt, sh.reads, rpt),
+                                     ("wtxn", wt, sh.writes, wpt)):
             out = view(name)
-            out.fill(T)
-            out[:len(owners)] = owners
+            if sh.strided:
+                out[:] = np.arange(n, dtype=np.int32) // per
+            else:
+                out.fill(T)
+                out[:len(owners)] = owners
         view("commit_version")[...] = self._clamp_off(commit_version)
         view("advance_floor")[...] = int(bool(advance_floor))
 
@@ -229,9 +253,22 @@ class BatchEncoder:
 
     def split_for_capacity(self, txns):
         """Chunks of whole transactions that fit the static shape, in batch
-        order; a transaction larger than the whole shape raises
-        transaction_too_large before any chunk touches the state."""
+        order; a transaction larger than the whole shape (the strided
+        layout: than its stride) raises transaction_too_large before any
+        chunk touches the state."""
         sh = self.shapes
+        if sh.strided:
+            rpt, wpt = sh.reads // sh.txns, sh.writes // sh.txns
+            for txn in txns:
+                if (len(txn.read_ranges) > rpt
+                        or len(txn.write_ranges) > wpt):
+                    raise FDBError(
+                        "transaction_too_large",
+                        f"{len(txn.read_ranges)} reads / "
+                        f"{len(txn.write_ranges)} writes exceed the strided "
+                        f"layout ({rpt}/{wpt} per txn)")
+            return [txns[i:i + sh.txns]
+                    for i in range(0, max(len(txns), 1), sh.txns)]
         subs, cur, nr, nw = [], [], 0, 0
         for txn in txns:
             tr, tw = len(txn.read_ranges), len(txn.write_ranges)
@@ -300,19 +337,26 @@ class DeviceConflictSet:
     static shape in batch order, so "earlier txns win" stays exact.
 
     `device` defaults to the CONFLICT_DEVICE knob ("cuda"); asking for CUDA
-    where there is none raises platform_error."""
+    where there is none raises platform_error. The intra-batch evaluator is
+    the CONFLICT_INTRA_MODE knob's, read at construction."""
 
     def __init__(self, capacity: int | None = None, txns: int | None = None,
                  reads_per_txn: int | None = None,
                  writes_per_txn: int | None = None, oldest_version: int = 0,
-                 key_bytes: int | None = None, device=None):
+                 key_bytes: int | None = None, device=None,
+                 strided: bool = False):
         self.device = cudaenv.resolve_device(
             KNOBS.CONFLICT_DEVICE if device is None else device)
         self.shapes = _resolve_shapes(capacity, txns, reads_per_txn,
-                                      writes_per_txn, key_bytes)
+                                      writes_per_txn, key_bytes, strided)
         self.encoder = BatchEncoder(self.shapes, self.device,
                                     base_version=oldest_version)
         self.oldest_version = oldest_version
+        self._intra_mode = str(KNOBS.CONFLICT_INTRA_MODE)
+        if self._intra_mode not in ref.INTRA_MODES:
+            raise FDBError("invalid_option",
+                           f"CONFLICT_INTRA_MODE must be one of "
+                           f"{ref.INTRA_MODES}, got {self._intra_mode!r}")
         self._intra_rounds = int(KNOBS.CONFLICT_INTRA_ROUNDS)
         self._state = self._init_state()
 
@@ -324,7 +368,8 @@ class DeviceConflictSet:
         return ref.conflict_step(
             state, batch,
             max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
-            intra_rounds=self._intra_rounds, phases=kernels.PHASES)
+            intra_rounds=self._intra_rounds, intra_mode=self._intra_mode,
+            strided=self.shapes.strided, phases=kernels.PHASES)
 
     @property
     def base_version(self) -> int:
@@ -351,18 +396,21 @@ class DeviceConflictSet:
 
     def plan_chunk(self, nr: int, nw: int) -> ConflictShapes:
         """The chunk's shape bucket: transfer bytes and the device sort are
-        sized to the chunk, not to the configured maximum."""
+        sized to the chunk, not to the configured maximum. The strided
+        layout has one shape."""
+        if self.shapes.strided:
+            return self.shapes
         return self.encoder.bucket_shapes(nr, nw)
 
     def warmup(self):
         """Run one empty step per serving bucket, building the kernels on
         first use, so the first served batch pays no build."""
         sh = self.shapes
-        for nr, nw in sorted({(r, w) for r in (0, sh.reads)
-                              for w in (0, sh.writes)}):
+        buckets = {self.plan_chunk(r, w) for r in (0, sh.reads)
+                   for w in (0, sh.writes)}
+        for shapes in sorted(buckets, key=lambda b: (b.reads, b.writes)):
             batch = self.encoder.encode_batch(
-                [], self.encoder.base_version + 1,
-                shapes=self.plan_chunk(nr, nw))
+                [], self.encoder.base_version + 1, shapes=shapes)
             self._state, _statuses, _info = self._step(self._state, batch)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

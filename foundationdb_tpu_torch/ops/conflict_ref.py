@@ -1,17 +1,25 @@
 """The conflict step in plain PyTorch: the parity spine of the port.
 
-Counterpart of foundationdb_tpu/ops/conflict.py:124-734 (`conflict_step`,
+Counterpart of foundationdb_tpu/ops/conflict.py:124-799 (`conflict_step`,
 `_merge_phase`, `init_state`, `rebase_state`, `_build_table`, `_range_max`,
 `_intra_scan_levels`, `_intra_scan_blocked`, `_run_sandwich`,
-`_auto_rounds`), for the default configuration only: the pooled layout and
-the `scan` intra-batch evaluator. It is held to the JAX step exactly (state,
-statuses and every `info` field) by tests/test_torch_conflict_ref.py, and
-every Hopper kernel of ops/kernels.py is held to the phase function here
-that it replaces.
+`_auto_rounds`, `conflict_scan`): the pooled and the strided layouts, and
+the `scan` and `legacy` intra-batch evaluators. It is held to the JAX step
+exactly (state, statuses and every `info` field) by
+tests/test_torch_conflict_ref.py, test_torch_strided_scan.py and
+test_torch_legacy.py, and every Hopper kernel of ops/kernels.py is held to
+the phase function here that it replaces.
 
-The step is written as plain tensor code around four phase functions,
+The strided layout is the pooled step with its range->txn maps derived on
+the device once per batch (`strided_owners`). The JAX step folds per txn
+with reshapes there, because a scatter costs a TPU far more than a
+reshape; on the card an atomic-OR fold costs about what a reshape does, so
+the same phases and kernels serve both layouts.
+
+The step is written as plain tensor code around five phase functions,
 passed in as `phases` (an object with `build_table`, `history_check`,
-`intra_sweep` and `merge_compact`). `PLAIN` holds the plain versions below;
+`intra_sweep`, `merge_compact` and `legacy_sweep`). `PLAIN` holds the plain
+versions below;
 ops/kernels.py holds wrappers with the same signatures that launch the CUDA
 kernels for CUDA tensors. Nothing here synchronises with the device: every
 data-dependent choice is a tensor op, so the step enqueues without a host
@@ -267,8 +275,24 @@ def merge_compact(skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn,
             poisoned2, n2)
 
 
+def legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer):
+    """One evaluation of the legacy evaluator's map f (`_f_commit` over the
+    dense overlap matrix, conflict.py:491-514): f(c)[t] = g[t] and no write
+    of an EARLIER txn committed in c overlaps any of t's reads. Like the
+    JAX step it materialises the (NW, NR) overlap matrix, here with bool
+    ops (torch has no integer matrix-vector product on CUDA)."""
+    T = g.shape[0]
+    overlap = ((wbr[:, None] < rer[None, :]) & (rbr[None, :] < wer[:, None])
+               & w_ok[:, None] & r_ok[None, :]
+               & (wtxn[:, None] < rtxn[None, :]))
+    cw = c[torch.clamp(wtxn, max=T - 1).to(torch.int64)] & (wtxn < T)
+    blocked = (overlap & cw[:, None]).any(dim=0)
+    return g & ~fold_any(blocked, rtxn, T)
+
+
 PLAIN = SimpleNamespace(build_table=build_table, history_check=history_check,
-                        intra_sweep=intra_sweep, merge_compact=merge_compact)
+                        intra_sweep=intra_sweep, merge_compact=merge_compact,
+                        legacy_sweep=legacy_sweep)
 
 
 # ---------------------------------------------------------------------------
@@ -346,10 +370,40 @@ def run_sandwich(sweep, g, rounds: int):
     return lower, upper, torch.all(lower == upper)
 
 
+def run_legacy(sweep, g):
+    """The legacy evaluator's fixpoint (conflict.py:516-530): one `body`,
+    then `body` again while the bounds differ. The loop is unbounded, as
+    the JAX `while_loop` is, so it reads the test on the host once per
+    `body`. Returns the committed set (lower == upper)."""
+    upper = g
+    lower = sweep(upper)
+    while True:
+        upper = sweep(lower)
+        lower = sweep(upper)
+        if not bool(torch.any(lower != upper)):
+            return lower
+
+
+def strided_owners(begins: torch.Tensor, T: int) -> torch.Tensor:
+    """The strided layout's range->txn map (conflict.py:385-391, 436-442,
+    486-489, 601-605): slot j of NS belongs to txn j // (NS // T), or to T
+    (padding) when its begin key carries the padding length limb. Real
+    keys never carry it, so an empty real range still belongs to its txn."""
+    L, NS = begins.shape
+    owner = torch.arange(NS, dtype=_I32, device=begins.device) // (NS // T)
+    return torch.where(begins[L - 1] != PAD_LIMB, owner, T).to(_I32)
+
+
+INTRA_MODES = ("scan", "legacy")
+
+
 def conflict_step(state: dict, batch: dict, *, max_write_life: int,
-                  intra_rounds: int = 0, phases=PLAIN):
+                  intra_rounds: int = 0, intra_mode: str = "scan",
+                  strided: bool = False, phases=PLAIN):
     """(state, batch) -> (state', statuses, info), as the JAX
-    `conflict_step` with the pooled layout and the scan evaluator.
+    `conflict_step`. `strided` selects the strided layout (every txn owns
+    NR/T read and NW/T write slots; the batch's rtxn/wtxn are not read),
+    `intra_mode` the intra-batch evaluator ("scan" or "legacy").
 
     state: bkeys (L,K) i32 sorted; bval (K,) i32; nb, oldest () i32;
       table (LEVELS,K) i32; poisoned () bool
@@ -358,6 +412,13 @@ def conflict_step(state: dict, batch: dict, *, max_write_life: int,
       commit_version () i32; advance_floor () bool
     Shapes come from the tensors. Outputs are new tensors; the inputs are
     not modified."""
+    if intra_mode not in INTRA_MODES:
+        raise ValueError(f"intra_mode must be one of {INTRA_MODES}, got "
+                         f"{intra_mode!r}")
+    if strided:
+        T = batch["snapshot"].shape[0]
+        batch = dict(batch, rtxn=strided_owners(batch["rb"], T),
+                     wtxn=strided_owners(batch["wb"], T))
     bkeys, bval, table = state["bkeys"], state["bval"], state["table"]
     rb, re, rtxn = batch["rb"], batch["re"], batch["rtxn"]
     wb, we, wtxn = batch["wb"], batch["we"], batch["wtxn"]
@@ -410,17 +471,24 @@ def conflict_step(state: dict, batch: dict, *, max_write_life: int,
     wtxn_c = torch.clamp(wtxn, max=T - 1)
     r_ok = (rvalid & (rbr < rer)).contiguous()
     w_ok = (wvalid & (wbr < wer)).contiguous()
-    geo = intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
-    rbr = rbr.contiguous()
 
-    def sweep(c, skip, prev):
-        return phases.intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr,
-                                  skip, prev)
+    if intra_mode == "legacy":
+        def legacy(c):
+            return phases.legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer,
+                                       rbr, rer)
+        commit = merge_commit = run_legacy(legacy, g)
+        converged = torch.ones((), dtype=torch.bool, device=dev)
+    else:
+        geo = intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
 
-    rounds = intra_rounds if intra_rounds > 0 else auto_rounds(T)
-    # statuses come from `lower` (never a false commit), the merge uses
-    # `upper` (never a write missing from history)
-    commit, merge_commit, converged = run_sandwich(sweep, g, rounds)
+        def sweep(c, skip, prev):
+            return phases.intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn,
+                                      rbr, skip, prev)
+
+        rounds = intra_rounds if intra_rounds > 0 else auto_rounds(T)
+        # statuses come from `lower` (never a false commit), the merge uses
+        # `upper` (never a write missing from history)
+        commit, merge_commit, converged = run_sandwich(sweep, g, rounds)
 
     statuses = torch.where(
         commit, COMMITTED, torch.where(too_old, TOO_OLD, CONFLICT)).to(_I32)
@@ -438,6 +506,27 @@ def conflict_step(state: dict, batch: dict, *, max_write_life: int,
             "committed": commit.sum(dtype=_I32), "converged": converged,
             "eligible": g}
     return new_state, statuses, info
+
+
+def conflict_scan(state: dict, stacked: dict, *, max_write_life: int,
+                  intra_rounds: int = 0, intra_mode: str = "scan",
+                  strided: bool = False, phases=PLAIN):
+    """M batches in order (`conflict_scan`, conflict.py:771-790): `stacked`
+    holds a step's batch fields with a leading batch axis. The steps are
+    enqueued back to back with no host sync (for the scan evaluator).
+    Returns (state', statuses (M, T) int8, committed (M,) int32,
+    overflow (M,) bool)."""
+    statuses, committed, overflow = [], [], []
+    for i in range(stacked["snapshot"].shape[0]):
+        state, st, info = conflict_step(
+            state, {k: v[i] for k, v in stacked.items()},
+            max_write_life=max_write_life, intra_rounds=intra_rounds,
+            intra_mode=intra_mode, strided=strided, phases=phases)
+        statuses.append(st.to(torch.int8))
+        committed.append(info["committed"])
+        overflow.append(info["overflow"])
+    return (state, torch.stack(statuses), torch.stack(committed),
+            torch.stack(overflow))
 
 
 def rebase_state(state: dict, delta: int, phases=PLAIN) -> dict:

@@ -1,15 +1,18 @@
-"""The conflict step's four Hopper kernels: build, binding and wrappers.
+"""The conflict step's Hopper kernels: build, binding and wrappers.
 
 Each wrapper has the signature of the phase function of
 ops/conflict_ref.py that it replaces, so `PHASES` drops into
 `conflict_ref.conflict_step` in place of `conflict_ref.PLAIN`:
 
-  K1 build_table    csrc/sparse_table.cu   `_build_table`
-  K2 history_check  csrc/history_check.cu  phases 1-2 of `conflict_step`
-  K3 intra_sweep    csrc/intra_sweep.cu    `_intra_scan_blocked` in `_f_commit`
-  K4 merge_compact  csrc/merge_compact.cu  `_merge_phase` up to the table
+  K1 build_table    csrc/sparse_table.cu    `_build_table`
+  K2 history_check  csrc/history_check.cu   phases 1-2 of `conflict_step`
+  K3 intra_sweep    csrc/intra_sweep.cu     `_intra_scan_blocked` in `_f_commit`
+  K4 merge_compact  csrc/merge_compact.cu   `_merge_phase` up to the table
+  K5 legacy_sweep   csrc/legacy_overlap.cu  the legacy evaluator's `_f_commit`
 
-(functions of foundationdb_tpu/ops/conflict.py). A wrapper given tensors on
+(functions of foundationdb_tpu/ops/conflict.py). The probe kernels of
+ops/probes.py (csrc/probes.cu) build into the same library and count their
+launches here too. A wrapper given tensors on
 the CPU runs the plain version from conflict_ref; given CUDA tensors it
 launches its kernel on the current stream or raises. Nothing falls back.
 Each launch adds one to `LAUNCHES[name]`, so a run can show that it went
@@ -41,7 +44,7 @@ from foundationdb_tpu_torch.utils.errors import FDBError
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("sparse_table.cu", "history_check.cu", "intra_sweep.cu",
-           "merge_compact.cu")
+           "merge_compact.cu", "legacy_overlap.cu", "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -57,6 +60,19 @@ KERNELS = {
                     "_intra_scan_blocked (in _f_commit :537)"),
     "merge_compact": ("csrc/merge_compact.cu",
                       "foundationdb_tpu/ops/conflict.py:561 _merge_phase"),
+    "legacy_blocked": ("csrc/legacy_overlap.cu",
+                       "foundationdb_tpu/ops/conflict.py:506 _f_commit of "
+                       "the legacy evaluator (:491-533)"),
+    "probe_add": ("csrc/probes.cu", "scripts/ab_pallas.py:37 add_kernel"),
+    "probe_stream_rows": ("csrc/probes.cu",
+                          "scripts/ab_pallas.py:49 stream_kernel"),
+    "probe_join": ("csrc/probes.cu", "scripts/ab_pallas.py:80 join_kernel"),
+    "probe_dynwrite": ("csrc/probes.cu",
+                       "scripts/ab_pallas.py:112 dynwrite_kernel"),
+    "probe_stream_limbs": ("csrc/probes.cu",
+                           "scripts/ab_pallas2.py:39 stream_kernel"),
+    "probe_lexjoin": ("csrc/probes.cu",
+                      "scripts/ab_pallas2.py:64 lexjoin_kernel"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -71,13 +87,18 @@ def reset_launches():
 # build and binding
 # ---------------------------------------------------------------------------
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "fdb_sparse_table": [_P, _P, _I, _I, _P],
     "fdb_history_check": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                           _P, _P, _P, _P, _P],
-    "fdb_intra_sweep": [_P] * 15 + [_I, _I, _I, _I, _P, _P, _P, _P],
+    "fdb_intra_sweep": [_P] * 15 + [_I] * 4 + [_P] * 6,
     "fdb_merge_compact": [_P] * 14 + [_I] * 7 + [_P] * 10,
+    "fdb_legacy_blocked": [_P] * 10 + [_I] * 3 + [_P] * 4,
+    "fdb_probe_add": [_P, _P, _LL, _P],
+    "fdb_probe_stream": [_P, _I, _I, _LL, _LL, _I, _P, _P],
+    "fdb_probe_rank": [_P, _P, _I, _I, _I, _I] + [_LL] * 5 + [_I, _P, _P],
+    "fdb_probe_dynwrite": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 _lib = None
@@ -275,13 +296,14 @@ def history_check(table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
 # K3 intra_sweep
 # ---------------------------------------------------------------------------
 
-# 2 * M int32 of dynamic shared memory must fit the 227 KB a block can use
-MAX_SWEEP_M = (232_448 - 1024) // 8
+# elements per tile of the sweep's tiled scan (SWEEP_TILE in the source)
+SWEEP_TILE = 1024
 
 
 def intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, skip=None,
                 prev=None):
-    """One evaluation of the sandwich's map f (see conflict_ref)."""
+    """One evaluation of the sandwich's map f (see conflict_ref), for any
+    level width M = NW + 2 NR."""
     if not _on_cuda("intra_sweep", c):
         return ref.intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr,
                                skip, prev)
@@ -289,11 +311,10 @@ def intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, skip=None,
     T = c.shape[0]
     NW, NR = wtxn_c.shape[0], rtxn.shape[0]
     dev = c.device
-    if M > MAX_SWEEP_M or M != NW + 2 * NR:
+    if M != NW + 2 * NR:
         raise FDBError("invalid_option",
-                       f"intra_sweep: M={M} (NW={NW}, NR={NR}) exceeds the "
-                       f"one-block shared-memory limit {MAX_SWEEP_M} or "
-                       f"mismatches NW + 2 NR")
+                       f"intra_sweep: M={M} is not NW + 2 NR "
+                       f"(NW={NW}, NR={NR})")
     lm, lq = (n_levels, M), (n_levels, NR)
     _check("intra_sweep", dev, c=(c, _BOOL, (T,)), g=(g, _BOOL, (T,)),
            src=(geo["src"], _I32, lm), is_w=(geo["is_w"], _BOOL, lm),
@@ -307,6 +328,9 @@ def intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, skip=None,
     if skip is not None:
         _check("intra_sweep", dev, skip=(skip, _BOOL, ()),
                prev=(prev, _BOOL, (T,)))
+    n_tiles = -(-M // SWEEP_TILE)
+    agg = torch.empty(n_levels * n_tiles * 3, dtype=_I32, device=dev)
+    prefseg = torch.empty(n_levels * M * 2, dtype=_I32, device=dev)
     marks = _zeroed_scratch("sweep", T, _I32, dev)
     counter = _zeroed_scratch("sweep_counter", 1, _I32, dev)
     out = torch.empty(T, dtype=_BOOL, device=dev)
@@ -316,8 +340,8 @@ def intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, skip=None,
         geo["bnd"].data_ptr(), geo["qlo"].data_ptr(), geo["qhi"].data_ptr(),
         wtxn_c.data_ptr(), w_ok.data_ptr(), r_ok.data_ptr(),
         rtxn.data_ptr(), rbr.data_ptr(), _ptr(skip), _ptr(prev), n_levels,
-        T, M, NR, marks.data_ptr(), counter.data_ptr(), out.data_ptr(),
-        _stream())
+        T, M, NR, agg.data_ptr(), prefseg.data_ptr(), marks.data_ptr(),
+        counter.data_ptr(), out.data_ptr(), _stream())
     _launched("intra_sweep", rc)
     return out
 
@@ -374,5 +398,36 @@ def merge_compact(skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn,
     return out_keys, out_vals, nb_out, oldest_out, poisoned_out, boundaries
 
 
+# ---------------------------------------------------------------------------
+# K5 legacy_blocked
+# ---------------------------------------------------------------------------
+
+def legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer):
+    """One evaluation of the legacy evaluator's map f (see conflict_ref),
+    without the (NW, NR) matrix."""
+    if not _on_cuda("legacy_blocked", c):
+        return ref.legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr,
+                                rer)
+    T = c.shape[0]
+    NW, NR = wtxn.shape[0], rtxn.shape[0]
+    dev = c.device
+    _check("legacy_blocked", dev, c=(c, _BOOL, (T,)), g=(g, _BOOL, (T,)),
+           wtxn=(wtxn, _I32, (NW,)), rtxn=(rtxn, _I32, (NR,)),
+           w_ok=(w_ok, _BOOL, (NW,)), r_ok=(r_ok, _BOOL, (NR,)),
+           wbr=(wbr, _I32, (NW,)), wer=(wer, _I32, (NW,)),
+           rbr=(rbr, _I32, (NR,)), rer=(rer, _I32, (NR,)))
+    marks = _zeroed_scratch("legacy", T, _I32, dev)
+    counter = _zeroed_scratch("legacy_counter", 1, _I32, dev)
+    out = torch.empty(T, dtype=_BOOL, device=dev)
+    rc = library().fdb_legacy_blocked(
+        c.data_ptr(), g.data_ptr(), wtxn.data_ptr(), rtxn.data_ptr(),
+        w_ok.data_ptr(), r_ok.data_ptr(), wbr.data_ptr(), wer.data_ptr(),
+        rbr.data_ptr(), rer.data_ptr(), T, NW, NR, marks.data_ptr(),
+        counter.data_ptr(), out.data_ptr(), _stream())
+    _launched("legacy_blocked", rc)
+    return out
+
+
 PHASES = SimpleNamespace(build_table=build_table, history_check=history_check,
-                         intra_sweep=intra_sweep, merge_compact=merge_compact)
+                         intra_sweep=intra_sweep, merge_compact=merge_compact,
+                         legacy_sweep=legacy_sweep)

@@ -1,0 +1,350 @@
+"""Counterparts of the Pallas A/B probes: a streaming pass and a rank join
+over a 2^18-row key state.
+
+scripts/ab_pallas.py and scripts/ab_pallas2.py hold the repository's six
+`pl.pallas_call` kernels. Each has a Hopper kernel in csrc/probes.cu (built
+into the conflict kernels' library, ops/kernels.py), a wrapper here with
+its launch count in `kernels.LAUNCHES`, and a plain PyTorch version:
+
+  add       probe_add           ab_pallas.py:37   add_kernel
+  stream    probe_stream_rows   ab_pallas.py:49   stream_kernel (uint32, rows)
+            probe_stream_limbs  ab_pallas2.py:39  stream_kernel (int32, limbs)
+  join      probe_join          ab_pallas.py:80   join_kernel
+  lexjoin   probe_lexjoin       ab_pallas2.py:64  lexjoin_kernel
+  dynwrite  probe_dynwrite      ab_pallas.py:112  dynwrite_kernel
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches its kernel or raises. The uint32 data of ab_pallas.py travels as
+int32 tensors holding the same bits, with `unsigned=True`, so results keep
+uint32 order and bits.
+
+`python -m foundationdb_tpu_torch.ops.probes` is the counterpart of the two
+scripts' top level: on the card it runs each probe at the scripts' shapes
+(K = 2^18, L = 8, TILE = 2,048, 50 passes, QT = 256 and 1,024), prints
+ms/pass, and checks lexjoin against a sorted-key searchsorted as
+ab_pallas2.py:89-105 does. It raises where there is no card. Importing the
+module runs nothing.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from foundationdb_tpu_torch.ops import kernels
+from foundationdb_tpu_torch.utils import cudaenv
+from foundationdb_tpu_torch.utils.errors import FDBError
+
+# the scripts' shapes
+K = 1 << 18
+L = 8
+TILE = 2048
+NT = K // TILE
+PASSES = 50
+QT_JOIN = 256
+QT_LEX = 1024
+LK = 5
+MAX_LIMBS = 8  # PROBE_MAX_L in the source
+_SMEM_LIMIT = 48 * 1024  # static shared memory a block gets without opt-in
+
+_I32 = torch.int32
+_U32 = 1 << 32
+
+
+def _check(name, t, shape=None):
+    kernels._check(name, t.device,
+                   t=(t, _I32, tuple(t.shape) if shape is None else shape))
+
+
+def _as_ordered(x: torch.Tensor, unsigned: bool) -> torch.Tensor:
+    """int64 values whose order is the uint32 (or int32) order of x."""
+    v = x.to(torch.int64)
+    return v & (_U32 - 1) if unsigned else v
+
+
+def _to_i32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [-2^31, 2^32) -> int32 tensors of the same low bits."""
+    return ((v + (1 << 31)) % _U32 - (1 << 31)).to(_I32)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def add_plain(x):
+    return x + 1
+
+
+def stream_plain(state, *, layout: str, unsigned: bool = False):
+    """max(0, max over rows) per limb: (1, L) for a row-major (K, L) state,
+    (L, 1) for a limb-major (L, K) one."""
+    axis = 0 if layout == "rows" else 1
+    m = torch.clamp(_as_ordered(state, unsigned).amax(dim=axis,
+                                                      keepdim=True), min=0)
+    return _to_i32_bits(m)
+
+
+def rank_plain(s_keys, q_keys, *, unsigned: bool = False):
+    """Per tile t and query q: the count of tile t's state keys below query
+    q's key, lexicographically. s_keys (NT, TILE, LK), q_keys (NT, QT, LK)
+    -> (NT, QT) int32."""
+    s = _as_ordered(s_keys, unsigned)[:, None, :, :]
+    q = _as_ordered(q_keys, unsigned)[:, :, None, :]
+    lt = torch.zeros(s.shape[0], q.shape[1], s.shape[2], dtype=torch.bool,
+                     device=s_keys.device)
+    eq = torch.ones_like(lt)
+    for lvl in range(s_keys.shape[2]):
+        lt |= eq & (s[..., lvl] < q[..., lvl])
+        eq &= s[..., lvl] == q[..., lvl]
+    return lt.sum(dim=2, dtype=_I32)
+
+
+def join_plain(state, queries, *, unsigned: bool = True):
+    nt = queries.shape[0]
+    return rank_plain(state[:, :1].reshape(nt, -1, 1), queries[:, :, :1],
+                      unsigned=unsigned)
+
+
+def lexjoin_plain(state, queries, *, limbs: int = LK,
+                  unsigned: bool = False):
+    nt = queries.shape[0]
+    s = state[:limbs].T.reshape(nt, -1, limbs)
+    q = queries[:, :limbs, :].transpose(1, 2)
+    return rank_plain(s, q, unsigned=unsigned).reshape(-1)
+
+
+def dynwrite_plain(off, x, *, rows: int):
+    """(rows, C) zeros with x's rows at [off, off + len(x)), clipped."""
+    k = torch.arange(rows, device=x.device)[:, None] - off.to(torch.int64)
+    keep = (k >= 0) & (k < x.shape[0])
+    return torch.where(keep, x[torch.clamp(k[:, 0], 0, x.shape[0] - 1)],
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def add(x):
+    """x + 1 (add_kernel)."""
+    if not kernels._on_cuda("probe_add", x):
+        return add_plain(x)
+    _check("probe_add", x)
+    out = torch.empty_like(x)
+    rc = kernels.library().fdb_probe_add(x.data_ptr(), out.data_ptr(),
+                                         x.numel(), kernels._stream())
+    kernels._launched("probe_add", rc)
+    return out
+
+
+def stream(state, *, layout: str, unsigned: bool = False):
+    """Per-limb max of a key state, zero-initialised (stream_kernel):
+    layout "rows" is ab_pallas.py's (K, L) state -> (1, L), layout "limbs"
+    ab_pallas2.py's (L, K) state -> (L, 1)."""
+    if layout not in ("rows", "limbs"):
+        raise FDBError("invalid_option", f"stream: layout {layout!r}")
+    name = f"probe_stream_{layout}"
+    if not kernels._on_cuda(name, state):
+        return stream_plain(state, layout=layout, unsigned=unsigned)
+    _check(name, state)
+    if layout == "rows":
+        nk, nl = state.shape
+        strides, out_shape = (nl, 1), (1, nl)
+    else:
+        nl, nk = state.shape
+        strides, out_shape = (1, nk), (nl, 1)
+    if nl > MAX_LIMBS:
+        raise FDBError("invalid_option", f"{name}: at most {MAX_LIMBS} limbs")
+    out = torch.zeros(out_shape, dtype=_I32, device=state.device)
+    rc = kernels.library().fdb_probe_stream(
+        state.data_ptr(), nk, nl, strides[0], strides[1], int(unsigned),
+        out.data_ptr(), kernels._stream())
+    kernels._launched(name, rc)
+    return out
+
+
+def join(state, queries, *, unsigned: bool = True):
+    """join_kernel: state (K, L) row-major, queries (NT, QT, L) ->
+    (NT, QT) int32, the count of tile i's state rows whose limb 0 is below
+    each of tile i's queries' limb 0."""
+    if not kernels._on_cuda("probe_join", state):
+        return join_plain(state, queries, unsigned=unsigned)
+    nk, nl = state.shape
+    nt, qt, _ = queries.shape
+    _check("probe_join", queries, (nt, qt, nl))
+    return _launch_rank("probe_join", state, queries, nk, nt, qt, 1,
+                        (nl, 1), (qt * nl, nl, 1), unsigned, (nt, qt))
+
+
+def lexjoin(state, queries, *, limbs: int = LK, unsigned: bool = False):
+    """lexjoin_kernel: state (L, K) limb-major, queries (NT, L, QT) ->
+    (NT * QT,) int32, each query's rank among its tile's state keys over
+    the first `limbs` limbs."""
+    if not kernels._on_cuda("probe_lexjoin", state):
+        return lexjoin_plain(state, queries, limbs=limbs, unsigned=unsigned)
+    nl, nk = state.shape
+    nt, _, qt = queries.shape
+    _check("probe_lexjoin", queries, (nt, nl, qt))
+    if limbs > nl:
+        raise FDBError("invalid_option", f"probe_lexjoin: {limbs} > {nl} limbs")
+    return _launch_rank("probe_lexjoin", state, queries, nk, nt, qt, limbs,
+                        (1, nk), (nl * qt, 1, qt), unsigned, (nt * qt,))
+
+
+def _launch_rank(name, state, queries, nk, nt, qt, lk, s_strides,
+                 q_strides, unsigned, out_shape):
+    """Launch probe_rank: tile t's rows are [t * nk / nt, (t + 1) * nk / nt),
+    row r's limb l at r * s_strides[0] + l * s_strides[1], query (t, q)'s
+    limb l at t * q_strides[0] + q * q_strides[1] + l * q_strides[2]."""
+    _check(name, state)
+    tile = nk // max(nt, 1)
+    if nt < 1 or nt * tile != nk or not 1 <= lk <= MAX_LIMBS:
+        raise FDBError("invalid_option",
+                       f"{name}: {nt} tiles do not divide the state, or "
+                       f"{lk} limbs is not in [1, {MAX_LIMBS}]")
+    if tile * lk * 4 > _SMEM_LIMIT:
+        raise FDBError("invalid_option",
+                       f"{name}: a tile of {tile} x {lk} limbs exceeds the "
+                       f"{_SMEM_LIMIT} bytes of shared memory")
+    out = torch.empty(out_shape, dtype=_I32, device=state.device)
+    rc = kernels.library().fdb_probe_rank(
+        state.data_ptr(), queries.data_ptr(), nt, tile, qt, lk, *s_strides,
+        *q_strides, int(unsigned), out.data_ptr(), kernels._stream())
+    kernels._launched(name, rc)
+    return out
+
+
+def dynwrite(off, x, *, rows: int):
+    """dynwrite_kernel: (rows, C) with x's rows written at the offset held
+    on the device in off (1,), zeros elsewhere."""
+    if not kernels._on_cuda("probe_dynwrite", x):
+        return dynwrite_plain(off, x, rows=rows)
+    nx, c = x.shape
+    kernels._check("probe_dynwrite", x.device, off=(off, _I32, (1,)),
+                   x=(x, _I32, (nx, c)))
+    out = torch.empty((rows, c), dtype=_I32, device=x.device)
+    rc = kernels.library().fdb_probe_dynwrite(
+        off.data_ptr(), x.data_ptr(), nx, rows, c, out.data_ptr(),
+        kernels._stream())
+    kernels._launched("probe_dynwrite", rc)
+    return out
+
+
+PLAIN = {"probe_add": add_plain, "probe_stream_rows": stream_plain,
+         "probe_join": join_plain, "probe_dynwrite": dynwrite_plain,
+         "probe_stream_limbs": stream_plain, "probe_lexjoin": lexjoin_plain}
+WRAPPERS = {"probe_add": add, "probe_stream_rows": stream,
+            "probe_join": join, "probe_dynwrite": dynwrite,
+            "probe_stream_limbs": stream, "probe_lexjoin": lexjoin}
+
+
+# ---------------------------------------------------------------------------
+# the scripts' top level
+# ---------------------------------------------------------------------------
+
+def script_calls(device) -> dict:
+    """{probe name: (args, kwargs)} at the scripts' shapes, drawn as the
+    scripts draw them (numpy RandomState(0) in each script)."""
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rng = np.random.RandomState(0)
+    state1 = rng.randint(0, 1 << 31, size=(K, L)).astype(np.uint32)
+    queries1 = rng.randint(0, 1 << 31, size=(NT, QT_JOIN, L)).astype(
+        np.uint32)
+    rng = np.random.RandomState(0)
+    state2 = rng.randint(0, 1 << 30, size=(L, K)).astype(np.int32)
+    queries2 = rng.randint(0, 1 << 30, size=(NT, L, QT_LEX)).astype(np.int32)
+    s1 = t(state1.view(np.int32))
+    return {
+        "probe_add": ((t(np.arange(1024, dtype=np.int32).reshape(8, 128)),),
+                      {}),
+        "probe_stream_rows": ((s1,), {"layout": "rows", "unsigned": True}),
+        "probe_join": ((s1, t(queries1.view(np.int32))), {"unsigned": True}),
+        "probe_dynwrite": ((t(np.array([16], np.int32)),
+                            t(np.ones((8, 128), np.int32))), {"rows": 64}),
+        "probe_stream_limbs": ((t(state2),), {"layout": "limbs"}),
+        "probe_lexjoin": ((t(state2), t(queries2)), {"limbs": LK}),
+    }
+
+
+def time_passes(fn, passes: int = PASSES, reps: int = 3) -> float:
+    """Best of `reps` runs of `passes` back-to-back calls on the card, in
+    ms per call (CUDA events), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(passes):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / passes)
+    return best
+
+
+def lexjoin_searchsorted_check(state, queries, out, limbs: int = LK):
+    """ab_pallas2.py:89-105: for the first and the last tile, each query's
+    rank is the searchsorted position of its packed key among the tile's
+    sorted packed keys. Raises AssertionError on a mismatch."""
+    s_np = state.cpu().numpy()[:limbs].astype(np.int64)
+    q_np = queries.cpu().numpy()
+    got_all = out.cpu().numpy()
+    nt, _, qt = q_np.shape
+    tile = s_np.shape[1] // nt
+
+    def pack(a):
+        v = np.zeros(a.shape[1], dtype=object)
+        for lvl in range(limbs):
+            v = v * (1 << 32) + a[lvl]
+        return v
+    for t in (0, nt - 1):
+        sl = s_np[:, t * tile:(t + 1) * tile]
+        ql = q_np[t, :limbs].astype(np.int64)
+        ranks = np.searchsorted(np.sort(pack(sl)), pack(ql), side="left")
+        got = got_all[t * qt:(t + 1) * qt]
+        assert np.array_equal(ranks, got), (t, ranks[:5], got[:5])
+
+
+def main(device=None) -> dict:
+    """The scripts' top level on the card: returns {probe: ms per pass}
+    and prints as the scripts do."""
+    dev = cudaenv.resolve_device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        raise FDBError("invalid_option", "the probes run on the card")
+    calls = script_calls(dev)
+    out = {}
+    a, kw = calls["probe_add"]
+    y = add(*a, **kw)
+    assert torch.equal(y, a[0] + 1), "probe add differs from x + 1"
+    print("probe add: OK")
+    for name, label in (("probe_stream_rows", "stream max over (256k,8)"),
+                        ("probe_join", "co-partition join 128tiles"),
+                        ("probe_stream_limbs", "stream (8,256k) limb-major"),
+                        ("probe_lexjoin", "lexjoin 5-limb")):
+        a, kw = calls[name]
+        fn = WRAPPERS[name]
+        out[name] = time_passes(lambda fn=fn, a=a, kw=kw: fn(*a, **kw))
+        print(f"{label:34s} {out[name]:8.3f} ms/pass")
+    a, kw = calls["probe_dynwrite"]
+    o = dynwrite(*a, **kw).cpu()
+    print("dyn write row16 sum:", int(o[16].sum()), "(expect 128); row0:",
+          int(o[0].sum()))
+    assert int(o[16].sum()) == 128 and int(o[0].sum()) == 0
+    out["probe_dynwrite"] = time_passes(lambda: dynwrite(*a, **kw))
+    out["probe_add"] = time_passes(lambda: add(*calls["probe_add"][0]))
+    (state, queries), kw = calls["probe_lexjoin"]
+    lexjoin_searchsorted_check(state, queries, lexjoin(state, queries, **kw))
+    print("lexjoin correctness: OK")
+    return out
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

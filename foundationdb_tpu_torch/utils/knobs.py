@@ -66,6 +66,11 @@ KNOBS.init("CONFLICT_STATE_CAPACITY", 1 << 16)  # boundary slots
 KNOBS.init("CONFLICT_BATCH_TXNS", 1024)  # static batch shape: txns
 KNOBS.init("CONFLICT_BATCH_READS_PER_TXN", 4)
 KNOBS.init("CONFLICT_BATCH_WRITES_PER_TXN", 4)
+# Intra-batch "earlier txns win" evaluator: "scan" (per-level prefix scans,
+# a bounded sandwich with no host sync) or "legacy" (every write/read pair,
+# an unbounded fixpoint that reads its convergence on the host; kept for
+# the A/B of the kernel bench).
+KNOBS.init("CONFLICT_INTRA_MODE", "scan")
 # Sandwich sweep rounds of the intra-batch evaluator; 0 = auto
 # (min(txns // 2 + 1, 32), see conflict_ref.auto_rounds).
 KNOBS.init("CONFLICT_INTRA_ROUNDS", 0)

@@ -158,7 +158,8 @@ def _captured_phases(batches):
         build_table=spy("sparse_table", ref.build_table),
         history_check=spy("history_check", ref.history_check),
         intra_sweep=spy("intra_sweep", ref.intra_sweep),
-        merge_compact=spy("merge_compact", ref.merge_compact))
+        merge_compact=spy("merge_compact", ref.merge_compact),
+        legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
     cs = DeviceConflictSet(device="cpu", **SMALL)
     for txns, version in batches:
         batch = cs.encoder.encode_batch(txns, version)
@@ -202,3 +203,82 @@ def test_cuda_engine_matches_the_oracle(cuda):
         version += int(rng.integers(1, 300)) * 10
         txns = fuzz_batch(rng, version, int(rng.integers(1, 150)))
         assert dev.detect(txns, version) == oracle.detect(txns, version)
+
+
+def _bench_step_calls(T, mode, device):
+    """The phase calls of the second of two strided kernel-bench steps at T
+    txns (K=2^14) with the plain phases on `device`."""
+    from foundationdb_tpu_torch import bench
+    batches = bench.stage(bench._encode_batches(2, seed=3,
+                                                version0=bench.WINDOW, T=T),
+                          device)
+    state = ref.init_state(1 << 14, bench.LIMBS, device)
+    calls = {}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls.setdefault(name, []).append(_to((a, kw), device))
+            return fn(*a, **kw)
+        return wrapped
+    spied = type(ref.PLAIN)(
+        build_table=ref.build_table, history_check=ref.history_check,
+        intra_sweep=spy("intra_sweep", ref.intra_sweep),
+        merge_compact=ref.merge_compact,
+        legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
+    for i in range(2):
+        calls.clear()
+        state, _s, _i = ref.conflict_step(
+            state, {k: v[i] for k, v in batches.items()},
+            max_write_life=bench.WINDOW, intra_mode=mode, strided=True,
+            phases=spied)
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1024, 16384])
+def test_sweep_kernel_takes_any_level_width(cuda, T):
+    # M = 3T: 3,072 fits one tile row of the old design, 49,152 is past
+    # the shared-memory cap the one-block-per-level kernel had
+    calls = _bench_step_calls(T, "scan", cuda)["intra_sweep"]
+    assert calls[0][0][2]["src"].shape[1] == 3 * T
+    for a, kw in calls:
+        want = ref.intra_sweep(*a, **kw)
+        assert torch.equal(kernels.intra_sweep(*a, **kw), want)
+
+
+@pytest.mark.cuda
+def test_legacy_kernel_equals_its_plain_version(cuda):
+    calls = _bench_step_calls(2048, "legacy", cuda)["legacy_blocked"]
+    assert len(calls) >= 3
+    for a, kw in calls:
+        assert torch.equal(kernels.legacy_sweep(*a, **kw),
+                           ref.legacy_sweep(*a, **kw))
+
+
+@pytest.mark.cuda
+def test_probe_kernels_equal_their_plain_versions(cuda):
+    from foundationdb_tpu_torch.ops import probes
+    rng = np.random.default_rng(10)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    u = rng.integers(0, 1 << 32, (4096, 8), dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    small = rng.integers(-3, 3, (8, 4096)).astype(np.int32)
+    calls = {
+        "probe_add": ((t(u),), {}),
+        "probe_stream_rows": ((t(u),), {"layout": "rows", "unsigned": True}),
+        "probe_stream_limbs": ((t(small),), {"layout": "limbs"}),
+        "probe_join": ((t(u), t(u[:2048].reshape(8, 256, 8))),
+                       {"unsigned": True}),
+        "probe_lexjoin": ((t(small), t(rng.integers(-3, 3, (4, 8, 300))
+                                       .astype(np.int32))), {"limbs": 5}),
+        "probe_dynwrite": ((t(np.array([60], np.int32)),
+                            t(u[:8, :4].copy())), {"rows": 64}),
+    }
+    kernels.reset_launches()
+    for name, (a, kw) in calls.items():
+        got = probes.WRAPPERS[name](*a, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probes.PLAIN[name](*a, **kw)), name
+        assert kernels.LAUNCHES[name] == 1, name
