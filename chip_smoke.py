@@ -10,7 +10,12 @@ Phases, each of which must pass:
   3. each kernel against its plain PyTorch version on the card, on inputs
      captured from the main path at its full width (K=65,536, T=1,024,
      4/4, L=7) and on edge inputs, with EXACT equality (integer kernels),
-     timed beside its plain version, its bound and a library yardstick;
+     timed beside its plain version, its bound and a library yardstick.
+     K3 is the whole sandwich of a step: (lower, upper, converged) and its
+     count of evaluations against the plain sandwich, also at rounds 0, 1
+     and 32 and on a dependency chain deeper than the rounds (converged
+     must be False); K4 also on a key group across its scan tiles and on
+     steps that overflow (N off the tile size);
      then the whole step with the kernels against the plain step, state
      for state, over a small trajectory that overflows and rebases; K5
      (the legacy evaluator) on the calls of one legacy step at the kernel
@@ -23,11 +28,12 @@ Phases, each of which must pass:
      phase B at K=2^20 (a load of 48 batches of blind inserts, then 60
      batches over 400,000 keys). Every reply must equal the port's
      OracleConflictSet on the same batches, no state may poison, every
-     served chunk must converge on the device (so the sweep kernel, not
-     the host pass, decided its statuses), and each kernel must have
+     served chunk must converge on the device (so the sandwich kernel,
+     not the host pass, decided its statuses), each kernel must have
      launched during the phase (launch counts are zeroed just before each
-     phase and read just after). Then each kernel is held to its plain
-     version again on one more step from phase B's final state (K=2^20).
+     phase and read just after), and K3 must have launched once a step
+     (as often as K2). Then each kernel is held to its plain version again
+     on one more step from phase B's final state (K=2^20).
   5. the kernel bench (foundationdb_tpu_torch/bench.py): run_kernel at
      T=16,384 (200 batches in chunks of 100, K=2^18) and T=32,768 (100 in
      chunks of 50, K=2^19: its window of history overflows 2^18), 16-byte
@@ -35,9 +41,10 @@ Phases, each of which must pass:
      The warm chunk's first batches must equal the OracleConflictSet on the
      same byte keys (8 batches at T=16,384, 2 at T=32,768: the oracle is
      pure Python), and the first timed chunk must equal `conflict_scan`
-     with the plain phases on the card. The last step of that plain chunk
-     is captured, and K1-K4 are held to their plain versions on its calls
-     (K3 at M = 49,152 and 98,304). One step at T=16,384 is profiled.
+     with the plain phases on the card; K3 must have launched once a step.
+     The last step of that plain chunk is captured, and K1-K4 are held to
+     their plain versions on its calls (K3 at M = 49,152 and 98,304). One
+     step at T=16,384 is profiled.
   6. the evaluator A/B: run_kernel_ab(16,384, 8), scan against legacy,
      with equal statuses on every batch;
   7. the probes' main (ops/probes.py), the Pallas scripts' top level.
@@ -180,8 +187,7 @@ def time_cuda(fn, reps: int) -> float:
 DEVICE_FUNCTIONS = {
     "sparse_table": ("table_low_kernel", "table_level_kernel"),
     "history_check": ("history_kernel",),
-    "intra_sweep": ("sweep_reduce_kernel", "sweep_scan_kernel",
-                    "sweep_answer_kernel"),
+    "intra_sandwich": ("sandwich_kernel",),
     "merge_compact": ("merge_prep_kernel", "merge_scan_kernel",
                       "merge_fill_kernel"),
     "legacy_blocked": ("legacy_kernel",),
@@ -192,7 +198,7 @@ DEVICE_FUNCTIONS = {
     "probe_stream_limbs": ("probe_stream_kernel<false>",),
     "probe_lexjoin": ("probe_rank_kernel<false>",),
 }
-STEP_KERNELS = ("sparse_table", "history_check", "intra_sweep",
+STEP_KERNELS = ("sparse_table", "history_check", "intra_sandwich",
                 "merge_compact")
 
 
@@ -256,12 +262,18 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         per_read = 4 * (1 + 2 * L + 2 + 2 + 2)  # rtxn, limbs, spos, cum, table
         return float(NR * 4 + nv * per_read + T * (4 + 1 + 2) + 4), \
             float(nv * (2 * L + 12))
-    if name == "intra_sweep":
-        c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr = args[:8]
+    if name == "intra_sandwich":
+        g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, _rounds = args
         nl, M = geo["src"].shape
-        NR, NW, T = rtxn.shape[0], wtxn_c.shape[0], c.shape[0]
-        nbytes = (nl * M * 10 + nl * NR * 8 + NW * 5 + NR * 9 + 3 * T)
-        return float(nbytes), float(nl * (M * 8 + NR * 4))
+        NR, NW, T = rtxn.shape[0], wtxn_c.shape[0], g.shape[0]
+        # the level geometry (10 B an element), the queries (8 B a read and
+        # level), the write and read vectors and g read once; lower, upper
+        # and converged written once. Operations: each evaluation that
+        # this call's data needs scans every element and answers every
+        # read at every level.
+        nbytes = nl * M * 10 + nl * NR * 8 + NW * 5 + NR * 9 + 3 * T + 1
+        evals = sandwich_evaluations(args)
+        return float(nbytes), float(evals * nl * (M * 8 + NR * 4))
     if name == "merge_compact":
         skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn = args[:9]
         L, N = skeys.shape
@@ -302,6 +314,17 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         return 4.0 * (x.numel() + kw["rows"] * x.shape[1] + 1), \
             float(kw["rows"] * x.shape[1])
     raise KeyError(name)
+
+
+def sandwich_evaluations(args) -> int:
+    """Evaluations of f the plain sandwich runs on these inputs (the ones
+    its pinch test does not skip)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    n = torch.zeros((), dtype=torch.int32, device=args[0].device)
+    ref.intra_sandwich(*args, evals=n)
+    return int(n)
 
 
 def lexjoin_operations(state, queries, limbs: int) -> float:
@@ -405,7 +428,7 @@ def spied_phases(calls: dict, dev, last_step_only=False):
     return SimpleNamespace(
         build_table=spy("sparse_table", ref.build_table),
         history_check=spy("history_check", ref.history_check),
-        intra_sweep=spy("intra_sweep", ref.intra_sweep),
+        intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
         legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
 
@@ -459,16 +482,89 @@ def edge_calls(dev):
     return out
 
 
-def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50):
+def chain_sandwich_args(dev, T=128):
+    """The sandwich's inputs for a dependency chain through all T txns (txn
+    t reads the key txn t - 1 writes): it needs T / 2 rounds to pinch."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    ar = torch.arange(T, dtype=torch.int32, device=dev)
+    ok = torch.ones(T, dtype=torch.bool, device=dev)
+    geo = ref.intra_levels(T, ar, ar, ar, ar + 1, ar + 1, ar + 2)
+    return (ok, geo, ar, ok, ok, ar, ar)
+
+
+def sandwich_edge_calls(dev, main):
+    """K3's edge inputs: a captured call at rounds 0, 1 and 32, and the
+    128-deep chain at rounds 1 and 32 (unconverged) and 70 (converged)."""
+    (a, kw) = main
+    out = [((*a[:7], r), kw) for r in (0, 1, 32)]
+    chain = chain_sandwich_args(dev)
+    out += [((*chain, r), {}) for r in (1, 32, 70)]
+    return out
+
+
+def counted(sandwich):
+    """A sandwich phase function that also returns its evaluation count."""
+    import torch
+
+    def run(*a, **kw):
+        n = torch.zeros((), dtype=torch.int32, device=a[0].device)
+        return tuple(sandwich(*a, **kw, evals=n)) + (n,)
+    return run
+
+
+def merge_edge_calls(dev):
+    """K4's edge inputs, from plain steps on the card: 1,024 txns writing
+    one key (its begin and end groups hold 4,096 sorted elements each,
+    across 2,048-element scan tiles), and a K=1,536 state that 64 txns of
+    4 fresh point writes a step overflow and poison (N = 1,536 + 2 * 256
+    + 2 * 256 = 2,560 is not a multiple of the tile)."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
+    from foundationdb_tpu_torch.ops.conflict import DeviceConflictSet
+    rng = np.random.default_rng(21)
+
+    def pt(k):
+        return (k, k + b"\x00")
+    hot = [TxnConflictInfo(0, [], [pt(b"hot")] * 4) for _ in range(1024)]
+    mixed = [TxnConflictInfo(0, [pt(b"hot")], [pt(b"k%d" % i)])
+             for i in range(1024)]
+    fresh = [[TxnConflictInfo(0, [], [pt(b"%08d" % k) for k in
+                                      rng.integers(0, 10 ** 8, 4)])
+              for _ in range(64)] for _ in range(6)]
+    calls: list = []
+    for capacity, txns, batches in ((1 << 13, 1024, [hot, mixed, hot]),
+                                    (1536, 64, fresh)):
+        store: dict = {}
+        spied = type(ref.PLAIN)(**dict(
+            vars(ref.PLAIN),
+            merge_compact=spied_phases(store, dev).merge_compact))
+        cs = DeviceConflictSet(device=dev, capacity=capacity, txns=txns,
+                               reads_per_txn=4, writes_per_txn=4)
+        for i, b in enumerate(batches):
+            batch = cs.encoder.encode_batch(b, 1000 * (i + 1))
+            cs._state, _s, info = ref.conflict_step(
+                cs._state, batch, max_write_life=5_000_000, phases=spied)
+        if capacity == 1536 and not bool(info["overflow"]):
+            fail("merge edge inputs: the small state never overflowed")
+        calls += store["merge_compact"]
+    return calls
+
+
+def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
+                  check=None):
     """Hold kernel wrapper `kern` to its plain version on every call of
     `calls` ((args, kwargs) pairs), with exact equality (integer kernels),
     then time `main_call`: kernel, plain version, library yardstick,
-    device time and bound. Returns the numbers."""
+    device time and bound. `check`, a (kernel, plain) pair, replaces the
+    two functions in the equality checks. Returns the numbers."""
     import torch
     n, max_err = 0, 0
+    check_kern, check_plain = check or (kern, plain)
     for a, kw in calls:
-        want = plain(*a, **kw)
-        got = kern(*a, **kw)
+        want = check_plain(*a, **kw)
+        got = check_kern(*a, **kw)
         torch.cuda.synchronize()
         want = want if isinstance(want, tuple) else (want,)
         got = got if isinstance(got, tuple) else (got,)
@@ -489,8 +585,12 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50):
     lib = library_call(name, a, kw)
     lib_ms = time_cuda(lib, reps) if lib is not None else None
     del lib
-    by_name, _wall = profile_device(lambda: kern(*a, **kw), reps)
-    device_ms = device_ms_of(by_name, name, reps)
+    device_ms = None
+    for _try in range(3):  # the profiler now and then reports no kernels
+        by_name, _wall = profile_device(lambda: kern(*a, **kw), reps)
+        device_ms = device_ms_of(by_name, name, reps)
+        if device_ms is not None:
+            break
     nbytes, nops = work_of(name, a, kw)
     b_ms, b_by = bound_ms(nbytes, nops)
     log(f"cell {cell} kernel {name}: {n} calls equal to plain; "
@@ -507,25 +607,38 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50):
 def check_kernels(dev, calls, results, cell, edges=True):
     """Hold each step kernel (K1-K4) to its plain version on every captured
     call of `cell` (and, with `edges`, on the edge inputs), then time the
-    cell's main-path call: the last one captured from the step (for the
-    sweep, the last evaluation that is not skipped)."""
+    cell's main-path call: the last one captured from the step. K3 is
+    checked with its evaluation count; on the edge chain at 1 and 32 rounds
+    it must report converged = False."""
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     from foundationdb_tpu_torch.ops import kernels
     wrappers = {"sparse_table": (kernels.build_table, ref.build_table),
                 "history_check": (kernels.history_check, ref.history_check),
-                "intra_sweep": (kernels.intra_sweep, ref.intra_sweep),
+                "intra_sandwich": (kernels.intra_sandwich,
+                                   ref.intra_sandwich),
                 "merge_compact": (kernels.merge_compact, ref.merge_compact)}
+    checks = {"intra_sandwich": (counted(kernels.intra_sandwich),
+                                 counted(ref.intra_sandwich))}
     all_calls = dict(calls)
     if edges:
         all_calls["sparse_table"] = calls["sparse_table"] + edge_calls(dev)
+        all_calls["intra_sandwich"] = calls["intra_sandwich"] + \
+            sandwich_edge_calls(dev, calls["intra_sandwich"][-1])
+        all_calls["merge_compact"] = calls["merge_compact"] + \
+            merge_edge_calls(dev)
+        for a, kw in all_calls["intra_sandwich"][-3:-1]:
+            if bool(kernels.intra_sandwich(*a, **kw)[2]):
+                fail(f"intra_sandwich: a {a[0].shape[0]}-deep chain "
+                     f"converged in {a[7]} rounds")
     for name, (kern, plain) in wrappers.items():
-        main = [c for c in calls[name]
-                if name != "intra_sweep" or len(c[0]) < 9 or c[0][8] is None]
+        main = calls[name][-1]
         results[name] = hold_to_plain(
-            name, kern, plain, all_calls[name], main[-1], cell,
-            reps=20 if name == "merge_compact" else 50)
-        if name == "intra_sweep":
-            results[name]["M"] = int(main[-1][0][2]["src"].shape[1])
+            name, kern, plain, all_calls[name], main, cell,
+            reps=20 if name == "merge_compact" else 50,
+            check=checks.get(name))
+        if name == "intra_sandwich":
+            results[name]["M"] = int(main[0][1]["src"].shape[1])
+            results[name]["evaluations"] = sandwich_evaluations(main[0])
 
 
 def check_legacy(dev, results, T=16384):
@@ -674,6 +787,13 @@ def check_step_trajectory(dev):
 # phase 4: the resolver role serving commit batches
 # ---------------------------------------------------------------------------
 
+def one_sandwich_a_step(where, launches):
+    """Every step launches K2 once; the sandwich must be one launch too."""
+    if launches["intra_sandwich"] != launches["history_check"]:
+        fail(f"{where}: {launches['intra_sandwich']} sandwich launches for "
+             f"{launches['history_check']} steps")
+
+
 def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
                 window=4):
     """Serve `n_load` load batches, then `n_batches` run batches, through
@@ -815,9 +935,10 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
         fail(f"phase {name}: the conflict state poisoned")
     if any(v <= 0 for v in launches.values()):
         fail(f"phase {name}: a kernel never launched: {launches}")
+    one_sandwich_a_step(f"phase {name}", launches)
     if unconverged:
         # such a chunk's intra-batch verdicts come from the host pass, so
-        # the oracle check would not show that the sweep kernel decided them
+        # the oracle check would not show that the kernel decided them
         fail(f"phase {name}: {unconverged} of {chunks} chunks did not "
              f"converge on the device")
     resolver.shutdown()
@@ -940,6 +1061,7 @@ def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
     if any(v <= 0 for v in res["launches"].values()):
         fail(f"kernel bench T={T}: a kernel never launched: "
              f"{res['launches']}")
+    one_sandwich_a_step(f"kernel bench T={T}", res["launches"])
     t0 = time.perf_counter()
     bench_oracle_check(detail, T, n_oracle)
     res["oracle_batches"] = n_oracle

@@ -17,54 +17,63 @@
 // decides every slot, with no backward carry.
 //
 // Three launches:
-//   merge_prep  (N threads): group-start / group-end / live flags per
-//               sorted element; committed writes scatter +1/-1 into a
-//               zeroed delta array at their sorted positions.
-//   merge_scan  (one block): a tiled scan over N with the prefix carried
-//               across tiles, three block scans a tile (values, previous
-//               kept value, slot count); writes the slot's value and its
-//               source position, re-zeroes delta, and writes nb, oldest,
-//               poisoned and the boundary count.
+//   merge_prep  (max(NW, 3 * tiles + 1) threads): committed writes scatter
+//               +1/-1 into a zeroed delta array at their sorted positions;
+//               the scan's tile descriptors and ticket are reset.
+//   merge_scan  (one CTA per tile of 2,048 elements, all SMs): a
+//               single-pass scan with decoupled look-back (Merrill and
+//               Garland, "Single-pass Parallel Prefix Scan with Decoupled
+//               Look-back", 2016). A CTA takes its tile from an atomic
+//               ticket, so every earlier tile has started and the look-back
+//               cannot deadlock. It derives the group-start, group-end and
+//               live flags from the sorted keys itself, then runs three
+//               chained monoids in order, each with its own look-back:
+//                 1. ValOp: coverage sum, last live value, "a source since
+//                    the group start";
+//                 2. FdbLast: the previous kept slot value, over the slot
+//                    events that the resolved ValOp prefix defines;
+//                 3. the slot count.
+//               Each tile publishes (aggregate, inclusive prefix, status)
+//               per monoid and starts the next look-back once the previous
+//               prefix is known. It writes each kept slot's value and
+//               source position (below K only) and re-zeroes delta; the
+//               last tile writes nb, oldest, poisoned and the boundary
+//               count.
 //   merge_fill  (K threads): gathers each slot's key limbs from the
 //               sorted keys, pads the tail, or writes the poison state.
 //
 // Bound on H100: bytes. It reads the sorted keys (L * N int32), classes,
-// indices, values and write positions, and writes L * K + K int32: ~3 MB
-// at K = 65,536 (~1 us of HBM time); at K = 2^20, ~40 MB (~12 us). The one
-// block of merge_scan runs at one SM's rate, not the card's: a later PR
-// replaces it with a decoupled look-back scan across SMs.
+// indices, values and write positions, and writes L * K + K int32: ~6 MB
+// at the kernel bench's N = 327,680 (~1.8 us of HBM time), ~19 MB at
+// N = 1,064,960 (~5.6 us). A scan on one CTA walks N at one SM's rate
+// (0.5 ms and 1.5 ms at those sizes on the H100); the look-back scan
+// spreads the N elements over N / 2,048 CTAs in one pass over memory.
 #include "common.cuh"
 
 #define PREP_THREADS 256
-#define SCAN_THREADS 1024
-#define SCAN_IPT 4
+#define SCAN_THREADS 256
+#define SCAN_IPT 8
+#define SCAN_TILE (SCAN_THREADS * SCAN_IPT)
 
-#define F_NEWGRP 1
-#define F_GRPLAST 2
-#define F_LIVE 4
-
-__device__ __forceinline__ bool col_neq(const int32_t* keys, int L, long long n,
-                                        long long i, long long j) {
-  for (int l = 0; l < L; ++l)
-    if (keys[l * n + i] != keys[l * n + j]) return true;
-  return false;
-}
+// tile descriptor: 24 int32 per tile. Words 0-2: the status of monoid
+// 0-2 (0 none, 1 aggregate, 2 inclusive prefix); then each monoid's
+// aggregate and inclusive prefix.
+#define DESC_WORDS 24
+#define ST_AGG 1
+#define ST_INCL 2
+#define VAL_AGG 4
+#define VAL_INCL 8
+#define LAST_AGG 12
+#define LAST_INCL 14
+#define SUM_AGG 16
+#define SUM_INCL 17
 
 __global__ void merge_prep_kernel(
-    const int32_t* __restrict__ skeys, const int32_t* __restrict__ scls,
-    const int32_t* __restrict__ sidx, const int32_t* __restrict__ spos,
-    const uint8_t* __restrict__ merge_commit, const int32_t* __restrict__ wb,
-    const int32_t* __restrict__ we, const int32_t* __restrict__ wtxn,
-    const int32_t* __restrict__ nb, int L, int N, int K, int NR, int NW, int T,
-    uint8_t* flags, int32_t* delta) {
+    const int32_t* __restrict__ spos, const uint8_t* __restrict__ merge_commit,
+    const int32_t* __restrict__ wb, const int32_t* __restrict__ we,
+    const int32_t* __restrict__ wtxn, int L, int K, int NR, int NW, int T,
+    int n_tiles, int32_t* delta, int32_t* desc) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < N) {
-    uint8_t f = 0;
-    if (i == 0 || col_neq(skeys, L, N, i, i - 1)) f |= F_NEWGRP;
-    if (i == N - 1 || col_neq(skeys, L, N, i, i + 1)) f |= F_GRPLAST;
-    if (scls[i] == 1 && sidx[i] < *nb) f |= F_LIVE;
-    flags[i] = f;
-  }
   if (i < NW) {
     const int t = wtxn[i];
     if (t < T && merge_commit[t] && fdb_key_lt(wb, we, L, NW, i)) {
@@ -73,6 +82,8 @@ __global__ void merge_prep_kernel(
       delta[spos[off + NW + i]] = -1;
     }
   }
+  if (i < 3LL * n_tiles) desc[(i / 3) * DESC_WORDS + i % 3] = 0;
+  if (i == 0) desc[(long long)n_tiles * DESC_WORDS] = 0;  // the ticket
 }
 
 // Values pass: coverage sum, latest live value, "a source since the group
@@ -96,23 +107,133 @@ struct ValOp {
   }
 };
 
+// descriptor words of each monoid's values (volatile: other CTAs' writes)
+__device__ __forceinline__ void desc_put(volatile int32_t* w, ValElem x) {
+  w[0] = x.sum;
+  w[1] = x.val;
+  w[2] = x.has | (x.any << 1) | (x.rst << 2);
+}
+__device__ __forceinline__ void desc_get(const volatile int32_t* w,
+                                         ValElem* x) {
+  const int bits = w[2];
+  *x = {w[0], w[1], bits & 1, (bits >> 1) & 1, (bits >> 2) & 1};
+}
+__device__ __forceinline__ void desc_put(volatile int32_t* w, FdbLast x) {
+  w[0] = x.v;
+  w[1] = x.has;
+}
+__device__ __forceinline__ void desc_get(const volatile int32_t* w,
+                                         FdbLast* x) {
+  *x = {w[0], w[1]};
+}
+__device__ __forceinline__ void desc_put(volatile int32_t* w, FdbSum x) {
+  w[0] = x.v;
+}
+__device__ __forceinline__ void desc_get(const volatile int32_t* w,
+                                         FdbSum* x) {
+  *x = {w[0]};
+}
+
+// Values first, then the status with release semantics; a reader that
+// acquires the status sees the values.
+__device__ __forceinline__ int ld_acquire(const int32_t* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+template <typename V>
+__device__ __forceinline__ void desc_publish(int32_t* d, int m, int off, V v,
+                                             int status) {
+  desc_put(d + off, v);
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(d + m), "r"(status)
+               : "memory");
+}
+
+
+// The exclusive prefix of `tile` under monoid m, by decoupled look-back
+// over the predecessors' descriptors, a window of blockDim.x tiles at a
+// time: thread k examines tile p - (blockDim.x - 1) + k. Tickets are
+// taken in order, so every tile in the window has started and will
+// publish; one round trip to L2 covers 256 predecessors. Called by every
+// thread; the result is the same in all of them.
+template <typename V, typename Op>
+__device__ V look_back(const int32_t* desc, int tile, int m, int agg_off,
+                       int incl_off, Op op, V id, V* sh_scan, int* sh_first) {
+  V excl = id;
+  for (int p = tile - 1;; p -= blockDim.x) {
+    const int q = p - (int)(blockDim.x - 1) + (int)threadIdx.x;
+    int st = ST_INCL;  // before tile 0: the identity, as a full prefix
+    V v = id;
+    if (q >= 0) {
+      const int32_t* dq = desc + (long long)q * DESC_WORDS;
+      do {
+        st = ld_acquire(dq + m);
+      } while (st == 0);
+      desc_get(dq + (st == ST_INCL ? incl_off : agg_off), &v);
+    }
+    // fold the window in tile order from its latest inclusive prefix on
+    if (threadIdx.x == 0) *sh_first = -1;
+    __syncthreads();
+    if (st == ST_INCL) atomicMax(sh_first, (int)threadIdx.x);
+    __syncthreads();
+    const int first = *sh_first;
+    if ((int)threadIdx.x < first) v = id;
+    V window;
+    fdb_block_exclusive_scan(v, op, id, sh_scan, &window);
+    excl = op(window, excl);
+    if (first >= 0) break;
+  }
+  return excl;
+}
+
+// Publish this tile's aggregate `total` under monoid m, look back, publish
+// the inclusive prefix; returns the exclusive prefix to every thread.
+template <typename V, typename Op>
+__device__ V tile_prefix(int32_t* desc, int tile, int m, int agg_off,
+                         int incl_off, V total, Op op, V id, V* sh_scan,
+                         int* sh_first) {
+  int32_t* d = desc + (long long)tile * DESC_WORDS;
+  if (tile == 0) {
+    if (threadIdx.x == 0) desc_publish(d, m, incl_off, total, ST_INCL);
+    return id;
+  }
+  if (threadIdx.x == 0) desc_publish(d, m, agg_off, total, ST_AGG);
+  const V excl =
+      look_back(desc, tile, m, agg_off, incl_off, op, id, sh_scan, sh_first);
+  if (threadIdx.x == 0)
+    desc_publish(d, m, incl_off, op(excl, total), ST_INCL);
+  return excl;
+}
+
 __global__ void __launch_bounds__(SCAN_THREADS)
-merge_scan_kernel(const uint8_t* __restrict__ flags, int32_t* delta,
+merge_scan_kernel(const int32_t* __restrict__ skeys,
+                  const int32_t* __restrict__ scls,
                   const int32_t* __restrict__ sval,
+                  const int32_t* __restrict__ sidx,
+                  const int32_t* __restrict__ nb, int32_t* delta,
                   const int32_t* __restrict__ oldest,
                   const uint8_t* __restrict__ poisoned,
                   const int32_t* __restrict__ vnew_p,
-                  const uint8_t* __restrict__ advance_floor, int N, int K,
-                  int max_write_life, int32_t* csrc, int32_t* out_vals,
-                  int32_t* nb_out, int32_t* oldest_out, uint8_t* poisoned_out,
+                  const uint8_t* __restrict__ advance_floor, int L, int N,
+                  int K, int max_write_life, int n_tiles, int32_t* desc,
+                  int32_t* csrc, int32_t* out_vals, int32_t* nb_out,
+                  int32_t* oldest_out, uint8_t* poisoned_out,
                   int32_t* boundaries_out) {
   __shared__ ValElem sh_val[32];
   __shared__ FdbLast sh_last[32];
   __shared__ FdbSum sh_sum[32];
+  __shared__ int sh_tile, sh_first;
+  if (threadIdx.x == 0)
+    sh_tile = (int)atomicAdd(
+        reinterpret_cast<unsigned int*>(desc + (long long)n_tiles * DESC_WORDS),
+        1u);
+  __syncthreads();
+  const int tile = sh_tile;
   const int32_t vnew = *vnew_p;
   const int32_t old = *oldest;
   const int32_t floor_v = *advance_floor ? vnew - max_write_life : old;
   const int32_t new_oldest = max(old, floor_v);
+  const int32_t live_nb = *nb;
 
   const ValOp vop;
   const FdbLastOp lop;
@@ -120,77 +241,96 @@ merge_scan_kernel(const uint8_t* __restrict__ flags, int32_t* delta,
   const ValElem vid = {0, FDB_NEG, 0, 0, 0};
   const FdbLast lid = {FDB_NEG, 0};
   const FdbSum sid = {0};
-  ValElem vcarry = vid;
-  FdbLast lcarry = lid;
-  FdbSum scarry = sid;
-  const int tile = SCAN_THREADS * SCAN_IPT;
-  for (int base = 0; base < N; base += tile) {
-    const int i0 = base + threadIdx.x * SCAN_IPT;
-    ValElem e[SCAN_IPT];
-    uint8_t grplast[SCAN_IPT];
-    ValElem vagg = vid;
-#pragma unroll
-    for (int k = 0; k < SCAN_IPT; ++k) {
-      const int i = i0 + k;
-      e[k] = vid;
-      grplast[k] = 0;
-      if (i < N) {
-        const uint8_t f = flags[i];
-        const int d = delta[i];
-        delta[i] = 0;  // leave the scratch zeroed for the next step
-        const int live = (f & F_LIVE) ? 1 : 0;
-        e[k] = {d, live ? sval[i] : FDB_NEG, live, (live || d != 0) ? 1 : 0,
-                (f & F_NEWGRP) ? 1 : 0};
-        grplast[k] = (f & F_GRPLAST) ? 1 : 0;
-      }
-      vagg = vop(vagg, e[k]);
-    }
-    ValElem vtotal;
-    ValElem run = vop(vcarry,
-                      fdb_block_exclusive_scan(vagg, vop, vid, sh_val, &vtotal));
-    vcarry = vop(vcarry, vtotal);
+  const long long i0 =
+      (long long)tile * SCAN_TILE + (long long)threadIdx.x * SCAN_IPT;
 
-    // per element: a slot event at each group end that holds a source
-    FdbLast ev[SCAN_IPT];
-    FdbLast lagg = lid;
+  // group flags from the sorted keys: same[k] <=> element i0 + k - 1
+  // equals element i0 + k
+  bool same[SCAN_IPT + 1];
 #pragma unroll
-    for (int k = 0; k < SCAN_IPT; ++k) {
-      run = vop(run, e[k]);
-      int32_t nv = run.sum > 0 ? max(run.val, vnew) : run.val;
-      nv = max(nv, new_oldest);
-      ev[k] = {nv, (grplast[k] && run.any) ? 1 : 0};
-      lagg = lop(lagg, ev[k]);
+  for (int k = 0; k <= SCAN_IPT; ++k) same[k] = true;
+  for (int l = 0; l < L; ++l) {
+    const int32_t* row = skeys + (long long)l * N;
+    int32_t x[SCAN_IPT + 2];
+#pragma unroll
+    for (int k = 0; k < SCAN_IPT + 2; ++k) {
+      const long long idx = i0 - 1 + k;
+      x[k] = (idx >= 0 && idx < N) ? __ldg(&row[idx]) : 0;
     }
-    FdbLast ltotal;
-    FdbLast prev = lop(lcarry, fdb_block_exclusive_scan(lagg, lop, lid,
-                                                        sh_last, &ltotal));
-    lcarry = lop(lcarry, ltotal);
+#pragma unroll
+    for (int k = 0; k <= SCAN_IPT; ++k) same[k] = same[k] && x[k] == x[k + 1];
+  }
 
-    uint8_t keep[SCAN_IPT];
-    FdbSum sagg = sid;
+  // 1. values: coverage sum, last live value, a source since group start
+  ValElem e[SCAN_IPT];
+  bool grplast[SCAN_IPT];
+  ValElem vagg = vid;
 #pragma unroll
-    for (int k = 0; k < SCAN_IPT; ++k) {
-      keep[k] = ev[k].has && (!prev.has || ev[k].v != prev.v);
-      prev = lop(prev, ev[k]);
-      sagg.v += keep[k];
+  for (int k = 0; k < SCAN_IPT; ++k) {
+    const long long i = i0 + k;
+    e[k] = vid;
+    grplast[k] = false;
+    if (i < N) {
+      const int d = delta[i];
+      if (d != 0) delta[i] = 0;  // leave the scratch zeroed for the next step
+      const int live = (scls[i] == 1 && sidx[i] < live_nb) ? 1 : 0;
+      e[k] = {d, live ? sval[i] : FDB_NEG, live, (live || d != 0) ? 1 : 0,
+              (i == 0 || !same[k]) ? 1 : 0};
+      grplast[k] = i == N - 1 || !same[k + 1];
     }
-    FdbSum stotal;
-    FdbSum slot = sop(scarry, fdb_block_exclusive_scan(sagg, sop, sid, sh_sum,
-                                                       &stotal));
-    scarry = sop(scarry, stotal);
+    vagg = vop(vagg, e[k]);
+  }
+  ValElem vtotal;
+  const ValElem vx =
+      fdb_block_exclusive_scan(vagg, vop, vid, sh_val, &vtotal);
+  ValElem run = vop(tile_prefix(desc, tile, 0, VAL_AGG, VAL_INCL, vtotal, vop,
+                                vid, sh_val, &sh_first),
+                    vx);
+
+  // 2. per element: a slot event at each group end that holds a source
+  FdbLast ev[SCAN_IPT];
+  FdbLast lagg = lid;
 #pragma unroll
-    for (int k = 0; k < SCAN_IPT; ++k) {
-      if (keep[k]) {
-        if (slot.v < K) {
-          csrc[slot.v] = i0 + k;
-          out_vals[slot.v] = ev[k].v;
-        }
-        slot.v += 1;
+  for (int k = 0; k < SCAN_IPT; ++k) {
+    run = vop(run, e[k]);
+    int32_t nv = run.sum > 0 ? max(run.val, vnew) : run.val;
+    nv = max(nv, new_oldest);
+    ev[k] = {nv, (grplast[k] && run.any) ? 1 : 0};
+    lagg = lop(lagg, ev[k]);
+  }
+  FdbLast ltotal;
+  const FdbLast lx = fdb_block_exclusive_scan(lagg, lop, lid, sh_last,
+                                              &ltotal);
+  FdbLast prev = lop(tile_prefix(desc, tile, 1, LAST_AGG, LAST_INCL, ltotal,
+                                 lop, lid, sh_last, &sh_first),
+                     lx);
+
+  // 3. kept slots (a new value) and their count
+  bool keep[SCAN_IPT];
+  FdbSum sagg = sid;
+#pragma unroll
+  for (int k = 0; k < SCAN_IPT; ++k) {
+    keep[k] = ev[k].has && (!prev.has || ev[k].v != prev.v);
+    prev = lop(prev, ev[k]);
+    sagg.v += keep[k];
+  }
+  FdbSum stotal;
+  const FdbSum sx = fdb_block_exclusive_scan(sagg, sop, sid, sh_sum, &stotal);
+  const FdbSum scarry = tile_prefix(desc, tile, 2, SUM_AGG, SUM_INCL, stotal,
+                                    sop, sid, sh_sum, &sh_first);
+  int slot = scarry.v + sx.v;
+#pragma unroll
+  for (int k = 0; k < SCAN_IPT; ++k) {
+    if (keep[k]) {
+      if (slot < K) {
+        csrc[slot] = (int32_t)(i0 + k);
+        out_vals[slot] = ev[k].v;
       }
+      slot += 1;
     }
   }
-  if (threadIdx.x == 0) {
-    const int n2 = scarry.v;
+  if (tile == n_tiles - 1 && threadIdx.x == 0) {
+    const int n2 = scarry.v + stotal.v;
     const bool pois = *poisoned || n2 > K;
     const int n = pois ? 1 : n2;
     *nb_out = min(n, K);
@@ -224,30 +364,33 @@ __global__ void merge_fill_kernel(const int32_t* __restrict__ skeys,
   }
 }
 
-// delta: N int32, zero on entry and left zero. flags: N bytes and csrc: K
-// int32 of scratch. The five outputs after out_vals are 0-dim tensors.
+// delta: N int32, zero on entry and left zero. desc: 24 * ceil(N / 2,048)
+// + 1 int32 of scratch (tile descriptors and the ticket, reset by
+// merge_prep); csrc: K int32 of scratch. The five outputs after out_vals
+// are 0-dim tensors. Three launches on `stream`.
 extern "C" int fdb_merge_compact(
     const int32_t* skeys, const int32_t* scls, const int32_t* sval,
     const int32_t* sidx, const int32_t* spos, const uint8_t* merge_commit,
     const int32_t* wb, const int32_t* we, const int32_t* wtxn,
     const int32_t* nb, const int32_t* oldest, const uint8_t* poisoned,
     const int32_t* vnew, const uint8_t* advance_floor, int L, int N, int K,
-    int NR, int NW, int T, int max_write_life, uint8_t* flags, int32_t* delta,
+    int NR, int NW, int T, int max_write_life, int32_t* desc, int32_t* delta,
     int32_t* csrc, int32_t* out_keys, int32_t* out_vals, int32_t* nb_out,
     int32_t* oldest_out, uint8_t* poisoned_out, int32_t* boundaries_out,
     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_prep = N > NW ? N : NW;
+  const int n_tiles = (N + SCAN_TILE - 1) / SCAN_TILE;
+  const int n_prep = NW > 3 * n_tiles + 1 ? NW : 3 * n_tiles + 1;
   merge_prep_kernel<<<(n_prep + PREP_THREADS - 1) / PREP_THREADS,
-                      PREP_THREADS, 0, st>>>(skeys, scls, sidx, spos,
-                                             merge_commit, wb, we, wtxn, nb, L,
-                                             N, K, NR, NW, T, flags, delta);
+                      PREP_THREADS, 0, st>>>(spos, merge_commit, wb, we, wtxn,
+                                             L, K, NR, NW, T, n_tiles, delta,
+                                             desc);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  merge_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(
-      flags, delta, sval, oldest, poisoned, vnew, advance_floor, N, K,
-      max_write_life, csrc, out_vals, nb_out, oldest_out, poisoned_out,
-      boundaries_out);
+  merge_scan_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(
+      skeys, scls, sval, sidx, nb, delta, oldest, poisoned, vnew,
+      advance_floor, L, N, K, max_write_life, n_tiles, desc, csrc, out_vals,
+      nb_out, oldest_out, poisoned_out, boundaries_out);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   merge_fill_kernel<<<(K + PREP_THREADS - 1) / PREP_THREADS, PREP_THREADS, 0,

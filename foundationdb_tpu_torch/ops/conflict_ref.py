@@ -18,8 +18,8 @@ the same phases and kernels serve both layouts.
 
 The step is written as plain tensor code around five phase functions,
 passed in as `phases` (an object with `build_table`, `history_check`,
-`intra_sweep`, `merge_compact` and `legacy_sweep`). `PLAIN` holds the plain
-versions below;
+`intra_sandwich`, `merge_compact` and `legacy_sweep`). `PLAIN` holds the
+plain versions below;
 ops/kernels.py holds wrappers with the same signatures that launch the CUDA
 kernels for CUDA tensors. Nothing here synchronises with the device: every
 data-dependent choice is a tensor op, so the step enqueues without a host
@@ -290,11 +290,6 @@ def legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer):
     return g & ~fold_any(blocked, rtxn, T)
 
 
-PLAIN = SimpleNamespace(build_table=build_table, history_check=history_check,
-                        intra_sweep=intra_sweep, merge_compact=merge_compact,
-                        legacy_sweep=legacy_sweep)
-
-
 # ---------------------------------------------------------------------------
 # the step
 # ---------------------------------------------------------------------------
@@ -368,6 +363,31 @@ def run_sandwich(sweep, g, rounds: int):
         lower = sweep(up2, pinched, lower)
         upper = up2
     return lower, upper, torch.all(lower == upper)
+
+
+def intra_sandwich(g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, rounds: int,
+                   evals=None):
+    """The scan evaluator's sandwich (`_run_sandwich` over `_f_commit`,
+    conflict.py:311-334, 537-548): `run_sandwich` over `intra_sweep`.
+    Returns (lower, upper, converged). With `evals` (a 0-dim int32 tensor)
+    it also writes how many evaluations of f were not skipped, the count
+    the kernel reports (this reads the pinch flags on the host)."""
+    skips = []
+
+    def sweep(c, skip, prev):
+        if evals is not None:
+            skips.append(skip)
+        return intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, skip,
+                           prev)
+    out = run_sandwich(sweep, g, rounds)
+    if evals is not None:
+        evals.fill_(sum(1 for s in skips if s is None or not bool(s)))
+    return out
+
+
+PLAIN = SimpleNamespace(build_table=build_table, history_check=history_check,
+                        intra_sandwich=intra_sandwich,
+                        merge_compact=merge_compact, legacy_sweep=legacy_sweep)
 
 
 def run_legacy(sweep, g):
@@ -480,15 +500,11 @@ def conflict_step(state: dict, batch: dict, *, max_write_life: int,
         converged = torch.ones((), dtype=torch.bool, device=dev)
     else:
         geo = intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
-
-        def sweep(c, skip, prev):
-            return phases.intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn,
-                                      rbr, skip, prev)
-
         rounds = intra_rounds if intra_rounds > 0 else auto_rounds(T)
         # statuses come from `lower` (never a false commit), the merge uses
         # `upper` (never a write missing from history)
-        commit, merge_commit, converged = run_sandwich(sweep, g, rounds)
+        commit, merge_commit, converged = phases.intra_sandwich(
+            g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, rounds)
 
     statuses = torch.where(
         commit, COMMITTED, torch.where(too_old, TOO_OLD, CONFLICT)).to(_I32)

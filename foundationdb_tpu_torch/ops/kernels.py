@@ -6,7 +6,7 @@ ops/conflict_ref.py that it replaces, so `PHASES` drops into
 
   K1 build_table    csrc/sparse_table.cu    `_build_table`
   K2 history_check  csrc/history_check.cu   phases 1-2 of `conflict_step`
-  K3 intra_sweep    csrc/intra_sweep.cu     `_intra_scan_blocked` in `_f_commit`
+  K3 intra_sandwich csrc/intra_sweep.cu     `_run_sandwich` (over `_f_commit`)
   K4 merge_compact  csrc/merge_compact.cu   `_merge_phase` up to the table
   K5 legacy_sweep   csrc/legacy_overlap.cu  the legacy evaluator's `_f_commit`
 
@@ -17,6 +17,14 @@ the CPU runs the plain version from conflict_ref; given CUDA tensors it
 launches its kernel on the current stream or raises. Nothing falls back.
 Each launch adds one to `LAUNCHES[name]`, so a run can show that it went
 through the kernels.
+
+K3 runs the whole sandwich of a step (every evaluation and the pinch test)
+in one persistent kernel: one CTA per SM, launched with
+cudaLaunchCooperativeKernel so that its grid-wide barriers cannot
+deadlock. The launch is refused when the card cannot hold one CTA per SM
+with the shared memory the shape needs (T above about 450,000 txns); the
+wrapper then raises FDBError, as for any failed launch. K4's merge scan is
+a single-pass decoupled look-back scan over all SMs.
 
 The sources compile at first use with nvcc for sm_90a, one process per
 source, all started together; the objects link into one shared library
@@ -55,9 +63,9 @@ KERNELS = {
     "history_check": ("csrc/history_check.cu",
                       "foundationdb_tpu/ops/conflict.py:423 conflict_step "
                       "phases 1-2 (+ _range_max :163)"),
-    "intra_sweep": ("csrc/intra_sweep.cu",
-                    "foundationdb_tpu/ops/conflict.py:295 "
-                    "_intra_scan_blocked (in _f_commit :537)"),
+    "intra_sandwich": ("csrc/intra_sweep.cu",
+                       "foundationdb_tpu/ops/conflict.py:311 _run_sandwich "
+                       "over _intra_scan_blocked :295 (in _f_commit :537)"),
     "merge_compact": ("csrc/merge_compact.cu",
                       "foundationdb_tpu/ops/conflict.py:561 _merge_phase"),
     "legacy_blocked": ("csrc/legacy_overlap.cu",
@@ -92,7 +100,7 @@ _ARGTYPES = {
     "fdb_sparse_table": [_P, _P, _I, _I, _P],
     "fdb_history_check": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                           _P, _P, _P, _P, _P],
-    "fdb_intra_sweep": [_P] * 15 + [_I] * 4 + [_P] * 6,
+    "fdb_intra_sandwich": [_P] * 12 + [_I] * 5 + [_P] * 10,
     "fdb_merge_compact": [_P] * 14 + [_I] * 7 + [_P] * 10,
     "fdb_legacy_blocked": [_P] * 10 + [_I] * 3 + [_P] * 4,
     "fdb_probe_add": [_P, _P, _LL, _P],
@@ -185,10 +193,6 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _ptr(t) -> int | None:
-    return None if t is None else t.data_ptr()
-
-
 def _launched(name: str, rc: int):
     if rc != 0:
         raise FDBError("internal_error",
@@ -232,6 +236,20 @@ def _zeroed_scratch(kind: str, n: int, dtype, device) -> torch.Tensor:
     buf = _zeroed.get(key)
     if buf is None:
         buf = _zeroed[key] = torch.zeros(n, dtype=dtype, device=device)
+    return buf
+
+
+# Scratch every launch overwrites before it reads: kept per size too, so a
+# step allocates nothing for it.
+_scratches: dict = {}
+
+
+def _scratch(kind: str, n: int, dtype, device) -> torch.Tensor:
+    key = (kind, n, dtype, str(device))
+    buf = _scratches.get(key)
+    if buf is None:
+        buf = _scratches[key] = torch.empty(max(n, 1), dtype=dtype,
+                                            device=device)
     return buf
 
 
@@ -293,62 +311,70 @@ def history_check(table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
 
 
 # ---------------------------------------------------------------------------
-# K3 intra_sweep
+# K3 intra_sandwich
 # ---------------------------------------------------------------------------
 
-# elements per tile of the sweep's tiled scan (SWEEP_TILE in the source)
-SWEEP_TILE = 1024
+# CTAs the sandwich's aggregate scratch has room for (SAND_MAX_GRID)
+SANDWICH_MAX_GRID = 1024
 
 
-def intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, skip=None,
-                prev=None):
-    """One evaluation of the sandwich's map f (see conflict_ref), for any
-    level width M = NW + 2 NR."""
-    if not _on_cuda("intra_sweep", c):
-        return ref.intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr,
-                               skip, prev)
+def intra_sandwich(g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, rounds: int,
+                   evals=None):
+    """The whole sandwich of the scan evaluator (see conflict_ref):
+    (lower, upper, converged), in one cooperative launch. With `evals` (a
+    0-dim int32 tensor) the number of evaluations of f that ran is written
+    there."""
+    if not _on_cuda("intra_sandwich", g):
+        return ref.intra_sandwich(g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr,
+                                  rounds, evals)
     n_levels, M = geo["src"].shape
-    T = c.shape[0]
+    T = g.shape[0]
     NW, NR = wtxn_c.shape[0], rtxn.shape[0]
-    dev = c.device
+    dev = g.device
     if M != NW + 2 * NR:
         raise FDBError("invalid_option",
-                       f"intra_sweep: M={M} is not NW + 2 NR "
+                       f"intra_sandwich: M={M} is not NW + 2 NR "
                        f"(NW={NW}, NR={NR})")
     lm, lq = (n_levels, M), (n_levels, NR)
-    _check("intra_sweep", dev, c=(c, _BOOL, (T,)), g=(g, _BOOL, (T,)),
+    _check("intra_sandwich", dev, g=(g, _BOOL, (T,)),
            src=(geo["src"], _I32, lm), is_w=(geo["is_w"], _BOOL, lm),
            werl=(geo["werl"], _I32, lm), bnd=(geo["bnd"], _BOOL, lm),
            qlo=(geo["qlo"], _I32, lq), qhi=(geo["qhi"], _I32, lq),
            wtxn_c=(wtxn_c, _I32, (NW,)), w_ok=(w_ok, _BOOL, (NW,)),
            r_ok=(r_ok, _BOOL, (NR,)), rtxn=(rtxn, _I32, (NR,)),
            rbr=(rbr, _I32, (NR,)))
-    if (skip is None) != (prev is None):
-        raise FDBError("invalid_option", "intra_sweep: skip needs prev")
-    if skip is not None:
-        _check("intra_sweep", dev, skip=(skip, _BOOL, ()),
-               prev=(prev, _BOOL, (T,)))
-    n_tiles = -(-M // SWEEP_TILE)
-    agg = torch.empty(n_levels * n_tiles * 3, dtype=_I32, device=dev)
-    prefseg = torch.empty(n_levels * M * 2, dtype=_I32, device=dev)
-    marks = _zeroed_scratch("sweep", T, _I32, dev)
-    counter = _zeroed_scratch("sweep_counter", 1, _I32, dev)
-    out = torch.empty(T, dtype=_BOOL, device=dev)
-    rc = library().fdb_intra_sweep(
-        c.data_ptr(), g.data_ptr(), geo["src"].data_ptr(),
-        geo["is_w"].data_ptr(), geo["werl"].data_ptr(),
-        geo["bnd"].data_ptr(), geo["qlo"].data_ptr(), geo["qhi"].data_ptr(),
-        wtxn_c.data_ptr(), w_ok.data_ptr(), r_ok.data_ptr(),
-        rtxn.data_ptr(), rbr.data_ptr(), _ptr(skip), _ptr(prev), n_levels,
-        T, M, NR, agg.data_ptr(), prefseg.data_ptr(), marks.data_ptr(),
-        counter.data_ptr(), out.data_ptr(), _stream())
-    _launched("intra_sweep", rc)
-    return out
+    if evals is None:
+        evals = torch.empty((), dtype=_I32, device=dev)
+    else:
+        _check("intra_sandwich", dev, evals=(evals, _I32, ()))
+    rec = _scratch("sandwich_rec", 2 * n_levels * M, _I32, dev)
+    agg = _scratch("sandwich_agg", 4 * SANDWICH_MAX_GRID, _I32, dev)
+    slots = _scratch("sandwich_slots", 2 * n_levels * NR, _I32, dev)
+    marks = _zeroed_scratch("sandwich_marks", 2 * (-(-T // 32)), _I32, dev)
+    sync = _zeroed_scratch("sandwich_sync", 2, _I32, dev)
+    out = torch.empty(2 * T + 1, dtype=_BOOL, device=dev)
+    rc = library().fdb_intra_sandwich(
+        g.data_ptr(), geo["src"].data_ptr(), geo["is_w"].data_ptr(),
+        geo["werl"].data_ptr(), geo["bnd"].data_ptr(), geo["qlo"].data_ptr(),
+        geo["qhi"].data_ptr(), wtxn_c.data_ptr(), w_ok.data_ptr(),
+        r_ok.data_ptr(), rtxn.data_ptr(), rbr.data_ptr(), n_levels, T, M, NR,
+        int(rounds), rec.data_ptr(), agg.data_ptr(), slots.data_ptr(),
+        marks.data_ptr(), sync.data_ptr(), out[:T].data_ptr(),
+        out[T:2 * T].data_ptr(), out[2 * T].data_ptr(), evals.data_ptr(),
+        _stream())
+    _launched("intra_sandwich", rc)
+    return out[:T], out[T:2 * T], out[2 * T]
 
 
 # ---------------------------------------------------------------------------
 # K4 merge_compact
 # ---------------------------------------------------------------------------
+
+# elements per tile of the merge scan and int32 per tile descriptor
+# (SCAN_TILE and DESC_WORDS in the source)
+MERGE_TILE = 2048
+MERGE_DESC_WORDS = 24
+
 
 def merge_compact(skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn,
                   nb, oldest, poisoned, vnew, advance_floor, *, K: int,
@@ -376,9 +402,10 @@ def merge_compact(skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn,
            wtxn=(wtxn, _I32, (NW,)), nb=(nb, _I32, ()),
            oldest=(oldest, _I32, ()), poisoned=(poisoned, _BOOL, ()),
            vnew=(vnew, _I32, ()), advance_floor=(advance_floor, _BOOL, ()))
-    flags = torch.empty(N, dtype=torch.uint8, device=dev)
+    n_tiles = -(-N // MERGE_TILE)
+    desc = _scratch("merge_desc", MERGE_DESC_WORDS * n_tiles + 1, _I32, dev)
     delta = _zeroed_scratch("merge_delta", N, _I32, dev)
-    csrc = torch.empty(K, dtype=_I32, device=dev)
+    csrc = _scratch("merge_csrc", K, _I32, dev)
     out_keys = torch.empty((L, K), dtype=_I32, device=dev)
     out_vals = torch.empty(K, dtype=_I32, device=dev)
     nb_out = torch.empty((), dtype=_I32, device=dev)
@@ -390,7 +417,7 @@ def merge_compact(skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn,
         spos.data_ptr(), merge_commit.data_ptr(), wb.data_ptr(),
         we.data_ptr(), wtxn.data_ptr(), nb.data_ptr(), oldest.data_ptr(),
         poisoned.data_ptr(), vnew.data_ptr(), advance_floor.data_ptr(), L, N,
-        K, NR, NW, T, int(max_write_life), flags.data_ptr(), delta.data_ptr(),
+        K, NR, NW, T, int(max_write_life), desc.data_ptr(), delta.data_ptr(),
         csrc.data_ptr(), out_keys.data_ptr(), out_vals.data_ptr(),
         nb_out.data_ptr(), oldest_out.data_ptr(), poisoned_out.data_ptr(),
         boundaries.data_ptr(), _stream())
@@ -429,5 +456,6 @@ def legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer):
 
 
 PHASES = SimpleNamespace(build_table=build_table, history_check=history_check,
-                         intra_sweep=intra_sweep, merge_compact=merge_compact,
+                         intra_sandwich=intra_sandwich,
+                         merge_compact=merge_compact,
                          legacy_sweep=legacy_sweep)

@@ -157,7 +157,7 @@ def _captured_phases(batches):
     spied = type(ref.PLAIN)(
         build_table=spy("sparse_table", ref.build_table),
         history_check=spy("history_check", ref.history_check),
-        intra_sweep=spy("intra_sweep", ref.intra_sweep),
+        intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
         legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
     cs = DeviceConflictSet(device="cpu", **SMALL)
@@ -179,7 +179,7 @@ def test_kernels_equal_plain_versions_on_the_card(cuda):
     kernels.reset_launches()
     pairs = {"sparse_table": (kernels.build_table, ref.build_table),
              "history_check": (kernels.history_check, ref.history_check),
-             "intra_sweep": (kernels.intra_sweep, ref.intra_sweep),
+             "intra_sandwich": (kernels.intra_sandwich, ref.intra_sandwich),
              "merge_compact": (kernels.merge_compact, ref.merge_compact)}
     for name, (kern, plain) in pairs.items():
         for a, kw in calls[name]:
@@ -222,8 +222,8 @@ def _bench_step_calls(T, mode, device):
         return wrapped
     spied = type(ref.PLAIN)(
         build_table=ref.build_table, history_check=ref.history_check,
-        intra_sweep=spy("intra_sweep", ref.intra_sweep),
-        merge_compact=ref.merge_compact,
+        intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
+        merge_compact=spy("merge_compact", ref.merge_compact),
         legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
     for i in range(2):
         calls.clear()
@@ -234,16 +234,138 @@ def _bench_step_calls(T, mode, device):
     return calls
 
 
+def _sandwich_equal(a, kw):
+    """The kernel's (lower, upper, converged) and evaluation count against
+    the plain sandwich's on one call; returns the count."""
+    dev = a[0].device
+    want_n = torch.zeros((), dtype=torch.int32, device=dev)
+    got_n = torch.zeros((), dtype=torch.int32, device=dev)
+    want = ref.intra_sandwich(*a, **kw, evals=want_n)
+    got = kernels.intra_sandwich(*a, **kw, evals=got_n)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(g, w)
+    assert int(got_n) == int(want_n) >= 1
+    return int(got_n)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1024, 16384])
 def test_sweep_kernel_takes_any_level_width(cuda, T):
-    # M = 3T: 3,072 fits one tile row of the old design, 49,152 is past
-    # the shared-memory cap the one-block-per-level kernel had
-    calls = _bench_step_calls(T, "scan", cuda)["intra_sweep"]
-    assert calls[0][0][2]["src"].shape[1] == 3 * T
+    # M = 3T: 3,072 and 49,152 elements a level; the sandwich kernel keeps
+    # every level element of its CTA's share on chip, for any M
+    calls = _bench_step_calls(T, "scan", cuda)["intra_sandwich"]
+    assert calls[0][0][1]["src"].shape[1] == 3 * T
     for a, kw in calls:
-        want = ref.intra_sweep(*a, **kw)
-        assert torch.equal(kernels.intra_sweep(*a, **kw), want)
+        for rounds in (0, 1, a[7]):
+            _sandwich_equal(a[:7] + (rounds,), kw)
+
+
+def _chain_sandwich_args(T, device):
+    """A dependency chain through all T txns: txn t reads the key txn t - 1
+    writes, so the verdicts alternate and the sandwich needs about T / 2
+    rounds to pinch."""
+    ar = torch.arange(T, dtype=torch.int32)
+    wtxn, rtxn = ar.clone(), ar.clone()
+    wbr, wer = ar + 1, ar + 2
+    rbr, rer = ar.clone(), ar + 1
+    ok = torch.ones(T, dtype=torch.bool)
+    geo = ref.intra_levels(T, wtxn, rtxn, rbr, rer, wbr, wer)
+    args = (ok, geo, wtxn, ok, ok, rtxn, rbr)
+    return _to(args, device)
+
+
+@pytest.mark.cuda
+def test_sandwich_kernel_leaves_a_deep_chain_unconverged(cuda):
+    # 128 txns deep: 64 rounds pinch it, the default 32 do not
+    a = _chain_sandwich_args(128, cuda)
+    for rounds in (0, 1, 2, 32):
+        kernels.reset_launches()
+        n = _sandwich_equal(a + (rounds,), {})
+        assert kernels.LAUNCHES["intra_sandwich"] == 1
+        assert n == 1 + 2 * rounds
+        assert not bool(kernels.intra_sandwich(*a, rounds)[2])
+    assert _sandwich_equal(a + (70,), {}) == 1 + 2 * 64
+    assert bool(kernels.intra_sandwich(*a, 70)[2])
+
+
+@pytest.mark.cuda
+def test_sandwich_kernel_raises_when_the_launch_is_refused(cuda):
+    # 2^20 txns: the three txn bit sets (3 T / 8 bytes) alone exceed an
+    # SM's shared memory, so the cooperative launch cannot be made
+    T = 1 << 20
+    one = torch.zeros(1, dtype=torch.int32)
+    geo = ref.intra_levels(T, one, one, one, one + 1, one, one + 1)
+    ok = torch.ones(1, dtype=torch.bool)
+    g = torch.ones(T, dtype=torch.bool)
+    a = _to((g, geo, one, ok, ok, one, one), cuda)
+    kernels.reset_launches()
+    with pytest.raises(FDBError) as ei:
+        kernels.intra_sandwich(*a, 4)
+    assert ei.value.name == "internal_error"
+    assert kernels.LAUNCHES["intra_sandwich"] == 0
+    # the card is still usable: a small sandwich launches as before
+    _sandwich_equal(_chain_sandwich_args(64, cuda) + (4,), {})
+
+
+def _merge_calls(device, capacity, txns, batches):
+    """The merge phase's inputs of each step of `batches` (lists of
+    TxnConflictInfo) through the plain step on `device`."""
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append(_to((a, kw), device))
+        return ref.merge_compact(*a, **kw)
+    phases = type(ref.PLAIN)(**dict(vars(ref.PLAIN), merge_compact=spy))
+    cs = DeviceConflictSet(device=device, capacity=capacity, txns=txns,
+                           reads_per_txn=4, writes_per_txn=4)
+    version = 0
+    for txns_ in batches:
+        version += 1000
+        batch = cs.encoder.encode_batch(txns_, version)
+        cs._state, _s, _i = ref.conflict_step(
+            cs._state, batch, max_write_life=5_000_000, phases=phases)
+    return calls
+
+
+def _merge_equal(calls):
+    for a, kw in calls:
+        want = ref.merge_compact(*a, **kw)
+        got = kernels.merge_compact(*a, **kw)
+        torch.cuda.synchronize()
+        for w, g in zip(want, got):
+            assert torch.equal(g, w)
+        # delta is left zeroed: the same call again gives the same answer
+        again = kernels.merge_compact(*a, **kw)
+        for w, g in zip(want, again):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_merge_kernel_key_group_spans_tiles(cuda):
+    # 1,024 txns writing one key: its begin and end groups hold 4,096
+    # sorted elements each, across two 2,048-element tiles
+    hot = [TxnConflictInfo(0, [], [point(b"hot")] * 4) for _ in range(1024)]
+    mixed = [TxnConflictInfo(0, [point(b"hot")], [point(b"k%d" % i)])
+             for i in range(1024)]
+    calls = _merge_calls(cuda, 1 << 13, 1024, [hot, mixed, hot])
+    N = calls[0][0][0].shape[1]
+    assert N > 2 * kernels.MERGE_TILE
+    _merge_equal(calls)
+
+
+@pytest.mark.cuda
+def test_merge_kernel_overflow_poisons(cuda):
+    rng = np.random.default_rng(11)
+    batches = [[TxnConflictInfo(0, [], [point(b"%08d" % k) for k in
+                                        rng.integers(0, 10 ** 8, 4)])
+                for _ in range(64)] for _ in range(6)]
+    calls = _merge_calls(cuda, 1536, 64, batches)
+    # N = K + 2 NR + 2 NW = 2,560 is not a multiple of the tile
+    assert calls[0][0][0].shape[1] % kernels.MERGE_TILE != 0
+    _merge_equal(calls)
+    last = kernels.merge_compact(*calls[-1][0], **calls[-1][1])
+    assert bool(last[4]) and int(last[5]) == 1
 
 
 @pytest.mark.cuda
