@@ -10,7 +10,12 @@ Phases, each of which must pass:
   3. each kernel against its plain PyTorch version on the card, on inputs
      captured from the main path at its full width (K=65,536, T=1,024,
      4/4, L=7) and on edge inputs, with EXACT equality (integer kernels),
-     timed beside its plain version, its bound and a library yardstick.
+     timed beside its plain version, its bound and a library yardstick,
+     with its wrapper's host cost and its device launches a call (K1 must
+     make at most 2). K1's edges: K on and off its 1,024-column tile up to
+     2^20 (2^19 + 1 among them); K2's: shuffled reads (rtxn unsorted),
+     T=1 and T=33 with txns that have no reads and snapshots below the
+     floor, all reads padding, and a kernel-bench step at T=32,768.
      K3 is the whole sandwich of a step: (lower, upper, converged) and its
      count of evaluations against the plain sandwich, also at rounds 0, 1
      and 32 and on a dependency chain deeper than the rounds (converged
@@ -44,10 +49,15 @@ Phases, each of which must pass:
      with the plain phases on the card; K3 must have launched once a step.
      The last step of that plain chunk is captured, and K1-K4 are held to
      their plain versions on its calls (K3 at M = 49,152 and 98,304). One
-     step at T=16,384 is profiled.
+     step at T=16,384 is profiled, and the two torch.cummax calls of the
+     step's endpoint ranks are timed alone on that step's inputs.
   6. the evaluator A/B: run_kernel_ab(16,384, 8), scan against legacy,
      with equal statuses on every batch;
   7. the probes' main (ops/probes.py), the Pallas scripts' top level.
+
+`python3 chip_smoke.py --time-kernels` only times K1-K4 and a bench step
+(phase-free, same method for any version of the port: a copy of this script
+beside an older checkout's package times that checkout).
 
 It prints a digest of the code it runs, the kernels line
 ({"kernels": [...]}), the nvidia-smi line, and last {"ok": true, "device":
@@ -185,8 +195,8 @@ def time_cuda(fn, reps: int) -> float:
 
 # device functions of each kernel wrapper, as the profiler names them
 DEVICE_FUNCTIONS = {
-    "sparse_table": ("table_low_kernel", "table_level_kernel"),
-    "history_check": ("history_kernel",),
+    "sparse_table": ("table_low_kernel", "table_high_kernel"),
+    "history_check": ("history_grid_kernel",),
     "intra_sandwich": ("sandwich_kernel",),
     "merge_compact": ("merge_prep_kernel", "merge_scan_kernel",
                       "merge_fill_kernel"),
@@ -211,32 +221,59 @@ def _device_us(evt) -> float:
 
 
 def profile_device(fn, reps: int):
-    """(device microseconds by function name, wall seconds) of `reps` calls
-    of fn() under torch.profiler, after one warm-up call."""
+    """Device time of one call of fn() by device function, from
+    torch.profiler over `reps` calls after one warm-up call and a warm-up
+    step of `reps` calls that it runs but does not record: {name: (ms a
+    call, launches a call, launches traced)}, and the wall seconds of the
+    recorded calls. The trace now and then misses launches (up to 60% of
+    them in one run on the H100, fewer after the warm-up step), so a
+    function's time a call is its mean launch time times its launches a
+    call, counted against the function traced least often (one launch a
+    call: every call of the port's wrappers and of a step has one)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name: dict = {}
+        prof.step()
+    us: dict = {}
+    count: dict = {}
     for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and getattr(evt, "device_type", None) is not None \
-                and "CUDA" in str(evt.device_type):
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + us
-    return by_name, wall
+        t = _device_us(evt)
+        if t > 0 and getattr(evt, "device_type", None) is not None \
+                and "CUDA" in str(evt.device_type) \
+                and not evt.key.startswith("ProfilerStep"):
+            us[evt.key] = us.get(evt.key, 0.0) + t
+            count[evt.key] = count.get(evt.key, 0) + int(evt.count)
+    least = min(count.values(), default=0)
+    funcs = {}
+    for k in us:
+        per_call = max(1, round(count[k] / least))
+        funcs[k] = (us[k] / count[k] / 1e3 * per_call, per_call, count[k])
+    return funcs, wall
 
 
-def device_ms_of(by_name: dict, name: str, reps: int) -> float | None:
-    us = sum(v for k, v in by_name.items()
-             if any(f in k for f in DEVICE_FUNCTIONS[name]))
-    return us / 1e3 / reps if us > 0 else None
+def busy_ms(funcs: dict) -> float:
+    """Device ms a call over every device function of a profile."""
+    return sum(ms for ms, _n, _c in funcs.values())
+
+
+def device_ms_of(funcs: dict, name: str) -> float | None:
+    """Device ms a call of kernel wrapper `name`'s device functions."""
+    ms = [v[0] for k, v in funcs.items()
+          if any(f in k for f in DEVICE_FUNCTIONS[name])]
+    return sum(ms) if ms else None
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -464,22 +501,119 @@ def capture_calls_from(dev, cs, next_batch):
     return calls
 
 
-def edge_calls(dev):
-    """Edge inputs: table widths off the tile size, all-NEG values, and the
-    extreme int32 values the engine never stores but the kernel must not
-    mishandle."""
+def table_edge_calls(dev):
+    """K1's edge inputs: table widths on and off the 1,024-column tile (one
+    launch up to K=1,024, two above), all-NEG values, and the extreme int32
+    values the engine never stores but the kernel must not mishandle."""
     import torch
 
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     g = torch.Generator().manual_seed(5)
     out = []
-    for K in (1, 2, 1000, 1025, 65_536, 1 << 20):
+    for K in (1, 2, 1000, 1025, 2047, 2049, 65_536, 1 << 18, (1 << 19) + 1,
+              1 << 20):
         vals = torch.randint(ref.NEG, 1 << 30, (K,), generator=g,
                              dtype=torch.int32)
         out.append(((vals.to(dev),), {}))
     out.append(((torch.full((4096,), ref.NEG, dtype=torch.int32,
                             device=dev),), {}))
     return out
+
+
+def spied_history_calls(cs, steps, max_write_life, strided=False):
+    """The history check's inputs of each step of `steps` ((txns, version)
+    pairs) through the plain step from `cs`'s state, on its device."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    calls: dict = {}
+    spied = type(ref.PLAIN)(**dict(
+        vars(ref.PLAIN),
+        history_check=spied_phases(calls, cs.device).history_check))
+    for txns, version in steps:
+        batch = cs.encoder.encode_batch(txns, version)
+        cs._state, _s, _i = ref.conflict_step(
+            cs._state, batch, max_write_life=max_write_life, strided=strided,
+            phases=spied)
+    return calls["history_check"]
+
+
+def shuffled_reads(call, seed):
+    """A history-check call with its reads in a random order: rb, re, rtxn
+    and the reads' sorted positions in spos permuted alike."""
+    import torch
+    (table, cum_state, spos, rb, re, rtxn, snap, valid, oldest), kw = call
+    K, NR = table.shape[1], rtxn.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randperm(NR, generator=g).to(rtxn.device)
+    spos = torch.cat([spos[:K], spos[K:K + NR][p], spos[K + NR:K + 2 * NR][p],
+                      spos[K + 2 * NR:]])
+    return ((table, cum_state, spos, rb[:, p].contiguous(),
+             re[:, p].contiguous(), rtxn[p].contiguous(), snap, valid,
+             oldest), kw)
+
+
+def history_edge_calls(dev):
+    """K2's edge inputs, from plain steps on the card: a pooled T=1,024
+    call with its reads shuffled (rtxn unsorted), pooled steps at T=1 and
+    T=33 with txns that have no reads and snapshots below the MVCC floor,
+    a step whose reads are all padding, and a kernel-bench step at
+    T=32,768 (strided, K=2^19) after one batch."""
+    import torch
+
+    from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
+    from foundationdb_tpu_torch.ops.conflict import DeviceConflictSet
+    rng = np.random.default_rng(31)
+    keys = [b"h%04d" % i for i in range(300)]
+
+    def rng_range():
+        a, b = sorted(keys[i] for i in rng.integers(0, len(keys), 2))
+        return (a, a + b"\x00") if rng.random() < 0.6 else (a, b + b"\x00")
+
+    def batch(n, version, reads=True):
+        return [TxnConflictInfo(
+            int(rng.integers(0, version)),
+            [rng_range() for _ in range(rng.integers(0, 5) if reads else 0)],
+            [rng_range() for _ in range(rng.integers(1, 5))])
+            for _ in range(n)]
+    out = []
+    for T in (1024, 33, 1):
+        cs = DeviceConflictSet(device=dev, capacity=1 << 13, txns=T,
+                               reads_per_txn=4, writes_per_txn=4)
+        # a 3,000-version window: the floor passes the older snapshots
+        steps = [(batch(T, 1000 * (i + 1)), 1000 * (i + 1)) for i in range(6)]
+        steps.append((batch(T, 7000, reads=False), 7000))
+        calls = spied_history_calls(cs, steps, max_write_life=3000)
+        if T == 1024:
+            calls = [shuffled_reads(c, i) for i, c in enumerate(calls)]
+        out += calls
+    ((_t, _c, _s, _rb, _re, rtxn, _sn, _v, _o), _kw) = out[-1]
+    if bool((rtxn < 1).any()):
+        fail("history edge inputs: the last step has a real read")
+    _state, _batch, calls = bench_step_calls(dev, 32768, 1 << 19,
+                                             warm_batches=1)
+    out += calls["history_check"]
+    del calls, _state, _batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_step_calls(dev, T, capacity, warm_batches=12):
+    """A kernel-bench state after `warm_batches` strided batches of T txns
+    (the bench's traffic, run with the kernels), the next batch, and that
+    step's phase calls with the plain phases."""
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    batches = bench.stage(bench._encode_batches(
+        warm_batches + 1, seed=1, version0=bench.WINDOW, T=T), dev)
+    state = ref.init_state(capacity, bench.LIMBS, dev)
+    state, _st, _comm, _ovf = ref.conflict_scan(
+        state, {k: v[:warm_batches] for k, v in batches.items()},
+        max_write_life=bench.WINDOW, strided=True, phases=kernels.PHASES)
+    batch = {k: v[warm_batches] for k, v in batches.items()}
+    calls: dict = {}
+    ref.conflict_step(state, batch, max_write_life=bench.WINDOW, strided=True,
+                      phases=spied_phases(calls, dev))
+    return state, batch, calls
 
 
 def chain_sandwich_args(dev, T=128):
@@ -581,24 +715,50 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
         n += 1
     a, kw = main_call
     ms = time_cuda(lambda: kern(*a, **kw), reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # the wrapper's host cost: enqueue, no sync
+    for _ in range(reps):
+        kern(*a, **kw)
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
     plain_ms = time_cuda(lambda: plain(*a, **kw), max(reps // 5, 5))
     lib = library_call(name, a, kw)
     lib_ms = time_cuda(lib, reps) if lib is not None else None
     del lib
-    device_ms = None
+    # device time and launches a call
+    device_ms = launches_per_call = functions_ms = traced = None
     for _try in range(3):  # the profiler now and then reports no kernels
-        by_name, _wall = profile_device(lambda: kern(*a, **kw), reps)
-        device_ms = device_ms_of(by_name, name, reps)
+        funcs, _wall = profile_device(lambda: kern(*a, **kw), reps)
+        device_ms = device_ms_of(funcs, name)
         if device_ms is not None:
+            mine = {k: v for k, v in funcs.items()
+                    if any(f in k for f in DEVICE_FUNCTIONS[name])}
+            launches_per_call = sum(n for _ms, n, _c in mine.values())
+            traced = min(c for _ms, _n, c in mine.values())
+            functions_ms = {f: sum(v[0] for k, v in mine.items() if f in k)
+                            for f in DEVICE_FUNCTIONS[name]}
             break
     nbytes, nops = work_of(name, a, kw)
     b_ms, b_by = bound_ms(nbytes, nops)
+    extra = {}
+    if name == "sparse_table":
+        # a floor for the same bytes: torch's fill_ of a table of that size
+        table = kern(*a, **kw)
+        extra["fill_ms"] = time_cuda(lambda: table.fill_(0), reps)
+        del table
     log(f"cell {cell} kernel {name}: {n} calls equal to plain; "
         f"kernel_ms={ms:.4f} "
         f"(device-only {device_ms}) plain_ms={plain_ms:.4f} "
-        f"bound_ms={b_ms:.5f} ({b_by}) library_ms={lib_ms}")
+        f"bound_ms={b_ms:.5f} ({b_by}) library_ms={lib_ms} "
+        f"host_ms={host_ms:.4f} device launches a call={launches_per_call}")
+    if name == "sparse_table" and (launches_per_call or 0) > 2:
+        fail(f"sparse_table: {launches_per_call} device launches a call "
+             f"(at most 2)")
     return {"checked_calls": n, "max_abs_err": max_err,
-            "ms": ms, "device_ms": device_ms,
+            "ms": ms, "device_ms": device_ms, "host_ms": host_ms,
+            "launches_per_call": launches_per_call,
+            "profiled_calls": f"{traced} of {reps}",
+            "functions_ms": functions_ms, **extra,
             "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
             "bytes": nbytes, "operations": nops}
@@ -621,7 +781,10 @@ def check_kernels(dev, calls, results, cell, edges=True):
                                  counted(ref.intra_sandwich))}
     all_calls = dict(calls)
     if edges:
-        all_calls["sparse_table"] = calls["sparse_table"] + edge_calls(dev)
+        all_calls["sparse_table"] = calls["sparse_table"] + \
+            table_edge_calls(dev)
+        all_calls["history_check"] = calls["history_check"] + \
+            history_edge_calls(dev)
         all_calls["intra_sandwich"] = calls["intra_sandwich"] + \
             sandwich_edge_calls(dev, calls["intra_sandwich"][-1])
         all_calls["merge_compact"] = calls["merge_compact"] + \
@@ -710,16 +873,15 @@ def profile_step(dev, batches):
             one()
         out[f"{label}_chunk_ms"] = (time.perf_counter() - t0) / n * 1e3
         if label == "kernels":
-            by_name, wall = profile_device(one, 3)
-            busy = sum(by_name.values()) / 1e3 / 3
-            ours = sum(device_ms_of(by_name, k, 3) or 0.0
-                       for k in STEP_KERNELS)
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            funcs, wall = profile_device(one, 3)
+            busy = busy_ms(funcs)
+            ours = sum(device_ms_of(funcs, k) or 0.0 for k in STEP_KERNELS)
+            top = sorted(funcs.items(), key=lambda kv: -kv[1][0])[:8]
             out.update(
                 device_busy_ms=busy, kernels_device_ms=ours,
                 wall_ms=wall / 3 * 1e3,
                 device_idle_share=max(0.0, 1 - busy / (wall / 3 * 1e3)),
-                top_device_functions=[(k[:80], v / 1e3 / 3) for k, v in top])
+                top_device_functions=[(k[:80], v[0]) for k, v in top])
     log("step profile: " + json.dumps(out))
     return out
 
@@ -1024,15 +1186,42 @@ def profile_bench_step(dev, detail):
             state, batch,
             max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
             strided=True, phases=kernels.PHASES)
-    by_name, wall = profile_device(one, 3)
-    busy = sum(by_name.values()) / 1e3 / 3
+    funcs, wall = profile_device(one, 3)
+    busy = busy_ms(funcs)
     wall_ms = wall / 3 * 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(funcs.items(), key=lambda kv: -kv[1][0])[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1 - busy / wall_ms),
-            "kernels_device_ms": {k: device_ms_of(by_name, k, 3)
+            "kernels_device_ms": {k: device_ms_of(funcs, k)
                                   for k in STEP_KERNELS},
-            "top_device_functions": [(k[:80], v / 1e3 / 3) for k, v in top]}
+            "top_device_functions": [(k[:80], v[0]) for k, v in top]}
+
+
+def endpoint_rank_cummax(calls, reps=20):
+    """The two torch.cummax calls of the step's endpoint ranks
+    (ops/conflict_ref.py conflict_step, `first_b` at :482 and
+    `rank_carried` at :484), each timed alone on the inputs of the captured
+    step, rebuilt here from its sorted keys and classes as conflict_step
+    builds them: CUDA-event ms and profiler device ms a call, at N
+    elements."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    (skeys, scls) = calls["merge_compact"][-1][0][:2]
+    is_b = (scls != 1).to(torch.int32)
+    newgrp = torch.cat([torch.ones(1, dtype=torch.bool, device=skeys.device),
+                        ~ref.key_eq(skeys[:, 1:], skeys[:, :-1])])
+    cum_b_excl = ref._cumsum(is_b) - is_b
+    group_first = torch.where(newgrp, cum_b_excl, -1)
+    first_b = (is_b > 0) & (cum_b_excl == ref._cummax(group_first))
+    rank_first = torch.where(first_b, ref._cumsum(first_b) - 1, -1)
+    out = {"N": int(skeys.shape[1])}
+    for label, x in (("first_b", group_first), ("rank_carried", rank_first)):
+        ms = time_cuda(lambda x=x: torch.cummax(x, dim=-1), reps)
+        funcs, _wall = profile_device(lambda x=x: torch.cummax(x, dim=-1),
+                                      reps)
+        out[label] = {"ms": ms, "device_ms": busy_ms(funcs)}
+    return out
 
 
 def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
@@ -1077,6 +1266,9 @@ def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
         log(f"kernel bench T={T} step profile: "
             + json.dumps(res["step_profile"]))
     del detail
+    res["cummax_split"] = endpoint_rank_cummax(calls)
+    log(f"kernel bench T={T} endpoint-rank cummax calls: "
+        + json.dumps(res["cummax_split"]))
     kres: dict = {}
     check_kernels(dev, calls, kres, f"bench T={T}", edges=False)
     del calls
@@ -1116,11 +1308,61 @@ def probes_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# --time-kernels: the step kernels' device time, alone
+# ---------------------------------------------------------------------------
+
+def time_step_kernels(dev, reps=50):
+    """Device ms a call of K1-K4 on the captured calls of cell A's step and
+    of a kernel-bench step at T=16,384 (K=2^18) and T=32,768 (K=2^19), and
+    of that bench step with the kernels: every device function the call
+    launches (profile_device); and each wrapper's host ms a call (`reps`
+    enqueues, no sync). It uses only what every version of the port has,
+    so a copy of this script beside an older checkout's package times that
+    checkout alike."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    wrappers = {"sparse_table": kernels.build_table,
+                "history_check": kernels.history_check,
+                "intra_sandwich": kernels.intra_sandwich,
+                "merge_compact": kernels.merge_compact}
+    cdf, keys = zipf_keys(20_000)
+    cells = {"A": (None, None, capture_main_path_calls(dev, make_batches(
+        np.random.default_rng(100), cdf, keys, 4)))}
+    for T, capacity in ((16384, 1 << 18), (32768, 1 << 19)):
+        cells[f"bench_{T}"] = bench_step_calls(dev, T, capacity)
+    out = {}
+    for cell, (state, batch, calls) in cells.items():
+        row = out[cell] = {}
+        for name, kern in wrappers.items():
+            a, kw = calls[name][-1]
+            funcs, _wall = profile_device(lambda: kern(*a, **kw), reps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                kern(*a, **kw)
+            host_ms = (time.perf_counter() - t0) / reps * 1e3
+            torch.cuda.synchronize()
+            row[name] = {"device_ms": busy_ms(funcs), "host_ms": host_ms}
+        if state is not None:
+            funcs, _wall = profile_device(lambda: ref.conflict_step(
+                state, batch, max_write_life=bench.WINDOW, strided=True,
+                phases=kernels.PHASES), 5)
+            row["step"] = {"device_ms": busy_ms(funcs)}
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
+    ap.add_argument("--time-kernels", action="store_true",
+                    help="only time K1-K4 and a bench step on the card "
+                         "(time_step_kernels), print them as JSON and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -1154,6 +1396,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels.library()
     build_s = time.perf_counter() - t0
+    if args.time_kernels:
+        print(json.dumps({"card": card, "source_digest": digest,
+                          "device_ms": time_step_kernels(dev)}), flush=True)
+        return 0
     report["build"] = {"seconds": build_s,
                        "library": kernels.BUILD_INFO.get("library")}
     log(f"build: {build_s:.1f} s ({kernels.BUILD_INFO.get('library')})")
@@ -1204,7 +1450,7 @@ def main(argv=None) -> int:
     probe_run = report["probes"] = probes_phase(dev)
 
     timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                   "library_ms")
+                   "library_ms", "host_ms", "launches_per_call")
     kernels_line = []
     for name, (source, replaces) in kernels.KERNELS.items():
         r = kres[name]

@@ -79,6 +79,42 @@ struct FdbSumOp {
   }
 };
 
+// Integer max with identity INT_MIN.
+struct FdbMax {
+  int v;
+  static __device__ __forceinline__ FdbMax shfl_up(FdbMax x, int d) {
+    return {fdb_shfl_up(x.v, d)};
+  }
+};
+struct FdbMaxOp {
+  __device__ __forceinline__ FdbMax operator()(FdbMax a, FdbMax b) const {
+    return {max(a.v, b.v)};
+  }
+};
+
+__device__ __forceinline__ unsigned int fdb_ld_volatile(const unsigned int* p) {
+  return *(const volatile unsigned int*)p;
+}
+
+// Grid-wide barrier of a cooperative launch (every CTA co-resident).
+// CTA 0 adds 2^31 - (G - 1), every other CTA adds 1, so the arrivals of one
+// barrier add exactly 2^31: the top bit of *sync flips when the last CTA
+// arrives, and the low bits stay zero between barriers (and launches). One
+// atomic a CTA, no reset; *sync's low 31 bits must be zero on entry.
+__device__ __forceinline__ void fdb_grid_sync(unsigned int* sync) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int add =
+        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned int old = atomicAdd(sync, add);
+    while (((old ^ fdb_ld_volatile(sync)) & 0x80000000u) == 0) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 // The last block of the grid to arrive writes out[t] = g[t] && !marks[t]
 // for every txn and clears `marks` and `counter` for the next launch (both
 // zero on entry). Every thread of every block must reach this call.

@@ -31,7 +31,8 @@
 // and re-writes (levels, M, 2) prefix arrays. So the loop runs on chip:
 //   - one CTA per SM, launched with cudaLaunchCooperativeKernel so that
 //     all CTAs are co-resident; grid-wide barriers are one atomic counter
-//     whose top bit flips once every CTA has arrived (no -rdc needed). A
+//     whose top bit flips once every CTA has arrived (common.cuh
+//     `fdb_grid_sync`, no -rdc needed). A
 //     refused launch (too much shared memory, too few co-resident CTAs)
 //     returns its CUDA error, and the Python wrapper raises.
 //   - the levels are scanned as ONE flat sequence of n_levels * M
@@ -136,28 +137,6 @@ struct SandArgs {
   int32_t* evals;
 };
 
-__device__ __forceinline__ unsigned int ld_volatile(const unsigned int* p) {
-  return *(const volatile unsigned int*)p;
-}
-
-// Grid-wide barrier of a cooperative launch. CTA 0 adds 2^31 - (G - 1),
-// every other CTA adds 1, so the arrivals of one barrier add exactly 2^31:
-// the top bit of sync[0] flips when the last CTA arrives, and the low bits
-// stay zero between barriers (and launches). One atomic a CTA, no reset.
-__device__ __forceinline__ void grid_sync(unsigned int* sync) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int add =
-        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
-    __threadfence();
-    const unsigned int old = atomicAdd(&sync[0], add);
-    while (((old ^ ld_volatile(&sync[0])) & 0x80000000u) == 0) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 struct SandSmem {
   unsigned int* c;  // the committed set, a bit per txn
   unsigned int* g;  // the eligible set, a bit per txn
@@ -198,7 +177,7 @@ __device__ bool sand_eval(const SandArgs& a, const SandSmem& s,
       fdb_block_exclusive_scan(acc, op, sweep_id(), s.scan, &total);
   if (threadIdx.x == 0)
     __stcg(&a.agg[b], make_int4(total.sum, total.mv, total.r, 0));
-  grid_sync(a.sync);
+  fdb_grid_sync(a.sync);
 
   // 2. every CTA has read the previous evaluation's marks: clear a slice
   const int w_end = min((b + 1) * a.wpc, a.W);
@@ -237,7 +216,7 @@ __device__ bool sand_eval(const SandArgs& a, const SandSmem& s,
       }
     }
   }
-  grid_sync(a.sync);
+  fdb_grid_sync(a.sync);
 
   // 5. one thread per owned (read, level) pair, so that the slot loads of
   // all levels are in flight at once: blocked -> mark the read's txn in
@@ -260,7 +239,7 @@ __device__ bool sand_eval(const SandArgs& a, const SandSmem& s,
       s.m[w] = 0;
     }
   }
-  grid_sync(a.sync);
+  fdb_grid_sync(a.sync);
 
   // 6. c = g & ~marks, 32 txns a word, compared with the old c
   int differ = 0;
@@ -335,7 +314,7 @@ sandwich_kernel(SandArgs a) {
     for (int t = t0 + threadIdx.x; t < t1; t += blockDim.x)
       a.upper[t] = a.g[t];
   }
-  grid_sync(a.sync);
+  fdb_grid_sync(a.sync);
   {
     const int e0 = b * a.chunk;
     const int n_cache = max(0, min(a.cached, a.E - e0));

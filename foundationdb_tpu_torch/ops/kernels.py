@@ -18,13 +18,21 @@ launches its kernel on the current stream or raises. Nothing falls back.
 Each launch adds one to `LAUNCHES[name]`, so a run can show that it went
 through the kernels.
 
+K1 writes every row of the table once, in at most two launches for any K:
+levels 0-10 per 1,024-column tile in shared memory, then (K > 1,024) every
+higher level from each column's in-tile suffix maximum, a prefix maximum
+over the whole tiles in between and the in-tile prefix maximum where the
+window ends. K2 is one cooperative launch: a thread per read folds "has a
+read" and "hit" into per-txn bit words (warp-aggregated atomicOr), one grid
+barrier, then a thread per txn writes the verdicts; no CTA loops over T.
 K3 runs the whole sandwich of a step (every evaluation and the pinch test)
 in one persistent kernel: one CTA per SM, launched with
 cudaLaunchCooperativeKernel so that its grid-wide barriers cannot
 deadlock. The launch is refused when the card cannot hold one CTA per SM
 with the shared memory the shape needs (T above about 450,000 txns); the
-wrapper then raises FDBError, as for any failed launch. K4's merge scan is
-a single-pass decoupled look-back scan over all SMs.
+wrapper then raises FDBError, as for any failed launch (K2's too, though
+its grid is sized to what the card holds). K4's merge scan is a
+single-pass decoupled look-back scan over all SMs.
 
 The sources compile at first use with nvcc for sm_90a, one process per
 source, all started together; the objects link into one shared library
@@ -97,7 +105,7 @@ def reset_launches():
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "fdb_sparse_table": [_P, _P, _I, _I, _P],
+    "fdb_sparse_table": [_P, _P, _I, _I, _P, _P],
     "fdb_history_check": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                           _P, _P, _P, _P, _P],
     "fdb_intra_sandwich": [_P] * 12 + [_I] * 5 + [_P] * 10,
@@ -260,6 +268,12 @@ _I32, _BOOL = torch.int32, torch.bool
 # K1 sparse_table
 # ---------------------------------------------------------------------------
 
+# columns a CTA tiles and the levels its first launch writes (TILE and
+# LOW_LEVELS in the source)
+TABLE_TILE = 1024
+TABLE_LOW_LEVELS = 11
+
+
 def build_table(vals: torch.Tensor) -> torch.Tensor:
     """(K,) int32 -> (LEVELS, K) power-of-two window maxima."""
     if not _on_cuda("sparse_table", vals):
@@ -268,8 +282,12 @@ def build_table(vals: torch.Tensor) -> torch.Tensor:
     _check("sparse_table", vals.device, vals=(vals, _I32, (K,)))
     levels = ref.table_levels(K)
     table = torch.empty((levels, K), dtype=_I32, device=vals.device)
+    scratch = None  # pre, suf and the tile maxima, for the second launch
+    if levels > TABLE_LOW_LEVELS:
+        scratch = _scratch("table", 2 * K + -(-K // TABLE_TILE), _I32,
+                           vals.device).data_ptr()
     rc = library().fdb_sparse_table(vals.data_ptr(), table.data_ptr(), K,
-                                    levels, _stream())
+                                    levels, scratch, _stream())
     _launched("sparse_table", rc)
     return table
 
@@ -296,15 +314,15 @@ def history_check(table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
            txn_valid=(txn_valid, _BOOL, (T,)), oldest=(oldest, _I32, ()))
     if N < K + 2 * NR:
         raise FDBError("invalid_option", "history_check: spos too short")
-    scratch = _zeroed_scratch("history", 2 * T, _I32, dev)
-    counter = _zeroed_scratch("history_counter", 1, _I32, dev)
+    words = _zeroed_scratch("history_words", 2 * (-(-T // 32)), _I32, dev)
+    sync = _zeroed_scratch("history_sync", 1, _I32, dev)
     too_old = torch.empty(T, dtype=_BOOL, device=dev)
     g0 = torch.empty(T, dtype=_BOOL, device=dev)
     rc = library().fdb_history_check(
         table.data_ptr(), K, cum_state.data_ptr(), spos.data_ptr(),
         rb.data_ptr(), re.data_ptr(), L, NR, rtxn.data_ptr(),
         snapshot.data_ptr(), txn_valid.data_ptr(), oldest.data_ptr(), T,
-        scratch.data_ptr(), counter.data_ptr(), too_old.data_ptr(),
+        words.data_ptr(), sync.data_ptr(), too_old.data_ptr(),
         g0.data_ptr(), _stream())
     _launched("history_check", rc)
     return too_old, g0

@@ -221,7 +221,8 @@ def _bench_step_calls(T, mode, device):
             return fn(*a, **kw)
         return wrapped
     spied = type(ref.PLAIN)(
-        build_table=ref.build_table, history_check=ref.history_check,
+        build_table=spy("sparse_table", ref.build_table),
+        history_check=spy("history_check", ref.history_check),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
         legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
@@ -259,6 +260,53 @@ def test_sweep_kernel_takes_any_level_width(cuda, T):
     for a, kw in calls:
         for rounds in (0, 1, a[7]):
             _sandwich_equal(a[:7] + (rounds,), kw)
+
+
+def _equal_to_plain(kern, plain, calls):
+    for a, kw in calls:
+        want = plain(*a, **kw)
+        got = kern(*a, **kw)
+        torch.cuda.synchronize()
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for w, g in zip(want, got):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_table_kernel_at_edge_widths(cuda):
+    # one launch up to K=1,024, two above; the same edges as chip_smoke.py
+    import chip_smoke
+    calls = chip_smoke.table_edge_calls(cuda)
+    kernels.reset_launches()
+    _equal_to_plain(kernels.build_table, ref.build_table, calls)
+    assert kernels.LAUNCHES["sparse_table"] == len(calls)
+
+
+@pytest.mark.cuda
+def test_history_kernel_on_edge_inputs(cuda):
+    # shuffled reads, T=1 and 33, txns without reads, snapshots below the
+    # floor, all reads padding, a bench step at T=32,768 (chip_smoke.py's
+    # edges); the bit-set scratch is left zero: each call again gives the
+    # same answer
+    import chip_smoke
+    calls = chip_smoke.history_edge_calls(cuda)
+    _equal_to_plain(kernels.history_check, ref.history_check, calls + calls)
+    # the verdicts do not depend on the order of the reads
+    a, kw = calls[-1]
+    got = kernels.history_check(*chip_smoke.shuffled_reads((a, kw), 7)[0])
+    for w, g in zip(ref.history_check(*a, **kw), got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1024, 16384])
+def test_table_and_history_kernels_on_a_bench_step(cuda, T):
+    calls = _bench_step_calls(T, "scan", cuda)
+    _equal_to_plain(kernels.build_table, ref.build_table,
+                    calls["sparse_table"])
+    _equal_to_plain(kernels.history_check, ref.history_check,
+                    calls["history_check"])
 
 
 def _chain_sandwich_args(T, device):
