@@ -5,17 +5,23 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 Phases, each of which must pass:
 
   1. the card (nvidia-smi name and power limit, torch and CUDA versions);
-  2. the nvcc build of the kernels (K1-K5 and the six probes), with its
+  2. the nvcc build of the kernels (K1-K8 and the six probes), with its
      seconds;
   3. each kernel against its plain PyTorch version on the card, on inputs
      captured from the main path at its full width (K=65,536, T=1,024,
      4/4, L=7) and on edge inputs, with EXACT equality (integer kernels),
      timed beside its plain version, its bound and a library yardstick,
      with its wrapper's host cost and its device launches a call (K1 must
-     make at most 2). K1's edges: K on and off its 1,024-column tile up to
-     2^20 (2^19 + 1 among them); K2's: shuffled reads (rtxn unsorted),
-     T=1 and T=33 with txns that have no reads and snapshots below the
-     floor, all reads padding, and a kernel-bench step at T=32,768.
+     make at most 2). The sort-and-rank phase (K6 endpoint_sort, K8
+     endpoint_ranks, K7 state_merge) is held whole, all seven outputs, and
+     each kernel to its plain part; the phase may launch nothing but
+     K6-K8, at most 8 device launches a call. Its edges: L=3, T=1 and
+     T=1,000, a state that poisons, all-padding batches, long keys that
+     collapse, and endpoints that all equal state keys. K1's edges: K on
+     and off its 1,024-column tile up to 2^20 (2^19 + 1 among them); K2's:
+     shuffled reads (rtxn unsorted), T=1 and T=33 with txns that have no
+     reads and snapshots below the floor, all reads padding, and a
+     kernel-bench step at T=32,768.
      K3 is the whole sandwich of a step: (lower, upper, converged) and its
      count of evaluations against the plain sandwich, also at rounds 0, 1
      and 32 and on a dependency chain deeper than the rounds (converged
@@ -36,9 +42,9 @@ Phases, each of which must pass:
      served chunk must converge on the device (so the sandwich kernel,
      not the host pass, decided its statuses), each kernel must have
      launched during the phase (launch counts are zeroed just before each
-     phase and read just after), and K3 must have launched once a step
-     (as often as K2). Then each kernel is held to its plain version again
-     on one more step from phase B's final state (K=2^20).
+     phase and read just after), and K3 and K6-K8 must have launched once
+     a step (as often as K2). Then each kernel is held to its plain version
+     again on one more step from phase B's final state (K=2^20).
   5. the kernel bench (foundationdb_tpu_torch/bench.py): run_kernel at
      T=16,384 (200 batches in chunks of 100, K=2^18) and T=32,768 (100 in
      chunks of 50, K=2^19: its window of history overflows 2^18), 16-byte
@@ -46,18 +52,19 @@ Phases, each of which must pass:
      The warm chunk's first batches must equal the OracleConflictSet on the
      same byte keys (8 batches at T=16,384, 2 at T=32,768: the oracle is
      pure Python), and the first timed chunk must equal `conflict_scan`
-     with the plain phases on the card; K3 must have launched once a step.
-     The last step of that plain chunk is captured, and K1-K4 are held to
-     their plain versions on its calls (K3 at M = 49,152 and 98,304). One
-     step at T=16,384 is profiled, and the two torch.cummax calls of the
-     step's endpoint ranks are timed alone on that step's inputs.
+     with the plain phases on the card; K3 and K6-K8 must have launched
+     once a step. The last step of that plain chunk is captured, and K1-K4
+     and K6-K8 are held to their plain versions on its calls (K3 at M =
+     49,152 and 98,304). One step at T=16,384 is profiled (no torch cummax
+     scan may be left in it), and the level geometry (B4, plain torch) is
+     timed alone on that step's inputs.
   6. the evaluator A/B: run_kernel_ab(16,384, 8), scan against legacy,
      with equal statuses on every batch;
   7. the probes' main (ops/probes.py), the Pallas scripts' top level.
 
-`python3 chip_smoke.py --time-kernels` only times K1-K4 and a bench step
-(phase-free, same method for any version of the port: a copy of this script
-beside an older checkout's package times that checkout).
+`python3 chip_smoke.py --time-kernels` only times K1-K4, K6-K8 and a bench
+step (phase-free, same method for any version of the port: a copy of this
+script beside an older checkout's package times that checkout).
 
 It prints a digest of the code it runs, the kernels line
 ({"kernels": [...]}), the nvidia-smi line, and last {"ok": true, "device":
@@ -195,6 +202,9 @@ def time_cuda(fn, reps: int) -> float:
 
 # device functions of each kernel wrapper, as the profiler names them
 DEVICE_FUNCTIONS = {
+    "endpoint_sort": ("endpoint_tile_sort_kernel", "endpoint_merge_kernel"),
+    "state_merge": ("state_merge_kernel",),
+    "endpoint_ranks": ("endpoint_ranks_kernel",),
     "sparse_table": ("table_low_kernel", "table_high_kernel"),
     "history_check": ("history_grid_kernel",),
     "intra_sandwich": ("sandwich_kernel",),
@@ -208,8 +218,12 @@ DEVICE_FUNCTIONS = {
     "probe_stream_limbs": ("probe_stream_kernel<false>",),
     "probe_lexjoin": ("probe_rank_kernel<false>",),
 }
-STEP_KERNELS = ("sparse_table", "history_check", "intra_sandwich",
-                "merge_compact")
+SORT_KERNELS = ("endpoint_sort", "state_merge", "endpoint_ranks")
+DEVICE_FUNCTIONS["sort_and_rank"] = sum(
+    (DEVICE_FUNCTIONS[k] for k in SORT_KERNELS), ())
+STEP_KERNELS = SORT_KERNELS + ("sparse_table", "history_check",
+                               "intra_sandwich", "merge_compact")
+SORT_RANK_MAX_LAUNCHES = 8  # device launches a call of the whole phase
 
 
 def _device_us(evt) -> float:
@@ -286,6 +300,9 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
     """(bytes, operations) the call must move and do on these inputs: each
     input read once, each output written once; gathers count only the
     elements this call's data touches."""
+    if name in ("sort_and_rank", "endpoint_sort", "state_merge",
+                "endpoint_ranks"):
+        return sort_rank_work(name, args)
     if name == "sparse_table":
         (vals,) = args
         K = vals.shape[0]
@@ -353,6 +370,52 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
     raise KeyError(name)
 
 
+def sort_rank_work(name, args) -> tuple[float, float]:
+    """(bytes, operations) of the sort-and-rank phase and of its parts:
+    inputs read once, outputs written once. A sort of M keys needs M
+    ceil(log2 M) comparisons, a merge or a rank pass one a key; each
+    comparison counts one operation a limb."""
+    if name == "sort_and_rank":
+        bkeys, _bval, rb, _re, wb, _we = args
+        L, K = bkeys.shape
+        M = 2 * rb.shape[1] + 2 * wb.shape[1]
+        N = K + M
+        nbytes = 4 * (L * N + K) + 4 * ((L + 5) * N + M)
+        return float(nbytes), float(L * (M * max(1, (M - 1).bit_length())
+                                         + N))
+    if name == "endpoint_sort":
+        rb, _re, wb, _we = args
+        L = rb.shape[0]
+        M = 2 * rb.shape[1] + 2 * wb.shape[1]
+        return float(4 * (2 * L + 1) * M), \
+            float(L * M * max(1, (M - 1).bit_length()))
+    if name == "endpoint_ranks":
+        ekeys, _eidx = args
+        L, M = ekeys.shape
+        return float(4 * (L + 2) * M), float(L * M)
+    bkeys, _bval, ekeys, _eidx, _nr = args
+    L, K = bkeys.shape
+    M = ekeys.shape[1]
+    N = K + M
+    return float(4 * (L * N + K + M) + 4 * (L + 5) * N), float(L * N)
+
+
+def sort_rank_part_calls(calls):
+    """The calls of K6, K8 and K7 (endpoint_sort, endpoint_ranks,
+    state_merge) that the sort-and-rank calls `calls` make, their inputs
+    from the plain parts."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    out = {k: [] for k in SORT_KERNELS}
+    for a, _kw in calls:
+        bkeys, bval, rb, re, wb, we = a
+        ekeys, eidx = ref.endpoint_sort(rb, re, wb, we)
+        out["endpoint_sort"].append(((rb, re, wb, we), {}))
+        out["endpoint_ranks"].append(((ekeys, eidx), {}))
+        out["state_merge"].append(((bkeys, bval, ekeys, eidx, rb.shape[1]),
+                                   {}))
+    return out
+
+
 def sandwich_evaluations(args) -> int:
     """Evaluations of f the plain sandwich runs on these inputs (the ones
     its pinch test does not skip)."""
@@ -397,8 +460,25 @@ def library_call(name: str, args, kw=None):
     matrix in fp16 with the committed-write vector (the matrix is built
     once, outside the timed call); for add, torch.add; for the stream
     probes, torch.amax over the rows (the probes' data lies below 2^31, so
-    the signed max is the unsigned one)."""
+    the signed max is the unsigned one); for the endpoint ranks,
+    torch.unique over the endpoint keys in endpoint order (put back in that
+    order once, outside the timed call), whose inverse is the dense rank
+    (the limbs are sign-flipped int32, so signed order is key order); it
+    is held to the plain ranks here."""
     import torch
+    if name == "endpoint_ranks":
+        from foundationdb_tpu_torch.ops import conflict_ref as ref
+        ekeys, eidx = args
+        keys = torch.empty_like(ekeys)
+        keys[:, eidx.long()] = ekeys
+
+        def unique_ranks():
+            return torch.unique(keys, dim=1, return_inverse=True)[1]
+        if not torch.equal(unique_ranks().to(torch.int32),
+                           ref.endpoint_ranks(ekeys, eidx)):
+            fail("endpoint_ranks: torch.unique's inverse is not the plain "
+                 "rank")
+        return unique_ranks
     if name == "legacy_blocked":
         c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer = args
         T = c.shape[0]
@@ -450,24 +530,27 @@ def clone_to(obj, device):
 def spied_phases(calls: dict, dev, last_step_only=False):
     """The plain phases, each keeping a copy of every call's inputs on
     `dev` in `calls[name]`; with `last_step_only`, the calls of earlier
-    steps are dropped when a step begins (its history check)."""
+    steps are dropped when a step begins (its sort)."""
     from types import SimpleNamespace
 
     from foundationdb_tpu_torch.ops import conflict_ref as ref
 
     def spy(name, fn):
         def wrapped(*a, **kw):
-            if last_step_only and name == "history_check":
+            if last_step_only and name == "sort_and_rank":
                 calls.clear()
             calls.setdefault(name, []).append(clone_to((a, kw), dev))
             return fn(*a, **kw)
         return wrapped
-    return SimpleNamespace(
+    phases = SimpleNamespace(
         build_table=spy("sparse_table", ref.build_table),
         history_check=spy("history_check", ref.history_check),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
         legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
+    if hasattr(ref, "sort_and_rank"):  # a package older than K6-K8 lacks it
+        phases.sort_and_rank = spy("sort_and_rank", ref.sort_and_rank)
+    return phases
 
 
 def capture_main_path_calls(dev, batches):
@@ -686,6 +769,74 @@ def merge_edge_calls(dev):
     return calls
 
 
+def sort_rank_edge_calls(dev):
+    """The sort-and-rank phase's edge inputs, from plain steps on the card:
+    8-byte keys (L=3); T=1 and T=1,000 txns; a K=1,536 state that 64 txns
+    of 4 fresh point writes a step overflow and poison, and the steps
+    after; batches that are all padding; keys longer than 24 bytes that
+    collapse onto one prefix; and calls whose every endpoint equals a key
+    of the L=3 state, in every class, live or in the padding tail."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
+    from foundationdb_tpu_torch.ops.conflict import DeviceConflictSet
+    rng = np.random.default_rng(41)
+    pool = [b"s%05d" % i for i in range(3000)]
+    pool += [b"L" * 30 + b"%d" % i for i in range(40)]  # one 24-byte prefix
+
+    def rng_range():
+        a, b = sorted(pool[i] for i in rng.integers(0, len(pool), 2))
+        return (a, a + b"\x00") if rng.random() < 0.5 else (a, b + b"\x00")
+
+    def batch(n, version):
+        return [TxnConflictInfo(
+            int(rng.integers(0, version)),
+            [rng_range() for _ in range(rng.integers(0, 5))],
+            [rng_range() for _ in range(rng.integers(1, 5))])
+            for _ in range(n)]
+
+    def pt(k):
+        return (k, k + b"\x00")
+    empty = [TxnConflictInfo(0, [], []) for _ in range(8)]
+    fresh = [[TxnConflictInfo(0, [], [pt(b"%08d" % k) for k in
+                                      rng.integers(0, 10 ** 8, 4)])
+              for _ in range(64)] for _ in range(6)]
+    runs = (  # (capacity, txns, key_bytes, batches)
+        (1 << 12, 64, 8, [batch(64, 1000 * (i + 1)) for i in range(3)]),
+        (1 << 10, 1, None, [batch(1, 1000), empty[:1], batch(1, 3000)]),
+        (1 << 14, 1000, None, [batch(1000, 1000), batch(1000, 2000)]),
+        (1536, 64, None, fresh + [empty]))
+    out: list = []
+    poisoned = False
+    for capacity, txns, key_bytes, batches in runs:
+        store: dict = {}
+        spied = type(ref.PLAIN)(**dict(
+            vars(ref.PLAIN),
+            sort_and_rank=spied_phases(store, dev).sort_and_rank))
+        cs = DeviceConflictSet(device=dev, capacity=capacity, txns=txns,
+                               reads_per_txn=4, writes_per_txn=4,
+                               key_bytes=key_bytes)
+        for i, b in enumerate(batches):
+            enc = cs.encoder.encode_batch(b, 1000 * (i + 1))
+            cs._state, _s, info = ref.conflict_step(
+                cs._state, enc, max_write_life=5_000_000, phases=spied)
+            poisoned |= bool(info["overflow"])
+        out += store["sort_and_rank"]
+    if not poisoned:
+        fail("sort-and-rank edge inputs: no state poisoned")
+    # every endpoint a state key: live boundaries, and some the padding tail
+    (bkeys, bval, rb, re, wb, we), _kw = out[2]
+    live = int((bkeys[-1] != ref.PAD_LIMB).sum())
+    g = torch.Generator().manual_seed(43)
+    for hi in (live, bkeys.shape[1]):
+        ends = [bkeys[:, torch.randint(0, hi, (x.shape[1],),
+                                       generator=g).to(dev)].contiguous()
+                for x in (rb, re, wb, we)]
+        out.append(((bkeys, bval, *ends), {}))
+    return out
+
+
 def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
                   check=None):
     """Hold kernel wrapper `kern` to its plain version on every call of
@@ -727,12 +878,14 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
     del lib
     # device time and launches a call
     device_ms = launches_per_call = functions_ms = traced = None
+    others = []
     for _try in range(3):  # the profiler now and then reports no kernels
         funcs, _wall = profile_device(lambda: kern(*a, **kw), reps)
         device_ms = device_ms_of(funcs, name)
         if device_ms is not None:
             mine = {k: v for k, v in funcs.items()
                     if any(f in k for f in DEVICE_FUNCTIONS[name])}
+            others = sorted(k[:80] for k in funcs if k not in mine)
             launches_per_call = sum(n for _ms, n, _c in mine.values())
             traced = min(c for _ms, _n, c in mine.values())
             functions_ms = {f: sum(v[0] for k, v in mine.items() if f in k)
@@ -746,6 +899,13 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
         table = kern(*a, **kw)
         extra["fill_ms"] = time_cuda(lambda: table.fill_(0), reps)
         del table
+    if name == "sort_and_rank":
+        # no one call gives all seven outputs; the ranks alone: torch.unique
+        # over [rb | re | wb | we] (endpoint_ranks' yardstick)
+        ends = torch.cat(a[2:6], dim=1)
+        extra["library_qranks_ms"] = time_cuda(
+            lambda: torch.unique(ends, dim=1, return_inverse=True), reps)
+        del ends
     log(f"cell {cell} kernel {name}: {n} calls equal to plain; "
         f"kernel_ms={ms:.4f} "
         f"(device-only {device_ms}) plain_ms={plain_ms:.4f} "
@@ -754,6 +914,13 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
     if name == "sparse_table" and (launches_per_call or 0) > 2:
         fail(f"sparse_table: {launches_per_call} device launches a call "
              f"(at most 2)")
+    if name == "sort_and_rank":
+        # K6-K8 alone: no torch sort, cumsum or cummax, few launches
+        if others:
+            fail(f"sort_and_rank launched other device functions: {others}")
+        if (launches_per_call or 0) > SORT_RANK_MAX_LAUNCHES:
+            fail(f"sort_and_rank: {launches_per_call} device launches a "
+                 f"call (at most {SORT_RANK_MAX_LAUNCHES})")
     return {"checked_calls": n, "max_abs_err": max_err,
             "ms": ms, "device_ms": device_ms, "host_ms": host_ms,
             "launches_per_call": launches_per_call,
@@ -765,22 +932,32 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
 
 
 def check_kernels(dev, calls, results, cell, edges=True):
-    """Hold each step kernel (K1-K4) to its plain version on every captured
-    call of `cell` (and, with `edges`, on the edge inputs), then time the
-    cell's main-path call: the last one captured from the step. K3 is
+    """Hold each step kernel (K1-K4, K6-K8) to its plain version on every
+    captured call of `cell` (and, with `edges`, on the edge inputs), then
+    time the cell's main-path call: the last one captured from the step.
+    The sort-and-rank phase is held whole (all seven outputs) and each of
+    its kernels to its plain part, on the calls the phase makes. K3 is
     checked with its evaluation count; on the edge chain at 1 and 32 rounds
     it must report converged = False."""
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     from foundationdb_tpu_torch.ops import kernels
-    wrappers = {"sparse_table": (kernels.build_table, ref.build_table),
+    wrappers = {"sort_and_rank": (kernels.sort_and_rank, ref.sort_and_rank),
+                "endpoint_sort": (kernels.endpoint_sort, ref.endpoint_sort),
+                "endpoint_ranks": (kernels.endpoint_ranks,
+                                   ref.endpoint_ranks),
+                "state_merge": (kernels.state_merge, ref.state_merge),
+                "sparse_table": (kernels.build_table, ref.build_table),
                 "history_check": (kernels.history_check, ref.history_check),
                 "intra_sandwich": (kernels.intra_sandwich,
                                    ref.intra_sandwich),
                 "merge_compact": (kernels.merge_compact, ref.merge_compact)}
     checks = {"intra_sandwich": (counted(kernels.intra_sandwich),
                                  counted(ref.intra_sandwich))}
+    calls = dict(calls, **sort_rank_part_calls(calls["sort_and_rank"][-1:]))
     all_calls = dict(calls)
     if edges:
+        all_calls["sort_and_rank"] = calls["sort_and_rank"] + \
+            sort_rank_edge_calls(dev)
         all_calls["sparse_table"] = calls["sparse_table"] + \
             table_edge_calls(dev)
         all_calls["history_check"] = calls["history_check"] + \
@@ -793,11 +970,12 @@ def check_kernels(dev, calls, results, cell, edges=True):
             if bool(kernels.intra_sandwich(*a, **kw)[2]):
                 fail(f"intra_sandwich: a {a[0].shape[0]}-deep chain "
                      f"converged in {a[7]} rounds")
+    all_calls.update(sort_rank_part_calls(all_calls["sort_and_rank"]))
     for name, (kern, plain) in wrappers.items():
         main = calls[name][-1]
         results[name] = hold_to_plain(
             name, kern, plain, all_calls[name], main, cell,
-            reps=20 if name == "merge_compact" else 50,
+            reps=20 if name in ("merge_compact", "sort_and_rank") else 50,
             check=checks.get(name))
         if name == "intra_sandwich":
             results[name]["M"] = int(main[0][1]["src"].shape[1])
@@ -949,11 +1127,13 @@ def check_step_trajectory(dev):
 # phase 4: the resolver role serving commit batches
 # ---------------------------------------------------------------------------
 
-def one_sandwich_a_step(where, launches):
-    """Every step launches K2 once; the sandwich must be one launch too."""
-    if launches["intra_sandwich"] != launches["history_check"]:
-        fail(f"{where}: {launches['intra_sandwich']} sandwich launches for "
-             f"{launches['history_check']} steps")
+def once_a_step(where, launches):
+    """Every step launches K2 once; the sandwich and the sort-and-rank
+    phase (K6-K8) must run once a step too."""
+    for name in ("intra_sandwich",) + SORT_KERNELS:
+        if launches[name] != launches["history_check"]:
+            fail(f"{where}: {launches[name]} {name} launches for "
+                 f"{launches['history_check']} steps")
 
 
 def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
@@ -1097,7 +1277,7 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
         fail(f"phase {name}: the conflict state poisoned")
     if any(v <= 0 for v in launches.values()):
         fail(f"phase {name}: a kernel never launched: {launches}")
-    one_sandwich_a_step(f"phase {name}", launches)
+    once_a_step(f"phase {name}", launches)
     if unconverged:
         # such a chunk's intra-batch verdicts come from the host pass, so
         # the oracle check would not show that the kernel decided them
@@ -1174,7 +1354,8 @@ def bench_plain_check(dev, detail, T):
 
 def profile_bench_step(dev, detail):
     """Where one kernel-bench step's device time goes: one strided step
-    with the kernels from the post-warm-up state, under the profiler."""
+    with the kernels from the post-warm-up state, under the profiler. No
+    torch `cummax` scan may be left in it (the endpoint ranks are K8's)."""
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     from foundationdb_tpu_torch.ops import kernels
     from foundationdb_tpu_torch.utils.knobs import KNOBS
@@ -1190,45 +1371,46 @@ def profile_bench_step(dev, detail):
     busy = busy_ms(funcs)
     wall_ms = wall / 3 * 1e3
     top = sorted(funcs.items(), key=lambda kv: -kv[1][0])[:10]
+    scans = [k[:80] for k in funcs if "scan_innermost_dim_with_indices" in k]
+    if scans:
+        fail(f"the bench step still runs torch cummax scans: {scans}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1 - busy / wall_ms),
             "kernels_device_ms": {k: device_ms_of(funcs, k)
                                   for k in STEP_KERNELS},
+            "radix_sort_device_ms": sum(
+                v[0] for k, v in funcs.items() if "RadixSort" in k),
             "top_device_functions": [(k[:80], v[0]) for k, v in top]}
 
 
-def endpoint_rank_cummax(calls, reps=20):
-    """The two torch.cummax calls of the step's endpoint ranks
-    (ops/conflict_ref.py conflict_step, `first_b` at :482 and
-    `rank_carried` at :484), each timed alone on the inputs of the captured
-    step, rebuilt here from its sorted keys and classes as conflict_step
-    builds them: CUDA-event ms and profiler device ms a call, at N
-    elements."""
-    import torch
-
+def level_sort_time(calls, reps=20):
+    """B4, the level geometry of the scan evaluator (`intra_levels`, still
+    plain torch), timed alone on the captured step's inputs (its ranks
+    from the plain sort-and-rank phase): CUDA-event ms, device ms, and the
+    device ms of its radix sort alone."""
     from foundationdb_tpu_torch.ops import conflict_ref as ref
-    (skeys, scls) = calls["merge_compact"][-1][0][:2]
-    is_b = (scls != 1).to(torch.int32)
-    newgrp = torch.cat([torch.ones(1, dtype=torch.bool, device=skeys.device),
-                        ~ref.key_eq(skeys[:, 1:], skeys[:, :-1])])
-    cum_b_excl = ref._cumsum(is_b) - is_b
-    group_first = torch.where(newgrp, cum_b_excl, -1)
-    first_b = (is_b > 0) & (cum_b_excl == ref._cummax(group_first))
-    rank_first = torch.where(first_b, ref._cumsum(first_b) - 1, -1)
-    out = {"N": int(skeys.shape[1])}
-    for label, x in (("first_b", group_first), ("rank_carried", rank_first)):
-        ms = time_cuda(lambda x=x: torch.cummax(x, dim=-1), reps)
-        funcs, _wall = profile_device(lambda x=x: torch.cummax(x, dim=-1),
-                                      reps)
-        out[label] = {"ms": ms, "device_ms": busy_ms(funcs)}
-    return out
+    qranks = ref.sort_and_rank(*calls["sort_and_rank"][-1][0])[6]
+    g, _geo, wtxn_c, _w_ok, _r_ok, rtxn, rbr = \
+        calls["intra_sandwich"][-1][0][:7]
+    NR, NW, T = rtxn.shape[0], wtxn_c.shape[0], g.shape[0]
+    rer = qranks[NR:2 * NR]
+    wbr, wer = qranks[2 * NR:2 * NR + NW], qranks[2 * NR + NW:]
+
+    def run():
+        return ref.intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
+    ms = time_cuda(run, reps)
+    funcs, _wall = profile_device(run, reps)
+    return {"ms": ms, "device_ms": busy_ms(funcs),
+            "sort_device_ms": sum(v[0] for k, v in funcs.items()
+                                  if "RadixSort" in k)}
 
 
 def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
     """Phase 5 at one batch size: the port's run_kernel on the card (its
     launches counted), then the oracle and plain-phase checks of its
-    statuses, then K1-K4 held to their plain versions on the calls of the
-    plain chunk's last step. Returns (bench numbers, kernel numbers)."""
+    statuses, then K1-K4 and K6-K8 held to their plain versions on the
+    calls of the plain chunk's last step. Returns (bench numbers, kernel
+    numbers)."""
     import torch
 
     from foundationdb_tpu_torch import bench
@@ -1250,7 +1432,7 @@ def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
     if any(v <= 0 for v in res["launches"].values()):
         fail(f"kernel bench T={T}: a kernel never launched: "
              f"{res['launches']}")
-    one_sandwich_a_step(f"kernel bench T={T}", res["launches"])
+    once_a_step(f"kernel bench T={T}", res["launches"])
     t0 = time.perf_counter()
     bench_oracle_check(detail, T, n_oracle)
     res["oracle_batches"] = n_oracle
@@ -1266,11 +1448,13 @@ def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
         log(f"kernel bench T={T} step profile: "
             + json.dumps(res["step_profile"]))
     del detail
-    res["cummax_split"] = endpoint_rank_cummax(calls)
-    log(f"kernel bench T={T} endpoint-rank cummax calls: "
-        + json.dumps(res["cummax_split"]))
+    res["level_sort"] = level_sort_time(calls)
+    log(f"kernel bench T={T} level geometry (B4, plain torch) alone: "
+        + json.dumps(res["level_sort"]))
     kres: dict = {}
     check_kernels(dev, calls, kres, f"bench T={T}", edges=False)
+    res["sort_and_rank"] = {k: kres["sort_and_rank"][k] for k in (
+        "device_ms", "ms", "host_ms", "bound_ms", "launches_per_call")}
     del calls
     torch.cuda.empty_cache()
     return res, kres
@@ -1312,13 +1496,14 @@ def probes_phase(dev):
 # ---------------------------------------------------------------------------
 
 def time_step_kernels(dev, reps=50):
-    """Device ms a call of K1-K4 on the captured calls of cell A's step and
-    of a kernel-bench step at T=16,384 (K=2^18) and T=32,768 (K=2^19), and
-    of that bench step with the kernels: every device function the call
-    launches (profile_device); and each wrapper's host ms a call (`reps`
-    enqueues, no sync). It uses only what every version of the port has,
-    so a copy of this script beside an older checkout's package times that
-    checkout alike."""
+    """Device ms a call of K1-K4 and K6-K8 (and of their whole
+    sort-and-rank phase) on the captured calls of cell A's step and of a
+    kernel-bench step at T=16,384 (K=2^18) and T=32,768 (K=2^19), and of
+    that bench step with the kernels: every device function the call
+    launches (profile_device), the step's radix-sort and cummax-scan share;
+    and each wrapper's host ms a call (`reps` enqueues, no sync). K6-K8 are
+    timed where the package has them, so a copy of this script beside an
+    older checkout's package times that checkout alike."""
     import torch
 
     from foundationdb_tpu_torch import bench
@@ -1328,6 +1513,11 @@ def time_step_kernels(dev, reps=50):
                 "history_check": kernels.history_check,
                 "intra_sandwich": kernels.intra_sandwich,
                 "merge_compact": kernels.merge_compact}
+    if hasattr(kernels, "sort_and_rank"):
+        wrappers.update(sort_and_rank=kernels.sort_and_rank,
+                        endpoint_sort=kernels.endpoint_sort,
+                        endpoint_ranks=kernels.endpoint_ranks,
+                        state_merge=kernels.state_merge)
     cdf, keys = zipf_keys(20_000)
     cells = {"A": (None, None, capture_main_path_calls(dev, make_batches(
         np.random.default_rng(100), cdf, keys, 4)))}
@@ -1336,6 +1526,8 @@ def time_step_kernels(dev, reps=50):
     out = {}
     for cell, (state, batch, calls) in cells.items():
         row = out[cell] = {}
+        if "sort_and_rank" in calls:
+            calls.update(sort_rank_part_calls(calls["sort_and_rank"][-1:]))
         for name, kern in wrappers.items():
             a, kw = calls[name][-1]
             funcs, _wall = profile_device(lambda: kern(*a, **kw), reps)
@@ -1350,7 +1542,13 @@ def time_step_kernels(dev, reps=50):
             funcs, _wall = profile_device(lambda: ref.conflict_step(
                 state, batch, max_write_life=bench.WINDOW, strided=True,
                 phases=kernels.PHASES), 5)
-            row["step"] = {"device_ms": busy_ms(funcs)}
+            row["step"] = {
+                "device_ms": busy_ms(funcs),
+                "radix_sort_device_ms": sum(
+                    v[0] for k, v in funcs.items() if "RadixSort" in k),
+                "cummax_device_ms": sum(
+                    v[0] for k, v in funcs.items()
+                    if "scan_innermost_dim_with_indices" in k)}
     return out
 
 
@@ -1361,8 +1559,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
     ap.add_argument("--time-kernels", action="store_true",
-                    help="only time K1-K4 and a bench step on the card "
-                         "(time_step_kernels), print them as JSON and exit")
+                    help="only time K1-K4, K6-K8 and a bench step on the "
+                         "card (time_step_kernels), print them as JSON and "
+                         "exit")
     args = ap.parse_args(argv)
 
     import torch

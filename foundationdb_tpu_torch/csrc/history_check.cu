@@ -108,8 +108,8 @@ history_grid_kernel(const int32_t* __restrict__ table, int K,
   }
 }
 
-// SM count and co-resident CTAs an SM of each device, read once.
-static int g_hist_sms[64], g_hist_per_sm[64];
+// Co-resident CTAs an SM of each device, read once.
+static int g_hist_per_sm[64];
 
 // words: 2 * ceil(T / 32) uint32, zero on entry and left zero; sync: 1
 // uint32 whose low 31 bits are zero on entry, and stay so. One cooperative
@@ -122,15 +122,12 @@ extern "C" int fdb_history_check(
     uint8_t* g0, void* stream) {
   if (T < 1 || NR < 0) return (int)cudaErrorInvalidValue;
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  FdbDeviceLimits lim;
+  cudaError_t e = fdb_device_limits(&dev, &lim);
   if (e != cudaSuccess) return (int)e;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
   if (g_hist_per_sm[dev] == 0) {
-    e = cudaDeviceGetAttribute(&g_hist_sms[dev],
-                               cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &g_hist_per_sm[dev], history_grid_kernel, HIST_THREADS, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &g_hist_per_sm[dev], history_grid_kernel, HIST_THREADS, 0);
     if (e != cudaSuccess) {
       g_hist_per_sm[dev] = 0;
       return (int)e;
@@ -142,7 +139,7 @@ extern "C" int fdb_history_check(
   long long want = ((long long)NR + HIST_THREADS - 1) / HIST_THREADS;
   const long long for_txns = (W * 32 + HIST_THREADS - 1) / HIST_THREADS;
   if (for_txns > want) want = for_txns;
-  const long long cap = (long long)g_hist_sms[dev] * g_hist_per_sm[dev];
+  const long long cap = (long long)lim.sms * g_hist_per_sm[dev];
   const int G = (int)(want < cap ? want : cap);
   void* params[] = {&table, &K,        &cum_state, &spos,   &rb,
                     &re,    &L,        &NR,        &rtxn,   &snapshot,

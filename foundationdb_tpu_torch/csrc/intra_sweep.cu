@@ -354,9 +354,9 @@ sandwich_kernel(SandArgs a) {
   }
 }
 
-// Per-device launch limits and the largest dynamic shared memory granted
-// so far, read or set once.
-static int g_sms[64], g_smem_optin[64], g_dyn_set[64];
+// The largest dynamic shared memory granted so far, per device, and the
+// kernel's static share, read once.
+static int g_sand_smem[64];
 static int g_static_smem = -1;
 
 // rec: 2 * n_levels * M int32, agg: 4 * SAND_MAX_GRID int32 and slots:
@@ -374,21 +374,10 @@ extern "C" int fdb_intra_sandwich(
     uint8_t* lower, uint8_t* upper, uint8_t* converged, int32_t* evals,
     void* stream) {
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  FdbDeviceLimits lim;
+  cudaError_t e = fdb_device_limits(&dev, &lim);
   if (e != cudaSuccess) return (int)e;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (g_sms[dev] == 0) {
-    e = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount,
-                               dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&g_smem_optin[dev],
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) {
-      g_sms[dev] = 0;
-      return (int)e;
-    }
-  }
-  const int G = g_sms[dev] < SAND_MAX_GRID ? g_sms[dev] : SAND_MAX_GRID;
+  const int G = lim.sms < SAND_MAX_GRID ? lim.sms : SAND_MAX_GRID;
   const long long E = (long long)n_levels * M;
   if (E >= (1LL << 30) || (long long)n_levels * NR >= (1LL << 29) || T < 1)
     return (int)cudaErrorInvalidValue;
@@ -416,7 +405,7 @@ extern "C" int fdb_intra_sandwich(
   a.bits_bytes = (4 * a.W + 15) & ~15;
   const long long fixed = 3LL * a.bits_bytes + ((a.rpc * 4LL + 15) & ~15LL);
   const long long avail =
-      (long long)g_smem_optin[dev] - (long long)g_static_smem;
+      (long long)lim.smem_optin - (long long)g_static_smem;
   if (fixed > avail) return (int)cudaErrorInvalidValue;  // T too large
   const long long fit = (avail - fixed) / 8;
   a.cached = fit < a.chunk ? (int)fit : a.chunk;
@@ -430,12 +419,8 @@ extern "C" int fdb_intra_sandwich(
   a.lower = lower; a.upper = upper; a.converged = converged;
   a.evals = evals;
 
-  if (dyn > g_dyn_set[dev]) {
-    e = cudaFuncSetAttribute(sandwich_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-    if (e != cudaSuccess) return (int)e;
-    g_dyn_set[dev] = dyn;
-  }
+  e = fdb_allow_smem(sandwich_kernel, dev, (size_t)dyn, g_sand_smem);
+  if (e != cudaSuccess) return (int)e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sandwich_kernel,
                                                     SAND_THREADS, dyn);

@@ -56,11 +56,9 @@
 #define SCAN_TILE (SCAN_THREADS * SCAN_IPT)
 
 // tile descriptor: 24 int32 per tile. Words 0-2: the status of monoid
-// 0-2 (0 none, 1 aggregate, 2 inclusive prefix); then each monoid's
-// aggregate and inclusive prefix.
+// 0-2 (common.cuh's look-back); then each monoid's aggregate and
+// inclusive prefix.
 #define DESC_WORDS 24
-#define ST_AGG 1
-#define ST_INCL 2
 #define VAL_AGG 4
 #define VAL_INCL 8
 #define LAST_AGG 12
@@ -107,7 +105,7 @@ struct ValOp {
   }
 };
 
-// descriptor words of each monoid's values (volatile: other CTAs' writes)
+// descriptor words of the values pass (volatile: other CTAs' writes)
 __device__ __forceinline__ void desc_put(volatile int32_t* w, ValElem x) {
   w[0] = x.sum;
   w[1] = x.val;
@@ -117,92 +115,6 @@ __device__ __forceinline__ void desc_get(const volatile int32_t* w,
                                          ValElem* x) {
   const int bits = w[2];
   *x = {w[0], w[1], bits & 1, (bits >> 1) & 1, (bits >> 2) & 1};
-}
-__device__ __forceinline__ void desc_put(volatile int32_t* w, FdbLast x) {
-  w[0] = x.v;
-  w[1] = x.has;
-}
-__device__ __forceinline__ void desc_get(const volatile int32_t* w,
-                                         FdbLast* x) {
-  *x = {w[0], w[1]};
-}
-__device__ __forceinline__ void desc_put(volatile int32_t* w, FdbSum x) {
-  w[0] = x.v;
-}
-__device__ __forceinline__ void desc_get(const volatile int32_t* w,
-                                         FdbSum* x) {
-  *x = {w[0]};
-}
-
-// Values first, then the status with release semantics; a reader that
-// acquires the status sees the values.
-__device__ __forceinline__ int ld_acquire(const int32_t* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-template <typename V>
-__device__ __forceinline__ void desc_publish(int32_t* d, int m, int off, V v,
-                                             int status) {
-  desc_put(d + off, v);
-  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(d + m), "r"(status)
-               : "memory");
-}
-
-
-// The exclusive prefix of `tile` under monoid m, by decoupled look-back
-// over the predecessors' descriptors, a window of blockDim.x tiles at a
-// time: thread k examines tile p - (blockDim.x - 1) + k. Tickets are
-// taken in order, so every tile in the window has started and will
-// publish; one round trip to L2 covers 256 predecessors. Called by every
-// thread; the result is the same in all of them.
-template <typename V, typename Op>
-__device__ V look_back(const int32_t* desc, int tile, int m, int agg_off,
-                       int incl_off, Op op, V id, V* sh_scan, int* sh_first) {
-  V excl = id;
-  for (int p = tile - 1;; p -= blockDim.x) {
-    const int q = p - (int)(blockDim.x - 1) + (int)threadIdx.x;
-    int st = ST_INCL;  // before tile 0: the identity, as a full prefix
-    V v = id;
-    if (q >= 0) {
-      const int32_t* dq = desc + (long long)q * DESC_WORDS;
-      do {
-        st = ld_acquire(dq + m);
-      } while (st == 0);
-      desc_get(dq + (st == ST_INCL ? incl_off : agg_off), &v);
-    }
-    // fold the window in tile order from its latest inclusive prefix on
-    if (threadIdx.x == 0) *sh_first = -1;
-    __syncthreads();
-    if (st == ST_INCL) atomicMax(sh_first, (int)threadIdx.x);
-    __syncthreads();
-    const int first = *sh_first;
-    if ((int)threadIdx.x < first) v = id;
-    V window;
-    fdb_block_exclusive_scan(v, op, id, sh_scan, &window);
-    excl = op(window, excl);
-    if (first >= 0) break;
-  }
-  return excl;
-}
-
-// Publish this tile's aggregate `total` under monoid m, look back, publish
-// the inclusive prefix; returns the exclusive prefix to every thread.
-template <typename V, typename Op>
-__device__ V tile_prefix(int32_t* desc, int tile, int m, int agg_off,
-                         int incl_off, V total, Op op, V id, V* sh_scan,
-                         int* sh_first) {
-  int32_t* d = desc + (long long)tile * DESC_WORDS;
-  if (tile == 0) {
-    if (threadIdx.x == 0) desc_publish(d, m, incl_off, total, ST_INCL);
-    return id;
-  }
-  if (threadIdx.x == 0) desc_publish(d, m, agg_off, total, ST_AGG);
-  const V excl =
-      look_back(desc, tile, m, agg_off, incl_off, op, id, sh_scan, sh_first);
-  if (threadIdx.x == 0)
-    desc_publish(d, m, incl_off, op(excl, total), ST_INCL);
-  return excl;
 }
 
 __global__ void __launch_bounds__(SCAN_THREADS)
@@ -283,8 +195,9 @@ merge_scan_kernel(const int32_t* __restrict__ skeys,
   ValElem vtotal;
   const ValElem vx =
       fdb_block_exclusive_scan(vagg, vop, vid, sh_val, &vtotal);
-  ValElem run = vop(tile_prefix(desc, tile, 0, VAL_AGG, VAL_INCL, vtotal, vop,
-                                vid, sh_val, &sh_first),
+  ValElem run = vop(fdb_tile_prefix(desc, DESC_WORDS, tile, 0, VAL_AGG,
+                                    VAL_INCL, vtotal, vop, vid, sh_val,
+                                    &sh_first),
                     vx);
 
   // 2. per element: a slot event at each group end that holds a source
@@ -301,8 +214,9 @@ merge_scan_kernel(const int32_t* __restrict__ skeys,
   FdbLast ltotal;
   const FdbLast lx = fdb_block_exclusive_scan(lagg, lop, lid, sh_last,
                                               &ltotal);
-  FdbLast prev = lop(tile_prefix(desc, tile, 1, LAST_AGG, LAST_INCL, ltotal,
-                                 lop, lid, sh_last, &sh_first),
+  FdbLast prev = lop(fdb_tile_prefix(desc, DESC_WORDS, tile, 1, LAST_AGG,
+                                     LAST_INCL, ltotal, lop, lid, sh_last,
+                                     &sh_first),
                      lx);
 
   // 3. kept slots (a new value) and their count
@@ -316,8 +230,9 @@ merge_scan_kernel(const int32_t* __restrict__ skeys,
   }
   FdbSum stotal;
   const FdbSum sx = fdb_block_exclusive_scan(sagg, sop, sid, sh_sum, &stotal);
-  const FdbSum scarry = tile_prefix(desc, tile, 2, SUM_AGG, SUM_INCL, stotal,
-                                    sop, sid, sh_sum, &sh_first);
+  const FdbSum scarry =
+      fdb_tile_prefix(desc, DESC_WORDS, tile, 2, SUM_AGG, SUM_INCL, stotal,
+                      sop, sid, sh_sum, &sh_first);
   int slot = scarry.v + sx.v;
 #pragma unroll
   for (int k = 0; k < SCAN_IPT; ++k) {

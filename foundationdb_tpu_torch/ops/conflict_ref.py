@@ -16,10 +16,10 @@ with reshapes there, because a scatter costs a TPU far more than a
 reshape; on the card an atomic-OR fold costs about what a reshape does, so
 the same phases and kernels serve both layouts.
 
-The step is written as plain tensor code around five phase functions,
-passed in as `phases` (an object with `build_table`, `history_check`,
-`intra_sandwich`, `merge_compact` and `legacy_sweep`). `PLAIN` holds the
-plain versions below;
+The step is written as plain tensor code around six phase functions,
+passed in as `phases` (an object with `sort_and_rank`, `build_table`,
+`history_check`, `intra_sandwich`, `merge_compact` and `legacy_sweep`).
+`PLAIN` holds the plain versions below;
 ops/kernels.py holds wrappers with the same signatures that launch the CUDA
 kernels for CUDA tensors. Nothing here synchronises with the device: every
 data-dependent choice is a tensor op, so the step enqueues without a host
@@ -127,7 +127,7 @@ def floor_log2(w: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the four phases, plain versions (each Hopper kernel is held to one)
+# the phases, plain versions (each Hopper kernel is held to one)
 # ---------------------------------------------------------------------------
 
 def build_table(vals: torch.Tensor) -> torch.Tensor:
@@ -314,6 +314,121 @@ def lex_sort_perm(limbs: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
     return perm
 
 
+def sort_and_rank(bkeys, bval, rb, re, wb, we):
+    """Phase 0 and the endpoint ranks of the step (conflict.py:397-421,
+    455-476): the stable sort of [state | rb | re | wb | we] by (limbs,
+    class), class tiebreak at equal keys re(0) < state(1) < rb/wb/we(2),
+    then the original index. Returns (skeys (L,N), scls, sval, sidx, spos,
+    cum_state, qranks): sorted keys, classes, state values (NEG for
+    endpoints) and original indices; the sorted position of each element;
+    the inclusive count of state elements; and the dense rank of each
+    endpoint's key among the 2NR+2NW endpoint keys, (2NR+2NW,) int32."""
+    L, K = bkeys.shape
+    NR, NW = rb.shape[1], wb.shape[1]
+    dev = bkeys.device
+    N = K + 2 * NR + 2 * NW
+    allk = torch.cat([bkeys, rb, re, wb, we], dim=1)
+    cls = torch.cat([
+        torch.ones(K, dtype=_I32, device=dev),
+        torch.full((NR,), 2, dtype=_I32, device=dev),
+        torch.zeros(NR, dtype=_I32, device=dev),
+        torch.full((2 * NW,), 2, dtype=_I32, device=dev)])
+    vpay = torch.cat([bval, torch.full((2 * NR + 2 * NW,), NEG, dtype=_I32,
+                                       device=dev)])
+    perm = lex_sort_perm(allk, cls)
+    skeys = allk[:, perm].contiguous()
+    scls = cls[perm]
+    sval = vpay[perm]
+    sidx = perm.to(_I32)
+    spos = torch.empty(N, dtype=_I32, device=dev)
+    spos.scatter_(0, perm, torch.arange(N, dtype=_I32, device=dev))
+    is_state = scls == 1
+    cum_state = _cumsum(is_state)
+
+    # rank = distinct endpoint key groups at-or-before an element; state
+    # elements interleave but contribute no rank
+    is_b = (~is_state).to(_I32)
+    newgrp = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                        ~key_eq(skeys[:, 1:], skeys[:, :-1])])
+    cum_b_excl = _cumsum(is_b) - is_b
+    first_b = (is_b > 0) & (cum_b_excl == _cummax(
+        torch.where(newgrp, cum_b_excl, -1)))
+    rank_carried = _cummax(torch.where(first_b, _cumsum(first_b) - 1, -1))
+    qranks = rank_carried[spos[K:].to(torch.int64)]
+    return skeys, scls, sval, sidx, spos, cum_state, qranks
+
+
+# The phase in three parts, as its kernels K6-K8 compute it: the state
+# keys arrive sorted, so only the endpoints are sorted and then merged in.
+# `sort_and_rank_parts` equals `sort_and_rank` output for output.
+
+def endpoint_classes(NR: int, NW: int, device) -> torch.Tensor:
+    """Class of each endpoint of [rb | re | wb | we] at equal keys: re 0,
+    the rest 2 (a state element's is 1)."""
+    cls = torch.full((2 * NR + 2 * NW,), 2, dtype=_I32, device=device)
+    cls[NR:2 * NR] = 0
+    return cls
+
+
+def endpoint_sort(rb, re, wb, we):
+    """K6's plain version: the endpoints [rb | re | wb | we] sorted by
+    (limbs, class, index): (keys (L, M), idx (M,) int32, each sorted
+    element's endpoint index j), M = 2NR + 2NW."""
+    ekeys = torch.cat([rb, re, wb, we], dim=1)
+    perm = lex_sort_perm(ekeys, endpoint_classes(rb.shape[1], wb.shape[1],
+                                                 rb.device))
+    return ekeys[:, perm].contiguous(), perm.to(_I32)
+
+
+def endpoint_ranks(ekeys, eidx):
+    """K8's plain version: from the sorted endpoints, the dense rank of
+    each endpoint's key among all endpoint keys (limbs only, not the
+    class), written at its endpoint index: (M,) int32."""
+    M = eidx.shape[0]
+    newkey = torch.cat([torch.ones(min(M, 1), dtype=torch.bool,
+                                   device=ekeys.device),
+                        ~key_eq(ekeys[:, 1:], ekeys[:, :-1])])
+    qranks = torch.empty(M, dtype=_I32, device=ekeys.device)
+    qranks.scatter_(0, eidx.to(torch.int64), _cumsum(newkey) - 1)
+    return qranks
+
+
+def state_merge(bkeys, bval, ekeys, eidx, NR: int):
+    """K7's plain version: the sorted endpoints merged into the sorted
+    state in the order of `sort_and_rank` (a state element before an
+    equal-keyed endpoint of class 2, after one of class 0). Returns
+    (skeys, scls, sval, sidx, spos, cum_state) as `sort_and_rank` does."""
+    L, K = bkeys.shape
+    M = eidx.shape[0]
+    N = K + M
+    dev = bkeys.device
+    ecls = endpoint_classes(NR, (M - 2 * NR) // 2, dev)[eidx.to(torch.int64)]
+    allk = torch.cat([bkeys, ekeys], dim=1)
+    cls = torch.cat([torch.ones(K, dtype=_I32, device=dev), ecls])
+    perm = lex_sort_perm(allk, cls)
+    from_state = perm < K
+    sidx = torch.where(from_state, perm,
+                       K + eidx.to(torch.int64)[(perm - K).clamp(min=0)])
+    sval = torch.where(from_state, bval[perm.clamp(max=K - 1)], NEG)
+    spos = torch.empty(N, dtype=_I32, device=dev)
+    spos.scatter_(0, sidx, torch.arange(N, dtype=_I32, device=dev))
+    return (allk[:, perm].contiguous(), cls[perm], sval.to(_I32),
+            sidx.to(_I32), spos, _cumsum(from_state))
+
+
+def sort_and_rank_parts(bkeys, bval, rb, re, wb, we, parts=None):
+    """`sort_and_rank` through its three parts (an object with
+    `endpoint_sort`, `endpoint_ranks` and `state_merge`; the plain ones by
+    default)."""
+    parts = parts or SimpleNamespace(endpoint_sort=endpoint_sort,
+                                     endpoint_ranks=endpoint_ranks,
+                                     state_merge=state_merge)
+    ekeys, eidx = parts.endpoint_sort(rb, re, wb, we)
+    qranks = parts.endpoint_ranks(ekeys, eidx)
+    return (*parts.state_merge(bkeys, bval, ekeys, eidx, rb.shape[1]),
+            qranks)
+
+
 def intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer) -> dict:
     """Sweep-invariant geometry of the scan evaluator (`_intra_scan_levels`,
     conflict.py:243-292), every level in one 2-D sort: level l orders writes
@@ -385,7 +500,8 @@ def intra_sandwich(g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, rounds: int,
     return out
 
 
-PLAIN = SimpleNamespace(build_table=build_table, history_check=history_check,
+PLAIN = SimpleNamespace(sort_and_rank=sort_and_rank,
+                        build_table=build_table, history_check=history_check,
                         intra_sandwich=intra_sandwich,
                         merge_compact=merge_compact, legacy_sweep=legacy_sweep)
 
@@ -443,46 +559,21 @@ def conflict_step(state: dict, batch: dict, *, max_write_life: int,
     rb, re, rtxn = batch["rb"], batch["re"], batch["rtxn"]
     wb, we, wtxn = batch["wb"], batch["we"], batch["wtxn"]
     snapshot, txn_valid = batch["snapshot"], batch["txn_valid"]
-    L, K = bkeys.shape
+    K = bkeys.shape[1]
     NR, NW, T = rb.shape[1], wb.shape[1], snapshot.shape[0]
     dev = bkeys.device
     rvalid = rtxn < T
     wvalid = wtxn < T
 
-    # ---- 0. the sort of [state | rb | re | wb | we] ----
-    # class tiebreak at equal keys: re(0) < state(1) < rb/wb/we(2)
-    N = K + 2 * NR + 2 * NW
-    allk = torch.cat([bkeys, rb, re, wb, we], dim=1)
-    cls = torch.cat([
-        torch.ones(K, dtype=_I32, device=dev),
-        torch.full((NR,), 2, dtype=_I32, device=dev),
-        torch.zeros(NR, dtype=_I32, device=dev),
-        torch.full((2 * NW,), 2, dtype=_I32, device=dev)])
-    vpay = torch.cat([bval, torch.full((2 * NR + 2 * NW,), NEG, dtype=_I32,
-                                       device=dev)])
-    perm = lex_sort_perm(allk, cls)
-    skeys = allk[:, perm].contiguous()
-    scls = cls[perm]
-    sval = vpay[perm]
-    sidx = perm.to(_I32)
-    spos = torch.empty(N, dtype=_I32, device=dev)
-    spos.scatter_(0, perm, torch.arange(N, dtype=_I32, device=dev))
-    is_state = scls == 1
-    cum_state = _cumsum(is_state)
+    # ---- 0. the sort of [state | rb | re | wb | we], 3. endpoint ranks ----
+    skeys, scls, sval, sidx, spos, cum_state, qranks = phases.sort_and_rank(
+        bkeys, bval, rb, re, wb, we)
 
     # ---- 1+2. too-old and history check ----
     too_old, g = phases.history_check(table, cum_state, spos, rb, re, rtxn,
                                       snapshot, txn_valid, state["oldest"])
 
     # ---- 3. intra-batch: endpoint ranks -> dyadic levels -> sandwich ----
-    is_b = (~is_state).to(_I32)
-    newgrp = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                        ~key_eq(skeys[:, 1:], skeys[:, :-1])])
-    cum_b_excl = _cumsum(is_b) - is_b
-    first_b = (is_b > 0) & (cum_b_excl == _cummax(
-        torch.where(newgrp, cum_b_excl, -1)))
-    rank_carried = _cummax(torch.where(first_b, _cumsum(first_b) - 1, -1))
-    qranks = rank_carried[spos[K:].to(torch.int64)]
     rbr, rer = qranks[:NR], qranks[NR:2 * NR]
     wbr, wer = qranks[2 * NR:2 * NR + NW], qranks[2 * NR + NW:]
 

@@ -9,6 +9,10 @@ ops/conflict_ref.py that it replaces, so `PHASES` drops into
   K3 intra_sandwich csrc/intra_sweep.cu     `_run_sandwich` (over `_f_commit`)
   K4 merge_compact  csrc/merge_compact.cu   `_merge_phase` up to the table
   K5 legacy_sweep   csrc/legacy_overlap.cu  the legacy evaluator's `_f_commit`
+  K6 endpoint_sort  csrc/endpoint_sort.cu   phase 0's sort, the endpoints
+  K7 state_merge    csrc/state_merge.cu     phase 0's sorted union, spos,
+                                            cum_state
+  K8 endpoint_ranks csrc/endpoint_ranks.cu  the endpoint ranks (phase 3)
 
 (functions of foundationdb_tpu/ops/conflict.py). The probe kernels of
 ops/probes.py (csrc/probes.cu) build into the same library and count their
@@ -33,6 +37,16 @@ with the shared memory the shape needs (T above about 450,000 txns); the
 wrapper then raises FDBError, as for any failed launch (K2's too, though
 its grid is sized to what the card holds). K4's merge scan is a
 single-pass decoupled look-back scan over all SMs.
+
+`sort_and_rank`, the step's first phase, is K6, K8 and K7 in turn. The
+state keys arrive sorted, so K6 sorts only the 2NR + 2NW endpoints (a
+bitonic network per 1,024-element tile in shared memory, then one
+cooperative persistent kernel that runs every merge-path round, a grid
+barrier between rounds); K8 ranks them with one decoupled look-back scan
+over their key-change flags; K7 merges them into the state by a
+merge-path co-rank per output position and writes the sorted union,
+`spos` and `cum_state` in one pass. That is 4 device launches (3 when
+M <= 1,024), in place of about 40 torch launches.
 
 The sources compile at first use with nvcc for sm_90a, one process per
 source, all started together; the objects link into one shared library
@@ -59,13 +73,24 @@ from foundationdb_tpu_torch.utils.errors import FDBError
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("sparse_table.cu", "history_check.cu", "intra_sweep.cu",
+SOURCES = ("endpoint_sort.cu", "state_merge.cu", "endpoint_ranks.cu",
+           "sparse_table.cu", "history_check.cu", "intra_sweep.cu",
            "merge_compact.cu", "legacy_overlap.cu", "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # name -> (source, the JAX function it replaces)
 KERNELS = {
+    "endpoint_sort": ("csrc/endpoint_sort.cu",
+                      "foundationdb_tpu/ops/conflict.py:412 conflict_step "
+                      "phase 0 (:397-421), the lax.sort's endpoints"),
+    "state_merge": ("csrc/state_merge.cu",
+                    "foundationdb_tpu/ops/conflict.py:413 conflict_step "
+                    "phase 0 (:397-421), the sorted union, spos and "
+                    "cum_state"),
+    "endpoint_ranks": ("csrc/endpoint_ranks.cu",
+                       "foundationdb_tpu/ops/conflict.py:465 conflict_step "
+                       "endpoint ranks (:465-476)"),
     "sparse_table": ("csrc/sparse_table.cu",
                      "foundationdb_tpu/ops/conflict.py:145 _build_table"),
     "history_check": ("csrc/history_check.cu",
@@ -105,6 +130,9 @@ def reset_launches():
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
+    "fdb_endpoint_sort": [_P] * 4 + [_I] * 3 + [_P] * 6,
+    "fdb_state_merge": [_P] * 4 + [_I] * 4 + [_P] * 7,
+    "fdb_endpoint_ranks": [_P, _P, _I, _I, _P, _P, _P],
     "fdb_sparse_table": [_P, _P, _I, _I, _P, _P],
     "fdb_history_check": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                           _P, _P, _P, _P, _P],
@@ -262,6 +290,105 @@ def _scratch(kind: str, n: int, dtype, device) -> torch.Tensor:
 
 
 _I32, _BOOL = torch.int32, torch.bool
+
+
+# ---------------------------------------------------------------------------
+# K6-K8 sort_and_rank
+# ---------------------------------------------------------------------------
+
+# endpoints a tile of K8's rank scan holds and int32 per tile descriptor
+# (RANK_TILE and RANK_DESC_WORDS in the source)
+RANK_TILE = 2048
+RANK_DESC_WORDS = 4
+
+
+def endpoint_sort(rb, re, wb, we):
+    """K6: the endpoints [rb | re | wb | we] sorted by (limbs, class,
+    index): (keys (L, M), idx (M,) int32)."""
+    if not _on_cuda("endpoint_sort", rb):
+        return ref.endpoint_sort(rb, re, wb, we)
+    L, NR = rb.shape
+    NW = wb.shape[1]
+    M = 2 * NR + 2 * NW
+    dev = rb.device
+    _check("endpoint_sort", dev, rb=(rb, _I32, (L, NR)),
+           re=(re, _I32, (L, NR)), wb=(wb, _I32, (L, NW)),
+           we=(we, _I32, (L, NW)))
+    keys = torch.empty((L, M), dtype=_I32, device=dev)
+    idx = torch.empty(M, dtype=_I32, device=dev)
+    if M == 0:
+        return keys, idx
+    tmp_keys = _scratch("sort_keys", L * M, _I32, dev)
+    tmp_idx = _scratch("sort_idx", M, _I32, dev)
+    sync = _zeroed_scratch("sort_sync", 1, _I32, dev)
+    rc = library().fdb_endpoint_sort(
+        rb.data_ptr(), re.data_ptr(), wb.data_ptr(), we.data_ptr(), L, NR,
+        NW, keys.data_ptr(), idx.data_ptr(), tmp_keys.data_ptr(),
+        tmp_idx.data_ptr(), sync.data_ptr(), _stream())
+    _launched("endpoint_sort", rc)
+    return keys, idx
+
+
+def endpoint_ranks(ekeys, eidx):
+    """K8: the dense rank of each endpoint's key among all endpoint keys,
+    at its endpoint index, from K6's sorted endpoints: (M,) int32."""
+    if not _on_cuda("endpoint_ranks", ekeys):
+        return ref.endpoint_ranks(ekeys, eidx)
+    L, M = ekeys.shape
+    dev = ekeys.device
+    _check("endpoint_ranks", dev, ekeys=(ekeys, _I32, (L, M)),
+           eidx=(eidx, _I32, (M,)))
+    qranks = torch.empty(M, dtype=_I32, device=dev)
+    if M == 0:
+        return qranks
+    desc = _zeroed_scratch("rank_desc", RANK_DESC_WORDS * -(-M // RANK_TILE)
+                           + 2, _I32, dev)
+    rc = library().fdb_endpoint_ranks(ekeys.data_ptr(), eidx.data_ptr(), L,
+                                      M, desc.data_ptr(), qranks.data_ptr(),
+                                      _stream())
+    _launched("endpoint_ranks", rc)
+    return qranks
+
+
+def state_merge(bkeys, bval, ekeys, eidx, NR: int):
+    """K7: the sorted endpoints merged into the sorted state: (skeys,
+    scls, sval, sidx, spos, cum_state), as `conflict_ref.state_merge`."""
+    if not _on_cuda("state_merge", bkeys):
+        return ref.state_merge(bkeys, bval, ekeys, eidx, NR)
+    L, K = bkeys.shape
+    M = eidx.shape[0]
+    N = K + M
+    dev = bkeys.device
+    if NR < 0 or M < 2 * NR or (M - 2 * NR) % 2:
+        raise FDBError("invalid_option",
+                       f"state_merge: M={M} is not 2 NR + 2 NW (NR={NR})")
+    _check("state_merge", dev, bkeys=(bkeys, _I32, (L, K)),
+           bval=(bval, _I32, (K,)), ekeys=(ekeys, _I32, (L, M)),
+           eidx=(eidx, _I32, (M,)))
+    skeys = torch.empty((L, N), dtype=_I32, device=dev)
+    vecs = torch.empty((5, N), dtype=_I32, device=dev)
+    scls, sval, sidx, spos, cum_state = vecs
+    rc = library().fdb_state_merge(
+        bkeys.data_ptr(), bval.data_ptr(), ekeys.data_ptr(), eidx.data_ptr(),
+        L, K, M, NR, skeys.data_ptr(), scls.data_ptr(), sval.data_ptr(),
+        sidx.data_ptr(), spos.data_ptr(), cum_state.data_ptr(), _stream())
+    _launched("state_merge", rc)
+    return skeys, scls, sval, sidx, spos, cum_state
+
+
+SORT_PARTS = SimpleNamespace(endpoint_sort=endpoint_sort,
+                             endpoint_ranks=endpoint_ranks,
+                             state_merge=state_merge)
+
+
+def sort_and_rank(bkeys, bval, rb, re, wb, we):
+    """Phase 0 and the endpoint ranks of the step: (skeys, scls, sval,
+    sidx, spos, cum_state, qranks), as `conflict_ref.sort_and_rank`. On
+    the card: K6 sorts the endpoints, K8 ranks them and K7 merges them into
+    the state (the state keys must be sorted, as every state is)."""
+    if not _on_cuda("endpoint_sort", bkeys):
+        return ref.sort_and_rank(bkeys, bval, rb, re, wb, we)
+    return ref.sort_and_rank_parts(bkeys, bval, rb, re, wb, we, SORT_PARTS)
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +600,8 @@ def legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer):
     return out
 
 
-PHASES = SimpleNamespace(build_table=build_table, history_check=history_check,
+PHASES = SimpleNamespace(sort_and_rank=sort_and_rank,
+                         build_table=build_table, history_check=history_check,
                          intra_sandwich=intra_sandwich,
                          merge_compact=merge_compact,
                          legacy_sweep=legacy_sweep)

@@ -21,6 +21,7 @@ from foundationdb_tpu_torch.utils.errors import FDBError
 from foundationdb_tpu_torch.utils.knobs import KNOBS
 
 SMALL = dict(capacity=1024, txns=64, reads_per_txn=4, writes_per_txn=4)
+SORT_KERNELS = ("endpoint_sort", "state_merge", "endpoint_ranks")
 
 
 @pytest.fixture(autouse=True)
@@ -147,7 +148,7 @@ def _captured_phases(batches):
     """Run `batches` through a CPU engine with the plain phases, recording
     every phase call's arguments (copied: batch tensors are views of a
     reused encode slot)."""
-    calls = {name: [] for name in kernels.KERNELS}
+    calls = {name: [] for name in (*kernels.KERNELS, "sort_and_rank")}
 
     def spy(name, fn):
         def wrapped(*a, **kw):
@@ -155,6 +156,7 @@ def _captured_phases(batches):
             return fn(*a, **kw)
         return wrapped
     spied = type(ref.PLAIN)(
+        sort_and_rank=spy("sort_and_rank", ref.sort_and_rank),
         build_table=spy("sparse_table", ref.build_table),
         history_check=spy("history_check", ref.history_check),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
@@ -177,7 +179,8 @@ def test_kernels_equal_plain_versions_on_the_card(cuda):
         batches.append((fuzz_batch(rng, version, 64), version))
     calls = _captured_phases(batches)
     kernels.reset_launches()
-    pairs = {"sparse_table": (kernels.build_table, ref.build_table),
+    pairs = {"sort_and_rank": (kernels.sort_and_rank, ref.sort_and_rank),
+             "sparse_table": (kernels.build_table, ref.build_table),
              "history_check": (kernels.history_check, ref.history_check),
              "intra_sandwich": (kernels.intra_sandwich, ref.intra_sandwich),
              "merge_compact": (kernels.merge_compact, ref.merge_compact)}
@@ -190,7 +193,8 @@ def test_kernels_equal_plain_versions_on_the_card(cuda):
             got = got if isinstance(got, tuple) else (got,)
             for w, g in zip(want, got):
                 assert torch.equal(g.cpu(), w), name
-        assert kernels.LAUNCHES[name] == len(calls[name]) > 0
+        for part in SORT_KERNELS if name == "sort_and_rank" else (name,):
+            assert kernels.LAUNCHES[part] == len(calls[name]) > 0
 
 
 @pytest.mark.cuda
@@ -221,6 +225,7 @@ def _bench_step_calls(T, mode, device):
             return fn(*a, **kw)
         return wrapped
     spied = type(ref.PLAIN)(
+        sort_and_rank=spy("sort_and_rank", ref.sort_and_rank),
         build_table=spy("sparse_table", ref.build_table),
         history_check=spy("history_check", ref.history_check),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
@@ -354,6 +359,31 @@ def test_sandwich_kernel_raises_when_the_launch_is_refused(cuda):
     assert kernels.LAUNCHES["intra_sandwich"] == 0
     # the card is still usable: a small sandwich launches as before
     _sandwich_equal(_chain_sandwich_args(64, cuda) + (4,), {})
+
+
+@pytest.mark.cuda
+def test_sort_and_rank_kernels_equal_the_plain_phase(cuda):
+    # K6-K8 against the plain phase on chip_smoke.py's edge calls (L=3,
+    # T=1 and 1,000, a poisoned state, an all-padding batch, endpoints all
+    # equal to state keys, long keys that collapse) and on a bench step
+    # at T=16,384; each part against its plain part; K8's scratch is left
+    # zero, so each call again gives the same answer
+    import chip_smoke
+    calls = chip_smoke.sort_rank_edge_calls(cuda)
+    calls += _bench_step_calls(16384, "scan", cuda)["sort_and_rank"]
+    kernels.reset_launches()
+    _equal_to_plain(kernels.sort_and_rank, ref.sort_and_rank, calls + calls)
+    for part in SORT_KERNELS:
+        assert kernels.LAUNCHES[part] == 2 * len(calls)
+    for a, _kw in calls:
+        ends = a[2:]
+        _equal_to_plain(kernels.endpoint_sort, ref.endpoint_sort,
+                        [(ends, {})])
+        ekeys, eidx = ref.endpoint_sort(*ends)
+        _equal_to_plain(kernels.endpoint_ranks, ref.endpoint_ranks,
+                        [((ekeys, eidx), {})])
+        _equal_to_plain(kernels.state_merge, ref.state_merge,
+                        [((*a[:2], ekeys, eidx, ends[0].shape[1]), {})])
 
 
 def _merge_calls(device, capacity, txns, batches):
