@@ -5,7 +5,7 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 Phases, each of which must pass:
 
   1. the card (nvidia-smi name and power limit, torch and CUDA versions);
-  2. the nvcc build of the kernels (K1-K8 and the six probes), with its
+  2. the nvcc build of the kernels (K1-K9 and the six probes), with its
      seconds;
   3. each kernel against its plain PyTorch version on the card, on inputs
      captured from the main path at its full width (K=65,536, T=1,024,
@@ -22,11 +22,17 @@ Phases, each of which must pass:
      shuffled reads (rtxn unsorted), T=1 and T=33 with txns that have no
      reads and snapshots below the floor, all reads padding, and a
      kernel-bench step at T=32,768.
-     K3 is the whole sandwich of a step: (lower, upper, converged) and its
-     count of evaluations against the plain sandwich, also at rounds 0, 1
-     and 32 and on a dependency chain deeper than the rounds (converged
-     must be False); K4 also on a key group across its scan tiles and on
-     steps that overflow (N off the tile size);
+     K9 (the level geometry) field for field, also at T=1, T off a power
+     of two, all padding, shuffled owners and heavy ties, and at T=2^20
+     with one read and one write a txn (timed there too); K3 is the
+     whole sandwich of a step: (lower, upper, converged) and its count of
+     evaluations against the plain sandwich, also at rounds 0, 1 and 32,
+     on a dependency chain deeper than the rounds (converged must be
+     False) and at T=2^20 (its bit sets in global memory; timed); the
+     rebase (K1 with the shift folded in) on the captured state and at
+     K=2^20 with deltas 2^29 and 2^30, saturating; K4 also on a key
+     group across its scan tiles and on steps that overflow (N off the
+     tile size);
      then the whole step with the kernels against the plain step, state
      for state, over a small trajectory that overflows and rebases; K5
      (the legacy evaluator) on the calls of one legacy step at the kernel
@@ -37,13 +43,17 @@ Phases, each of which must pass:
      phase A at the default knobs (K=65,536; 40 batches of 1,024 txns, 4
      point reads + 4 point writes each, zipfian 0.99 over 20,000 keys) and
      phase B at K=2^20 (a load of 48 batches of blind inserts, then 60
-     batches over 400,000 keys). Every reply must equal the port's
+     batches over 400,000 keys); phase A's versions jump by 2^29 once,
+     halfway, so the resolver rebases (the rebase kernel must launch, and
+     the first batches after the jump read below the MVCC floor). Every
+     reply must equal the port's
      OracleConflictSet on the same batches, no state may poison, every
      served chunk must converge on the device (so the sandwich kernel,
      not the host pass, decided its statuses), each kernel must have
      launched during the phase (launch counts are zeroed just before each
-     phase and read just after), and K3 and K6-K8 must have launched once
-     a step (as often as K2). Then each kernel is held to its plain version
+     phase and read just after), and K9, K3 and K6-K8 must have launched
+     once a step (as often as K2). Then each kernel is held to its plain
+     version
      again on one more step from phase B's final state (K=2^20).
   5. the kernel bench (foundationdb_tpu_torch/bench.py): run_kernel at
      T=16,384 (200 batches in chunks of 100, K=2^18) and T=32,768 (100 in
@@ -52,17 +62,19 @@ Phases, each of which must pass:
      The warm chunk's first batches must equal the OracleConflictSet on the
      same byte keys (8 batches at T=16,384, 2 at T=32,768: the oracle is
      pure Python), and the first timed chunk must equal `conflict_scan`
-     with the plain phases on the card; K3 and K6-K8 must have launched
-     once a step. The last step of that plain chunk is captured, and K1-K4
-     and K6-K8 are held to their plain versions on its calls (K3 at M =
-     49,152 and 98,304). One step at T=16,384 is profiled (no torch cummax
-     scan may be left in it), and the level geometry (B4, plain torch) is
-     timed alone on that step's inputs.
+     with the plain phases on the card; K9, K3 and K6-K8 must have
+     launched once a step. The last step of that plain chunk is captured,
+     and K1-K4 and K6-K9 are held to their plain versions on its calls (K3
+     and K9 at M = 49,152 and 98,304). One step at T=16,384 is profiled
+     (no torch cummax scan and no cub radix sort may be left in it; phase
+     3's default-knobs chunk is held to the same), and the level geometry
+     is timed alone on that step's inputs: the plain phase, K9 and the
+     lone `torch.sort` of its packed keys.
   6. the evaluator A/B: run_kernel_ab(16,384, 8), scan against legacy,
      with equal statuses on every batch;
   7. the probes' main (ops/probes.py), the Pallas scripts' top level.
 
-`python3 chip_smoke.py --time-kernels` only times K1-K4, K6-K8 and a bench
+`python3 chip_smoke.py --time-kernels` only times K1-K4, K6-K9 and a bench
 step (phase-free, same method for any version of the port: a copy of this
 script beside an older checkout's package times that checkout).
 
@@ -138,14 +150,16 @@ def zipf_keys(n_keys: int):
     return cdf, keys
 
 
-def make_batches(rng, cdf, keys, n_batches, txns=1024, step=10_000, prev=0):
+def make_batches(rng, cdf, keys, n_batches, txns=1024, step=10_000, prev=0,
+                 jump_at=None):
     """[(prev_version, version, [TxnConflictInfo])] chained from `prev`:
     each txn reads and writes 4 zipfian point keys; snapshots trail by 0-3
-    batches."""
+    batches. With `jump_at`, that batch's version jumps 2^29 further (a
+    version gap the resolver must rebase across)."""
     from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
     out = []
-    for _ in range(n_batches):
-        version = prev + step
+    for i in range(n_batches):
+        version = prev + step + (1 << 29 if i == jump_at else 0)
         idx = np.searchsorted(cdf, rng.random((txns, 8)))
         lag = rng.integers(0, 4, txns) * step
         batch = []
@@ -206,7 +220,9 @@ DEVICE_FUNCTIONS = {
     "state_merge": ("state_merge_kernel",),
     "endpoint_ranks": ("endpoint_ranks_kernel",),
     "sparse_table": ("table_low_kernel", "table_high_kernel"),
+    "rebase_table": ("table_low_kernel", "table_high_kernel"),
     "history_check": ("history_grid_kernel",),
+    "intra_levels": ("intra_levels_kernel",),
     "intra_sandwich": ("sandwich_kernel",),
     "merge_compact": ("merge_prep_kernel", "merge_scan_kernel",
                       "merge_fill_kernel"),
@@ -222,7 +238,11 @@ SORT_KERNELS = ("endpoint_sort", "state_merge", "endpoint_ranks")
 DEVICE_FUNCTIONS["sort_and_rank"] = sum(
     (DEVICE_FUNCTIONS[k] for k in SORT_KERNELS), ())
 STEP_KERNELS = SORT_KERNELS + ("sparse_table", "history_check",
-                               "intra_sandwich", "merge_compact")
+                               "intra_levels", "intra_sandwich",
+                               "merge_compact")
+# every kernel of the resolver's path: the step's, and the rebase that runs
+# when versions pass 2^29
+PATH_KERNELS = STEP_KERNELS + ("rebase_table",)
 SORT_RANK_MAX_LAUNCHES = 8  # device launches a call of the whole phase
 
 
@@ -308,6 +328,21 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         K = vals.shape[0]
         levels = max(1, (max(K, 2) - 1).bit_length() + 1)
         return 4.0 * K * (1 + levels), float(K * levels)
+    if name == "rebase_table":
+        # vals and oldest read; the shifted vals, oldest and table written
+        vals = args[0]
+        K = vals.shape[0]
+        levels = max(1, (max(K, 2) - 1).bit_length() + 1)
+        return 4.0 * K * (2 + levels) + 8, float(K * (levels + 2))
+    if name == "intra_levels":
+        # the six owner and rank vectors read; per level 10 B an element
+        # (src, werl, is_w, bnd) and 8 B a read (qlo, qhi) written; an
+        # operation an element and level
+        T, wtxn_c, rtxn = args[:3]
+        NW, NR = wtxn_c.shape[0], rtxn.shape[0]
+        M = NW + 2 * NR
+        nl = max(1, (int(T) - 1).bit_length())
+        return float(12 * (NW + NR) + nl * (10 * M + 8 * NR)), float(nl * M)
     if name == "history_check":
         table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid, oldest = args
         L, NR = rb.shape
@@ -464,7 +499,10 @@ def library_call(name: str, args, kw=None):
     torch.unique over the endpoint keys in endpoint order (put back in that
     order once, outside the timed call), whose inverse is the dense rank
     (the limbs are sign-flipped int32, so signed order is key order); it
-    is held to the plain ranks here."""
+    is held to the plain ranks here; for the level geometry, the one
+    stable `torch.sort` of its packed keys (`conflict_ref.level_sort_keys`,
+    packed outside the timed call), which gives each level's order but not
+    the six arrays."""
     import torch
     if name == "endpoint_ranks":
         from foundationdb_tpu_torch.ops import conflict_ref as ref
@@ -479,6 +517,10 @@ def library_call(name: str, args, kw=None):
             fail("endpoint_ranks: torch.unique's inverse is not the plain "
                  "rank")
         return unique_ranks
+    if name == "intra_levels":
+        from foundationdb_tpu_torch.ops import conflict_ref as ref
+        packed = ref.level_sort_keys(*args)
+        return lambda: torch.sort(packed, dim=1, stable=True)
     if name == "legacy_blocked":
         c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer = args
         T = c.shape[0]
@@ -545,6 +587,7 @@ def spied_phases(calls: dict, dev, last_step_only=False):
     phases = SimpleNamespace(
         build_table=spy("sparse_table", ref.build_table),
         history_check=spy("history_check", ref.history_check),
+        intra_levels=spy("intra_levels", ref.intra_levels),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
         legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
@@ -711,11 +754,86 @@ def chain_sandwich_args(dev, T=128):
     return (ok, geo, ar, ok, ok, ar, ar)
 
 
-def sandwich_edge_calls(dev, main):
-    """K3's edge inputs: a captured call at rounds 0, 1 and 32, and the
-    128-deep chain at rounds 1 and 32 (unconverged) and 70 (converged)."""
+def big_step_calls(dev, T=1 << 20, seed=61):
+    """K9's and K3's calls at T txns with one read and one write each:
+    begins over 4T endpoint ranks, ends 0-7 ranks past them (an eighth of
+    the ranges empty). At T = 2^20 K3's three bit sets (3 T / 8 bytes)
+    overflow an SM's shared memory, so it keeps them in global memory.
+    Returns (levels call, sandwich call) as (args, kwargs) pairs."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    g = torch.Generator().manual_seed(seed)
+    ar = torch.arange(T, dtype=torch.int32)
+    rbr, wbr = (torch.randint(0, 4 * T, (T,), generator=g, dtype=torch.int32)
+                for _ in range(2))
+    rer, wer = (b + torch.randint(0, 8, (T,), generator=g, dtype=torch.int32)
+                for b in (rbr, wbr))
+    eligible = torch.rand(T, generator=g) < 0.9
+    wtxn_c, rtxn, rbr, rer, wbr, wer = (x.to(dev) for x in (ar, ar, rbr, rer,
+                                                            wbr, wer))
+    geo = ref.intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
+    sandwich = (eligible.to(dev), geo, wtxn_c, wbr < wer, rbr < rer, rtxn,
+                rbr, ref.auto_rounds(T))
+    return ((T, wtxn_c, rtxn, rbr, rer, wbr, wer), {}), (sandwich, {})
+
+
+def level_edge_calls(dev):
+    """K9's edge inputs: T=1; T=1,000 (off a power of two); all padding
+    (every write of txn T - 1, every read padding); shuffled owners at
+    T=4,096; heavy ties (3 ranks) at T=2,048, pooled and shuffled."""
+    import torch
+    g = torch.Generator().manual_seed(51)
+
+    def call(T, n, owners, ranks):
+        if owners == "padding":
+            wt, rt = torch.full((n,), T - 1), torch.full((n,), T)
+        else:
+            wt = torch.randint(0, T, (n,), generator=g)
+            rt = torch.randint(0, T + 1, (n,), generator=g)
+            if owners == "pooled":
+                wt, rt = wt.sort().values, rt.sort().values
+        rbr, rer, wbr, wer = (torch.randint(0, ranks, (n,), generator=g)
+                              for _ in range(4))
+        return ((T, *(x.to(torch.int32).to(dev)
+                      for x in (wt, rt, rbr, rer, wbr, wer))), {})
+    return [call(1, 3, "pooled", 12), call(1000, 4000, "pooled", 32_000),
+            call(64, 256, "padding", 2048),
+            call(4096, 16_384, "shuffled", 131_072),
+            call(2048, 8192, "pooled", 3), call(2048, 8192, "shuffled", 3)]
+
+
+def rebase_call(calls):
+    """The rebase's call on a cell: the step's merged values (the table
+    build's input), oldest 0, delta 2^29."""
+    import torch
+    vals = calls["sparse_table"][-1][0][0]
+    return ((vals, torch.zeros((), dtype=torch.int32, device=vals.device),
+             1 << 29), {})
+
+
+def rebase_edge_calls(dev, K=1 << 20):
+    """The rebase's edge inputs: K=2^20 values from NEG up (every seventh
+    at NEG), deltas 2^29 and 2^30, oldest at NEG, 0 and 2^30 - 1: most
+    values, and some oldests, saturate at NEG."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    g = torch.Generator().manual_seed(71)
+    bval = torch.randint(ref.NEG, 1 << 30, (K,), generator=g,
+                         dtype=torch.int32)
+    bval[::7] = ref.NEG
+    bval = bval.to(dev)
+    return [((bval, torch.tensor(o, dtype=torch.int32, device=dev), d), {})
+            for d in (1 << 29, 1 << 30) for o in (ref.NEG, 0, (1 << 30) - 1)]
+
+
+def sandwich_edge_calls(dev, main, big):
+    """K3's edge inputs: a captured call at rounds 0, 1 and 32, the call
+    `big` (T = 2^20, `big_step_calls`), and the 128-deep chain at rounds 1
+    and 32 (unconverged) and 70 (converged)."""
     (a, kw) = main
-    out = [((*a[:7], r), kw) for r in (0, 1, 32)]
+    out = [((*a[:7], r), kw) for r in (0, 1, 32)] + [big]
     chain = chain_sandwich_args(dev)
     out += [((*chain, r), {}) for r in (1, 32, 70)]
     return out
@@ -851,6 +969,10 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
         want = check_plain(*a, **kw)
         got = check_kern(*a, **kw)
         torch.cuda.synchronize()
+        if isinstance(want, dict):  # the level geometry: its six fields
+            if list(got) != list(want):
+                fail(f"{name}: fields {list(got)}, plain {list(want)}")
+            want, got = tuple(want.values()), tuple(got.values())
         want = want if isinstance(want, tuple) else (want,)
         got = got if isinstance(got, tuple) else (got,)
         for i, (w, g_) in enumerate(zip(want, got)):
@@ -932,9 +1054,10 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
 
 
 def check_kernels(dev, calls, results, cell, edges=True):
-    """Hold each step kernel (K1-K4, K6-K8) to its plain version on every
-    captured call of `cell` (and, with `edges`, on the edge inputs), then
-    time the cell's main-path call: the last one captured from the step.
+    """Hold each kernel of the path (K1-K4, K6-K9 and the rebase) to its
+    plain version on every captured call of `cell` (and, with `edges`, on
+    the edge inputs), then time the cell's main-path call: the last one
+    captured from the step (the rebase's: `rebase_call`).
     The sort-and-rank phase is held whole (all seven outputs) and each of
     its kernels to its plain part, on the calls the phase makes. K3 is
     checked with its evaluation count; on the edge chain at 1 and 32 rounds
@@ -947,15 +1070,23 @@ def check_kernels(dev, calls, results, cell, edges=True):
                                    ref.endpoint_ranks),
                 "state_merge": (kernels.state_merge, ref.state_merge),
                 "sparse_table": (kernels.build_table, ref.build_table),
+                "rebase_table": (kernels.rebase_table, ref.rebase_table),
                 "history_check": (kernels.history_check, ref.history_check),
+                "intra_levels": (kernels.intra_levels, ref.intra_levels),
                 "intra_sandwich": (kernels.intra_sandwich,
                                    ref.intra_sandwich),
                 "merge_compact": (kernels.merge_compact, ref.merge_compact)}
     checks = {"intra_sandwich": (counted(kernels.intra_sandwich),
                                  counted(ref.intra_sandwich))}
-    calls = dict(calls, **sort_rank_part_calls(calls["sort_and_rank"][-1:]))
+    calls = dict(calls, **sort_rank_part_calls(calls["sort_and_rank"][-1:]),
+                 rebase_table=[rebase_call(calls)])
     all_calls = dict(calls)
     if edges:
+        big_levels, big_sandwich = big_step_calls(dev)
+        all_calls["intra_levels"] = calls["intra_levels"] + \
+            level_edge_calls(dev) + [big_levels]
+        all_calls["rebase_table"] = calls["rebase_table"] + \
+            rebase_edge_calls(dev)
         all_calls["sort_and_rank"] = calls["sort_and_rank"] + \
             sort_rank_edge_calls(dev)
         all_calls["sparse_table"] = calls["sparse_table"] + \
@@ -963,7 +1094,8 @@ def check_kernels(dev, calls, results, cell, edges=True):
         all_calls["history_check"] = calls["history_check"] + \
             history_edge_calls(dev)
         all_calls["intra_sandwich"] = calls["intra_sandwich"] + \
-            sandwich_edge_calls(dev, calls["intra_sandwich"][-1])
+            sandwich_edge_calls(dev, calls["intra_sandwich"][-1],
+                                big_sandwich)
         all_calls["merge_compact"] = calls["merge_compact"] + \
             merge_edge_calls(dev)
         for a, kw in all_calls["intra_sandwich"][-3:-1]:
@@ -980,6 +1112,16 @@ def check_kernels(dev, calls, results, cell, edges=True):
         if name == "intra_sandwich":
             results[name]["M"] = int(main[0][1]["src"].shape[1])
             results[name]["evaluations"] = sandwich_evaluations(main[0])
+    if edges:
+        # K9 and K3 timed at T = 2^20 too (K3's bit sets in global memory)
+        for name, big in (("intra_levels", big_levels),
+                          ("intra_sandwich", big_sandwich)):
+            kern, plain = wrappers[name]
+            results[name]["t_2_20"] = hold_to_plain(
+                name, kern, plain, [], big, f"{cell} T=2^20", reps=5,
+                check=checks.get(name))
+        results["intra_sandwich"]["t_2_20"]["evaluations"] = \
+            sandwich_evaluations(big_sandwich[0])
 
 
 def check_legacy(dev, results, T=16384):
@@ -1059,9 +1201,18 @@ def profile_step(dev, batches):
                 device_busy_ms=busy, kernels_device_ms=ours,
                 wall_ms=wall / 3 * 1e3,
                 device_idle_share=max(0.0, 1 - busy / (wall / 3 * 1e3)),
+                radix_sort_device_ms=radix_sort_ms(funcs),
                 top_device_functions=[(k[:80], v[0]) for k, v in top])
     log("step profile: " + json.dumps(out))
+    if out["radix_sort_device_ms"] > 0:
+        fail(f"the default-knobs step still runs a cub radix sort "
+             f"({out['radix_sort_device_ms']} ms)")
     return out
+
+
+def radix_sort_ms(funcs: dict) -> float:
+    """Device ms a call of every cub radix-sort function of a profile."""
+    return sum(v[0] for k, v in funcs.items() if "RadixSort" in k)
 
 
 def check_step_trajectory(dev):
@@ -1128,20 +1279,22 @@ def check_step_trajectory(dev):
 # ---------------------------------------------------------------------------
 
 def once_a_step(where, launches):
-    """Every step launches K2 once; the sandwich and the sort-and-rank
-    phase (K6-K8) must run once a step too."""
-    for name in ("intra_sandwich",) + SORT_KERNELS:
+    """Every step launches K2 once; the level geometry, the sandwich and
+    the sort-and-rank phase (K9, K3, K6-K8) must run once a step too."""
+    for name in ("intra_levels", "intra_sandwich") + SORT_KERNELS:
         if launches[name] != launches["history_check"]:
             fail(f"{where}: {launches[name]} {name} launches for "
                  f"{launches['history_check']} steps")
 
 
 def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
-                window=4):
+                window=4, jump_at=None):
     """Serve `n_load` load batches, then `n_batches` run batches, through
-    the port's Resolver; check every reply against the oracle. Returns the
-    phase's numbers (throughput and latency of the run batches), the
-    resolver's conflict set and one more run batch past the last served."""
+    the port's Resolver; check every reply against the oracle. With
+    `jump_at`, run batch `jump_at`'s version jumps by 2^29, so the resolver
+    rebases and the rebase kernel must launch. Returns the phase's numbers
+    (throughput and latency of the run batches), the resolver's conflict
+    set and one more run batch past the last served."""
     import torch
 
     from foundationdb_tpu_torch.core.eventloop import EventLoop
@@ -1160,7 +1313,7 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     t0 = time.perf_counter()
     load = make_load_batches(rng, keys, n_load) if n_load else []
     run = make_batches(rng, cdf, keys, n_batches + 1,
-                       prev=load[-1][1] if load else 0)
+                       prev=load[-1][1] if load else 0, jump_at=jump_at)
     run, extra = run[:-1], run[-1]
     batches = load + run
     gen_s = time.perf_counter() - t0
@@ -1235,7 +1388,8 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     loop.run_future(proxy.spawn(drive(), "proxyDriver"), max_time=1e9)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {k: kernels.LAUNCHES[k] for k in STEP_KERNELS}
+    launches = {k: kernels.LAUNCHES[k] for k in (
+        STEP_KERNELS if jump_at is None else PATH_KERNELS)}
     chunks, unconverged = (kernel_metrics.as_dict()[k] - before[k]
                            for k in counted)
     resolver_mod.drain_and_collect = drain
@@ -1355,7 +1509,8 @@ def bench_plain_check(dev, detail, T):
 def profile_bench_step(dev, detail):
     """Where one kernel-bench step's device time goes: one strided step
     with the kernels from the post-warm-up state, under the profiler. No
-    torch `cummax` scan may be left in it (the endpoint ranks are K8's)."""
+    torch `cummax` scan (the endpoint ranks are K8's) and no cub radix sort
+    (the level geometry is K9's) may be left in it."""
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     from foundationdb_tpu_torch.ops import kernels
     from foundationdb_tpu_torch.utils.knobs import KNOBS
@@ -1374,43 +1529,48 @@ def profile_bench_step(dev, detail):
     scans = [k[:80] for k in funcs if "scan_innermost_dim_with_indices" in k]
     if scans:
         fail(f"the bench step still runs torch cummax scans: {scans}")
+    if radix_sort_ms(funcs) > 0:
+        fail(f"the bench step still runs a cub radix sort "
+             f"({radix_sort_ms(funcs)} ms)")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1 - busy / wall_ms),
             "kernels_device_ms": {k: device_ms_of(funcs, k)
                                   for k in STEP_KERNELS},
-            "radix_sort_device_ms": sum(
-                v[0] for k, v in funcs.items() if "RadixSort" in k),
+            "radix_sort_device_ms": radix_sort_ms(funcs),
             "top_device_functions": [(k[:80], v[0]) for k, v in top]}
 
 
 def level_sort_time(calls, reps=20):
-    """B4, the level geometry of the scan evaluator (`intra_levels`, still
-    plain torch), timed alone on the captured step's inputs (its ranks
-    from the plain sort-and-rank phase): CUDA-event ms, device ms, and the
-    device ms of its radix sort alone."""
-    from foundationdb_tpu_torch.ops import conflict_ref as ref
-    qranks = ref.sort_and_rank(*calls["sort_and_rank"][-1][0])[6]
-    g, _geo, wtxn_c, _w_ok, _r_ok, rtxn, rbr = \
-        calls["intra_sandwich"][-1][0][:7]
-    NR, NW, T = rtxn.shape[0], wtxn_c.shape[0], g.shape[0]
-    rer = qranks[NR:2 * NR]
-    wbr, wer = qranks[2 * NR:2 * NR + NW], qranks[2 * NR + NW:]
+    """The level geometry of the scan evaluator timed alone on the
+    captured step's call: the plain phase (CUDA-event ms, device ms, and
+    its cub radix sort's device ms), K9 (ms, device ms) and the library
+    call, the lone stable `torch.sort` of the plain phase's packed keys
+    (ms, device ms)."""
+    import torch
 
-    def run():
-        return ref.intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
-    ms = time_cuda(run, reps)
-    funcs, _wall = profile_device(run, reps)
-    return {"ms": ms, "device_ms": busy_ms(funcs),
-            "sort_device_ms": sum(v[0] for k, v in funcs.items()
-                                  if "RadixSort" in k)}
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    a, kw = calls["intra_levels"][-1]
+    packed = ref.level_sort_keys(*a)
+    runs = {"plain": lambda: ref.intra_levels(*a, **kw),
+            "k9": lambda: kernels.intra_levels(*a, **kw),
+            "library": lambda: torch.sort(packed, dim=1, stable=True)}
+    out = {}
+    for label, run in runs.items():
+        funcs, _wall = profile_device(run, reps)
+        out[f"{label}_ms"] = time_cuda(run, reps)
+        out[f"{label}_device_ms"] = busy_ms(funcs)
+        if label == "plain":
+            out["plain_sort_device_ms"] = radix_sort_ms(funcs)
+    return out
 
 
 def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
     """Phase 5 at one batch size: the port's run_kernel on the card (its
     launches counted), then the oracle and plain-phase checks of its
-    statuses, then K1-K4 and K6-K8 held to their plain versions on the
-    calls of the plain chunk's last step. Returns (bench numbers, kernel
-    numbers)."""
+    statuses, then K1-K4, K6-K9 and the rebase held to their plain versions
+    on the calls of the plain chunk's last step. Returns (bench numbers,
+    kernel numbers)."""
     import torch
 
     from foundationdb_tpu_torch import bench
@@ -1449,7 +1609,7 @@ def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
             + json.dumps(res["step_profile"]))
     del detail
     res["level_sort"] = level_sort_time(calls)
-    log(f"kernel bench T={T} level geometry (B4, plain torch) alone: "
+    log(f"kernel bench T={T} level geometry alone (plain, K9, torch.sort): "
         + json.dumps(res["level_sort"]))
     kres: dict = {}
     check_kernels(dev, calls, kres, f"bench T={T}", edges=False)
@@ -1496,14 +1656,15 @@ def probes_phase(dev):
 # ---------------------------------------------------------------------------
 
 def time_step_kernels(dev, reps=50):
-    """Device ms a call of K1-K4 and K6-K8 (and of their whole
+    """Device ms a call of K1-K4 and K6-K9 and the rebase (and of the whole
     sort-and-rank phase) on the captured calls of cell A's step and of a
     kernel-bench step at T=16,384 (K=2^18) and T=32,768 (K=2^19), and of
     that bench step with the kernels: every device function the call
     launches (profile_device), the step's radix-sort and cummax-scan share;
-    and each wrapper's host ms a call (`reps` enqueues, no sync). K6-K8 are
-    timed where the package has them, so a copy of this script beside an
-    older checkout's package times that checkout alike."""
+    and each wrapper's host ms a call (`reps` enqueues, no sync). K6-K8,
+    K9 and the rebase are timed where the package has them, so a copy of
+    this script beside an older checkout's package times that checkout
+    alike."""
     import torch
 
     from foundationdb_tpu_torch import bench
@@ -1518,6 +1679,9 @@ def time_step_kernels(dev, reps=50):
                         endpoint_sort=kernels.endpoint_sort,
                         endpoint_ranks=kernels.endpoint_ranks,
                         state_merge=kernels.state_merge)
+    if hasattr(kernels, "intra_levels"):
+        wrappers.update(intra_levels=kernels.intra_levels,
+                        rebase_table=kernels.rebase_table)
     cdf, keys = zipf_keys(20_000)
     cells = {"A": (None, None, capture_main_path_calls(dev, make_batches(
         np.random.default_rng(100), cdf, keys, 4)))}
@@ -1528,6 +1692,7 @@ def time_step_kernels(dev, reps=50):
         row = out[cell] = {}
         if "sort_and_rank" in calls:
             calls.update(sort_rank_part_calls(calls["sort_and_rank"][-1:]))
+        calls["rebase_table"] = [rebase_call(calls)]
         for name, kern in wrappers.items():
             a, kw = calls[name][-1]
             funcs, _wall = profile_device(lambda: kern(*a, **kw), reps)
@@ -1559,7 +1724,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
     ap.add_argument("--time-kernels", action="store_true",
-                    help="only time K1-K4, K6-K8 and a bench step on the "
+                    help="only time K1-K4, K6-K9 and a bench step on the "
                          "card (time_step_kernels), print them as JSON and "
                          "exit")
     args = ap.parse_args(argv)
@@ -1617,13 +1782,18 @@ def main(argv=None) -> int:
         np.random.default_rng(args.seed + 200), cdf, keys, 24))
     check_legacy(dev, kres)
     check_probes(dev, kres)
+    # the T = 2^20 edge calls leave ~0.8 GB of kernel scratch cached: give
+    # it back, so that the served phases' peak memory is their own
+    kernels.release_scratch()
+    torch.cuda.empty_cache()
 
     # 4. the resolver role, phases A and B; B starts with YCSB's load
     # phase, cut to 48 batches (196,608 of its 400,000 keys), so its state
     # holds about 400k boundaries; then every kernel is held to its plain
     # version again at B's shapes (K=2^20), from B's final state
     phase_a, _cs, _next = serve_phase("A", dev, 1 << 16, PHASE_A_BATCHES,
-                                      20_000, args.seed + 1)
+                                      20_000, args.seed + 1,
+                                      jump_at=PHASE_A_BATCHES // 2)
     phase_b, cs_b, next_b = serve_phase("B", dev, 1 << 20, PHASE_B_BATCHES,
                                         400_000, args.seed + 2,
                                         n_load=PHASE_B_LOAD_BATCHES)
@@ -1656,12 +1826,14 @@ def main(argv=None) -> int:
         entry = {"name": name, "route": "cuda",
                  "source": f"foundationdb_tpu_torch/{source}",
                  "replaces": replaces.split(" ")[0]}
-        if name in STEP_KERNELS:
+        if name in PATH_KERNELS:
             entry["launches"] = phase_a["launches"][name]
-            entry["launches_phase_b"] = phase_b["launches"][name]
-            for T in benches:
-                entry[f"launches_bench_{T}"] = benches[T]["launches"][name]
-            entry["launches_ab"] = ab["launches"][name]
+            if name in STEP_KERNELS:
+                entry["launches_phase_b"] = phase_b["launches"][name]
+                for T in benches:
+                    entry[f"launches_bench_{T}"] = \
+                        benches[T]["launches"][name]
+                entry["launches_ab"] = ab["launches"][name]
             errs = [r["max_abs_err"], kres_b[name]["max_abs_err"]]
             errs += [kres_bench[T][name]["max_abs_err"] for T in benches]
             entry["max_abs_err"] = max(errs)
@@ -1672,8 +1844,10 @@ def main(argv=None) -> int:
             entry["launches"] = probe_run["launches"][name]
             entry["max_abs_err"] = r["max_abs_err"]
         entry.update({k: r[k] for k in timing_keys})
-        if name in STEP_KERNELS:
+        if name in PATH_KERNELS:
             entry["cell_b"] = {k: kres_b[name][k] for k in timing_keys}
+            if "t_2_20" in r:
+                entry["t_2_20"] = {k: r["t_2_20"][k] for k in timing_keys}
             for T in benches:
                 entry[f"bench_{T}"] = {k: kres_bench[T][name][k]
                                        for k in timing_keys}

@@ -68,8 +68,19 @@
 // (227 KB) are read from the global records instead, so any M works.
 // About 102 KB at the bench's T = 32,768 (M = 98,304, 15 levels, 11,171
 // elements a CTA), 48 KB at T = 16,384, 8 KB at the resolver's M = 12,288
-// (10 levels). The launch is refused only when the bit sets and the reads
-// alone overflow an SM: above about 450,000 txns.
+// (10 levels).
+// Where the bit sets and the owned reads do not fit (3 T / 8 + 4 NR / G
+// bytes past the opt-in limit: above about 450,000 to 570,000 txns, by
+// the reads a txn) the kernel runs with its bit sets in global memory
+// (GB = true; T / 8 bytes each, L2 resident: 128 KB at T = 2^20), and the
+// shared memory holds only cached records. One copy of c and g serves
+// every CTA, so the step-6 fold is split: each CTA folds its own slice of
+// words into c and ORs "differs" into a flag word, and one more grid
+// barrier lets every CTA read the flag (three flag words rotate, so one is
+// cleared while another is read).
+// A CTA marks reads straight into the global mark words, and reads rtxn
+// and r_ok from global memory. The wrapper picks the layout from the
+// shape; no shape that `_run_sandwich` answers is refused.
 #include "common.cuh"
 
 #define SAND_THREADS 1024
@@ -94,10 +105,14 @@ struct SweepOp {
 __device__ __forceinline__ SweepElem sweep_id() { return {0, INT_MIN, 0}; }
 
 // The record of a level element as a scan element under c (in shared
-// memory).
+// memory, or with GB in global memory that other CTAs rewrite).
+template <bool GB>
 __device__ __forceinline__ SweepElem rec_elem(int2 rec,
                                               const unsigned int* c_bits) {
-  const bool cm = rec.x >= 0 && ((c_bits[rec.x >> 5] >> (rec.x & 31)) & 1u);
+  const bool cm =
+      rec.x >= 0 &&
+      (((GB ? __ldcg(&c_bits[rec.x >> 5]) : c_bits[rec.x >> 5]) >>
+        (rec.x & 31)) & 1u);
   return {cm ? 1 : 0, cm ? (int)((unsigned)rec.y & ~REC_BND) : -1,
           (int)((unsigned)rec.y >> 31)};
 }
@@ -131,6 +146,8 @@ struct SandArgs {
   unsigned int* marks;  // 2 W: two bit sets, zero on entry and on exit
   unsigned int* sync;  // [0] barrier arrivals (low 31 bits zero),
                        // [1] CTAs done with the last marks (zero)
+  unsigned int* bits;  // GB: 2 W words, c and g (overwritten)
+  unsigned int* differ;  // GB: 3 flag words, zero on entry and on exit
   uint8_t* lower;
   uint8_t* upper;
   uint8_t* converged;
@@ -138,10 +155,10 @@ struct SandArgs {
 };
 
 struct SandSmem {
-  unsigned int* c;  // the committed set, a bit per txn
-  unsigned int* g;  // the eligible set, a bit per txn
-  unsigned int* m;  // this CTA's marks of an evaluation, a bit per txn
-  int32_t* rt;  // rtxn of each owned read with r_ok, else -1
+  unsigned int* c;  // the committed set, a bit per txn (GB: global)
+  unsigned int* g;  // the eligible set, a bit per txn (GB: global)
+  unsigned int* m;  // this CTA's marks of an evaluation (not with GB)
+  int32_t* rt;  // rtxn of each owned read with r_ok, else -1 (not GB)
   int2* rec;
   SweepElem* scan;  // 32 for the block scans
 };
@@ -151,14 +168,17 @@ __device__ __forceinline__ int2 rec_at(const SandArgs& a, const SandSmem& s,
   return i < a.cached ? s.rec[i] : __ldcg(&a.rec[e0 + i]);
 }
 
-// c = f(c), in place in every CTA's shared memory; each CTA also writes
-// its own slice of the new c to `out`. `marks` (W words) is zero on entry
-// and gets this evaluation's marks; `spent`, the previous evaluation's,
-// is cleared slice by slice. Returns whether the new c differs from the
-// old one: every CTA folds all the marks itself, so all return the same.
+// c = f(c), in place in every CTA's shared memory (GB: in the one global
+// copy); each CTA also writes its own slice of the new c to `out`.
+// `marks` (W words) is zero on entry and gets this evaluation's marks;
+// `spent`, the previous evaluation's, is cleared slice by slice. Returns
+// whether the new c differs from the old one, the same in every CTA:
+// every CTA folds all the marks itself (GB: through a flag word and one
+// more grid barrier). `e` numbers the evaluation.
+template <bool GB>
 __device__ bool sand_eval(const SandArgs& a, const SandSmem& s,
                           unsigned int* marks, unsigned int* spent,
-                          uint8_t* out) {
+                          uint8_t* out, int e) {
   const SweepOp op;
   const int b = blockIdx.x;
   const int e0 = b * a.chunk;
@@ -171,7 +191,7 @@ __device__ bool sand_eval(const SandArgs& a, const SandSmem& s,
   const int i_hi = min(i_lo + a.per_thread, n_mine);
   SweepElem acc = sweep_id();
   for (int i = i_lo; i < i_hi; ++i)
-    acc = op(acc, rec_elem(rec_at(a, s, e0, i), s.c));
+    acc = op(acc, rec_elem<GB>(rec_at(a, s, e0, i), s.c));
   SweepElem total;
   const SweepElem excl =
       fdb_block_exclusive_scan(acc, op, sweep_id(), s.scan, &total);
@@ -203,7 +223,7 @@ __device__ bool sand_eval(const SandArgs& a, const SandSmem& s,
   SweepElem run = op(carry, excl);
   for (int i = i_lo; i < i_hi; ++i) {
     const int2 r = rec_at(a, s, e0, i);
-    run = op(run, rec_elem(r, s.c));
+    run = op(run, rec_elem<GB>(r, s.c));
     if (r.x <= -2) {
       const int code = -2 - r.x;
       const int level = (e0 + i) / a.M;
@@ -225,47 +245,82 @@ __device__ bool sand_eval(const SandArgs& a, const SandSmem& s,
   for (int k = threadIdx.x; k < a.rpc * a.n_levels; k += blockDim.x) {
     const int l = k / a.rpc;
     const int jj = k - l * a.rpc;
-    const int t = s.rt[jj];
+    const int j = b * a.rpc + jj;
+    int t;
+    if (GB) {
+      t = (j < a.NR && a.r_ok[j]) ? a.rtxn[j] : -1;
+    } else {
+      t = s.rt[jj];
+    }
     if (t < 0) continue;
-    const long long slot = (long long)l * a.NR + b * a.rpc + jj;
+    const long long slot = (long long)l * a.NR + j;
     if (__ldcg(&a.slot_hi[slot]) - __ldcg(&a.slot_lo[slot]) > 0)
-      atomicOr(&s.m[t >> 5], 1u << (t & 31));
+      atomicOr(GB ? &marks[t >> 5] : &s.m[t >> 5], 1u << (t & 31));
   }
-  __syncthreads();
-  for (int w = threadIdx.x; w < a.W; w += blockDim.x) {
-    const unsigned int v = s.m[w];
-    if (v) {
-      atomicOr(&marks[w], v);
-      s.m[w] = 0;
+  if (!GB) {
+    __syncthreads();
+    for (int w = threadIdx.x; w < a.W; w += blockDim.x) {
+      const unsigned int v = s.m[w];
+      if (v) {
+        atomicOr(&marks[w], v);
+        s.m[w] = 0;
+      }
     }
   }
   fdb_grid_sync(a.sync);
 
   // 6. c = g & ~marks, 32 txns a word, compared with the old c
   int differ = 0;
-  for (int w = threadIdx.x; w < a.W; w += blockDim.x) {
-    const unsigned int v = s.g[w] & ~__ldcg(&marks[w]);
-    differ |= v != s.c[w];
-    s.c[w] = v;
+  if constexpr (GB) {
+    // this CTA's slice of c; no CTA reads c again before the barrier below
+    for (int w = b * a.wpc + threadIdx.x; w < w_end; w += blockDim.x) {
+      const unsigned int v = __ldcg(&s.g[w]) & ~__ldcg(&marks[w]);
+      differ |= v != __ldcg(&s.c[w]);
+      s.c[w] = v;
+    }
+    for (int t = t0 + threadIdx.x; t < t1; t += blockDim.x)
+      out[t] = a.g[t] && !((__ldcg(&marks[t >> 5]) >> (t & 31)) & 1u);
+    if (__syncthreads_or(differ) && threadIdx.x == 0)
+      atomicOr(&a.differ[e % 3], 1u);
+    // the flag word of the next evaluation was last read two evaluations
+    // ago, before barriers every CTA has passed
+    if (b == 0 && threadIdx.x == 0) a.differ[(e + 1) % 3] = 0u;
+    fdb_grid_sync(a.sync);
+    return __ldcg(&a.differ[e % 3]) != 0u;
+  } else {
+    for (int w = threadIdx.x; w < a.W; w += blockDim.x) {
+      const unsigned int v = s.g[w] & ~__ldcg(&marks[w]);
+      differ |= v != s.c[w];
+      s.c[w] = v;
+    }
+    const bool d = __syncthreads_or(differ);
+    for (int t = t0 + threadIdx.x; t < t1; t += blockDim.x)
+      out[t] = (s.c[t >> 5] >> (t & 31)) & 1u;
+    return d;
   }
-  const bool d = __syncthreads_or(differ);
-  for (int t = t0 + threadIdx.x; t < t1; t += blockDim.x)
-    out[t] = (s.c[t >> 5] >> (t & 31)) & 1u;
-  return d;
 }
 
+template <bool GB>
 __global__ void __launch_bounds__(SAND_THREADS, 1)
 sandwich_kernel(SandArgs a) {
   extern __shared__ __align__(16) unsigned char sand_smem[];
   __shared__ SweepElem sh_scan[32];
   __shared__ bool sh_last;
   SandSmem s;
-  s.c = reinterpret_cast<unsigned int*>(sand_smem);
-  s.g = reinterpret_cast<unsigned int*>(sand_smem + a.bits_bytes);
-  s.m = reinterpret_cast<unsigned int*>(sand_smem + 2 * a.bits_bytes);
-  s.rt = reinterpret_cast<int32_t*>(sand_smem + 3 * a.bits_bytes);
-  s.rec = reinterpret_cast<int2*>(sand_smem + 3 * a.bits_bytes +
-                                  ((a.rpc * 4 + 15) & ~15));
+  if (GB) {
+    s.c = a.bits;
+    s.g = a.bits + a.W;
+    s.m = nullptr;
+    s.rt = nullptr;
+    s.rec = reinterpret_cast<int2*>(sand_smem);
+  } else {
+    s.c = reinterpret_cast<unsigned int*>(sand_smem);
+    s.g = reinterpret_cast<unsigned int*>(sand_smem + a.bits_bytes);
+    s.m = reinterpret_cast<unsigned int*>(sand_smem + 2 * a.bits_bytes);
+    s.rt = reinterpret_cast<int32_t*>(sand_smem + 3 * a.bits_bytes);
+    s.rec = reinterpret_cast<int2*>(sand_smem + 3 * a.bits_bytes +
+                                    ((a.rpc * 4 + 15) & ~15));
+  }
   s.scan = sh_scan;
   const int b = blockIdx.x;
 
@@ -294,19 +349,25 @@ sandwich_kernel(SandArgs a) {
     a.rec[hi] = make_int2(ok ? -3 - 2 * j : -1,
                           (int)(a.bnd[hi] ? REC_BND : 0u));
   }
-  for (int k = threadIdx.x; k < a.rpc; k += blockDim.x) {
-    const int j = b * a.rpc + k;
-    s.rt[k] = (j < a.NR && a.r_ok[j]) ? a.rtxn[j] : -1;
+  if (!GB) {
+    for (int k = threadIdx.x; k < a.rpc; k += blockDim.x) {
+      const int j = b * a.rpc + k;
+      s.rt[k] = (j < a.NR && a.r_ok[j]) ? a.rtxn[j] : -1;
+    }
   }
-  for (int w = threadIdx.x; w < a.W; w += blockDim.x) {
-    unsigned int word = 0;  // g and c = g as bit sets; m empty
+  // g and c = g as bit sets, m empty: each CTA all of its own copy, or
+  // (GB) its slice of the one global copy
+  const int w_first = GB ? b * a.wpc : 0;
+  const int w_last = GB ? min((b + 1) * a.wpc, a.W) : a.W;
+  for (int w = w_first + threadIdx.x; w < w_last; w += blockDim.x) {
+    unsigned int word = 0;
 #pragma unroll
     for (int k = 0; k < 32; ++k) {
       const int t = w * 32 + k;
       if (t < a.T && __ldg(&a.g[t])) word |= 1u << k;
     }
     s.g[w] = s.c[w] = word;
-    s.m[w] = 0;
+    if (!GB) s.m[w] = 0;
   }
   {
     const int t0 = min(b * a.tpc, a.T);
@@ -326,12 +387,13 @@ sandwich_kernel(SandArgs a) {
   // the sandwich: evaluation e marks into buffer e & 1 and clears the
   // other; `differ` is the same in every CTA, so the exit is uniform
   unsigned int* marks[2] = {a.marks, a.marks + a.W};
-  bool differ = sand_eval(a, s, marks[0], marks[1], a.lower);
+  bool differ = sand_eval<GB>(a, s, marks[0], marks[1], a.lower, 0);
   int evals = 1;
   for (int r = 0; differ && r < a.rounds; ++r) {
-    sand_eval(a, s, marks[evals & 1], marks[(evals + 1) & 1], a.upper);
-    differ = sand_eval(a, s, marks[(evals + 1) & 1], marks[evals & 1],
-                       a.lower);
+    sand_eval<GB>(a, s, marks[evals & 1], marks[(evals + 1) & 1], a.upper,
+                  evals);
+    differ = sand_eval<GB>(a, s, marks[(evals + 1) & 1], marks[evals & 1],
+                           a.lower, evals + 1);
     evals += 2;
   }
 
@@ -346,6 +408,7 @@ sandwich_kernel(SandArgs a) {
     __threadfence();
     unsigned int* last = marks[(evals - 1) & 1];
     for (int w = threadIdx.x; w < a.W; w += blockDim.x) last[w] = 0;
+    if (GB && threadIdx.x < 3) a.differ[threadIdx.x] = 0u;
     if (threadIdx.x == 0) a.sync[1] = 0;
   }
   if (b == 0 && threadIdx.x == 0) {
@@ -354,25 +417,55 @@ sandwich_kernel(SandArgs a) {
   }
 }
 
-// The largest dynamic shared memory granted so far, per device, and the
-// kernel's static share, read once.
-static int g_sand_smem[64];
-static int g_static_smem = -1;
+// The largest dynamic shared memory granted so far, per layout and
+// device, and each layout's static share, read once.
+static int g_sand_smem[2][64];
+static int g_static_smem[2] = {-1, -1};
 
-// rec: 2 * n_levels * M int32, agg: 4 * SAND_MAX_GRID int32 and slots:
-// 2 * n_levels * NR int32 of scratch, all overwritten; marks: 2 *
-// ceil(T / 32) uint32 and sync: 2 uint32, marks and sync[1] zero and
-// sync[0]'s low 31 bits zero on entry, all left so. One cooperative
-// launch on `stream`.
+template <bool GB>
+static cudaError_t sand_static_smem() {
+  if (g_static_smem[GB] >= 0) return cudaSuccess;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, sandwich_kernel<GB>);
+  if (e == cudaSuccess) g_static_smem[GB] = (int)attr.sharedSizeBytes;
+  return e;
+}
+
+template <bool GB>
+static cudaError_t sand_launch(SandArgs* a, int G, int dev, int dyn,
+                               cudaStream_t stream) {
+  cudaError_t e =
+      fdb_allow_smem(sandwich_kernel<GB>, dev, (size_t)dyn, g_sand_smem[GB]);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sandwich_kernel<GB>, SAND_THREADS, dyn);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  void* params[] = {a};
+  e = cudaLaunchCooperativeKernel((const void*)sandwich_kernel<GB>, dim3(G),
+                                  dim3(SAND_THREADS), params, (size_t)dyn,
+                                  stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// rec: 2 * n_levels * M int32, agg: 4 * SAND_MAX_GRID int32, slots:
+// 2 * n_levels * NR int32 and bits: 2 * ceil(T / 32) uint32 of scratch,
+// all overwritten; marks: 2 * ceil(T / 32) uint32, sync: 2 uint32 and
+// differ: 3 uint32, marks, sync[1] and differ zero and sync[0]'s low 31
+// bits zero on entry, all left so. The bit sets go to shared memory when
+// they fit beside the owned reads, else to `bits`. One cooperative launch
+// on `stream`.
 extern "C" int fdb_intra_sandwich(
     const uint8_t* g, const int32_t* src, const uint8_t* is_w,
     const int32_t* werl, const uint8_t* bnd, const int32_t* qlo,
     const int32_t* qhi, const int32_t* wtxn_c, const uint8_t* w_ok,
     const uint8_t* r_ok, const int32_t* rtxn, const int32_t* rbr,
     int n_levels, int T, int M, int NR, int rounds, int32_t* rec,
-    int32_t* agg, int32_t* slots, unsigned int* marks, unsigned int* sync,
-    uint8_t* lower, uint8_t* upper, uint8_t* converged, int32_t* evals,
-    void* stream) {
+    int32_t* agg, int32_t* slots, unsigned int* bits, unsigned int* marks,
+    unsigned int* sync, unsigned int* differ, uint8_t* lower,
+    uint8_t* upper, uint8_t* converged, int32_t* evals, void* stream) {
   int dev = 0;
   FdbDeviceLimits lim;
   cudaError_t e = fdb_device_limits(&dev, &lim);
@@ -381,12 +474,9 @@ extern "C" int fdb_intra_sandwich(
   const long long E = (long long)n_levels * M;
   if (E >= (1LL << 30) || (long long)n_levels * NR >= (1LL << 29) || T < 1)
     return (int)cudaErrorInvalidValue;
-  if (g_static_smem < 0) {
-    cudaFuncAttributes attr;
-    e = cudaFuncGetAttributes(&attr, sandwich_kernel);
-    if (e != cudaSuccess) return (int)e;
-    g_static_smem = (int)attr.sharedSizeBytes;
-  }
+  e = sand_static_smem<false>();
+  if (e == cudaSuccess) e = sand_static_smem<true>();
+  if (e != cudaSuccess) return (int)e;
 
   SandArgs a;
   a.g = g; a.src = src; a.is_w = is_w; a.werl = werl; a.bnd = bnd;
@@ -403,10 +493,13 @@ extern "C" int fdb_intra_sandwich(
   a.W = (T + 31) / 32;
   a.wpc = (a.W + G - 1) / G;
   a.bits_bytes = (4 * a.W + 15) & ~15;
-  const long long fixed = 3LL * a.bits_bytes + ((a.rpc * 4LL + 15) & ~15LL);
-  const long long avail =
-      (long long)lim.smem_optin - (long long)g_static_smem;
-  if (fixed > avail) return (int)cudaErrorInvalidValue;  // T too large
+  long long fixed = 3LL * a.bits_bytes + ((a.rpc * 4LL + 15) & ~15LL);
+  long long avail = (long long)lim.smem_optin - (long long)g_static_smem[0];
+  const bool global_bits = fixed > avail;
+  if (global_bits) {
+    fixed = 0;
+    avail = (long long)lim.smem_optin - (long long)g_static_smem[1];
+  }
   const long long fit = (avail - fixed) / 8;
   a.cached = fit < a.chunk ? (int)fit : a.chunk;
   const int dyn = (int)(fixed + 8LL * a.cached);
@@ -416,20 +509,13 @@ extern "C" int fdb_intra_sandwich(
   a.slot_hi = slots + (long long)n_levels * NR;
   a.marks = marks;
   a.sync = sync;
+  a.bits = bits;
+  a.differ = differ;
   a.lower = lower; a.upper = upper; a.converged = converged;
   a.evals = evals;
 
-  e = fdb_allow_smem(sandwich_kernel, dev, (size_t)dyn, g_sand_smem);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sandwich_kernel,
-                                                    SAND_THREADS, dyn);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)sandwich_kernel, dim3(G),
-                                  dim3(SAND_THREADS), params, (size_t)dyn,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return (int)(global_bits
+                   ? sand_launch<true>(&a, G, dev, dyn, (cudaStream_t)stream)
+                   : sand_launch<false>(&a, G, dev, dyn,
+                                        (cudaStream_t)stream));
 }

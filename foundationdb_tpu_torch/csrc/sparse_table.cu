@@ -5,7 +5,12 @@
 // XLA program the JAX step runs after every merge (`_merge_phase` :691),
 // in `rebase_state` (:707-718) and in `init_state`.
 //   table[l][i] = max(vals[i .. i + 2^l)), FDB_NEG past K
-// (a window that runs past K also takes FDB_NEG into its max).
+// (a window that runs past K also takes FDB_NEG into its max). With the
+// rebase (`rebase_state`, `_compiled_rebase` :761-768) folded in, the first
+// launch shifts each value as it loads it, v' = max(v - delta, FDB_NEG)
+// (0 <= delta <= 2^30, in 64 bits), writes v' out beside row 0, and builds
+// the table of v'; CTA 0 shifts the 0-dim `oldest` the same way. So a
+// rebase is the same at most two launches as a table build.
 //
 // Bound on H100: bytes. It reads K int32 and writes LEVELS * K int32: 20 MB
 // at K = 2^18 (~6.3 us of HBM time), 92 MB at 2^20 (~27 us), 4.5 MB at
@@ -50,23 +55,36 @@ struct FdbMax2Op {
   }
 };
 
-// Levels 0..lmax of one tile; with `pre` (K > 1,024) also pre, suf and the
-// tile's maximum.
+// v - delta, saturating at FDB_NEG.
+__device__ __forceinline__ int32_t shift_down(int32_t v, long long delta) {
+  const long long x = (long long)v - delta;
+  return x < FDB_NEG ? FDB_NEG : (int32_t)x;
+}
+
+// Levels 0..lmax of one tile of the values shifted down by delta; with
+// `pre` (K > 1,024) also pre, suf and the tile's maximum; with `shifted`
+// the shifted values, and with `oldest` (CTA 0) the shifted oldest.
 __global__ void __launch_bounds__(TILE)
 table_low_kernel(const int32_t* __restrict__ vals, int32_t* __restrict__ table,
                  int K, int lmax, int32_t* __restrict__ pre,
-                 int32_t* __restrict__ suf, int32_t* __restrict__ tile_max) {
+                 int32_t* __restrict__ suf, int32_t* __restrict__ tile_max,
+                 long long delta, const int32_t* __restrict__ oldest,
+                 int32_t* __restrict__ shifted,
+                 int32_t* __restrict__ oldest_out) {
   __shared__ int32_t a[2 * TILE];
   __shared__ FdbMax2 sh[32];
   const long long c0 = (long long)blockIdx.x * TILE;
   const int t = threadIdx.x;
   for (int j = t; j < 2 * TILE; j += TILE) {
     const long long i = c0 + j;
-    a[j] = i < K ? vals[i] : FDB_NEG;
+    a[j] = i < K ? shift_down(vals[i], delta) : FDB_NEG;
   }
+  if (oldest != nullptr && blockIdx.x == 0 && t == 0)
+    *oldest_out = shift_down(*oldest, delta);
   __syncthreads();
   const long long i = c0 + t;
   if (i < K) table[i] = a[t];
+  if (shifted != nullptr && i < K) shifted[i] = a[t];
   if (pre != nullptr) {
     // thread t scans column t forward and column TILE - 1 - t backward;
     // columns past K hold FDB_NEG, which only the last tile's suf and
@@ -159,10 +177,19 @@ table_high_kernel(const int32_t* __restrict__ pre,
 }
 
 // scratch: 2 K + ceil(K / TILE) int32 when levels > LOW_LEVELS (else
-// unused, may be NULL), overwritten. One launch, or two for K > 1,024.
+// unused, may be NULL), overwritten. The table is of the values shifted
+// down by delta (0 for a plain build); `oldest`, `shifted` (K int32) and
+// `oldest_out` are all NULL, or all set for a rebase. One launch, or two
+// for K > 1,024.
 extern "C" int fdb_sparse_table(const int32_t* vals, int32_t* table, int K,
-                                int levels, int32_t* scratch, void* stream) {
-  if (K < 1 || levels < 1) return (int)cudaErrorInvalidValue;
+                                int levels, int32_t* scratch,
+                                long long delta, const int32_t* oldest,
+                                int32_t* shifted, int32_t* oldest_out,
+                                void* stream) {
+  if (K < 1 || levels < 1 || delta < 0 || delta > (1LL << 30) ||
+      (oldest == nullptr) != (oldest_out == nullptr) ||
+      (oldest == nullptr) != (shifted == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_tiles = (K + TILE - 1) / TILE;
   const bool high = levels > LOW_LEVELS;
@@ -171,7 +198,8 @@ extern "C" int fdb_sparse_table(const int32_t* vals, int32_t* table, int K,
   int32_t* suf = high ? scratch + K : nullptr;
   int32_t* tile_max = high ? scratch + 2LL * K : nullptr;
   table_low_kernel<<<n_tiles, TILE, 0, st>>>(
-      vals, table, K, high ? LOW_LEVELS - 1 : levels - 1, pre, suf, tile_max);
+      vals, table, K, high ? LOW_LEVELS - 1 : levels - 1, pre, suf, tile_max,
+      delta, oldest, shifted, oldest_out);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !high) return (int)e;
   table_high_kernel<<<n_tiles, TILE, 0, st>>>(pre, suf, tile_max, table, K,

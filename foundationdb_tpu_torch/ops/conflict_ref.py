@@ -16,9 +16,10 @@ with reshapes there, because a scatter costs a TPU far more than a
 reshape; on the card an atomic-OR fold costs about what a reshape does, so
 the same phases and kernels serve both layouts.
 
-The step is written as plain tensor code around six phase functions,
+The step is written as plain tensor code around seven phase functions,
 passed in as `phases` (an object with `sort_and_rank`, `build_table`,
-`history_check`, `intra_sandwich`, `merge_compact` and `legacy_sweep`).
+`history_check`, `intra_levels`, `intra_sandwich`, `merge_compact` and
+`legacy_sweep`); `rebase_state` calls an eighth, `rebase_table`.
 `PLAIN` holds the plain versions below;
 ops/kernels.py holds wrappers with the same signatures that launch the CUDA
 kernels for CUDA tensors. Nothing here synchronises with the device: every
@@ -429,14 +430,11 @@ def sort_and_rank_parts(bkeys, bval, rb, re, wb, we, parts=None):
             qranks)
 
 
-def intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer) -> dict:
-    """Sweep-invariant geometry of the scan evaluator (`_intra_scan_levels`,
-    conflict.py:243-292), every level in one 2-D sort: level l orders writes
-    by (wtxn >> l, rank) and places each read's two query elements in block
-    (rtxn >> l) - 1, class hi-query(-1) < write(0) < lo-query(1) at equal
-    (block, rank). The three keys pack into one int64."""
+def level_sort_keys(T, wtxn_c, rtxn, rbr, rer, wbr, wer) -> torch.Tensor:
+    """The keys `intra_levels` sorts, (n_levels, M) int64: (block + 1,
+    rank, class + 1) packed into 24, 38 and 2 bits, for the elements
+    [writes | lo queries | hi queries]."""
     NW, NR = wbr.shape[0], rbr.shape[0]
-    M = NW + 2 * NR
     dev = wbr.device
     n_levels = max(1, int(T - 1).bit_length())
     shift = torch.arange(n_levels, device=dev, dtype=torch.int64)[:, None]
@@ -447,8 +445,28 @@ def intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer) -> dict:
     cls = torch.cat([torch.zeros(NW, dtype=torch.int64, device=dev),
                      torch.ones(NR, dtype=torch.int64, device=dev),
                      torch.full((NR,), -1, dtype=torch.int64, device=dev)])
-    packed = ((key1 + 1) << 40) | (key2 << 2)[None, :] | (cls + 1)[None, :]
-    s, si = torch.sort(packed, dim=1)
+    return ((key1 + 1) << 40) | (key2 << 2)[None, :] | (cls + 1)[None, :]
+
+
+def intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer) -> dict:
+    """Sweep-invariant geometry of the scan evaluator (`_intra_scan_levels`,
+    conflict.py:243-292), every level in one 2-D sort: level l orders writes
+    by (wtxn >> l, rank) and places each read's two query elements in block
+    (rtxn >> l) - 1, class hi-query(-1) < write(0) < lo-query(1) at equal
+    (block, rank). The three keys pack into one int64, and the sort is
+    stable, so the order is total: (block, rank, class, element index),
+    with element i a write i < NW, a lo query NW + j, a hi query
+    NW + NR + j. (`lax.sort` leaves the order of equal keys unspecified;
+    the sandwich's outputs do not depend on it, K9's fields do.) Owners
+    lie in [0, T - 1] (writes) and [0, T] (reads, T = padding), in any
+    order. Returns {src, is_w, werl, bnd: (n_levels, M); qlo, qhi:
+    (n_levels, NR)}, M = NW + 2 NR, n_levels = max(1, bit_length(T - 1))."""
+    NW, NR = wbr.shape[0], rbr.shape[0]
+    M = NW + 2 * NR
+    dev = wbr.device
+    packed = level_sort_keys(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
+    n_levels = packed.shape[0]
+    s, si = torch.sort(packed, dim=1, stable=True)
     inv = torch.empty_like(si)
     inv.scatter_(1, si, torch.arange(M, device=dev).expand(n_levels, M))
     is_w = si < NW
@@ -500,10 +518,20 @@ def intra_sandwich(g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, rounds: int,
     return out
 
 
+def rebase_table(bval, oldest, delta: int):
+    """Shift the version offsets down by `delta` (0 <= delta <= 2^30),
+    saturating at NEG, and build the table of the shifted values
+    (`rebase_state`): (bval', oldest', table)."""
+    bval2 = torch.clamp(bval - delta, min=NEG)
+    return bval2, torch.clamp(oldest - delta, min=NEG), build_table(bval2)
+
+
 PLAIN = SimpleNamespace(sort_and_rank=sort_and_rank,
                         build_table=build_table, history_check=history_check,
+                        intra_levels=intra_levels,
                         intra_sandwich=intra_sandwich,
-                        merge_compact=merge_compact, legacy_sweep=legacy_sweep)
+                        merge_compact=merge_compact, legacy_sweep=legacy_sweep,
+                        rebase_table=rebase_table)
 
 
 def run_legacy(sweep, g):
@@ -590,7 +618,7 @@ def conflict_step(state: dict, batch: dict, *, max_write_life: int,
         commit = merge_commit = run_legacy(legacy, g)
         converged = torch.ones((), dtype=torch.bool, device=dev)
     else:
-        geo = intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
+        geo = phases.intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
         rounds = intra_rounds if intra_rounds > 0 else auto_rounds(T)
         # statuses come from `lower` (never a false commit), the merge uses
         # `upper` (never a write missing from history)
@@ -639,10 +667,9 @@ def conflict_scan(state: dict, stacked: dict, *, max_write_life: int,
 def rebase_state(state: dict, delta: int, phases=PLAIN) -> dict:
     """Shift every version offset down by delta (the host rebases its int64
     base), saturating at NEG, and rebuild the table (`rebase_state`)."""
-    bval = torch.clamp(state["bval"] - delta, min=NEG)
-    return dict(state, bval=bval,
-                oldest=torch.clamp(state["oldest"] - delta, min=NEG),
-                table=phases.build_table(bval))
+    bval, oldest, table = phases.rebase_table(state["bval"], state["oldest"],
+                                              delta)
+    return dict(state, bval=bval, oldest=oldest, table=table)
 
 
 def init_state(capacity: int, limbs: int, device, oldest: int = 0,

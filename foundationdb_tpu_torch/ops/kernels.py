@@ -5,7 +5,9 @@ ops/conflict_ref.py that it replaces, so `PHASES` drops into
 `conflict_ref.conflict_step` in place of `conflict_ref.PLAIN`:
 
   K1 build_table    csrc/sparse_table.cu    `_build_table`
+     rebase_table   csrc/sparse_table.cu    `rebase_state` (`_compiled_rebase`)
   K2 history_check  csrc/history_check.cu   phases 1-2 of `conflict_step`
+  K9 intra_levels   csrc/intra_levels.cu    `_intra_scan_levels`
   K3 intra_sandwich csrc/intra_sweep.cu     `_run_sandwich` (over `_f_commit`)
   K4 merge_compact  csrc/merge_compact.cu   `_merge_phase` up to the table
   K5 legacy_sweep   csrc/legacy_overlap.cu  the legacy evaluator's `_f_commit`
@@ -32,11 +34,21 @@ barrier, then a thread per txn writes the verdicts; no CTA loops over T.
 K3 runs the whole sandwich of a step (every evaluation and the pinch test)
 in one persistent kernel: one CTA per SM, launched with
 cudaLaunchCooperativeKernel so that its grid-wide barriers cannot
-deadlock. The launch is refused when the card cannot hold one CTA per SM
-with the shared memory the shape needs (T above about 450,000 txns); the
-wrapper then raises FDBError, as for any failed launch (K2's too, though
-its grid is sized to what the card holds). K4's merge scan is a
+deadlock. Its txn bit sets sit in each CTA's shared memory where they fit
+beside the CTA's reads, else (T above about 450,000 to 570,000 txns, by
+the reads a txn) one copy sits in global memory, L2 resident, with one
+more grid barrier an evaluation; the library picks the layout from the
+shape, so no shape is refused for its size. A launch the card refuses
+still raises FDBError, as any failed launch does. K4's merge scan is a
 single-pass decoupled look-back scan over all SMs.
+
+K9 computes the scan evaluator's level geometry, every level of a step,
+in one cooperative launch: a merge sort of the writes and of the queries
+by (txn, rank, class, index), then a pass a level that writes the level's
+arrays from the two sorted run sets and merges sibling txn blocks for the
+next level (grid barriers between passes; no radix sort). `rebase_table`
+is K1 with the rebase folded into its first launch: the values are shifted
+down and saturated as they are loaded, and written out beside the table.
 
 `sort_and_rank`, the step's first phase, is K6, K8 and K7 in turn. The
 state keys arrive sorted, so K6 sorts only the 2NR + 2NW endpoints (a
@@ -74,8 +86,9 @@ from foundationdb_tpu_torch.utils.errors import FDBError
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("endpoint_sort.cu", "state_merge.cu", "endpoint_ranks.cu",
-           "sparse_table.cu", "history_check.cu", "intra_sweep.cu",
-           "merge_compact.cu", "legacy_overlap.cu", "probes.cu")
+           "sparse_table.cu", "history_check.cu", "intra_levels.cu",
+           "intra_sweep.cu", "merge_compact.cu", "legacy_overlap.cu",
+           "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -93,9 +106,15 @@ KERNELS = {
                        "endpoint ranks (:465-476)"),
     "sparse_table": ("csrc/sparse_table.cu",
                      "foundationdb_tpu/ops/conflict.py:145 _build_table"),
+    "rebase_table": ("csrc/sparse_table.cu",
+                     "foundationdb_tpu/ops/conflict.py:707 rebase_state "
+                     "(_compiled_rebase :761)"),
     "history_check": ("csrc/history_check.cu",
                       "foundationdb_tpu/ops/conflict.py:423 conflict_step "
                       "phases 1-2 (+ _range_max :163)"),
+    "intra_levels": ("csrc/intra_levels.cu",
+                     "foundationdb_tpu/ops/conflict.py:243 "
+                     "_intra_scan_levels"),
     "intra_sandwich": ("csrc/intra_sweep.cu",
                        "foundationdb_tpu/ops/conflict.py:311 _run_sandwich "
                        "over _intra_scan_blocked :295 (in _f_commit :537)"),
@@ -133,10 +152,11 @@ _ARGTYPES = {
     "fdb_endpoint_sort": [_P] * 4 + [_I] * 3 + [_P] * 6,
     "fdb_state_merge": [_P] * 4 + [_I] * 4 + [_P] * 7,
     "fdb_endpoint_ranks": [_P, _P, _I, _I, _P, _P, _P],
-    "fdb_sparse_table": [_P, _P, _I, _I, _P, _P],
+    "fdb_sparse_table": [_P, _P, _I, _I, _P, _LL, _P, _P, _P, _P],
+    "fdb_intra_levels": [_P] * 6 + [_I] * 4 + [_P] * 11,
     "fdb_history_check": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                           _P, _P, _P, _P, _P],
-    "fdb_intra_sandwich": [_P] * 12 + [_I] * 5 + [_P] * 10,
+    "fdb_intra_sandwich": [_P] * 12 + [_I] * 5 + [_P] * 12,
     "fdb_merge_compact": [_P] * 14 + [_I] * 7 + [_P] * 10,
     "fdb_legacy_blocked": [_P] * 10 + [_I] * 3 + [_P] * 4,
     "fdb_probe_add": [_P, _P, _LL, _P],
@@ -289,6 +309,16 @@ def _scratch(kind: str, n: int, dtype, device) -> torch.Tensor:
     return buf
 
 
+def release_scratch():
+    """Drop every cached scratch buffer, so that the memory a large call
+    took is given back; the next launch of each size allocates anew. Waits
+    for the card first, since a launch in flight may still use them."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    _scratches.clear()
+    _zeroed.clear()
+
+
 _I32, _BOOL = torch.int32, torch.bool
 
 
@@ -401,22 +431,51 @@ TABLE_TILE = 1024
 TABLE_LOW_LEVELS = 11
 
 
+def _sparse_table(name, vals, delta=0, oldest=None):
+    """K1's launches: the table of vals (shifted by -delta, saturating at
+    NEG, with `oldest`: then also the shifted vals and oldest)."""
+    K = vals.shape[0]
+    dev = vals.device
+    _check(name, dev, vals=(vals, _I32, (K,)))
+    levels = ref.table_levels(K)
+    table = torch.empty((levels, K), dtype=_I32, device=dev)
+    scratch = None  # pre, suf and the tile maxima, for the second launch
+    if levels > TABLE_LOW_LEVELS:
+        scratch = _scratch("table", 2 * K + -(-K // TABLE_TILE), _I32,
+                           dev).data_ptr()
+    shifted = oldest_out = None
+    if oldest is not None:
+        _check(name, dev, oldest=(oldest, _I32, ()))
+        shifted = torch.empty(K, dtype=_I32, device=dev)
+        oldest_out = torch.empty((), dtype=_I32, device=dev)
+    rc = library().fdb_sparse_table(
+        vals.data_ptr(), table.data_ptr(), K, levels, scratch, int(delta),
+        None if oldest is None else oldest.data_ptr(),
+        None if shifted is None else shifted.data_ptr(),
+        None if oldest_out is None else oldest_out.data_ptr(), _stream())
+    _launched(name, rc)
+    return table, shifted, oldest_out
+
+
 def build_table(vals: torch.Tensor) -> torch.Tensor:
     """(K,) int32 -> (LEVELS, K) power-of-two window maxima."""
     if not _on_cuda("sparse_table", vals):
         return ref.build_table(vals)
-    K = vals.shape[0]
-    _check("sparse_table", vals.device, vals=(vals, _I32, (K,)))
-    levels = ref.table_levels(K)
-    table = torch.empty((levels, K), dtype=_I32, device=vals.device)
-    scratch = None  # pre, suf and the tile maxima, for the second launch
-    if levels > TABLE_LOW_LEVELS:
-        scratch = _scratch("table", 2 * K + -(-K // TABLE_TILE), _I32,
-                           vals.device).data_ptr()
-    rc = library().fdb_sparse_table(vals.data_ptr(), table.data_ptr(), K,
-                                    levels, scratch, _stream())
-    _launched("sparse_table", rc)
-    return table
+    return _sparse_table("sparse_table", vals)[0]
+
+
+def rebase_table(bval, oldest, delta: int):
+    """K1 with the rebase folded into its first launch: (bval', oldest',
+    table), bval' = max(bval - delta, NEG), oldest' alike, the table of
+    bval'. 0 <= delta <= 2^30."""
+    if not _on_cuda("rebase_table", bval):
+        return ref.rebase_table(bval, oldest, delta)
+    if not 0 <= int(delta) <= 1 << 30:
+        raise FDBError("invalid_option",
+                       f"rebase_table: delta {delta} is not in [0, 2^30]")
+    table, shifted, oldest_out = _sparse_table("rebase_table", bval, delta,
+                                               oldest)
+    return shifted, oldest_out, table
 
 
 # ---------------------------------------------------------------------------
@@ -453,6 +512,51 @@ def history_check(table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
         g0.data_ptr(), _stream())
     _launched("history_check", rc)
     return too_old, g0
+
+
+# ---------------------------------------------------------------------------
+# K9 intra_levels
+# ---------------------------------------------------------------------------
+
+def intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer) -> dict:
+    """The scan evaluator's level geometry, every level in one cooperative
+    launch: {src, is_w, werl, bnd: (n_levels, M); qlo, qhi: (n_levels,
+    NR)}, equal to `conflict_ref.intra_levels` (the total order)."""
+    if not _on_cuda("intra_levels", wbr):
+        return ref.intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
+    NW, NR = wbr.shape[0], rbr.shape[0]
+    M = NW + 2 * NR
+    T = int(T)
+    dev = wbr.device
+    if T < 1:
+        raise FDBError("invalid_option", f"intra_levels: T={T} < 1")
+    _check("intra_levels", dev, wtxn_c=(wtxn_c, _I32, (NW,)),
+           rtxn=(rtxn, _I32, (NR,)), rbr=(rbr, _I32, (NR,)),
+           rer=(rer, _I32, (NR,)), wbr=(wbr, _I32, (NW,)),
+           wer=(wer, _I32, (NW,)))
+    n_levels = max(1, (T - 1).bit_length())
+    lm, lq = (n_levels, M), (n_levels, NR)
+    out = {"src": torch.empty(lm, dtype=_I32, device=dev),
+           "is_w": torch.empty(lm, dtype=_BOOL, device=dev),
+           "werl": torch.empty(lm, dtype=_I32, device=dev),
+           "bnd": torch.empty(lm, dtype=_BOOL, device=dev),
+           "qlo": torch.empty(lq, dtype=_I32, device=dev),
+           "qhi": torch.empty(lq, dtype=_I32, device=dev)}
+    if M == 0:
+        return out
+    keys = _scratch("levels_keys", 2 * M, torch.int64, dev)
+    owners = _scratch("levels_owners", 2 * M, _I32, dev)
+    counts = _scratch("levels_counts", 2 * (T + 2), _I32, dev)
+    sync = _zeroed_scratch("levels_sync", 1, _I32, dev)
+    rc = library().fdb_intra_levels(
+        wtxn_c.data_ptr(), rtxn.data_ptr(), rbr.data_ptr(), rer.data_ptr(),
+        wbr.data_ptr(), wer.data_ptr(), T, NW, NR, n_levels, keys.data_ptr(),
+        owners.data_ptr(), counts.data_ptr(), sync.data_ptr(),
+        out["src"].data_ptr(), out["is_w"].data_ptr(),
+        out["werl"].data_ptr(), out["bnd"].data_ptr(), out["qlo"].data_ptr(),
+        out["qhi"].data_ptr(), _stream())
+    _launched("intra_levels", rc)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -495,8 +599,10 @@ def intra_sandwich(g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, rounds: int,
     rec = _scratch("sandwich_rec", 2 * n_levels * M, _I32, dev)
     agg = _scratch("sandwich_agg", 4 * SANDWICH_MAX_GRID, _I32, dev)
     slots = _scratch("sandwich_slots", 2 * n_levels * NR, _I32, dev)
+    bits = _scratch("sandwich_bits", 2 * (-(-T // 32)), _I32, dev)
     marks = _zeroed_scratch("sandwich_marks", 2 * (-(-T // 32)), _I32, dev)
     sync = _zeroed_scratch("sandwich_sync", 2, _I32, dev)
+    differ = _zeroed_scratch("sandwich_differ", 3, _I32, dev)
     out = torch.empty(2 * T + 1, dtype=_BOOL, device=dev)
     rc = library().fdb_intra_sandwich(
         g.data_ptr(), geo["src"].data_ptr(), geo["is_w"].data_ptr(),
@@ -504,7 +610,8 @@ def intra_sandwich(g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, rounds: int,
         geo["qhi"].data_ptr(), wtxn_c.data_ptr(), w_ok.data_ptr(),
         r_ok.data_ptr(), rtxn.data_ptr(), rbr.data_ptr(), n_levels, T, M, NR,
         int(rounds), rec.data_ptr(), agg.data_ptr(), slots.data_ptr(),
-        marks.data_ptr(), sync.data_ptr(), out[:T].data_ptr(),
+        bits.data_ptr(), marks.data_ptr(), sync.data_ptr(),
+        differ.data_ptr(), out[:T].data_ptr(),
         out[T:2 * T].data_ptr(), out[2 * T].data_ptr(), evals.data_ptr(),
         _stream())
     _launched("intra_sandwich", rc)
@@ -602,6 +709,7 @@ def legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer):
 
 PHASES = SimpleNamespace(sort_and_rank=sort_and_rank,
                          build_table=build_table, history_check=history_check,
+                         intra_levels=intra_levels,
                          intra_sandwich=intra_sandwich,
                          merge_compact=merge_compact,
-                         legacy_sweep=legacy_sweep)
+                         legacy_sweep=legacy_sweep, rebase_table=rebase_table)

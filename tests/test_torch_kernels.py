@@ -68,6 +68,17 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_no_launch():
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 
+def test_release_scratch_drops_the_cached_buffers():
+    cpu = torch.device("cpu")
+    buf = kernels._scratch("probe", 8, torch.int32, cpu)
+    zero = kernels._zeroed_scratch("probe", 8, torch.int32, cpu)
+    assert kernels._scratch("probe", 8, torch.int32, cpu) is buf
+    kernels.release_scratch()
+    assert kernels._scratch("probe", 8, torch.int32, cpu) is not buf
+    assert kernels._zeroed_scratch("probe", 8, torch.int32, cpu) is not zero
+    kernels.release_scratch()
+
+
 def test_wrappers_refuse_other_devices():
     with pytest.raises(FDBError) as ei:
         kernels.build_table(torch.zeros(8, dtype=torch.int32, device="meta"))
@@ -159,6 +170,7 @@ def _captured_phases(batches):
         sort_and_rank=spy("sort_and_rank", ref.sort_and_rank),
         build_table=spy("sparse_table", ref.build_table),
         history_check=spy("history_check", ref.history_check),
+        intra_levels=spy("intra_levels", ref.intra_levels),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
         legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
@@ -182,6 +194,7 @@ def test_kernels_equal_plain_versions_on_the_card(cuda):
     pairs = {"sort_and_rank": (kernels.sort_and_rank, ref.sort_and_rank),
              "sparse_table": (kernels.build_table, ref.build_table),
              "history_check": (kernels.history_check, ref.history_check),
+             "intra_levels": (kernels.intra_levels, ref.intra_levels),
              "intra_sandwich": (kernels.intra_sandwich, ref.intra_sandwich),
              "merge_compact": (kernels.merge_compact, ref.merge_compact)}
     for name, (kern, plain) in pairs.items():
@@ -189,6 +202,8 @@ def test_kernels_equal_plain_versions_on_the_card(cuda):
             want = plain(*a, **kw)
             got = kern(*_to(a, cuda), **_to(kw, cuda))
             torch.cuda.synchronize()
+            if isinstance(want, dict):
+                want, got = tuple(want.values()), tuple(got.values())
             want = want if isinstance(want, tuple) else (want,)
             got = got if isinstance(got, tuple) else (got,)
             for w, g in zip(want, got):
@@ -228,6 +243,7 @@ def _bench_step_calls(T, mode, device):
         sort_and_rank=spy("sort_and_rank", ref.sort_and_rank),
         build_table=spy("sparse_table", ref.build_table),
         history_check=spy("history_check", ref.history_check),
+        intra_levels=spy("intra_levels", ref.intra_levels),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
         legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
@@ -344,13 +360,13 @@ def test_sandwich_kernel_leaves_a_deep_chain_unconverged(cuda):
 
 @pytest.mark.cuda
 def test_sandwich_kernel_raises_when_the_launch_is_refused(cuda):
-    # 2^20 txns: the three txn bit sets (3 T / 8 bytes) alone exceed an
-    # SM's shared memory, so the cooperative launch cannot be made
-    T = 1 << 20
+    # a launch the library refuses (no txns: T = 0) raises and counts no
+    # launch; 2^20 txns, whose bit sets overflow an SM's shared memory,
+    # are no longer refused (test_sandwich_kernel_at_2_20_txns)
     one = torch.zeros(1, dtype=torch.int32)
-    geo = ref.intra_levels(T, one, one, one, one + 1, one, one + 1)
+    geo = ref.intra_levels(1, one, one, one, one + 1, one, one + 1)
     ok = torch.ones(1, dtype=torch.bool)
-    g = torch.ones(T, dtype=torch.bool)
+    g = torch.ones(0, dtype=torch.bool)
     a = _to((g, geo, one, ok, ok, one, one), cuda)
     kernels.reset_launches()
     with pytest.raises(FDBError) as ei:
@@ -359,6 +375,80 @@ def test_sandwich_kernel_raises_when_the_launch_is_refused(cuda):
     assert kernels.LAUNCHES["intra_sandwich"] == 0
     # the card is still usable: a small sandwich launches as before
     _sandwich_equal(_chain_sandwich_args(64, cuda) + (4,), {})
+
+
+@pytest.mark.cuda
+def test_sandwich_kernel_at_2_20_txns(cuda):
+    # one read and one write a txn (chip_smoke.py's call): 3 T / 8 = 384 KB
+    # of bit sets, so K3 keeps them in global memory; the geometry is K9's,
+    # held to the plain geometry field for field
+    import chip_smoke
+    (levels, _kw), (sandwich, _kw) = chip_smoke.big_step_calls(cuda)
+    kernels.reset_launches()
+    geo = kernels.intra_levels(*levels)
+    want = ref.intra_levels(*levels)
+    torch.cuda.synchronize()
+    for k in want:
+        assert torch.equal(geo[k], want[k]), k
+    a = (sandwich[0], geo) + sandwich[2:7]
+    for rounds in (sandwich[7], 1):
+        _sandwich_equal(a + (rounds,), {})
+    assert kernels.LAUNCHES["intra_levels"] == 1
+    assert kernels.LAUNCHES["intra_sandwich"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1024, 16384])
+def test_level_kernel_on_a_bench_step(cuda, T):
+    # K9 field for field against the plain geometry on a bench step's call
+    calls = _bench_step_calls(T, "scan", cuda)["intra_levels"]
+    kernels.reset_launches()
+    for a, kw in calls:
+        want = ref.intra_levels(*a, **kw)
+        got = kernels.intra_levels(*a, **kw)
+        torch.cuda.synchronize()
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            assert torch.equal(got[k], want[k]), k
+    assert kernels.LAUNCHES["intra_levels"] == len(calls) > 0
+
+
+@pytest.mark.cuda
+def test_level_kernel_on_edge_inputs(cuda):
+    # T = 1, T off a power of two, all padding, shuffled owners, heavy ties
+    # (chip_smoke.py's edges); the barrier word is left as it was found:
+    # each call again gives the same answer
+    import chip_smoke
+    calls = chip_smoke.level_edge_calls(cuda)
+    for a, kw in calls + calls:
+        want = ref.intra_levels(*a, **kw)
+        got = kernels.intra_levels(*a, **kw)
+        torch.cuda.synchronize()
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", [1 << 29, 1 << 30])
+def test_rebase_kernel_at_2_20_slots(cuda, delta):
+    # the shift saturates at NEG; the table is of the shifted values
+    K = 1 << 20
+    g_ = torch.Generator().manual_seed(delta % 97)
+    bval = torch.randint(ref.NEG, 1 << 30, (K,), generator=g_,
+                         dtype=torch.int32)
+    bval[::7] = ref.NEG
+    bval = bval.to(cuda)
+    for oldest in (ref.NEG, 0, (1 << 30) - 1):
+        old = torch.tensor(oldest, dtype=torch.int32, device=cuda)
+        kernels.reset_launches()
+        got = kernels.rebase_table(bval, old, delta)
+        want = ref.rebase_table(bval, old, delta)
+        torch.cuda.synchronize()
+        for w, g in zip(want, got):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        assert kernels.LAUNCHES["rebase_table"] == 1
+        assert kernels.LAUNCHES["sparse_table"] == 0
+    assert int((got[0] == ref.NEG).sum()) > K // 7
 
 
 @pytest.mark.cuda
