@@ -5,7 +5,7 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 Phases, each of which must pass:
 
   1. the card (nvidia-smi name and power limit, torch and CUDA versions);
-  2. the nvcc build of the kernels (K1-K9 and the six probes), with its
+  2. the nvcc build of the kernels (K1-K11 and the six probes), with its
      seconds;
   3. each kernel against its plain PyTorch version on the card, on inputs
      captured from the main path at its full width (K=65,536, T=1,024,
@@ -72,11 +72,32 @@ Phases, each of which must pass:
      lone `torch.sort` of its packed keys.
   6. the evaluator A/B: run_kernel_ab(16,384, 8), scan against legacy,
      with equal statuses on every batch;
-  7. the probes' main (ops/probes.py), the Pallas scripts' top level.
+  7. the probes' main (ops/probes.py), the Pallas scripts' top level;
+  8. the sharded engine (parallel/sharded_conflict.py), every shard on the
+     one card: 8a the engine at the default knobs with W=4 shards over 80
+     batches of phase A's zipfian mix (the keys 16-byte hashes, whose first
+     4 bytes, where the engine cuts, differ), one 2^29 version jump (every
+     shard rebases) and the load check at batch 64, which must re-cut;
+     every batch equal to the same engine with the plain phases on the
+     card, the batches before the re-cut equal to the clipped-oracle model
+     (four oracles fed shard-clipped ranges, min-combined), every shard's
+     state equal at the end, K10 and K11 once a chunk and the step's
+     kernels W times a chunk; 8b the resolver role with
+     CONFLICT_BACKEND=sharded (CONFLICT_DEVICE=cuda, CONFLICT_NUM_SHARDS=0:
+     width 1 on one card) serving phase A's 40 batches, every reply equal
+     to the oracle; 8c run_sharded_kernel(16,384, 50, W) at W=1 and W=4
+     (K=2^18 a shard, strided, 24-byte spread keys), no overflow, the first
+     timed batch equal to the plain phases state for state, and at W=1
+     every batch equal to the unsharded step; then the step's kernels held
+     to their plain versions on 8a's calls (ties at the cuts), and K10
+     (shard_clip) and K11 (shard_combine) on 8a's and 8c's calls and on
+     edges (W = 1, 2, 4, 8; T=1; all padding; endpoints at the cuts and the
+     sentinel; the strided layout at T=16,384), timed at both shapes.
 
-`python3 chip_smoke.py --time-kernels` only times K1-K4, K6-K9 and a bench
-step (phase-free, same method for any version of the port: a copy of this
-script beside an older checkout's package times that checkout).
+`python3 chip_smoke.py --time-kernels` only times K1-K4, K6-K11 and bench
+steps, one of them the sharded step at W=4 (phase-free, same method for any
+version of the port: a copy of this script beside an older checkout's
+package times that checkout).
 
 It prints a digest of the code it runs, the kernels line
 ({"kernels": [...]}), the nvidia-smi line, and last {"ok": true, "device":
@@ -123,8 +144,12 @@ def source_digest() -> str:
     return h.hexdigest()
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str):
-    print(msg, flush=True)
+    """Print `msg` after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def fail(msg: str):
@@ -136,9 +161,12 @@ def fail(msg: str):
 # traffic: YCSB-style zipfian point reads and writes
 # ---------------------------------------------------------------------------
 
-def zipf_keys(n_keys: int):
+def zipf_keys(n_keys: int, hex_only: bool = False):
     """(cdf, keys): a zipfian (theta 0.99, the YCSB default) distribution
-    over n_keys keys of 16 to 24 bytes, hashed so hot keys scatter."""
+    over n_keys keys of 16 to 24 bytes, hashed so hot keys scatter. Two in
+    three are YCSB's "user" + hash, which share their first 4 bytes; with
+    `hex_only` every key is the 16-byte hash alone, so the first 4 bytes,
+    on which the sharded engine cuts, differ."""
     w = 1.0 / np.arange(1, n_keys + 1, dtype=np.float64) ** 0.99
     cdf = np.cumsum(w)
     cdf /= cdf[-1]
@@ -146,7 +174,8 @@ def zipf_keys(n_keys: int):
     keys = []
     for i, x in enumerate(h.tolist()):
         k = b"%016x" % x
-        keys.append(k if i % 3 == 0 else b"user" + k + b"#" * (i % 5))
+        keys.append(k if i % 3 == 0 or hex_only
+                    else b"user" + k + b"#" * (i % 5))
     return cdf, keys
 
 
@@ -227,6 +256,8 @@ DEVICE_FUNCTIONS = {
     "merge_compact": ("merge_prep_kernel", "merge_scan_kernel",
                       "merge_fill_kernel"),
     "legacy_blocked": ("legacy_kernel",),
+    "shard_clip": ("shard_clip_kernel",),
+    "shard_combine": ("shard_combine_kernel",),
     "probe_add": ("probe_add_kernel",),
     "probe_stream_rows": ("probe_stream_kernel<true>",),
     "probe_join": ("probe_rank_kernel<true>",),
@@ -243,6 +274,8 @@ STEP_KERNELS = SORT_KERNELS + ("sparse_table", "history_check",
 # every kernel of the resolver's path: the step's, and the rebase that runs
 # when versions pass 2^29
 PATH_KERNELS = STEP_KERNELS + ("rebase_table",)
+# the sharded engine's own kernels, once a chunk around the shards' steps
+SHARD_KERNELS = ("shard_clip", "shard_combine")
 SORT_RANK_MAX_LAUNCHES = 8  # device launches a call of the whole phase
 
 
@@ -380,6 +413,20 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         active = int((w_ok & c[wtxn.clamp(max=T - 1).long()]).sum())
         nbytes = 3 * T + NW * 13 + NR * 13
         return float(nbytes), float(4 * active * int(r_ok.sum()))
+    if name == "shard_clip":
+        # the endpoints read once and written once a shard, the cuts read;
+        # up to L limb comparisons a column and shard
+        rb, _re, wb, _we, lo, _hi = args
+        L, W = rb.shape[0], lo.shape[0]
+        M = 2 * rb.shape[1] + 2 * wb.shape[1]
+        return float(4 * L * M * (1 + W) + 8 * W * L), float(W * M * L)
+    if name == "shard_combine":
+        # per shard the statuses (4 B) and eligible (1 B) of every txn and
+        # three scalars read, txn_valid read; the combined vectors and
+        # scalars written; a min and an and a txn and shard
+        statuses, _el, _ov, _bd, _cv, txn_valid = args
+        W, T = len(statuses), txn_valid.shape[0]
+        return float(W * (5 * T + 6) + T + 5 * T + 10), float(2 * W * T + T)
     if name == "probe_add":
         (x,) = args
         return 8.0 * x.numel(), float(x.numel())
@@ -502,7 +549,8 @@ def library_call(name: str, args, kw=None):
     is held to the plain ranks here; for the level geometry, the one
     stable `torch.sort` of its packed keys (`conflict_ref.level_sort_keys`,
     packed outside the timed call), which gives each level's order but not
-    the six arrays."""
+    the six arrays; for the shard combine, torch.amin over the shards'
+    statuses (stacked outside the timed call), the statuses alone."""
     import torch
     if name == "endpoint_ranks":
         from foundationdb_tpu_torch.ops import conflict_ref as ref
@@ -530,6 +578,9 @@ def library_call(name: str, args, kw=None):
                      & (wtxn[None, :] < rtxn[:, None])).to(torch.float16)
         cw = (c[wtxn.clamp(max=T - 1).long()] & (wtxn < T)).to(torch.float16)
         return lambda: torch.mv(overlap_t, cw)
+    if name == "shard_combine":
+        stacked = torch.stack(list(args[0]))
+        return lambda: torch.amin(stacked, dim=0)
     if name == "probe_add":
         return lambda: torch.add(args[0], 1)
     if name.startswith("probe_stream"):
@@ -569,10 +620,13 @@ def clone_to(obj, device):
     return obj
 
 
-def spied_phases(calls: dict, dev, last_step_only=False):
+def spied_phases(calls: dict, dev, last_step_only=False, record=None,
+                 sandwich=None):
     """The plain phases, each keeping a copy of every call's inputs on
     `dev` in `calls[name]`; with `last_step_only`, the calls of earlier
-    steps are dropped when a step begins (its sort)."""
+    steps are dropped when a step begins (its sort); with `record` (a
+    dict), only while record["on"] is true. `sandwich` replaces the plain
+    sandwich (`pinch_read_sandwich`)."""
     from types import SimpleNamespace
 
     from foundationdb_tpu_torch.ops import conflict_ref as ref
@@ -581,18 +635,24 @@ def spied_phases(calls: dict, dev, last_step_only=False):
         def wrapped(*a, **kw):
             if last_step_only and name == "sort_and_rank":
                 calls.clear()
-            calls.setdefault(name, []).append(clone_to((a, kw), dev))
+            if record is None or record["on"]:
+                calls.setdefault(name, []).append(clone_to((a, kw), dev))
             return fn(*a, **kw)
         return wrapped
     phases = SimpleNamespace(
         build_table=spy("sparse_table", ref.build_table),
         history_check=spy("history_check", ref.history_check),
         intra_levels=spy("intra_levels", ref.intra_levels),
-        intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
+        intra_sandwich=spy("intra_sandwich",
+                           sandwich or ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
         legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
     if hasattr(ref, "sort_and_rank"):  # a package older than K6-K8 lacks it
         phases.sort_and_rank = spy("sort_and_rank", ref.sort_and_rank)
+    if hasattr(ref, "clip_ranges"):  # older than the sharded engine
+        phases.rebase_table = spy("rebase_table", ref.rebase_table)
+        phases.clip_ranges = spy("shard_clip", ref.clip_ranges)
+        phases.shard_combine = spy("shard_combine", ref.shard_combine)
     return phases
 
 
@@ -677,11 +737,34 @@ def shuffled_reads(call, seed):
              oldest), kw)
 
 
+def inverted_read_calls(dev):
+    """K2's calls on reads that are inverted or empty over keys written
+    after the readers' snapshots (every such read would be a hit were it
+    not inverted), beside txns whose proper reads of the same keys are
+    hits: the two steps of a pooled T=64 set. Clipping to a shard makes
+    such reads (begin' > end' when a range lies wholly outside)."""
+    from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
+    from foundationdb_tpu_torch.ops.conflict import DeviceConflictSet
+    keys = [b"v%04d" % i for i in range(200)]
+    write = [TxnConflictInfo(0, [], [(keys[3 * t], keys[3 * t + 2])])
+             for t in range(64)]
+    read = [TxnConflictInfo(500, [(keys[3 * t + 2], keys[3 * t]),
+                                  (keys[3 * t + 1], keys[3 * t + 1])]
+                            + ([(keys[3 * t], keys[3 * t + 1])]
+                               if t % 4 == 0 else []), [])
+            for t in range(64)]
+    cs = DeviceConflictSet(device=dev, capacity=1 << 10, txns=64,
+                           reads_per_txn=4, writes_per_txn=4)
+    return spied_history_calls(cs, [(write, 1000), (read, 2000)],
+                               max_write_life=5_000_000)
+
+
 def history_edge_calls(dev):
     """K2's edge inputs, from plain steps on the card: a pooled T=1,024
     call with its reads shuffled (rtxn unsorted), pooled steps at T=1 and
     T=33 with txns that have no reads and snapshots below the MVCC floor,
-    a step whose reads are all padding, and a kernel-bench step at
+    a step whose reads are all padding, inverted and empty reads over
+    newer writes (`inverted_read_calls`), and a kernel-bench step at
     T=32,768 (strided, K=2^19) after one batch."""
     import torch
 
@@ -714,6 +797,7 @@ def history_edge_calls(dev):
     ((_t, _c, _s, _rb, _re, rtxn, _sn, _v, _o), _kw) = out[-1]
     if bool((rtxn < 1).any()):
         fail("history edge inputs: the last step has a real read")
+    out += inverted_read_calls(dev)
     _state, _batch, calls = bench_step_calls(dev, 32768, 1 << 19,
                                              warm_batches=1)
     out += calls["history_check"]
@@ -837,6 +921,18 @@ def sandwich_edge_calls(dev, main, big):
     chain = chain_sandwich_args(dev)
     out += [((*chain, r), {}) for r in (1, 32, 70)]
     return out
+
+
+def pinch_read_sandwich(*a, **kw):
+    """The plain sandwich counting its evaluations, so that it reads its
+    pinch flag on the host and stops there: the same outputs as the plain
+    phase, without the rounds that the card would skip one by one (the
+    sharded engine runs T // 2 + 1 of them, 513 at T=1,024)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    n = torch.zeros((), dtype=torch.int32, device=a[0].device)
+    return ref.intra_sandwich(*a, **kw, evals=n)
 
 
 def counted(sandwich):
@@ -1053,15 +1149,10 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
             "bytes": nbytes, "operations": nops}
 
 
-def check_kernels(dev, calls, results, cell, edges=True):
-    """Hold each kernel of the path (K1-K4, K6-K9 and the rebase) to its
-    plain version on every captured call of `cell` (and, with `edges`, on
-    the edge inputs), then time the cell's main-path call: the last one
-    captured from the step (the rebase's: `rebase_call`).
-    The sort-and-rank phase is held whole (all seven outputs) and each of
-    its kernels to its plain part, on the calls the phase makes. K3 is
-    checked with its evaluation count; on the edge chain at 1 and 32 rounds
-    it must report converged = False."""
+def step_wrappers():
+    """({name: (kernel wrapper, plain version)} of the step's kernels and
+    the rebase, {name: (kernel, plain)} pairs that replace them in the
+    equality checks: K3 with its evaluation count)."""
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     from foundationdb_tpu_torch.ops import kernels
     wrappers = {"sort_and_rank": (kernels.sort_and_rank, ref.sort_and_rank),
@@ -1078,6 +1169,21 @@ def check_kernels(dev, calls, results, cell, edges=True):
                 "merge_compact": (kernels.merge_compact, ref.merge_compact)}
     checks = {"intra_sandwich": (counted(kernels.intra_sandwich),
                                  counted(ref.intra_sandwich))}
+    return wrappers, checks
+
+
+def check_kernels(dev, calls, results, cell, edges=True):
+    """Hold each kernel of the path (K1-K4, K6-K9 and the rebase) to its
+    plain version on every captured call of `cell` (and, with `edges`, on
+    the edge inputs), then time the cell's main-path call: the last one
+    captured from the step (the rebase's: `rebase_call`).
+    The sort-and-rank phase is held whole (all seven outputs) and each of
+    its kernels to its plain part, on the calls the phase makes. K3 is
+    checked with its evaluation count; on the edge chain at 1 and 32 rounds
+    it must report converged = False."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    wrappers, checks = step_wrappers()
     calls = dict(calls, **sort_rank_part_calls(calls["sort_and_rank"][-1:]),
                  rebase_table=[rebase_call(calls)])
     all_calls = dict(calls)
@@ -1288,13 +1394,16 @@ def once_a_step(where, launches):
 
 
 def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
-                window=4, jump_at=None):
+                window=4, jump_at=None, backend="device"):
     """Serve `n_load` load batches, then `n_batches` run batches, through
     the port's Resolver; check every reply against the oracle. With
     `jump_at`, run batch `jump_at`'s version jumps by 2^29, so the resolver
-    rebases and the rebase kernel must launch. Returns the phase's numbers
-    (throughput and latency of the run batches), the resolver's conflict
-    set and one more run batch past the last served."""
+    rebases and the rebase kernel must launch. `backend` "sharded" serves
+    through the sharded engine on every attached card (CONFLICT_DEVICE=cuda,
+    CONFLICT_NUM_SHARDS=0), whose K10 and K11 must then launch once a
+    chunk. Returns the phase's numbers (throughput and latency of the run
+    batches), the resolver's conflict set and one more run batch past the
+    last served."""
     import torch
 
     from foundationdb_tpu_torch.core.eventloop import EventLoop
@@ -1319,7 +1428,8 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     gen_s = time.perf_counter() - t0
 
     KNOBS.reset()
-    KNOBS.overrides(CONFLICT_BACKEND="device", CONFLICT_DEVICE=str(dev),
+    KNOBS.overrides(CONFLICT_BACKEND=backend,
+                    CONFLICT_DEVICE=str(dev) if backend == "device" else "cuda",
                     CONFLICT_STATE_CAPACITY=capacity)
     loop = EventLoop()
     net = SimNetwork(loop, DeterministicRandom(seed))
@@ -1388,15 +1498,19 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     loop.run_future(proxy.spawn(drive(), "proxyDriver"), max_time=1e9)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {k: kernels.LAUNCHES[k] for k in (
-        STEP_KERNELS if jump_at is None else PATH_KERNELS)}
+    path = STEP_KERNELS if jump_at is None else PATH_KERNELS
+    if backend == "sharded":
+        path += SHARD_KERNELS
+    launches = {k: kernels.LAUNCHES[k] for k in path}
     chunks, unconverged = (kernel_metrics.as_dict()[k] - before[k]
                            for k in counted)
     resolver_mod.drain_and_collect = drain
     wall = t_end - marks["t_run"]
     peak = torch.cuda.max_memory_allocated()
     state = resolver.conflict_set._state
-    boundaries, poisoned = int(state["nb"]), bool(state["poisoned"])
+    shards = state["shards"] if backend == "sharded" else [state]
+    boundaries = sum(int(s["nb"]) for s in shards)
+    poisoned = any(bool(s["poisoned"]) for s in shards)
 
     t0 = time.perf_counter()
     oracle = OracleConflictSet()
@@ -1409,7 +1523,9 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     statuses = np.concatenate([np.asarray(r) for r in replies[len(load):]])
     lat_ms = np.asarray(latency[len(load):], dtype=np.float64) * 1e3
     out = {
-        "phase": name, "capacity": capacity, "batches": n_batches,
+        "phase": name, "backend": resolver.conflict_set.backend_label
+        if hasattr(resolver.conflict_set, "backend_label") else backend,
+        "capacity": capacity, "batches": n_batches,
         "txns": n_txns, "keys": n_keys, "in_flight": window,
         "wall_s": wall, "txns_per_s": n_txns / wall,
         "batch_latency_ms_p50": float(np.percentile(lat_ms, 50)),
@@ -1432,6 +1548,10 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     if any(v <= 0 for v in launches.values()):
         fail(f"phase {name}: a kernel never launched: {launches}")
     once_a_step(f"phase {name}", launches)
+    for k in SHARD_KERNELS if backend == "sharded" else ():
+        if launches[k] != chunks:
+            fail(f"phase {name}: {launches[k]} {k} launches for {chunks} "
+                 f"chunks")
     if unconverged:
         # such a chunk's intra-batch verdicts come from the host pass, so
         # the oracle check would not show that the kernel decided them
@@ -1652,6 +1772,380 @@ def probes_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the sharded engine
+# ---------------------------------------------------------------------------
+
+SHARDED_W = 4  # shards on the one card
+SHARDED_BATCHES = 80  # 8a: the load check comes due at batch 64
+SHARDED_JUMP_AT = 32  # 8a: this batch's version jumps 2^29 (every shard rebases)
+SHARDED_BENCH_T = 16384
+SHARDED_BENCH_BATCHES = 50
+INFO_FIELDS = ("overflow", "boundaries", "committed", "converged",
+               "eligible")
+
+
+def shard_oracle_detect(oracles, cuts, txns, version):
+    """The clipped-oracle model (tests/test_sharded.py:66-97): oracle d is
+    fed every txn with its ranges clipped to [cuts[d], cuts[d + 1]) (empty
+    ones dropped); the verdicts combine by min, the proxy's rule."""
+    from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
+    n = len(oracles)
+
+    def clip(pairs, lo, hi):
+        out = []
+        for b, e in pairs:
+            b2, e2 = max(b, lo), (e if hi is None else min(e, hi))
+            if b2 < e2:
+                out.append((b2, e2))
+        return out
+    verdicts = []
+    for d in range(n):
+        lo, hi = cuts[d], (cuts[d + 1] if d + 1 < n else None)
+        verdicts.append(oracles[d].detect(
+            [TxnConflictInfo(t.read_snapshot, clip(t.read_ranges, lo, hi),
+                             clip(t.write_ranges, lo, hi)) for t in txns],
+            version))
+    return [min(v[t] for v in verdicts) for t in range(len(txns))]
+
+
+def flat_combine(fn):
+    """K11 or its plain version, returning (statuses, *info) flat."""
+    def run(*a, **kw):
+        st, info = fn(*a, **kw)
+        if list(info) != list(INFO_FIELDS):
+            fail(f"shard_combine: info fields {list(info)}")
+        return (st, *info.values())
+    return run
+
+
+def shard_cuts(dev, W):
+    """(lo, hi), (W, L) int32 on `dev`: the equal cuts of W shards, the
+    last hi the all-ones sentinel."""
+    import torch
+
+    from foundationdb_tpu_torch.parallel.sharded_conflict import shard_cut_keys
+    c = torch.from_numpy(shard_cut_keys(W)).to(dev)
+    return c[:W].contiguous(), c[1:].contiguous()
+
+
+def clip_edge_calls(dev):
+    """K10's edge inputs: W = 1, 2, 4 and 8 on pooled batches (T=64) whose
+    ranges begin or end at the cuts, lie wholly below, above or across
+    them, are inverted or empty, or run to the top of the keyspace; T=1;
+    an all-padding batch; endpoints that all equal a lo or a hi row, the
+    last shard's all-ones sentinel among them; and the strided layout at
+    T=16,384 (the sharded bench's spread keys) at W = 4 and 8."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
+    from foundationdb_tpu_torch.ops.conflict import (BatchEncoder,
+                                                     _resolve_shapes)
+    from foundationdb_tpu_torch.parallel.sharded_conflict import (
+        shard_cut_bytes)
+    rng = np.random.default_rng(81)
+    g = torch.Generator().manual_seed(82)
+    out = []
+    for W in (1, 2, 4, 8):
+        cb = shard_cut_bytes(W)[1:]
+        pool = cb + [c + b"\x00" for c in cb] + [b"\xff" * 30] + [
+            bytes(rng.integers(0, 256, rng.integers(1, 6)).astype(np.uint8))
+            for _ in range(40)]
+
+        def rrange():
+            a, b = (pool[i] for i in rng.integers(0, len(pool), 2))
+            kind = rng.integers(4)
+            if kind == 0:
+                return (max(a, b), min(a, b))  # inverted or empty
+            if kind == 1:
+                return (a, a + b"\x00")
+            return (min(a, b), max(a, b) + b"\x00")
+        lo, hi = shard_cuts(dev, W)
+        for T, n in ((64, 64), (1, 1), (64, 0)):
+            enc = BatchEncoder(_resolve_shapes(1024, T, 4, 4), dev)
+            b = enc.encode_batch([TxnConflictInfo(
+                0, [rrange() for _ in range(rng.integers(0, 5))],
+                [rrange() for _ in range(rng.integers(0, 5))])
+                for _ in range(n)], 100)
+            out.append((tuple(b[k].clone() for k in ("rb", "re", "wb", "we"))
+                        + (lo, hi), {}))
+        rows = torch.cat([lo, hi[-1:]])  # every cut and the sentinel
+        ends = tuple(rows[torch.randint(0, W + 1, (256,), generator=g)
+                          .to(dev)].T.contiguous() for _ in range(4))
+        out.append((ends + (lo, hi), {}))
+    sp = bench.stage(bench._encode_spread_batches(
+        1, seed=3, version0=bench.WINDOW, T=SHARDED_BENCH_T), dev)
+    for W in (4, 8):
+        out.append((tuple(sp[k][0].contiguous() for k in ("rb", "re", "wb",
+                                                          "we"))
+                    + shard_cuts(dev, W), {}))
+    return out
+
+
+def combine_edge_calls(dev):
+    """K11's edge inputs: W = 1, 2, 4 and 8 shards' random verdicts
+    (statuses in {0, 1, 2}, eligible, overflow, boundaries, converged),
+    at T = 1, 1,000, 1,024 and 16,384, with txn_valid all, some or none
+    (an all-padding chunk)."""
+    import torch
+    g = torch.Generator().manual_seed(91)
+    out = []
+    for W, T, p_valid in ((1, 1, 1.0), (2, 1000, 0.7), (4, 16384, 0.9),
+                          (8, 1024, 0.0), (8, 16384, 1.0), (4, 1, 0.0)):
+        def flags(p, shape=()):
+            return [(torch.rand(shape, generator=g) < p).to(dev)
+                    for _ in range(W)]
+        st = [torch.randint(0, 3, (T,), generator=g, dtype=torch.int32)
+              .to(dev) for _ in range(W)]
+        bd = [torch.randint(0, 1 << 20, (), generator=g, dtype=torch.int32)
+              .to(dev) for _ in range(W)]
+        valid = (torch.rand(T, generator=g) < p_valid).to(dev)
+        out.append(((st, flags(0.8, (T,)), flags(0.3), bd, flags(0.8),
+                     valid), {}))
+    return out
+
+
+def equal_on_calls(name, kern, plain, calls) -> int:
+    """Hold `kern` to `plain` on every call, exactly; no timing. Returns
+    the number of calls."""
+    import torch
+    for a, kw in calls:
+        want, got = plain(*a, **kw), kern(*a, **kw)
+        torch.cuda.synchronize()
+        if isinstance(want, dict):
+            want, got = tuple(want.values()), tuple(got.values())
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for i, (w, g_) in enumerate(zip(want, got)):
+            if w.dtype != g_.dtype or not torch.equal(w, g_):
+                fail(f"{name} output {i} differs from its plain version on "
+                     f"the sharded engine's calls")
+    return len(calls)
+
+
+def sharded_engine_phase(dev, seed):
+    """8a: the sharded engine at the default knobs (K=65,536 a shard,
+    T=1,024, 4 point reads and 4 point writes a txn), W=4 shards on the one
+    card, over SHARDED_BATCHES batches of phase A's zipfian mix over 20,000
+    keys (16-byte hashes: see `zipf_keys`), batch SHARDED_JUMP_AT's
+    version 2^29 further (every shard rebases). Every batch must equal the
+    same engine with the plain phases on the card (its sandwich stopping at
+    the pinch, `pinch_read_sandwich`), and every batch before
+    the first rebalance the clipped-oracle model; the load check at batch
+    64 must re-cut; no chunk may be unconverged and no shard poison; after
+    the last batch every shard's state must equal the plain engine's,
+    field for field. Launch counts are zeroed just before the run: K10 and
+    K11 once a chunk, the step's kernels W times a chunk. Returns the
+    numbers and the plain engine's phase calls of four batches (the first,
+    the jump, the re-cut and the last)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.ops.conflict import kernel_metrics
+    from foundationdb_tpu_torch.ops.conflict_oracle import OracleConflictSet
+    from foundationdb_tpu_torch.parallel.sharded_conflict import (
+        ShardedDeviceConflictSet)
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+    KNOBS.reset()
+    W = SHARDED_W
+    cdf, keys = zipf_keys(20_000, hex_only=True)
+    t0 = time.perf_counter()
+    batches = make_batches(np.random.default_rng(seed), cdf, keys,
+                           SHARDED_BATCHES, jump_at=SHARDED_JUMP_AT)
+    gen_s = time.perf_counter() - t0
+    calls: dict = {}
+    record = {"on": False}
+    plain = ShardedDeviceConflictSet(
+        devices=[dev] * W, phases=spied_phases(calls, dev, record=record,
+                                               sandwich=pinch_read_sandwich))
+    eng = ShardedDeviceConflictSet(devices=[dev] * W)
+    cuts0 = list(eng.cut_bytes)
+    oracles = [OracleConflictSet() for _ in range(W)]
+
+    def dispatches():
+        return kernel_metrics.as_dict()["KernelDispatches"]
+    unconverged0 = kernel_metrics.as_dict()["UnconvergedChunks"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    chunks, eng_s, model_checked, first_recut = 0, 0.0, 0, None
+    for i, (_prev, version, txns) in enumerate(batches):
+        d0, t = dispatches(), time.perf_counter()
+        got = eng.detect(txns, version)
+        eng_s += time.perf_counter() - t
+        chunks += dispatches() - d0
+        if eng.rebalances and first_recut is None:
+            first_recut = i
+        record["on"] = i in (0, SHARDED_JUMP_AT, first_recut,
+                             SHARDED_BATCHES - 1)
+        if plain.detect(txns, version) != got:
+            fail(f"phase 8a: batch {i}'s statuses differ between the "
+                 f"kernels and the plain phases")
+        record["on"] = False
+        if first_recut is None:
+            if shard_oracle_detect(oracles, cuts0, txns, version) != got:
+                fail(f"phase 8a: batch {i} differs from the clipped-oracle "
+                     f"model")
+            model_checked += 1
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in PATH_KERNELS + SHARD_KERNELS}
+    unconverged = kernel_metrics.as_dict()["UnconvergedChunks"] - unconverged0
+    got_np = ref.sharded_state_to_numpy(eng._state)
+    want_np = ref.sharded_state_to_numpy(plain._state)
+    for k in want_np:
+        if not np.array_equal(got_np[k], want_np[k]):
+            fail(f"phase 8a: state[{k}] differs between the kernels and the "
+                 f"plain phases after the last batch")
+    n_txns = sum(len(b[2]) for b in batches)
+    out = {"shards": W, "batches": len(batches), "txns": n_txns,
+           "chunks": chunks, "unconverged_chunks": unconverged,
+           "rebalances": eng.rebalances, "first_recut_batch": first_recut,
+           "cuts_before": [c.hex() for c in cuts0],
+           "cuts_after": [c.hex() for c in eng.cut_bytes],
+           "model_checked_batches": model_checked,
+           "boundaries": got_np["nb"].tolist(),
+           "poisoned": got_np["poisoned"].tolist(),
+           "base_version": eng.base_version,
+           "engine_ms_per_batch": eng_s / len(batches) * 1e3,
+           "traffic_gen_s": gen_s, "launches": launches}
+    log("phase 8a: " + json.dumps(out))
+    if eng.rebalances == 0:
+        fail("phase 8a: the load check never re-cut the shards")
+    if model_checked < 16:
+        fail(f"phase 8a: only {model_checked} batches before the first "
+             f"re-cut were held to the clipped-oracle model")
+    if unconverged or any(got_np["poisoned"]):
+        fail(f"phase 8a: {unconverged} unconverged chunks, poisoned "
+             f"{got_np['poisoned'].tolist()}")
+    if eng.base_version == 0:
+        fail("phase 8a: the version jump did not rebase")
+    for k, n in launches.items():
+        want = chunks if k in SHARD_KERNELS else W * chunks
+        if k == "rebase_table":
+            want = W
+        if k == "sparse_table":
+            want = W * (chunks + eng.rebalances)
+        if n != want or n == 0:
+            fail(f"phase 8a: {n} {k} launches, {want} expected ({chunks} "
+                 f"chunks, {W} shards, {eng.rebalances} re-cuts, 1 rebase)")
+    return out, calls
+
+
+def sharded_bench_phase(dev, W):
+    """8c at one width: run_sharded_kernel(16,384, SHARDED_BENCH_BATCHES, W)
+    with every shard on the card (K=2^18 a shard, strided, 24-byte spread
+    keys). No shard may overflow; the first timed batch must equal the
+    sharded step with the plain phases on the card, state for state; at W
+    = 1 every timed batch's statuses must equal the unsharded step with
+    the kernels. Returns the numbers and the plain step's K10 and K11
+    calls."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.ops.conflict import ConflictShapes
+    from foundationdb_tpu_torch.parallel.sharded_conflict import (
+        sharded_conflict_step)
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+    KNOBS.reset()
+    T = SHARDED_BENCH_T
+    detail: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = bench.run_sharded_kernel(T, SHARDED_BENCH_BATCHES, W,
+                                   devices=[dev] * W, detail=detail)
+    res["call_s"] = time.perf_counter() - t0
+    res["launches"] = {k: kernels.LAUNCHES[k]
+                       for k in STEP_KERNELS + SHARD_KERNELS}
+    res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    res["boundaries_final"] = [int(s["nb"]) for s in detail["state"]["shards"]]
+    if W > 1:
+        res["note"] = (f"{W} shards share one card: about {W} steps a "
+                       f"batch, the cost of sharding, not its scaling")
+    log(f"phase 8c W={W}: " + json.dumps(res))
+    steps = SHARDED_BENCH_BATCHES + 1
+    for k, n in res["launches"].items():
+        # K1 also built each shard's empty table
+        want = steps if k in SHARD_KERNELS else W * steps
+        if n != want + (W if k == "sparse_table" else 0):
+            fail(f"phase 8c W={W}: {n} {k} launches for {steps} batches")
+    calls: dict = {}
+    shapes = ConflictShapes(capacity=bench.CAPACITY, txns=T, reads=T,
+                            writes=T, strided=True)
+    spied = spied_phases(calls, dev)
+    phases = type(ref.PLAIN)(**dict(vars(ref.PLAIN),
+                                    intra_sandwich=pinch_read_sandwich,
+                                    clip_ranges=spied.clip_ranges,
+                                    shard_combine=spied.shard_combine))
+    step = sharded_conflict_step(
+        [dev] * W, shapes, KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS, "scan",
+        T // 2 + 1, phases=phases)
+    state1, st1, _info = step(detail["state_after_warm"],
+                              detail["batches"][0])
+    torch.cuda.synchronize()
+    if not torch.equal(st1, detail["statuses"][0]):
+        fail(f"phase 8c W={W}: the first timed batch's statuses differ "
+             f"from the plain phases")
+    got_np = ref.sharded_state_to_numpy(detail["state_after_first"])
+    for k, v in ref.sharded_state_to_numpy(state1).items():
+        if not np.array_equal(got_np[k], v):
+            fail(f"phase 8c W={W}: state[{k}] after the first timed batch "
+                 f"differs from the plain phases")
+    del state1
+    if W == 1:
+        state = ref.init_state(bench.CAPACITY, shapes.limbs, dev,
+                               phases=kernels.PHASES)
+        for i, b in enumerate([detail["warm"]] + detail["batches"]):
+            state, st, _info = ref.conflict_step(
+                state, b, max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
+                intra_rounds=T // 2 + 1, strided=True, phases=kernels.PHASES)
+            if i and not torch.equal(st, detail["statuses"][i - 1]):
+                fail(f"phase 8c W=1: batch {i - 1}'s statuses differ from "
+                     f"the unsharded step")
+        res["equal_to_unsharded_batches"] = SHARDED_BENCH_BATCHES
+        del state
+    del detail
+    torch.cuda.empty_cache()
+    return res, calls
+
+
+def check_sharded_kernels(dev, calls8a, calls8c) -> dict:
+    """The step's kernels held to their plain versions on 8a's captured
+    calls (ties at the cuts, clipped-inverted reads, the rebase at the
+    jump, the tables of the re-cut), exactly, untimed; then K10 and K11
+    held to theirs on 8a's and 8c's calls and the edges, timed at 8a's
+    shapes (W=4, T=1,024, NR=NW=4,096) and at 8c's (W=4, T=16,384)."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    wrappers, checks = step_wrappers()
+    calls = dict(calls8a, **sort_rank_part_calls(calls8a["sort_and_rank"]))
+    held = {}
+    for name, (kern, plain) in wrappers.items():
+        kern, plain = checks.get(name, (kern, plain))
+        if not calls.get(name):
+            fail(f"phase 8: no {name} call was captured from 8a")
+        held[name] = equal_on_calls(name, kern, plain, calls[name])
+    log(f"phase 8: the step's kernels equal to plain on 8a's calls: {held}")
+    res = {"held_on_8a_calls": held}
+    combine = (flat_combine(kernels.shard_combine),
+               flat_combine(ref.shard_combine))
+    for name, kern, plain, edges, check in (
+            ("shard_clip", kernels.clip_ranges, ref.clip_ranges,
+             clip_edge_calls(dev), None),
+            ("shard_combine", kernels.shard_combine, ref.shard_combine,
+             combine_edge_calls(dev), combine)):
+        res[name] = hold_to_plain(name, kern, plain,
+                                  calls8a[name] + calls8c[name] + edges,
+                                  calls8a[name][-1], "8a", check=check)
+        res[name]["bench_16384_w4"] = hold_to_plain(
+            name, kern, plain, [], calls8c[name][-1], "8c W=4", check=check)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # --time-kernels: the step kernels' device time, alone
 # ---------------------------------------------------------------------------
 
@@ -1688,6 +2182,8 @@ def time_step_kernels(dev, reps=50):
     for T, capacity in ((16384, 1 << 18), (32768, 1 << 19)):
         cells[f"bench_{T}"] = bench_step_calls(dev, T, capacity)
     out = {}
+    if hasattr(kernels, "clip_ranges"):
+        out["sharded_bench_16384_w4"] = time_sharded_step(dev, reps)
     for cell, (state, batch, calls) in cells.items():
         row = out[cell] = {}
         if "sort_and_rank" in calls:
@@ -1717,6 +2213,52 @@ def time_step_kernels(dev, reps=50):
     return out
 
 
+def time_sharded_step(dev, reps, W=SHARDED_W, T=SHARDED_BENCH_T):
+    """K10's and K11's device and host ms a call on the calls of one
+    sharded bench step (W shards on the card, T=16,384, K=2^18 a shard,
+    after two batches), and that whole step's device ms with the
+    kernels."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.ops.conflict import ConflictShapes
+    from foundationdb_tpu_torch.parallel.sharded_conflict import (
+        sharded_conflict_step)
+    detail: dict = {}
+    bench.run_sharded_kernel(T, 2, W, devices=[dev] * W, detail=detail)
+    state, batch = detail["state_after_first"], detail["batches"][1]
+    shapes = ConflictShapes(capacity=bench.CAPACITY, txns=T, reads=T,
+                            writes=T, strided=True)
+    calls: dict = {}
+    spied = spied_phases(calls, dev)
+    plain_step = sharded_conflict_step(
+        [dev] * W, shapes, bench.WINDOW, "scan", T // 2 + 1,
+        phases=type(ref.PLAIN)(**dict(vars(ref.PLAIN),
+                                      intra_sandwich=pinch_read_sandwich,
+                                      clip_ranges=spied.clip_ranges,
+                                      shard_combine=spied.shard_combine)))
+    plain_step(state, batch)
+    out = {}
+    for name, kern in (("shard_clip", kernels.clip_ranges),
+                       ("shard_combine", kernels.shard_combine)):
+        a, kw = calls[name][-1]
+        funcs, _wall = profile_device(lambda: kern(*a, **kw), reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            kern(*a, **kw)
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        out[name] = {"device_ms": busy_ms(funcs), "host_ms": host_ms}
+    step = sharded_conflict_step([dev] * W, shapes, bench.WINDOW, "scan",
+                                 T // 2 + 1)
+    funcs, wall = profile_device(lambda: step(state, batch), 5)
+    out["step"] = {"device_ms": busy_ms(funcs), "wall_ms": wall / 5 * 1e3}
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1724,7 +2266,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
     ap.add_argument("--time-kernels", action="store_true",
-                    help="only time K1-K4, K6-K9 and a bench step on the "
+                    help="only time K1-K4, K6-K11 and bench steps on the "
                          "card (time_step_kernels), print them as JSON and "
                          "exit")
     args = ap.parse_args(argv)
@@ -1818,6 +2360,29 @@ def main(argv=None) -> int:
     ab = report["evaluator_ab"] = ab_phase(dev)
     probe_run = report["probes"] = probes_phase(dev)
 
+    # 8. the sharded engine: 8b the resolver role on the sharded backend
+    # (width 1 on one card; first, so that its peak memory is its own),
+    # 8a the engine (W=4 on the card), 8c the sharded kernel bench at W=1
+    # and W=4; then K10 and K11 against their plain versions
+    kernels.release_scratch()
+    torch.cuda.empty_cache()
+    phase_8b, _cs, _next = serve_phase(
+        "8b", dev, 1 << 16, PHASE_A_BATCHES, 20_000, args.seed + 1,
+        jump_at=PHASE_A_BATCHES // 2, backend="sharded")
+    del _cs
+    sharded, calls8a = sharded_engine_phase(dev, args.seed + 8)
+    bench8, calls8c = {}, None
+    for W in (1, SHARDED_W):
+        bench8[W], calls8c = sharded_bench_phase(dev, W)
+    kres8 = check_sharded_kernels(dev, calls8a, calls8c)
+    del calls8a, calls8c
+    report["sharded"] = {"8a": sharded, "8b": phase_8b, "8c": bench8,
+                         "kernels": kres8}
+    log("phase 8b beside phase A: " + json.dumps({
+        k: (phase_a[k], phase_8b[k]) for k in (
+            "txns_per_s", "batch_latency_ms_p50", "batch_latency_ms_p99")}))
+    kres.update({k: kres8[k] for k in SHARD_KERNELS})
+
     timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "host_ms", "launches_per_call")
     kernels_line = []
@@ -1826,8 +2391,15 @@ def main(argv=None) -> int:
         entry = {"name": name, "route": "cuda",
                  "source": f"foundationdb_tpu_torch/{source}",
                  "replaces": replaces.split(" ")[0]}
-        if name in PATH_KERNELS:
+        if name in SHARD_KERNELS:
+            entry["launches"] = sharded["launches"][name]
+            entry["launches_8b"] = phase_8b["launches"][name]
+            for W in bench8:
+                entry[f"launches_8c_w{W}"] = bench8[W]["launches"][name]
+            entry["max_abs_err"] = r["max_abs_err"]
+        elif name in PATH_KERNELS:
             entry["launches"] = phase_a["launches"][name]
+            entry["launches_sharded_8a"] = sharded["launches"][name]
             if name in STEP_KERNELS:
                 entry["launches_phase_b"] = phase_b["launches"][name]
                 for T in benches:
@@ -1844,6 +2416,9 @@ def main(argv=None) -> int:
             entry["launches"] = probe_run["launches"][name]
             entry["max_abs_err"] = r["max_abs_err"]
         entry.update({k: r[k] for k in timing_keys})
+        if name in SHARD_KERNELS:
+            entry["bench_16384_w4"] = {k: r["bench_16384_w4"][k]
+                                       for k in timing_keys}
         if name in PATH_KERNELS:
             entry["cell_b"] = {k: kres_b[name][k] for k in timing_keys}
             if "t_2_20" in r:

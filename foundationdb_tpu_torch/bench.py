@@ -17,14 +17,22 @@ SkipList algorithm (native/skiplist_baseline.c) is compiled with the host's
 `cc` and run on the same workload shape. Without a compiler its entry is
 {"error": ...}: the yardstick is missing, nothing else changes.
 
-There is no CPU fallback: `run_kernel` and `run_kernel_ab` run on CUDA
-unless the caller passes device="cpu" (the tests do, at small sizes), and
-raise platform_error where there is no card.
+`run_sharded_kernel` (bench.py:295-400) times the sharded engine's step
+(parallel/sharded_conflict.py) the same way, a batch a dispatch, on keys
+spread over the first limb so that every shard gets traffic. On one card
+its W shards share the card: W = 4 is then about four steps a batch, which
+measures the cost of sharding, not its scaling.
+
+There is no CPU fallback: `run_kernel`, `run_kernel_ab` and
+`run_sharded_kernel` run on CUDA unless the caller passes device="cpu" (or
+CPU devices; the tests do, at small sizes), and raise platform_error where
+there is no card.
 
 Usage, from the repository root on a machine with the card:
 
   python -m foundationdb_tpu_torch.bench --kernel T n_batches chunk [capacity]
   python -m foundationdb_tpu_torch.bench --ab T [n_batches] [capacity]
+  python -m foundationdb_tpu_torch.bench --sharded-kernel T n_batches W [capacity]
 
 Each prints one JSON line.
 """
@@ -43,6 +51,9 @@ import torch
 
 from foundationdb_tpu_torch.ops import conflict_ref as ref
 from foundationdb_tpu_torch.ops import kernels
+from foundationdb_tpu_torch.ops.conflict import ConflictShapes
+from foundationdb_tpu_torch.parallel.sharded_conflict import (
+    init_sharded_state, make_resolver_mesh, sharded_conflict_step)
 from foundationdb_tpu_torch.utils import cudaenv
 from foundationdb_tpu_torch.utils import keys as keylib
 from foundationdb_tpu_torch.utils.errors import FDBError
@@ -255,6 +266,111 @@ def run_kernel_ab(T: int, n_batches: int = 8, capacity: int | None = None,
     return out
 
 
+def _encode_spread_batches(n_batches: int, seed: int, version0: int,
+                           T: int) -> dict:
+    """Batches for the sharded engine (bench.py's `_encode_spread_batches`,
+    the same random draws): `_encode_batches`' workload (one read and one
+    write range a txn, span 1-10, the same snapshots) with the key integer
+    scaled into the FIRST limb, since the engine partitions on the leading
+    4 key bytes (the setK prefix would land every key on shard 0). Keys
+    are 24 bytes wide, the only width the sharded step takes; limbs are
+    the port's signed limbs."""
+    L = keylib.NUM_LIMBS
+    # multiplying keeps the order and spreads [0, KEYSPACE + MAX_SPAN]
+    # across the first limb
+    scale = (1 << 32) // (KEYSPACE + MAX_SPAN + 1)
+    rng = np.random.RandomState(seed)
+
+    def keys_to_limbs(v):  # v: (n, T) int64 in [0, KEYSPACE + MAX_SPAN]
+        out = np.zeros((v.shape[0], L, T), dtype=np.uint32)
+        out[:, 0, :] = (v * scale).astype(np.uint32)
+        out[:, 1:L - 1, :] = DOT
+        out[:, L - 1, :] = keylib.KEY_BYTES
+        return keylib.to_signed_limbs(out)
+
+    n = n_batches
+    rlo = rng.randint(0, KEYSPACE, size=(n, T)).astype(np.int64)
+    rspan = 1 + rng.randint(0, MAX_SPAN, size=(n, T)).astype(np.int64)
+    wlo = rng.randint(0, KEYSPACE, size=(n, T)).astype(np.int64)
+    wspan = 1 + rng.randint(0, MAX_SPAN, size=(n, T)).astype(np.int64)
+    versions = version0 + VERSION_STEP * np.arange(1, n + 1, dtype=np.int64)
+    snapshots = (versions - WINDOW).astype(np.int32)
+    owners = np.broadcast_to(np.arange(T, dtype=np.int32), (n, T)).copy()
+    return {
+        "rb": keys_to_limbs(rlo),
+        "re": keys_to_limbs(rlo + rspan),
+        "wb": keys_to_limbs(wlo),
+        "we": keys_to_limbs(wlo + wspan),
+        "rtxn": owners,
+        "wtxn": owners.copy(),
+        "snapshot": np.broadcast_to(snapshots[:, None], (n, T)).copy(),
+        "txn_valid": np.ones((n, T), dtype=bool),
+        "commit_version": versions.astype(np.int32),
+        "advance_floor": np.ones(n, dtype=bool),
+    }
+
+
+def run_sharded_kernel(T: int, n_batches: int, n_shards: int,
+                       capacity: int | None = None, devices=None,
+                       detail: dict | None = None) -> dict:
+    """The sharded step over `n_shards` shards (`devices`, one a shard; by
+    default cards 0..n_shards-1, which raises invalid_option past the
+    attached cards): a warm-up batch, then `n_batches` timed batches, a
+    batch a dispatch, full sandwich rounds (T // 2 + 1, as the engine), one
+    host sync at the end. Raises internal_error if a shard overflowed.
+    `detail`, if given, receives the staged batches, the statuses of every
+    timed batch and the states after the warm-up, after the first timed
+    batch and at the end."""
+    devices = ([cudaenv.resolve_device(d) for d in devices] if devices
+               else make_resolver_mesh(n_shards, "cuda"))
+    if len(devices) != n_shards:
+        raise ValueError(f"{len(devices)} devices for {n_shards} shards")
+    K = capacity or CAPACITY
+    shapes = ConflictShapes(capacity=K, txns=T, reads=T, writes=T,
+                            key_bytes=keylib.KEY_BYTES, strided=True)
+    step = sharded_conflict_step(
+        devices, shapes, KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS, "scan",
+        T // 2 + 1)
+    dev = devices[0]
+    warm = {k: v[0] for k, v in stage(
+        _encode_spread_batches(1, seed=1, version0=WINDOW, T=T), dev).items()}
+    main = stage(_encode_spread_batches(
+        n_batches, seed=2, version0=WINDOW + VERSION_STEP, T=T), dev)
+    staged = [{k: v[i] for k, v in main.items()} for i in range(n_batches)]
+    state = init_sharded_state(shapes, devices)
+    state, _st, warm_info = step(state, warm)  # the first window fill
+    for d in dict.fromkeys(devices):
+        _sync(d)
+    after_warm, after_first = state, None
+    t0 = time.perf_counter()
+    statuses, comms, ovfs = [], [], []
+    for i, b in enumerate(staged):
+        state, st, info = step(state, b)
+        if i == 0:
+            after_first = state
+        statuses.append(st)
+        comms.append(info["committed"])
+        ovfs.append(info["overflow"])
+    committed = torch.stack(comms).cpu().numpy()  # the one sync
+    seconds = time.perf_counter() - t0
+    if bool(warm_info["overflow"]) or bool(torch.stack(ovfs).any()):
+        raise FDBError("internal_error",
+                       "conflict state overflowed; the capacity is too small")
+    if detail is not None:
+        detail.update(batches=staged, warm=warm, statuses=statuses,
+                      state_after_warm=after_warm,
+                      state_after_first=after_first, state=state)
+    total = n_batches * T
+    return {
+        "n_shards": n_shards,
+        "value": total / seconds,
+        "ms_per_batch": 1e3 * seconds / n_batches,
+        "committed_frac": int(committed.sum()) / total,
+        "txns_per_batch": T, "batches": n_batches, "capacity": K,
+        "devices": [str(d) for d in devices],
+    }
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if len(args) >= 4 and args[0] == "--kernel":
@@ -267,6 +383,11 @@ def main(argv=None) -> int:
         cap = int(args[3]) if len(args) > 3 else None
         print(json.dumps(run_kernel_ab(int(args[1]), n_batches=nb,
                                        capacity=cap)))
+        return 0
+    if len(args) >= 4 and args[0] == "--sharded-kernel":
+        cap = int(args[4]) if len(args) > 4 else None
+        print(json.dumps(run_sharded_kernel(int(args[1]), int(args[2]),
+                                            int(args[3]), capacity=cap)))
         return 0
     print(__doc__.split("Usage")[1].strip(), file=sys.stderr)
     return 2

@@ -38,11 +38,11 @@ class TxnConflictInfo:
 VALID_CONFLICT_BACKENDS = ("oracle", "device", "sharded")
 
 
-def validate_conflict_config(backend=None):
+def validate_conflict_config(backend=None, num_shards=None):
     """Fail at worker boot on a misconfigured resolver, not on the first
-    commit batch minutes later. The argument defaults to the live knob.
-    "sharded" is a valid name; the port's resolver refuses it as not yet
-    ported when it builds the engine."""
+    commit batch minutes later. Arguments default to the live knobs; the
+    shard count is checked against the attached cards later, when the
+    engine is built."""
     from foundationdb_tpu_torch.utils.errors import FDBError
     from foundationdb_tpu_torch.utils.knobs import KNOBS
 
@@ -53,3 +53,11 @@ def validate_conflict_config(backend=None):
             "invalid_option",
             f"unknown CONFLICT_BACKEND {backend!r}: valid backends are "
             + ", ".join(VALID_CONFLICT_BACKENDS))
+    if num_shards is None:
+        num_shards = KNOBS.CONFLICT_NUM_SHARDS
+    if isinstance(num_shards, bool) or not isinstance(num_shards, int) \
+            or num_shards < 0:
+        raise FDBError(
+            "invalid_option",
+            f"CONFLICT_NUM_SHARDS must be a non-negative integer "
+            f"(0 = span every attached device); got {num_shards!r}")

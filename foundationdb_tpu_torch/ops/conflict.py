@@ -327,7 +327,7 @@ def detect_async_impl(engine, txns: list[TxnConflictInfo],
     engine.oldest_version = max(
         engine.oldest_version,
         commit_version - KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS)
-    return DetectHandle(chunks)
+    return DetectHandle(chunks, host_fallback=engine.host_fallback)
 
 
 class DeviceConflictSet:
@@ -339,6 +339,10 @@ class DeviceConflictSet:
     `device` defaults to the CONFLICT_DEVICE knob ("cuda"); asking for CUDA
     where there is none raises platform_error. The intra-batch evaluator is
     the CONFLICT_INTRA_MODE knob's, read at construction."""
+
+    # an unconverged chunk's intra-batch verdicts come from the exact host
+    # pass (`_exact_intra_host`)
+    host_fallback = True
 
     def __init__(self, capacity: int | None = None, txns: int | None = None,
                  reads_per_txn: int | None = None,
@@ -501,10 +505,12 @@ class DetectHandle:
     [sub_txns, host_too_old, combined, readback]: `combined` is the device
     tensor [statuses(T) | eligible(T) | overflow | converged] until drained,
     then its numpy copy; `readback` is the (pinned host tensor, event) of a
-    copy in flight, or None."""
+    copy in flight, or None. Without `host_fallback` an unconverged chunk
+    raises internal_error instead of taking the exact host pass."""
 
-    def __init__(self, chunks):
+    def __init__(self, chunks, host_fallback: bool = True):
         self._chunks = chunks
+        self._host_fallback = host_fallback
         self._result: list[int] | None = None
 
     def result(self) -> list[int]:
@@ -525,6 +531,11 @@ class DetectHandle:
                     statuses = arr[:n]
                 else:
                     _unconverged_chunks.increment()
+                    if not self._host_fallback:
+                        raise FDBError(
+                            "internal_error",
+                            "a chunk did not converge on the device, and "
+                            "this engine has no exact host pass")
                     statuses = _exact_intra_host(sub, host_too_old,
                                                  arr[tc:tc + n])
                 out.extend(TOO_OLD if old else int(s)

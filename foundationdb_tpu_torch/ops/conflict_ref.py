@@ -19,7 +19,9 @@ the same phases and kernels serve both layouts.
 The step is written as plain tensor code around seven phase functions,
 passed in as `phases` (an object with `sort_and_rank`, `build_table`,
 `history_check`, `intra_levels`, `intra_sandwich`, `merge_compact` and
-`legacy_sweep`); `rebase_state` calls an eighth, `rebase_table`.
+`legacy_sweep`); `rebase_state` calls an eighth, `rebase_table`, and the
+sharded engine (parallel/sharded_conflict.py) two more around the step of
+each shard, `clip_ranges` and `shard_combine`.
 `PLAIN` holds the plain versions below;
 ops/kernels.py holds wrappers with the same signatures that launch the CUDA
 kernels for CUDA tensors. Nothing here synchronises with the device: every
@@ -481,17 +483,20 @@ def intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer) -> dict:
             "qhi": inv[:, NW + NR:].to(_I32).contiguous()}
 
 
-def run_sandwich(sweep, g, rounds: int):
+def run_sandwich(sweep, g, rounds: int, read_pinch: bool = False):
     """Bounded lower/upper sandwich on the antitone map f (`_run_sandwich`):
     upper ⊇ truth ⊇ lower; each round tightens both and is skipped once they
-    meet. The skip is a device flag handed to `sweep`, not a host branch.
-    Returns (lower, upper, converged)."""
+    meet. The skip is a device flag handed to `sweep`, not a host branch;
+    with `read_pinch` the loop also reads a CUDA flag on the host (a sync a
+    round) and stops at the pinch, as it always does on the CPU: the
+    rounds it leaves out would change nothing. Returns (lower, upper,
+    converged)."""
     upper = g
     lower = sweep(upper, None, None)
     for _ in range(max(rounds, 0)):
         pinched = torch.all(lower == upper)
-        if not pinched.is_cuda and bool(pinched):
-            break  # on the host the flag is free to read; same result
+        if (read_pinch or not pinched.is_cuda) and bool(pinched):
+            break  # the flag is read on the host; same result
         up2 = sweep(lower, pinched, upper)
         lower = sweep(up2, pinched, lower)
         upper = up2
@@ -504,7 +509,8 @@ def intra_sandwich(g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, rounds: int,
     conflict.py:311-334, 537-548): `run_sandwich` over `intra_sweep`.
     Returns (lower, upper, converged). With `evals` (a 0-dim int32 tensor)
     it also writes how many evaluations of f were not skipped, the count
-    the kernel reports (this reads the pinch flags on the host)."""
+    the kernel reports; it then reads the pinch flags on the host, and so
+    stops at the pinch on the card too."""
     skips = []
 
     def sweep(c, skip, prev):
@@ -512,7 +518,7 @@ def intra_sandwich(g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, rounds: int,
             skips.append(skip)
         return intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, skip,
                            prev)
-    out = run_sandwich(sweep, g, rounds)
+    out = run_sandwich(sweep, g, rounds, read_pinch=evals is not None)
     if evals is not None:
         evals.fill_(sum(1 for s in skips if s is None or not bool(s)))
     return out
@@ -526,12 +532,50 @@ def rebase_table(bval, oldest, delta: int):
     return bval2, torch.clamp(oldest - delta, min=NEG), build_table(bval2)
 
 
+def clip_ranges(rb, re, wb, we, lo, hi):
+    """K10's plain version: every range clipped to every shard's key range
+    (`_clip_ranges`, parallel/sharded_conflict.py:111-121, once per shard):
+    begin' = lo if begin < lo else begin, end' = hi if hi < end else end,
+    lexicographic over the limbs. rb, re (L, NR) and wb, we (L, NW); lo, hi
+    (W, L). Returns four (W, L, N) tensors, shard d's slice [d] contiguous.
+    A range the shard does not own comes out empty or inverted, and every
+    phase of the step ignores it."""
+    W = lo.shape[0]
+
+    def clip(keys, bound, begin):
+        k = keys.unsqueeze(0).expand(W, -1, -1)  # (W, L, N)
+        b = bound.unsqueeze(2).expand_as(k)
+        kt, bt = k.transpose(0, 1), b.transpose(0, 1)  # limbs first
+        take = key_lt(kt, bt) if begin else key_lt(bt, kt)  # (W, N)
+        return torch.where(take[:, None, :], b, k).contiguous()
+    return (clip(rb, lo, True), clip(re, hi, False), clip(wb, lo, True),
+            clip(we, hi, False))
+
+
+def shard_combine(statuses, eligible, overflow, boundaries, converged,
+                  txn_valid):
+    """K11's plain version: the combine of `local_step`
+    (parallel/sharded_conflict.py:193-210) over the W shards' outputs (each
+    argument but txn_valid a sequence of W tensors): statuses min over the
+    shards (Conflict 0 < TooOld 1 < Committed 2, the proxy's rule), eligible
+    and converged all, overflow any, boundaries max, and committed the
+    count of committed valid txns. Returns (statuses, info)."""
+    st = torch.stack(list(statuses)).amin(dim=0).to(_I32)
+    info = {"overflow": torch.stack(list(overflow)).any(),
+            "boundaries": torch.stack(list(boundaries)).amax(),
+            "committed": ((st == COMMITTED) & txn_valid).sum(dtype=_I32),
+            "converged": torch.stack(list(converged)).all(),
+            "eligible": torch.stack(list(eligible)).all(dim=0)}
+    return st, info
+
+
 PLAIN = SimpleNamespace(sort_and_rank=sort_and_rank,
                         build_table=build_table, history_check=history_check,
                         intra_levels=intra_levels,
                         intra_sandwich=intra_sandwich,
                         merge_compact=merge_compact, legacy_sweep=legacy_sweep,
-                        rebase_table=rebase_table)
+                        rebase_table=rebase_table, clip_ranges=clip_ranges,
+                        shard_combine=shard_combine)
 
 
 def run_legacy(sweep, g):
@@ -701,11 +745,13 @@ def _from_np(name, value, device):
     return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
 
 
+_STATE_FIELDS = ("bkeys", "bval", "nb", "oldest", "table", "poisoned")
+
+
 def state_from_numpy(np_state: dict, device) -> dict:
     """JAX state dict (bkeys (L,K) uint32, bval, nb, oldest, table,
     poisoned; numpy or anything np.asarray takes) -> the port's tensors."""
-    return {k: _from_np(k, np_state[k], device)
-            for k in ("bkeys", "bval", "nb", "oldest", "table", "poisoned")}
+    return {k: _from_np(k, np_state[k], device) for k in _STATE_FIELDS}
 
 
 def batch_from_numpy(np_batch: dict, device) -> dict:
@@ -719,7 +765,29 @@ def batch_from_numpy(np_batch: dict, device) -> dict:
 def state_to_numpy(state: dict) -> dict:
     """The port's state -> the JAX numpy layout (uint32 key limbs)."""
     out = {}
-    for k in ("bkeys", "bval", "nb", "oldest", "table", "poisoned"):
+    for k in _STATE_FIELDS:
         a = state[k].detach().cpu().numpy()
         out[k] = keylib.from_signed_limbs(a) if k == "bkeys" else a
+    return out
+
+
+def sharded_state_from_numpy(np_state: dict, devices) -> dict:
+    """The JAX sharded engine's stacked state (every leaf with a leading
+    shard axis; lo, hi (W, L) uint32) -> the port's: {"shards": W state
+    dicts, shard d's on devices[d]; "lo", "hi": (W, L) int32 on
+    devices[0]}."""
+    shards = [state_from_numpy({k: np.asarray(np_state[k])[d]
+                                for k in _STATE_FIELDS}, dev)
+              for d, dev in enumerate(devices)]
+    return {"shards": shards,
+            **{k: torch.from_numpy(np.ascontiguousarray(keylib.to_signed_limbs(
+                np_state[k]))).to(devices[0]) for k in ("lo", "hi")}}
+
+
+def sharded_state_to_numpy(states: dict) -> dict:
+    """The port's sharded state -> the JAX stacked numpy layout."""
+    per = [state_to_numpy(s) for s in states["shards"]]
+    out = {k: np.stack([p[k] for p in per]) for k in _STATE_FIELDS}
+    for k in ("lo", "hi"):
+        out[k] = keylib.from_signed_limbs(states[k].detach().cpu().numpy())
     return out

@@ -15,8 +15,11 @@ ops/conflict_ref.py that it replaces, so `PHASES` drops into
   K7 state_merge    csrc/state_merge.cu     phase 0's sorted union, spos,
                                             cum_state
   K8 endpoint_ranks csrc/endpoint_ranks.cu  the endpoint ranks (phase 3)
+  K10 clip_ranges   csrc/shard_clip.cu      `_clip_ranges` (sharded engine)
+  K11 shard_combine csrc/shard_combine.cu   `local_step`'s pmin/pmax combine
 
-(functions of foundationdb_tpu/ops/conflict.py). The probe kernels of
+(functions of foundationdb_tpu/ops/conflict.py; K10 and K11 of
+foundationdb_tpu/parallel/sharded_conflict.py). The probe kernels of
 ops/probes.py (csrc/probes.cu) build into the same library and count their
 launches here too. A wrapper given tensors on
 the CPU runs the plain version from conflict_ref; given CUDA tensors it
@@ -60,6 +63,14 @@ merge-path co-rank per output position and writes the sorted union,
 `spos` and `cum_state` in one pass. That is 4 device launches (3 when
 M <= 1,024), in place of about 40 torch launches.
 
+The sharded engine (parallel/sharded_conflict.py) runs a chunk as one K10
+launch, the step of each shard, then one K11 launch. K10 writes every
+shard's clipped copy of the batch's four endpoint arrays, a thread per
+(shard, column). K11 takes the shards' verdicts where their steps left
+them: their device pointers travel by value in the launch's parameters,
+so the combine costs no stack and no copy; its committed count goes
+through zeroed scratch that the launch leaves zero.
+
 The sources compile at first use with nvcc for sm_90a, one process per
 source, all started together; the objects link into one shared library
 with a plain C interface, bound with ctypes. The library lands in
@@ -88,7 +99,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("endpoint_sort.cu", "state_merge.cu", "endpoint_ranks.cu",
            "sparse_table.cu", "history_check.cu", "intra_levels.cu",
            "intra_sweep.cu", "merge_compact.cu", "legacy_overlap.cu",
-           "probes.cu")
+           "shard_clip.cu", "shard_combine.cu", "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -123,6 +134,12 @@ KERNELS = {
     "legacy_blocked": ("csrc/legacy_overlap.cu",
                        "foundationdb_tpu/ops/conflict.py:506 _f_commit of "
                        "the legacy evaluator (:491-533)"),
+    "shard_clip": ("csrc/shard_clip.cu",
+                   "foundationdb_tpu/parallel/sharded_conflict.py:111 "
+                   "_clip_ranges (in local_step :185-186)"),
+    "shard_combine": ("csrc/shard_combine.cu",
+                      "foundationdb_tpu/parallel/sharded_conflict.py:193 "
+                      "local_step's pmin/pmax combine (:193-210)"),
     "probe_add": ("csrc/probes.cu", "scripts/ab_pallas.py:37 add_kernel"),
     "probe_stream_rows": ("csrc/probes.cu",
                           "scripts/ab_pallas.py:49 stream_kernel"),
@@ -159,6 +176,8 @@ _ARGTYPES = {
     "fdb_intra_sandwich": [_P] * 12 + [_I] * 5 + [_P] * 12,
     "fdb_merge_compact": [_P] * 14 + [_I] * 7 + [_P] * 10,
     "fdb_legacy_blocked": [_P] * 10 + [_I] * 3 + [_P] * 4,
+    "fdb_shard_clip": [_P] * 6 + [_I] * 4 + [_P] * 5,
+    "fdb_shard_combine": [_P, _I, _I] + [_P] * 9,
     "fdb_probe_add": [_P, _P, _LL, _P],
     "fdb_probe_stream": [_P, _I, _I, _LL, _LL, _I, _P, _P],
     "fdb_probe_rank": [_P, _P, _I, _I, _I, _I] + [_LL] * 5 + [_I, _P, _P],
@@ -707,9 +726,90 @@ def legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K10 shard_clip, K11 shard_combine (the sharded engine)
+# ---------------------------------------------------------------------------
+
+# the widest key the clip takes in registers and the most shards the
+# combine's launch parameters carry (CLIP_MAX_L, COMBINE_MAX_SHARDS)
+CLIP_MAX_LIMBS = 17
+COMBINE_MAX_SHARDS = 64
+
+
+def clip_ranges(rb, re, wb, we, lo, hi):
+    """K10: every range clipped to every shard's [lo, hi): four (W, L, N)
+    int32 tensors (rb', re', wb', we'), as `conflict_ref.clip_ranges`."""
+    if not _on_cuda("shard_clip", rb):
+        return ref.clip_ranges(rb, re, wb, we, lo, hi)
+    L, NR = rb.shape
+    NW = wb.shape[1]
+    W = lo.shape[0]
+    dev = rb.device
+    if not 1 <= L <= CLIP_MAX_LIMBS or W < 1:
+        raise FDBError("invalid_option",
+                       f"shard_clip: L={L} (at most {CLIP_MAX_LIMBS}), "
+                       f"W={W} (at least 1)")
+    _check("shard_clip", dev, rb=(rb, _I32, (L, NR)), re=(re, _I32, (L, NR)),
+           wb=(wb, _I32, (L, NW)), we=(we, _I32, (L, NW)),
+           lo=(lo, _I32, (W, L)), hi=(hi, _I32, (W, L)))
+    outs = tuple(torch.empty((W, L, n), dtype=_I32, device=dev)
+                 for n in (NR, NR, NW, NW))
+    if NR + NW == 0:
+        return outs
+    rc = library().fdb_shard_clip(
+        rb.data_ptr(), re.data_ptr(), wb.data_ptr(), we.data_ptr(),
+        lo.data_ptr(), hi.data_ptr(), L, NR, NW, W,
+        *(o.data_ptr() for o in outs), _stream())
+    _launched("shard_clip", rc)
+    return outs
+
+
+def shard_combine(statuses, eligible, overflow, boundaries, converged,
+                  txn_valid):
+    """K11: the W shards' outputs (sequences of W tensors) combined into
+    (statuses, info) in one launch, as `conflict_ref.shard_combine`."""
+    if not _on_cuda("shard_combine", txn_valid):
+        return ref.shard_combine(statuses, eligible, overflow, boundaries,
+                                 converged, txn_valid)
+    W, T = len(statuses), txn_valid.shape[0]
+    dev = txn_valid.device
+    if not 1 <= W <= COMBINE_MAX_SHARDS or T < 1:
+        raise FDBError("invalid_option",
+                       f"shard_combine: W={W} shards (1 to "
+                       f"{COMBINE_MAX_SHARDS}), T={T} txns (at least 1)")
+    groups = (statuses, eligible, overflow, boundaries, converged)
+    if any(len(g) != W for g in groups):
+        raise FDBError("invalid_option",
+                       "shard_combine: every field needs one tensor a shard")
+    specs = ((_I32, (T,)), (_BOOL, (T,)), (_BOOL, ()), (_I32, ()),
+             (_BOOL, ()))
+    _check("shard_combine", dev, txn_valid=(txn_valid, _BOOL, (T,)),
+           **{f"{field}[{d}]": (t, dtype, shape)
+              for field, g, (dtype, shape) in zip(
+                  ("statuses", "eligible", "overflow", "boundaries",
+                   "converged"), groups, specs)
+              for d, t in enumerate(g)})
+    ptrs = (ctypes.c_void_p * (5 * W))(*(t.data_ptr() for g in groups
+                                         for t in g))
+    scratch = _zeroed_scratch("combine", 2, _I32, dev)
+    st = torch.empty(T, dtype=_I32, device=dev)
+    el = torch.empty(T, dtype=_BOOL, device=dev)
+    scalars = torch.empty(2, dtype=_I32, device=dev)  # boundaries, committed
+    flags = torch.empty(2, dtype=_BOOL, device=dev)  # overflow, converged
+    rc = library().fdb_shard_combine(
+        ptrs, W, T, txn_valid.data_ptr(), scratch.data_ptr(), st.data_ptr(),
+        el.data_ptr(), flags[0].data_ptr(), scalars[0].data_ptr(),
+        scalars[1].data_ptr(), flags[1].data_ptr(), _stream())
+    _launched("shard_combine", rc)
+    return st, {"overflow": flags[0], "boundaries": scalars[0],
+                "committed": scalars[1], "converged": flags[1],
+                "eligible": el}
+
+
 PHASES = SimpleNamespace(sort_and_rank=sort_and_rank,
                          build_table=build_table, history_check=history_check,
                          intra_levels=intra_levels,
                          intra_sandwich=intra_sandwich,
                          merge_compact=merge_compact,
-                         legacy_sweep=legacy_sweep, rebase_table=rebase_table)
+                         legacy_sweep=legacy_sweep, rebase_table=rebase_table,
+                         clip_ranges=clip_ranges, shard_combine=shard_combine)

@@ -8,10 +8,14 @@ retransmitted batches get their cached reply (:117-128), and the reply
 carries one status per transaction (:159-166).
 
 The engine is picked by the CONFLICT_BACKEND knob: "device" is the port's
-engine (ops/conflict.py) on the CONFLICT_DEVICE knob's device, "oracle" the
-pure-Python reference (ops/conflict_oracle.py). Both make identical
-decisions. "sharded" is not ported yet and raises. There is no silent
-degrade: a device engine asked for CUDA where there is none raises.
+engine (ops/conflict.py) on the CONFLICT_DEVICE knob's device, "sharded"
+the key-partitioned engine (parallel/sharded_conflict.py) over
+CONFLICT_NUM_SHARDS shards, with resolutionBalancing, "oracle" the
+pure-Python reference (ops/conflict_oracle.py). "device" and "oracle" make
+identical decisions; "sharded" makes the reference's multi-resolver
+decisions (never a false commit). There is no silent degrade: a device
+engine asked for CUDA where there is none raises, and no engine ever runs
+the oracle in a device's place.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from foundationdb_tpu_torch.ops.batch import (COMMITTED, CONFLICT,
 from foundationdb_tpu_torch.ops.conflict import (DeviceConflictSet,
                                                  drain_and_collect)
 from foundationdb_tpu_torch.ops.conflict_oracle import OracleConflictSet
+from foundationdb_tpu_torch.parallel.sharded_conflict import (
+    ShardedDeviceConflictSet, make_resolver_mesh, shard_cut_bytes_range)
 from foundationdb_tpu_torch.server.hotspot import HotRangesReply, HotRangeSketch
 from foundationdb_tpu_torch.server.interfaces import (
     ResolveTransactionBatchReply, ResolveTransactionBatchRequest, Token)
@@ -35,10 +41,15 @@ from foundationdb_tpu_torch.utils.stats import (CounterCollection,
 from foundationdb_tpu_torch.utils.trace import g_trace_batch
 
 
-def new_conflict_set(oldest_version: int = 0):
+def new_conflict_set(oldest_version: int = 0,
+                     key_range: tuple[bytes, bytes | None] = (b"", None)):
     """newConflictSet() dispatch (ConflictSet.h:28) on CONFLICT_BACKEND:
-    "device" -> DeviceConflictSet on CONFLICT_DEVICE, "oracle" -> the host
-    reference; "sharded" raises invalid_option (not yet ported)."""
+    "device" -> DeviceConflictSet on CONFLICT_DEVICE; "sharded" ->
+    ShardedDeviceConflictSet over CONFLICT_NUM_SHARDS shards (0 = every
+    attached card; more than attached raises invalid_option; with
+    CONFLICT_DEVICE=cpu the shards share the CPU), cut evenly over
+    `key_range`, the resolver's owned range of the outer ResolverMap
+    partition; "oracle" -> the host reference."""
     validate_conflict_config()
     backend = KNOBS.CONFLICT_BACKEND
     if backend == "device":
@@ -46,19 +57,28 @@ def new_conflict_set(oldest_version: int = 0):
         cs.backend_label = cs.device.type
         return cs
     if backend == "sharded":
-        raise FDBError("invalid_option",
-                       "CONFLICT_BACKEND=sharded is not yet ported to the "
-                       "PyTorch engine")
+        devices = make_resolver_mesh(int(KNOBS.CONFLICT_NUM_SHARDS) or None)
+        cuts = shard_cut_bytes_range(len(devices), key_range[0], key_range[1])
+        cs = ShardedDeviceConflictSet(devices=devices,
+                                      oldest_version=oldest_version,
+                                      cut_bytes=cuts)
+        cs.backend_label = f"{cs.device.type}x{cs.n_shards}"
+        return cs
     return OracleConflictSet(oldest_version=oldest_version)
 
 
 class Resolver:
     def __init__(self, process: SimProcess, recovery_version: int = 0,
-                 n_proxies: int = 1):
+                 n_proxies: int = 1, key_range_begin: bytes = b"",
+                 key_range_end: bytes | None = None):
         self.process = process
         self.n_proxies = n_proxies
+        # this resolver's slice of the outer ResolverMap partition; the
+        # sharded engine's cuts subdivide it
+        self.key_range = (key_range_begin, key_range_end)
         self.version = NotifiedVersion(recovery_version)
-        self.conflict_set = new_conflict_set(oldest_version=recovery_version)
+        self.conflict_set = new_conflict_set(oldest_version=recovery_version,
+                                             key_range=self.key_range)
         self._pipelined = hasattr(self.conflict_set, "detect_async")
         if self._pipelined:
             # build the kernels and run every serving bucket now, so the
@@ -91,6 +111,12 @@ class Resolver:
         # txn's write ranges feed the decayed sketch
         self.hot_sketch = HotRangeSketch()
         self._c_sampled = self.counters.counter("ConflictsSampled")
+        # the sharded engine's conflict-mass re-cuts, fed by the sketch
+        self._c_rebalances = self.counters.counter("CutRebalances")
+        self._balance_task = (
+            process.spawn(self._balance_loop(), "resolverBalance")
+            if hasattr(self.conflict_set, "rebalance_from_conflicts")
+            else None)
         process.register(Token.RESOLVER_RESOLVE, self._on_resolve)
         process.register(Token.RESOLVER_METRICS, self._on_metrics)
         process.register(Token.RESOLVER_HOT_RANGES, self._on_hot_ranges)
@@ -102,6 +128,8 @@ class Resolver:
         self._counters_task.cancel()
         if self._drain_task is not None:
             self._drain_task.cancel()
+        if self._balance_task is not None:
+            self._balance_task.cancel()
         for t in list(self._drain_groups):
             t.cancel()
 
@@ -193,21 +221,40 @@ class Resolver:
         handles = [h for _req, _reply, h in entries]
         err = None
         results: list | None = None
+        sharded = self._balance_task is not None
         self._c_groups.increment()
         try:
             try:
                 # wait on the readback events AND materialize off the loop:
                 # an unconverged chunk runs the exact host pass
+                timing: dict = {}
                 t_rb0 = loop.now()
                 results = await loop.run_blocking(
-                    lambda hs=handles: drain_and_collect(hs))
+                    lambda hs=handles: drain_and_collect(hs, timing))
                 t_rb1 = loop.now()
+                # on the sharded backend the window splits: the wait for
+                # the device is ReadbackWait, the unpacking of the combined
+                # verdicts ShardCombine
+                t_split = t_rb1
+                if sharded:
+                    wall = (timing.get("drain_seconds", 0.0)
+                            + timing.get("collect_seconds", 0.0))
+                    if wall > 0.0:
+                        t_split = t_rb0 + (t_rb1 - t_rb0) * (
+                            timing["drain_seconds"] / wall)
                 for req, _reply, _h in entries:
                     vid = f"v{req.version}"
                     g_trace_batch.span_begin("CommitSpan", vid,
                                              "Resolver.ReadbackWait", at=t_rb0)
                     g_trace_batch.span_end("CommitSpan", vid,
-                                           "Resolver.ReadbackWait", at=t_rb1)
+                                           "Resolver.ReadbackWait", at=t_split)
+                    if sharded:
+                        g_trace_batch.span_begin("CommitSpan", vid,
+                                                 "Resolver.ShardCombine",
+                                                 at=t_split)
+                        g_trace_batch.span_end("CommitSpan", vid,
+                                               "Resolver.ShardCombine",
+                                               at=t_rb1)
             except FDBError as e:
                 if e.name == "operation_cancelled":
                     raise  # killed/displaced mid-drain: die, don't reply
@@ -232,6 +279,26 @@ class Resolver:
             # covers both awaits: a cancel must still advance the gate, or
             # every later drain group waits forever on seq - 1
             self._advance_drained(seq)
+
+    async def _balance_loop(self):
+        """Conflict-mass re-cuts, the resolutionBalancing analogue
+        (masterserver.actor.cpp:955-1012): every
+        RESOLUTION_BALANCE_EPOCH_SECONDS the sketch's decayed per-range
+        conflict rates feed the sharded engine's planner. The planner only
+        schedules the cuts (host numpy, no device sync on the loop); the
+        engine applies them at its next dispatch, never under a batch in
+        flight."""
+        loop = self.process.net.loop
+        while True:
+            await loop.delay(KNOBS.RESOLUTION_BALANCE_EPOCH_SECONDS)
+            now = loop.now()
+            self.hot_sketch.prune(now)
+            hot = self.hot_sketch.top_k(KNOBS.HOTSPOT_MAX_BUCKETS, now)
+            if not hot:
+                continue
+            ranges = [(r.begin, r.end, r.rate) for r in hot]
+            if self.conflict_set.rebalance_from_conflicts(ranges):
+                self._c_rebalances.increment()
 
     def _advance_drained(self, seq: int):
         """Advance the drain-ordering gate to `seq`, never backwards and

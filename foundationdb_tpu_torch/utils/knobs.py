@@ -55,8 +55,9 @@ KNOBS = Knobs()
 KNOBS.init("MAX_WRITE_TRANSACTION_LIFE_VERSIONS", 5_000_000)
 
 # --- Conflict engine (device) ---
-# "device" (the port's engine on CONFLICT_DEVICE) | "oracle" (host
-# reference); "sharded" is validated but not yet ported.
+# "device" (the port's engine on CONFLICT_DEVICE) | "sharded" (the
+# key-partitioned engine, parallel/sharded_conflict.py) | "oracle" (host
+# reference).
 KNOBS.init("CONFLICT_BACKEND", "device")
 # Where the device engine runs: "cuda" (the serving target) or "cpu" (the
 # plain PyTorch path the tests drive). Asking for cuda on a machine without
@@ -76,6 +77,22 @@ KNOBS.init("CONFLICT_INTRA_MODE", "scan")
 KNOBS.init("CONFLICT_INTRA_ROUNDS", 0)
 # Pinned host encode slots per shape bucket; 0 disables pooling.
 KNOBS.init("CONFLICT_ENCODE_RING", 4)
+# Shards of CONFLICT_BACKEND=sharded: how many devices the resolver's
+# key-partitioned engine spans. 0 = every attached card (on the CPU, one
+# shard); more than the attached cards raises invalid_option. The JAX bank
+# lists 1 and 2 as the values a test may force.
+KNOBS.init("CONFLICT_NUM_SHARDS", 0)
+# resolutionBalancing (masterserver.actor.cpp:955-1012): the sharded engine
+# re-cuts its key partition from sampled range begins when per-shard load
+# skews. Checked every CHECK_BATCHES batches (floor 4); re-cuts when the
+# hottest shard carries more than SKEW x the mean; needs MIN_SAMPLES range
+# begins first (floor 32).
+KNOBS.init("RESOLUTION_BALANCE_CHECK_BATCHES", 64)
+KNOBS.init("RESOLUTION_BALANCE_SKEW", 2.0)
+KNOBS.init("RESOLUTION_BALANCE_MIN_SAMPLES", 2048)
+# Seconds between the resolver's conflict-mass re-cuts: its HotRangeSketch
+# feeds the sharded engine's planner (floor 0.5).
+KNOBS.init("RESOLUTION_BALANCE_EPOCH_SECONDS", 5.0)
 
 # --- Simulation transport (flow/Knobs.cpp:51-52, fdbrpc/sim2.actor.cpp) ---
 KNOBS.init("SIM_RPC_TIMEOUT_SECONDS", 5.0)  # dropped-packet visibility bound

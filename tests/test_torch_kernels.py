@@ -572,3 +572,64 @@ def test_probe_kernels_equal_their_plain_versions(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got, probes.PLAIN[name](*a, **kw)), name
         assert kernels.LAUNCHES[name] == 1, name
+
+
+@pytest.mark.cuda
+def test_history_kernel_ignores_inverted_reads(cuda):
+    # inverted and empty reads over newer writes (what clipping makes of a
+    # range outside a shard) are no hits; a proper read of them is
+    import chip_smoke
+    calls = chip_smoke.inverted_read_calls(cuda)
+    _equal_to_plain(kernels.history_check, ref.history_check, calls)
+    _too_old, g0 = kernels.history_check(*calls[-1][0])
+    assert g0.cpu().tolist() == [t % 4 != 0 for t in range(64)]
+
+
+@pytest.mark.cuda
+def test_shard_clip_kernel_on_edge_inputs(cuda):
+    # W = 1, 2, 4, 8; T=1; all padding; ends at the cuts and the sentinel;
+    # the strided layout at T=16,384 (chip_smoke.py's edges)
+    import chip_smoke
+    calls = chip_smoke.clip_edge_calls(cuda)
+    kernels.reset_launches()
+    _equal_to_plain(kernels.clip_ranges, ref.clip_ranges, calls)
+    assert kernels.LAUNCHES["shard_clip"] == len(calls)
+
+
+@pytest.mark.cuda
+def test_shard_combine_kernel_on_edge_inputs(cuda):
+    # twice over: each launch leaves its counters zero for the next
+    import chip_smoke
+    calls = chip_smoke.combine_edge_calls(cuda)
+    for a, kw in calls + calls:
+        want_st, want = ref.shard_combine(*a, **kw)
+        got_st, got = kernels.shard_combine(*a, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got_st, want_st)
+        assert list(got) == list(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_the_card_equals_the_plain_phases(cuda):
+    from foundationdb_tpu_torch.parallel.sharded_conflict import (
+        ShardedDeviceConflictSet)
+    rng = np.random.default_rng(13)
+    W = 4
+    eng = ShardedDeviceConflictSet(devices=[cuda] * W, **SMALL)
+    plain = ShardedDeviceConflictSet(devices=[cuda] * W, phases=ref.PLAIN,
+                                     **SMALL)
+    kernels.reset_launches()
+    version = 0
+    for _ in range(12):
+        version += int(rng.integers(1, 300)) * 10
+        txns = fuzz_batch(rng, version, 64)
+        assert eng.detect(txns, version) == plain.detect(txns, version)
+    assert kernels.LAUNCHES["shard_clip"] == kernels.LAUNCHES[
+        "shard_combine"] == 12
+    assert kernels.LAUNCHES["history_check"] == W * 12
+    got = ref.sharded_state_to_numpy(eng._state)
+    for k, v in ref.sharded_state_to_numpy(plain._state).items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)

@@ -176,16 +176,24 @@ def test_overflow_poisons_the_resolver():
 
 def test_backends_sharded_refuses_and_cuda_raises_without_a_card(
         monkeypatch):
+    # sharded builds the port's engine (its CPU shards here); it refuses
+    # more shards than the attached cards, and cuda without a card raises
     TKNOBS.set("CONFLICT_BACKEND", "sharded")
+    cs = t_resolver.new_conflict_set()
+    assert cs.backend_label == "cpux1"
+    import torch
+    TKNOBS.overrides(CONFLICT_DEVICE="cuda", CONFLICT_NUM_SHARDS=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(FDBError) as ei:
         t_resolver.new_conflict_set()
     assert ei.value.name == "invalid_option"
-    TKNOBS.overrides(CONFLICT_BACKEND="device", CONFLICT_DEVICE="cuda")
-    import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(FDBError) as ei:
-        t_resolver.new_conflict_set()
-    assert ei.value.name == "platform_error"
+    for backend in ("sharded", "device"):
+        TKNOBS.set("CONFLICT_BACKEND", backend)
+        with pytest.raises(FDBError) as ei:
+            t_resolver.new_conflict_set()
+        assert ei.value.name == "platform_error"
 
 
 def test_metrics_report_backend_and_launch_counts():
