@@ -5,7 +5,7 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 Phases, each of which must pass:
 
   1. the card (nvidia-smi name and power limit, torch and CUDA versions);
-  2. the nvcc build of the kernels (K1-K11 and the six probes), with its
+  2. the nvcc build of the kernels (K1-K13 and the six probes), with its
      seconds;
   3. each kernel against its plain PyTorch version on the card, on inputs
      captured from the main path at its full width (K=65,536, T=1,024,
@@ -33,13 +33,20 @@ Phases, each of which must pass:
      K=2^20 with deltas 2^29 and 2^30, saturating; K4 also on a key
      group across its scan tiles and on steps that overflow (N off the
      tile size);
-     then the whole step with the kernels against the plain step, state
-     for state, over a small trajectory that overflows and rebases; K5
+     K12 (step_masks) and K13 (step_verdicts, with a scan's rows written
+     too) on the captured calls and on edges: T=1, all padding, both
+     layouts, a poisoned state;
+     then the engine's chunks through its bucket CUDA graphs against the
+     eager kernel step and the plain step, readback row and state for
+     state, over a small trajectory that overflows and rebases, its state
+     buffers unmoved; K5
      (the legacy evaluator) on the calls of one legacy step at the kernel
      bench's T=16,384; and each probe at the Pallas scripts' shapes;
   4. the resolver role: the port's Resolver (CONFLICT_BACKEND=device,
      CONFLICT_DEVICE=cuda) in the port's EventLoop/SimNetwork answers
      chained ResolveTransactionBatchRequests from a proxy-like driver actor,
+     served through the engine's bucket CUDA graphs (captured by the
+     resolver's warmup, before the clock),
      phase A at the default knobs (K=65,536; 40 batches of 1,024 txns, 4
      point reads + 4 point writes each, zipfian 0.99 over 20,000 keys) and
      phase B at K=2^20 (a load of 48 batches of blind inserts, then 60
@@ -52,24 +59,33 @@ Phases, each of which must pass:
      not the host pass, decided its statuses), each kernel must have
      launched during the phase (launch counts are zeroed just before each
      phase and read just after), and K9, K3 and K6-K8 must have launched
-     once a step (as often as K2). Then each kernel is held to its plain
+     once a step (as often as K2; K12 and K13 too: a replay adds the
+     launches its graph recorded at capture). Then each kernel is held to
+     its plain
      version
      again on one more step from phase B's final state (K=2^20).
   5. the kernel bench (foundationdb_tpu_torch/bench.py): run_kernel at
      T=16,384 (200 batches in chunks of 100, K=2^18) and T=32,768 (100 in
      chunks of 50, K=2^19: its window of history overflows 2^18), 16-byte
-     keys, the strided layout. Any overflow fails.
+     keys, the strided layout, each chunk one replay of the scan's CUDA
+     graph. Any overflow fails.
      The warm chunk's first batches must equal the OracleConflictSet on the
      same byte keys (8 batches at T=16,384, 2 at T=32,768: the oracle is
-     pure Python), and the first timed chunk must equal `conflict_scan`
-     with the plain phases on the card; K9, K3 and K6-K8 must have
-     launched once a step. The last step of that plain chunk is captured,
+     pure Python), and the first timed chunk must equal a new scan graph,
+     `conflict_scan` with the kernels run eagerly and with the plain phases
+     on the card, statuses and the state after it; K9, K3, K6-K8, K12 and
+     K13 must have launched once a step. The timed core runs again graphed
+     and eagerly in turns (ms/step, txns/s and peak memory of each). The
+     last step of that plain chunk is captured,
      and K1-K4 and K6-K9 are held to their plain versions on its calls (K3
      and K9 at M = 49,152 and 98,304). One step at T=16,384 is profiled
      (no torch cummax scan and no cub radix sort may be left in it; phase
      3's default-knobs chunk is held to the same), and the level geometry
      is timed alone on that step's inputs: the plain phase, K9 and the
-     lone `torch.sort` of its packed keys.
+     lone `torch.sort` of its packed keys. Then the ablation profile
+     (`bench.run_ablate` at T=16,384, 10 batches): the full scan and the
+     six `ablate` modes through their graphs, each mode's run equal to
+     the plain step with the same `ablate`, verdicts and state.
   6. the evaluator A/B: run_kernel_ab(16,384, 8), scan against legacy,
      with equal statuses on every batch;
   7. the probes' main (ops/probes.py), the Pallas scripts' top level;
@@ -94,10 +110,11 @@ Phases, each of which must pass:
      edges (W = 1, 2, 4, 8; T=1; all padding; endpoints at the cuts and the
      sentinel; the strided layout at T=16,384), timed at both shapes.
 
-`python3 chip_smoke.py --time-kernels` only times K1-K4, K6-K11 and bench
-steps, one of them the sharded step at W=4 (phase-free, same method for any
-version of the port: a copy of this script beside an older checkout's
-package times that checkout).
+`python3 chip_smoke.py --time-kernels` only times K1-K4, K6-K13 and bench
+steps, one of them the sharded step at W=4, and a 20-batch bench scan
+through its graph and eagerly (phase-free, same method for any version of
+the port: a copy of this script beside an older checkout's package times
+that checkout).
 
 It prints a digest of the code it runs, the kernels line
 ({"kernels": [...]}), the nvidia-smi line, and last {"ok": true, "device":
@@ -258,6 +275,8 @@ DEVICE_FUNCTIONS = {
     "legacy_blocked": ("legacy_kernel",),
     "shard_clip": ("shard_clip_kernel",),
     "shard_combine": ("shard_combine_kernel",),
+    "step_masks": ("step_masks_kernel",),
+    "step_verdicts": ("step_verdicts_kernel",),
     "probe_add": ("probe_add_kernel",),
     "probe_stream_rows": ("probe_stream_kernel<true>",),
     "probe_join": ("probe_rank_kernel<true>",),
@@ -268,9 +287,10 @@ DEVICE_FUNCTIONS = {
 SORT_KERNELS = ("endpoint_sort", "state_merge", "endpoint_ranks")
 DEVICE_FUNCTIONS["sort_and_rank"] = sum(
     (DEVICE_FUNCTIONS[k] for k in SORT_KERNELS), ())
-STEP_KERNELS = SORT_KERNELS + ("sparse_table", "history_check",
-                               "intra_levels", "intra_sandwich",
-                               "merge_compact")
+STEP_KERNELS = SORT_KERNELS + ("step_masks", "sparse_table",
+                               "history_check", "intra_levels",
+                               "intra_sandwich", "merge_compact",
+                               "step_verdicts")
 # every kernel of the resolver's path: the step's, and the rebase that runs
 # when versions pass 2^29
 PATH_KERNELS = STEP_KERNELS + ("rebase_table",)
@@ -420,6 +440,21 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         L, W = rb.shape[0], lo.shape[0]
         M = 2 * rb.shape[1] + 2 * wb.shape[1]
         return float(4 * L * M * (1 + W) + 8 * W * L), float(W * M * L)
+    if name == "step_masks":
+        # the owners (strided: the length limb of each begin key; pooled:
+        # rtxn, wtxn) and the four rank vectors read; the owners, wtxn_c
+        # and the two masks written; a few operations a range
+        rb, wb = args[0], args[1]
+        NR, NW = rb.shape[1], wb.shape[1]
+        return float(4 * (NR + NW) + 8 * (NR + NW) + 5 * NR + 9 * NW), \
+            float(4 * (NR + NW))
+    if name == "step_verdicts":
+        # commit, too_old, txn_valid and eligible (1 B a txn) and two flags
+        # read; the row (4 B a txn twice, two words) and the count written
+        # (a scan's int8 row and two entries too); a few operations a txn
+        T = args[0].shape[0]
+        scan = 5 + T if kw.get("scan_out") is not None else 0
+        return float(4 * T + 2 + 4 * (2 * T + 2) + 4 + scan), float(4 * T)
     if name == "shard_combine":
         # per shard the statuses (4 B) and eligible (1 B) of every txn and
         # three scalars read, txn_valid read; the combined vectors and
@@ -550,7 +585,9 @@ def library_call(name: str, args, kw=None):
     stable `torch.sort` of its packed keys (`conflict_ref.level_sort_keys`,
     packed outside the timed call), which gives each level's order but not
     the six arrays; for the shard combine, torch.amin over the shards'
-    statuses (stacked outside the timed call), the statuses alone."""
+    statuses (stacked outside the timed call), the statuses alone; for the
+    step's verdicts, the readback row by torch.where and torch.cat (the
+    row alone, not the committed count)."""
     import torch
     if name == "endpoint_ranks":
         from foundationdb_tpu_torch.ops import conflict_ref as ref
@@ -581,6 +618,16 @@ def library_call(name: str, args, kw=None):
     if name == "shard_combine":
         stacked = torch.stack(list(args[0]))
         return lambda: torch.amin(stacked, dim=0)
+    if name == "step_verdicts":
+        commit, too_old, valid, eligible, overflow, converged = args[:6]
+
+        def row():
+            st = torch.where(valid, torch.where(
+                commit, 2, torch.where(too_old, 1, 0)), 2)
+            return torch.cat([st.to(torch.int32), eligible.to(torch.int32),
+                              overflow.to(torch.int32).reshape(1),
+                              converged.to(torch.int32).reshape(1)])
+        return row
     if name == "probe_add":
         return lambda: torch.add(args[0], 1)
     if name.startswith("probe_stream"):
@@ -653,6 +700,9 @@ def spied_phases(calls: dict, dev, last_step_only=False, record=None,
         phases.rebase_table = spy("rebase_table", ref.rebase_table)
         phases.clip_ranges = spy("shard_clip", ref.clip_ranges)
         phases.shard_combine = spy("shard_combine", ref.shard_combine)
+    if hasattr(ref, "step_masks"):  # older than K12 and K13
+        phases.step_masks = spy("step_masks", ref.step_masks)
+        phases.step_verdicts = spy("step_verdicts", ref.step_verdicts)
     return phases
 
 
@@ -1051,6 +1101,65 @@ def sort_rank_edge_calls(dev):
     return out
 
 
+def glue_edge_calls(dev):
+    """K12's and K13's edge inputs, from plain steps on the card: T=1 txn;
+    batches that are all padding; the strided layout (T=64, two reads and
+    two writes a txn) beside the pooled; and a K=1,536 state that 64 txns
+    of 4 fresh point writes a step overflow and poison (K13's overflow
+    flag set, and kept set by the poisoned steps after)."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
+    from foundationdb_tpu_torch.ops.conflict import DeviceConflictSet
+    rng = np.random.default_rng(81)
+    pool = [b"g%05d" % i for i in range(2000)]
+
+    def rng_range():
+        a, b = sorted(pool[i] for i in rng.integers(0, len(pool), 2))
+        return (a, a + b"\x00") if rng.random() < 0.5 else (a, b + b"\x00")
+
+    def batch(n, version):
+        return [TxnConflictInfo(
+            int(rng.integers(0, version)),
+            [rng_range() for _ in range(rng.integers(0, 3))],
+            [rng_range() for _ in range(rng.integers(0, 3))])
+            for _ in range(n)]
+
+    def pt(k):
+        return (k, k + b"\x00")
+    empty = [TxnConflictInfo(0, [], []) for _ in range(8)]
+    fresh = [[TxnConflictInfo(0, [], [pt(b"%08d" % k) for k in
+                                      rng.integers(0, 10 ** 8, 4)])
+              for _ in range(64)] for _ in range(6)]
+    runs = (  # (capacity, txns, strided, batches)
+        (1 << 10, 1, False, [batch(1, 1000), empty[:1], batch(1, 3000)]),
+        (1 << 12, 64, True, [batch(64, 1000 * (i + 1)) for i in range(3)]
+         + [empty]),
+        (1536, 64, False, fresh + [empty]))
+    out: dict = {"step_masks": [], "step_verdicts": []}
+    poisoned = False
+    for capacity, txns, strided, batches in runs:
+        store: dict = {}
+        spy = spied_phases(store, dev)
+        spied = type(ref.PLAIN)(**dict(vars(ref.PLAIN),
+                                       step_masks=spy.step_masks,
+                                       step_verdicts=spy.step_verdicts))
+        per = 2 if strided else 4
+        cs = DeviceConflictSet(device=dev, capacity=capacity, txns=txns,
+                               reads_per_txn=per, writes_per_txn=per,
+                               strided=strided)
+        for i, b in enumerate(batches):
+            enc = cs.encoder.encode_batch(b, 1000 * (i + 1))
+            cs._state, _s, info = ref.conflict_step(
+                cs._state, enc, max_write_life=5_000_000, strided=strided,
+                phases=spied)
+            poisoned |= bool(info["overflow"])
+        for k in out:
+            out[k] += store[k]
+    if not poisoned:
+        fail("glue edge inputs: no state poisoned")
+    return out
+
+
 def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
                   check=None):
     """Hold kernel wrapper `kern` to its plain version on every call of
@@ -1166,17 +1275,40 @@ def step_wrappers():
                 "intra_levels": (kernels.intra_levels, ref.intra_levels),
                 "intra_sandwich": (kernels.intra_sandwich,
                                    ref.intra_sandwich),
-                "merge_compact": (kernels.merge_compact, ref.merge_compact)}
+                "merge_compact": (kernels.merge_compact, ref.merge_compact),
+                "step_masks": (kernels.step_masks, ref.step_masks),
+                "step_verdicts": (kernels.step_verdicts, ref.step_verdicts)}
     checks = {"intra_sandwich": (counted(kernels.intra_sandwich),
-                                 counted(ref.intra_sandwich))}
+                                 counted(ref.intra_sandwich)),
+              "step_verdicts": (with_scan_rows(kernels.step_verdicts),
+                                with_scan_rows(ref.step_verdicts))}
     return wrappers, checks
 
 
+def with_scan_rows(verdicts, M=3):
+    """A step-verdicts function that writes a scan's rows too, into new
+    buffers (entry 1 of M, or the call's own index and M), and returns them
+    after its three outputs, so that they are compared as well."""
+    import torch
+
+    def run(*a, **kw):
+        T, dev = a[0].shape[0], a[0].device
+        scan = kw.get("scan_out")
+        m = scan[0].shape[0] if scan is not None else M
+        rows = (torch.full((m, T), -1, dtype=torch.int8, device=dev),
+                torch.full((m,), -1, dtype=torch.int32, device=dev),
+                torch.zeros(m, dtype=torch.bool, device=dev))
+        out = verdicts(*a, scan_out=rows, index=kw.get("index", 1))
+        return tuple(out) + rows
+    return run
+
+
 def check_kernels(dev, calls, results, cell, edges=True):
-    """Hold each kernel of the path (K1-K4, K6-K9 and the rebase) to its
-    plain version on every captured call of `cell` (and, with `edges`, on
-    the edge inputs), then time the cell's main-path call: the last one
-    captured from the step (the rebase's: `rebase_call`).
+    """Hold each kernel of the path (K1-K4, K6-K9, K12, K13 and the rebase)
+    to its plain version on every captured call of `cell` (and, with
+    `edges`, on the edge inputs), then time the cell's main-path call: the
+    last one captured from the step (the rebase's: `rebase_call`). K13 is
+    held with a scan's rows written too (`with_scan_rows`).
     The sort-and-rank phase is held whole (all seven outputs) and each of
     its kernels to its plain part, on the calls the phase makes. K3 is
     checked with its evaluation count; on the edge chain at 1 and 32 rounds
@@ -1204,6 +1336,8 @@ def check_kernels(dev, calls, results, cell, edges=True):
                                 big_sandwich)
         all_calls["merge_compact"] = calls["merge_compact"] + \
             merge_edge_calls(dev)
+        for name, edge in glue_edge_calls(dev).items():
+            all_calls[name] = calls[name] + edge
         for a, kw in all_calls["intra_sandwich"][-3:-1]:
             if bool(kernels.intra_sandwich(*a, **kw)[2]):
                 fail(f"intra_sandwich: a {a[0].shape[0]}-deep chain "
@@ -1266,31 +1400,49 @@ def check_probes(dev, results):
                                       "probes", reps=20)
 
 
+def eager_engine(cs, phases=None):
+    """`cs` made to run its chunks eagerly, with the kernels or `phases`:
+    the yardsticks the bucket graphs are held and timed against."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    cs._graph = lambda shapes: None
+    if phases is not None:
+        def step(batch):
+            return ref.conflict_step(
+                cs._state, batch, max_write_life=5_000_000, phases=phases,
+                out=cs._state)[2]["readback"]
+        cs._step = step
+    return cs
+
+
+def chunk_shapes(cs, txns):
+    nr = sum(len(t.read_ranges) for t in txns)
+    nw = sum(len(t.write_ranges) for t in txns)
+    return cs.plan_chunk(nr, nw)
+
+
 def profile_step(dev, batches):
-    """Where one main-path step's time goes (default knobs): wall ms per
-    chunk (encode, step, fused readback) with the kernels and with the
-    plain phases on the card, and a profiler breakdown of the kernel
-    step: device-busy ms, the four kernels' share, the top device
-    functions and the device's idle share of the wall time."""
+    """Where one main-path chunk's time goes (default knobs): wall ms per
+    chunk (encode, dispatch, the one readback) through the bucket graphs,
+    through the eager kernel step and through the plain phases on the
+    card, and a profiler breakdown of the graphed chunk: device-busy ms,
+    the kernels' share, the top device functions and the device's idle
+    share of the wall time."""
     import torch
 
     from foundationdb_tpu_torch.ops import conflict_ref as ref
-    from foundationdb_tpu_torch.ops.conflict import (DeviceConflictSet,
-                                                     _combine_status)
+    from foundationdb_tpu_torch.ops.conflict import DeviceConflictSet
     out = {}
-    for label, phases in (("kernels", None), ("plain", ref.PLAIN)):
+    for label in ("graph", "eager", "plain"):
         cs = DeviceConflictSet(device=dev)
-        if phases is not None:
-            cs._step = lambda st, b, cs=cs: ref.conflict_step(
-                st, b, max_write_life=5_000_000, phases=phases)
+        if label != "graph":
+            eager_engine(cs, ref.PLAIN if label == "plain" else None)
+        cs.warmup()  # captures the bucket graphs, outside the clock
         it = iter(batches)
 
         def one(cs=cs, it=it):
             _prev, version, txns = next(it)
-            batch = cs.encoder.encode_batch(txns, version)
-            cs._state, st, info = cs._step(cs._state, batch)
-            _combine_status(st, info["eligible"], info["overflow"],
-                            info["converged"]).cpu()
+            cs.dispatch_chunk(txns, version, [False] * len(txns),
+                              chunk_shapes(cs, txns), True).cpu()
         one()
         torch.cuda.synchronize()
         n = 5
@@ -1298,11 +1450,11 @@ def profile_step(dev, batches):
         for _ in range(n):
             one()
         out[f"{label}_chunk_ms"] = (time.perf_counter() - t0) / n * 1e3
-        if label == "kernels":
+        if label == "graph":
             funcs, wall = profile_device(one, 3)
             busy = busy_ms(funcs)
             ours = sum(device_ms_of(funcs, k) or 0.0 for k in STEP_KERNELS)
-            top = sorted(funcs.items(), key=lambda kv: -kv[1][0])[:8]
+            top = sorted(funcs.items(), key=lambda kv: -kv[1][0])[:10]
             out.update(
                 device_busy_ms=busy, kernels_device_ms=ours,
                 wall_ms=wall / 3 * 1e3,
@@ -1322,9 +1474,12 @@ def radix_sort_ms(funcs: dict) -> float:
 
 
 def check_step_trajectory(dev):
-    """The whole step with the kernels (card) against the plain step (CPU)
-    over a small trajectory that overflows, poisons and rebases: every
-    state field, status and info field must be equal after every step."""
+    """The engine's chunks through its bucket graphs (card) against the
+    eager kernel step on fixed buffers (card) and the plain step (CPU),
+    over a small trajectory that overflows, poisons and rebases (through
+    the fixed buffers): every readback row and state field equal after
+    every step, and the graphed engine's state buffers at the same
+    addresses from start to end."""
     import torch
 
     from foundationdb_tpu_torch.ops import conflict_ref as ref
@@ -1335,13 +1490,19 @@ def check_step_trajectory(dev):
     rng = np.random.default_rng(12)
     keys = [b"k%05d" % i for i in range(20_000)]
     cpu = DeviceConflictSet(capacity=1024, txns=64, device="cpu")
-    gpu = DeviceConflictSet(capacity=1024, txns=64, device=dev)
+    eager = eager_engine(DeviceConflictSet(capacity=1024, txns=64,
+                                           device=dev))
+    graphed = DeviceConflictSet(capacity=1024, txns=64, device=dev)
+    graphed.warmup()
+    engines = (cpu, eager, graphed)
+    ptrs = {k: v.data_ptr() for k, v in graphed._state.items()}
+    kernels.reset_launches()
     version, steps, poisoned = 0, 0, False
     for i in range(12):
         if i == 6:
-            cpu._state = ref.rebase_state(cpu._state, 40_000)
-            gpu._state = ref.rebase_state(gpu._state, 40_000,
-                                          phases=kernels.PHASES)
+            for cs in engines:
+                ref.rebase_state(cs._state, 40_000, phases=kernels.PHASES,
+                                 out=cs._state)
             version -= 40_000
         version += 10_000
         txns = []
@@ -1354,30 +1515,38 @@ def check_step_trajectory(dev):
                 max(0, version - int(rng.integers(0, 30_000))), reads,
                 [(k, k + b"\x00") for k in ks[3:]]
                 + [(b, a)]))  # an inverted range: inert
-        outs = []
-        for cs in (cpu, gpu):
-            batch = cs.encoder.encode_batch(txns, version)
-            cs._state, st, info = cs._step(cs._state, batch)
-            outs.append((st, info))
+        rows = [cs.dispatch_chunk(txns, version, [False] * 64,
+                                  chunk_shapes(cs, txns), True).cpu()
+                for cs in engines]
         torch.cuda.synchronize()
-        (st_c, info_c), (st_g, info_g) = outs
-        if not torch.equal(st_c, st_g.cpu()):
-            fail(f"step {i}: statuses differ between kernels and plain")
-        for k in info_c:
-            if not torch.equal(info_c[k], info_g[k].cpu()):
-                fail(f"step {i}: info[{k}] differs between kernels and plain")
-        a_np, b_np = state_to_numpy(cpu._state), state_to_numpy(gpu._state)
-        for k in a_np:
-            if not np.array_equal(a_np[k], b_np[k]):
-                fail(f"step {i}: state[{k}] differs between kernels and plain")
-        poisoned |= bool(info_c["overflow"])
+        for label, row in (("eager kernels", rows[1]), ("graph", rows[2])):
+            if not torch.equal(rows[0], row):
+                fail(f"step {i}: the {label}' readback row differs from the "
+                     f"plain step's")
+        want = state_to_numpy(cpu._state)
+        for label, cs in (("eager kernels", eager), ("graph", graphed)):
+            got = state_to_numpy(cs._state)
+            for k in want:
+                if not np.array_equal(want[k], got[k]):
+                    fail(f"step {i}: state[{k}] of the {label} differs "
+                         f"from the plain step's")
+        poisoned |= bool(rows[0][2 * 64])
         steps += 1
+    if {k: v.data_ptr() for k, v in graphed._state.items()} != ptrs:
+        fail("the graphed engine's state buffers moved")
+    graphs = [g for g in graphed._graphs.values() if g.graph is not None]
+    if not graphs or kernels.LAUNCHES["step_verdicts"] != 2 * steps:
+        fail(f"step trajectory: {len(graphs)} bucket graphs, "
+             f"{kernels.LAUNCHES['step_verdicts']} K13 launches for "
+             f"{steps} steps each eager and graphed")
     if not poisoned:
         fail("the step trajectory never overflowed: the poison path is "
              "unchecked")
-    log(f"step trajectory: {steps} steps with kernels equal to the plain "
-        f"step (overflow and rebase included)")
-    return {"steps": steps, "poisoned": poisoned}
+    log(f"step trajectory: {steps} steps through the bucket graphs equal to "
+        f"the eager kernels and the plain step (overflow and rebase "
+        f"included; state buffers unmoved)")
+    return {"steps": steps, "poisoned": poisoned,
+            "bucket_graphs": len(graphs)}
 
 
 # ---------------------------------------------------------------------------
@@ -1385,9 +1554,12 @@ def check_step_trajectory(dev):
 # ---------------------------------------------------------------------------
 
 def once_a_step(where, launches):
-    """Every step launches K2 once; the level geometry, the sandwich and
-    the sort-and-rank phase (K9, K3, K6-K8) must run once a step too."""
-    for name in ("intra_levels", "intra_sandwich") + SORT_KERNELS:
+    """Every step launches K2 once; the level geometry, the sandwich, the
+    sort-and-rank phase and the glue (K9, K3, K6-K8, K12, K13) must run
+    once a step too (on replays: the counts a graph recorded at capture,
+    added at each replay)."""
+    for name in ("intra_levels", "intra_sandwich", "step_masks",
+                 "step_verdicts") + SORT_KERNELS:
         if launches[name] != launches["history_check"]:
             fail(f"{where}: {launches[name]} {name} launches for "
                  f"{launches['history_check']} steps")
@@ -1508,6 +1680,7 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     wall = t_end - marks["t_run"]
     peak = torch.cuda.max_memory_allocated()
     state = resolver.conflict_set._state
+    graphs = getattr(resolver.conflict_set, "_graphs", {})
     shards = state["shards"] if backend == "sharded" else [state]
     boundaries = sum(int(s["nb"]) for s in shards)
     poisoned = any(bool(s["poisoned"]) for s in shards)
@@ -1536,6 +1709,8 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
         "boundaries": boundaries, "poisoned": poisoned,
         "chunks": chunks, "unconverged_chunks": unconverged,
         "peak_device_bytes": peak, "launches": launches,
+        "bucket_graphs": sorted(f"{r}x{w}" for (r, w), g in graphs.items()
+                                if g.graph is not None),
         "host_share": {k: v / wall for k, v in host.items()},
         "boot_s": boot_s, "traffic_gen_s": gen_s, "oracle_s": oracle_s,
         "mismatched_batches": mismatches}
@@ -1548,6 +1723,8 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     if any(v <= 0 for v in launches.values()):
         fail(f"phase {name}: a kernel never launched: {launches}")
     once_a_step(f"phase {name}", launches)
+    if backend == "device" and not out["bucket_graphs"]:
+        fail(f"phase {name}: the resolver served through no bucket graph")
     for k in SHARD_KERNELS if backend == "sharded" else ():
         if launches[k] != chunks:
             fail(f"phase {name}: {launches[k]} {k} launches for {chunks} "
@@ -1600,30 +1777,89 @@ def bench_oracle_check(detail, T, n_check):
 
 
 def bench_plain_check(dev, detail, T):
-    """The first timed chunk again, through `conflict_scan` with the plain
-    phases on the card from the same post-warm-up state: statuses and
-    committed counts must be equal. Returns the phase calls of the chunk's
-    last step (the kernels' inputs at the bench's shapes)."""
+    """The first timed chunk again from the same post-warm-up state, three
+    ways on the card: through a new scan graph, through `conflict_scan`
+    with the kernels run eagerly, and with the plain phases. The timed
+    (graphed) run's statuses and committed counts, and all three's, must
+    be equal, and so must the three states after the chunk. Returns the
+    phase calls of the plain chunk's last step (the kernels' inputs at the
+    bench's shapes)."""
     import torch
 
     from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.ops.step_graph import ScanGraph
     from foundationdb_tpu_torch.utils.knobs import KNOBS
+    life = KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS
+    chunk = detail["chunks"][0]
+    M = chunk["snapshot"].shape[0]
     calls: dict = {}
-    _state, st, comm, ovf = ref.conflict_scan(
-        detail["state_after_warm"], detail["chunks"][0],
-        max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
-        strided=True, phases=spied_phases(calls, dev, last_step_only=True))
+    runs = {}
+    for label, phases in (("eager kernels", kernels.PHASES),
+                          ("plain", spied_phases(calls, dev,
+                                                 last_step_only=True))):
+        state = clone_to(detail["state_after_warm"], dev)
+        _s, st, comm, ovf = ref.conflict_scan(
+            state, chunk, max_write_life=life, strided=True, phases=phases,
+            out=state)
+        runs[label] = (st, comm, ovf, state)
+    state = clone_to(detail["state_after_warm"], dev)
+    prog = ScanGraph(state, steps=M, txns=T, reads=T, writes=T,
+                     max_write_life=life, strided=True)
+    runs["graph"] = (*(t.clone() for t in prog.run(chunk)), state)
     torch.cuda.synchronize()
-    if not torch.equal(st, detail["statuses"][0]):
-        fail(f"kernel bench T={T}: the first timed chunk's statuses differ "
-             f"between the kernels and the plain phases")
-    n = comm.shape[0]
-    if not np.array_equal(comm.cpu().numpy(), detail["committed"][:n]):
-        fail(f"kernel bench T={T}: committed counts differ from the plain "
-             f"phases")
-    if bool(ovf.any()):
-        fail(f"kernel bench T={T}: the plain phases overflowed")
+    if not torch.equal(runs["graph"][0], detail["statuses"][0]):
+        fail(f"kernel bench T={T}: a new scan graph's statuses differ from "
+             f"the timed run's")
+    for label in ("eager kernels", "plain"):
+        st, comm, ovf, state = runs[label]
+        if not torch.equal(st, detail["statuses"][0]):
+            fail(f"kernel bench T={T}: the first timed chunk's statuses "
+                 f"differ between the graph and the {label}")
+        if not np.array_equal(comm.cpu().numpy(), detail["committed"][:M]):
+            fail(f"kernel bench T={T}: committed counts differ from the "
+                 f"{label}")
+        if bool(ovf.any()):
+            fail(f"kernel bench T={T}: the {label} overflowed")
+        for k, v in runs["graph"][3].items():
+            if not torch.equal(v, state[k]):
+                fail(f"kernel bench T={T}: state[{k}] after the chunk "
+                     f"differs between the graph and the {label}")
     return calls
+
+
+def bench_graph_ab(dev, detail, T, rounds=("graph", "eager", "eager",
+                                           "graph")):
+    """The bench's timed core (`timed_scan`) again on the staged batches,
+    graphed and eager in turns, from an empty state each time: ms/step,
+    txns/s and peak device memory of each run; every run's statuses equal
+    to the first timed run's."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    K = detail["state"]["bval"].shape[0]
+    n = sum(c["snapshot"].shape[0] for c in detail["chunks"])
+    out: dict = {label: [] for label in set(rounds)}
+    for label in rounds:
+        state = ref.init_state(K, bench.LIMBS, dev, phases=kernels.PHASES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = bench.timed_scan(state, detail["warm"], detail["chunks"],
+                               graphed=label == "graph")
+        torch.cuda.synchronize()
+        for a, b in zip(res["statuses"], detail["statuses"]):
+            if not torch.equal(a, b):
+                fail(f"kernel bench T={T}: a {label} run's statuses differ "
+                     f"from the timed run's")
+        out[label].append({"ms_per_step": 1e3 * res["seconds"] / n,
+                           "txns_per_s": n * T / res["seconds"],
+                           "peak_device_bytes":
+                               torch.cuda.max_memory_allocated()})
+        del res, state
+    log(f"kernel bench T={T} graphed and eager in turns: " + json.dumps(out))
+    return out
 
 
 def profile_bench_step(dev, detail):
@@ -1652,12 +1888,31 @@ def profile_bench_step(dev, detail):
     if radix_sort_ms(funcs) > 0:
         fail(f"the bench step still runs a cub radix sort "
              f"({radix_sort_ms(funcs)} ms)")
+    # the same step as a one-step scan graph: one replay (and the copies
+    # of its ten input fields) a call
+    from foundationdb_tpu_torch.ops.step_graph import ScanGraph
+    T = batch["snapshot"].shape[0]
+    prog = ScanGraph(clone_to(state, state["bval"].device), steps=1, txns=T,
+                     reads=T, writes=T,
+                     max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
+                     strided=True)
+    one_batch = {k: v[None] for k, v in batch.items()}
+    gfuncs, gwall = profile_device(lambda: prog.run(one_batch), 3)
+    gbusy = busy_ms(gfuncs)
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1 - busy / wall_ms),
             "kernels_device_ms": {k: device_ms_of(funcs, k)
                                   for k in STEP_KERNELS},
             "radix_sort_device_ms": radix_sort_ms(funcs),
-            "top_device_functions": [(k[:80], v[0]) for k, v in top]}
+            "top_device_functions": [(k[:80], v[0]) for k, v in top],
+            "graph": {"wall_ms": gwall / 3 * 1e3, "device_busy_ms": gbusy,
+                      "device_idle_share": max(
+                          0.0, 1 - gbusy / (gwall / 3 * 1e3)),
+                      "kernels_device_ms": {k: device_ms_of(gfuncs, k)
+                                            for k in STEP_KERNELS},
+                      "top_device_functions": [
+                          (k[:80], v[0]) for k, v in sorted(
+                              gfuncs.items(), key=lambda kv: -kv[1][0])[:12]]}}
 
 
 def level_sort_time(calls, reps=20):
@@ -1722,7 +1977,9 @@ def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
     res["plain_chunk_check_s"] = time.perf_counter() - t0
     log(f"kernel bench T={T}: {n_oracle} warm batches equal to the oracle "
         f"({res['oracle_check_s']:.1f} s); the first timed chunk equal to "
-        f"the plain phases ({res['plain_chunk_check_s']:.1f} s)")
+        f"the eager kernels and the plain phases, statuses and state "
+        f"({res['plain_chunk_check_s']:.1f} s)")
+    res["graph_ab"] = bench_graph_ab(dev, detail, T)
     if T == 16384:
         res["step_profile"] = profile_bench_step(dev, detail)
         log(f"kernel bench T={T} step profile: "
@@ -1738,6 +1995,42 @@ def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
     del calls
     torch.cuda.empty_cache()
     return res, kres
+
+
+def ablate_phase(dev, T=16384, n_batches=10):
+    """Phase 5's ablation profile (`bench.run_ablate`, the counterpart of
+    scripts/profile_kernel.py) at T=16,384: the full scan and the six
+    ablations through their graphs; each mode's first run (statuses,
+    committed, overflow and the state after it) must equal `conflict_scan`
+    with the plain phases and the same `ablate`, from the same state."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+    KNOBS.reset()
+    detail: dict = {}
+    out = bench.run_ablate(T, n_batches, device=dev, detail=detail)
+    plain = type(ref.PLAIN)(**dict(vars(ref.PLAIN),
+                                   intra_sandwich=pinch_read_sandwich))
+    for mode, run in detail["runs"].items():
+        state = clone_to(detail["warmed"], dev)
+        _s, st, comm, ovf = ref.conflict_scan(
+            state, detail["batches"],
+            max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
+            strided=True, phases=plain, ablate=mode, out=state)
+        torch.cuda.synchronize()
+        got = (run["statuses"], run["committed"], run["overflow"])
+        if not all(torch.equal(a, b) for a, b in zip(got, (st, comm, ovf))):
+            fail(f"--ablate {mode or 'full'}: the graph's verdicts differ "
+                 f"from the plain step's")
+        for k, v in state.items():
+            if not torch.equal(v, run["state"][k]):
+                fail(f"--ablate {mode or 'full'}: state[{k}] differs from "
+                     f"the plain step's")
+    out["modes_equal_to_plain"] = len(detail["runs"])
+    log("ablation profile: " + json.dumps(out))
+    return out
 
 
 def ab_phase(dev, T=16384):
@@ -2150,15 +2443,16 @@ def check_sharded_kernels(dev, calls8a, calls8c) -> dict:
 # ---------------------------------------------------------------------------
 
 def time_step_kernels(dev, reps=50):
-    """Device ms a call of K1-K4 and K6-K9 and the rebase (and of the whole
-    sort-and-rank phase) on the captured calls of cell A's step and of a
-    kernel-bench step at T=16,384 (K=2^18) and T=32,768 (K=2^19), and of
-    that bench step with the kernels: every device function the call
-    launches (profile_device), the step's radix-sort and cummax-scan share;
-    and each wrapper's host ms a call (`reps` enqueues, no sync). K6-K8,
-    K9 and the rebase are timed where the package has them, so a copy of
-    this script beside an older checkout's package times that checkout
-    alike."""
+    """Device ms a call of K1-K4, K6-K9, K12, K13 and the rebase (and of
+    the whole sort-and-rank phase) on the captured calls of cell A's step
+    and of a kernel-bench step at T=16,384 (K=2^18) and T=32,768 (K=2^19),
+    and of that bench step with the kernels: every device function the
+    call launches (profile_device), the step's radix-sort and cummax-scan
+    share; each wrapper's host ms a call (`reps` enqueues, no sync); and
+    ms a step of a 20-batch bench scan through its graph and eagerly
+    (`time_scan_graph`). K6-K8, K9, the rebase, K12-K13 and the graphs are
+    timed where the package has them, so a copy of this script beside an
+    older checkout's package times that checkout alike."""
     import torch
 
     from foundationdb_tpu_torch import bench
@@ -2176,6 +2470,9 @@ def time_step_kernels(dev, reps=50):
     if hasattr(kernels, "intra_levels"):
         wrappers.update(intra_levels=kernels.intra_levels,
                         rebase_table=kernels.rebase_table)
+    if hasattr(kernels, "step_masks"):
+        wrappers.update(step_masks=kernels.step_masks,
+                        step_verdicts=kernels.step_verdicts)
     cdf, keys = zipf_keys(20_000)
     cells = {"A": (None, None, capture_main_path_calls(dev, make_batches(
         np.random.default_rng(100), cdf, keys, 4)))}
@@ -2210,7 +2507,44 @@ def time_step_kernels(dev, reps=50):
                 "cummax_device_ms": sum(
                     v[0] for k, v in funcs.items()
                     if "scan_innermost_dim_with_indices" in k)}
+            if hasattr(kernels, "step_masks"):  # the package has graphs
+                row["scan"] = time_scan_graph(dev, state,
+                                              batch["snapshot"].shape[0])
     return out
+
+
+def time_scan_graph(dev, state, T, M=20, reps=3,
+                    rounds=("graph", "eager", "eager", "graph")):
+    """ms a step of a bench scan of M batches past `state` (CUDA events
+    over `reps` runs after a warm-up run, each run from a copy of
+    `state`), through the scan graph and eagerly, in turns."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops.step_graph import ScanGraph
+    stacked = bench.stage(bench._encode_batches(
+        M, seed=7, version0=bench.WINDOW + 13 * bench.VERSION_STEP, T=T), dev)
+    out: dict = {label: [] for label in set(rounds)}
+    for label in rounds:
+        fixed = clone_to(state, dev)
+        prog = ScanGraph(fixed, steps=M, txns=T, reads=T, writes=T,
+                         max_write_life=bench.WINDOW, strided=True,
+                         graphed=label == "graph")
+        prog.run(stacked)
+        total = 0.0
+        for _ in range(reps):
+            for k, v in state.items():
+                fixed[k].copy_(v)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            prog.run(stacked)
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        out[label].append(total / reps / M)
+        del prog, fixed
+    return {f"{label}_ms_per_step": v for label, v in out.items()}
 
 
 def time_sharded_step(dev, reps, W=SHARDED_W, T=SHARDED_BENCH_T):
@@ -2266,7 +2600,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
     ap.add_argument("--time-kernels", action="store_true",
-                    help="only time K1-K4, K6-K11 and bench steps on the "
+                    help="only time K1-K4, K6-K13 and bench steps on the "
                          "card (time_step_kernels), print them as JSON and "
                          "exit")
     args = ap.parse_args(argv)
@@ -2357,6 +2691,7 @@ def main(argv=None) -> int:
                                                        n_oracle, cap)
     report["kernel_bench"] = benches
     report["kernels_bench"] = kres_bench
+    report["ablate"] = ablate_phase(dev)
     ab = report["evaluator_ab"] = ab_phase(dev)
     probe_run = report["probes"] = probes_phase(dev)
 

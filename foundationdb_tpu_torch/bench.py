@@ -9,8 +9,15 @@ transactions with one read range and one write range each over a
 integer), the strided layout, a 2^18-slot state and a history window of
 about 8 batches. All batches are encoded and staged on the card before the
 clock starts; the timed region runs `conflict_scan` over chunks of batches
-with the step's kernels and syncs once at the end. The run fails if the
-state ever overflowed.
+with the step's kernels and syncs once at the end. On the card each chunk
+is one replay of the scan's CUDA graph (ops/step_graph.py, the
+`_compiled_scan` counterpart), captured during the warm-up chunk, outside
+the clock, as JAX compiles there; the state stays in fixed buffers. The
+run fails if the state ever overflowed.
+
+`run_ablate` is the counterpart of scripts/profile_kernel.py: the full scan
+and the JAX step's six ablations (`ablate`), each through its own graph
+from the same warmed state, in ms/step.
 
 The yardstick is measured at bench time: a C implementation of the
 SkipList algorithm (native/skiplist_baseline.c) is compiled with the host's
@@ -33,6 +40,7 @@ Usage, from the repository root on a machine with the card:
   python -m foundationdb_tpu_torch.bench --kernel T n_batches chunk [capacity]
   python -m foundationdb_tpu_torch.bench --ab T [n_batches] [capacity]
   python -m foundationdb_tpu_torch.bench --sharded-kernel T n_batches W [capacity]
+  python -m foundationdb_tpu_torch.bench --ablate T n_batches [capacity]
 
 Each prints one JSON line.
 """
@@ -52,6 +60,7 @@ import torch
 from foundationdb_tpu_torch.ops import conflict_ref as ref
 from foundationdb_tpu_torch.ops import kernels
 from foundationdb_tpu_torch.ops.conflict import ConflictShapes
+from foundationdb_tpu_torch.ops.step_graph import ScanGraph
 from foundationdb_tpu_torch.parallel.sharded_conflict import (
     init_sharded_state, make_resolver_mesh, sharded_conflict_step)
 from foundationdb_tpu_torch.utils import cudaenv
@@ -151,25 +160,47 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def _scan_program(state: dict, steps: int, T: int, graphed: bool, phases,
+                  ablate: str = "") -> ScanGraph:
+    return ScanGraph(state, steps=steps, txns=T, reads=T, writes=T,
+                     max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
+                     strided=True, ablate=ablate, phases=phases,
+                     graphed=graphed)
+
+
 def timed_scan(state: dict, warm: dict, chunks: list[dict], *,
-               phases=kernels.PHASES) -> dict:
+               phases=kernels.PHASES, graphed: bool | None = None) -> dict:
     """The timed core of `run_kernel`: one warm-up `conflict_scan` over the
     `warm` chunk (fills the window with history), then the clock runs over
     one `conflict_scan` per staged chunk, with one host sync at the end.
-    Returns the seconds, the per-batch committed counts and overflow flags
-    (numpy), the statuses of the warm chunk and of every timed chunk (on
-    the device), and the states after the warm-up and at the end."""
+    `state` is the fixed state buffers, overwritten in place. On the card
+    (`graphed` None or True) each chunk is one replay of a scan graph of
+    its length, every graph captured before the clock; `graphed=False`
+    runs the same scans eagerly. Returns the seconds, the per-batch
+    committed counts and overflow flags (numpy), the statuses of the warm
+    chunk and of every timed chunk (on the device), and the states after
+    the warm-up (a copy) and at the end."""
     dev = state["bval"].device
-    life = KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS
-    state, warm_st, _comm, warm_ovf = ref.conflict_scan(
-        state, warm, max_write_life=life, strided=True, phases=phases)
+    graphed = dev.type == "cuda" if graphed is None else graphed
+    T = warm["snapshot"].shape[1]
+    programs = {}
+    for ch in [warm, *chunks]:
+        M = ch["snapshot"].shape[0]
+        if M not in programs:
+            programs[M] = _scan_program(state, M, T, graphed, phases)
+            programs[M].capture()
+
+    def scan(ch):
+        st, comm, ovf = programs[ch["snapshot"].shape[0]].run(ch)
+        return st.clone(), comm.clone(), ovf.clone()
+
+    warm_st, _comm, warm_ovf = scan(warm)
     _sync(dev)
-    after_warm = state
+    after_warm = {k: v.clone() for k, v in state.items()}
     t0 = time.perf_counter()
     statuses, comms, ovfs = [], [], []
     for ch in chunks:
-        state, st, comm, ovf = ref.conflict_scan(
-            state, ch, max_write_life=life, strided=True, phases=phases)
+        st, comm, ovf = scan(ch)
         statuses.append(st)
         comms.append(comm)
         ovfs.append(ovf)
@@ -222,6 +253,7 @@ def run_kernel(T: int, n_batches: int, chunk: int,
         "committed_frac": int(res["committed"].sum()) / total,
         "batches": n_batches, "chunk": chunk, "txns_per_batch": T,
         "capacity": K, "device": str(dev),
+        "graphed": dev.type == "cuda",
         "baseline_txns_per_sec": baseline,
         "baseline_cpu_measured": cpu,
     }
@@ -244,17 +276,32 @@ def run_kernel_ab(T: int, n_batches: int = 8, capacity: int | None = None,
     staged = [{k: v[i] for k, v in batches.items()} for i in range(n_batches)]
     out = {"txns_per_batch": T, "batches": n_batches, "device": str(dev)}
     statuses = {}
+    life = KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS
     for mode in ref.INTRA_MODES:
         state = ref.init_state(K, LIMBS, dev, phases=kernels.PHASES)
+        if mode == "scan":
+            # one step a dispatch: a one-step scan graph on the card
+            prog = _scan_program(state, 1, T, dev.type == "cuda",
+                                 kernels.PHASES)
+            prog.capture()
+
+            def step(b):  # the graph's output: copied before the next
+                return prog.run({k: v[None] for k, v in b.items()})[0][0] \
+                    .clone()
+        else:
+            # the legacy fixpoint reads its test on the host every round
+            # (run_legacy), so it cannot be captured: it runs eagerly
+            def step(b):
+                _s, st, _i = ref.conflict_step(
+                    state, b, max_write_life=life, intra_mode="legacy",
+                    strided=True, phases=kernels.PHASES, out=state)
+                return st
         sts = []
         for i, b in enumerate(staged):
             if i == 1:
                 _sync(dev)
                 t0 = time.perf_counter()
-            state, st, _info = ref.conflict_step(
-                state, b, max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
-                intra_mode=mode, strided=True, phases=kernels.PHASES)
-            sts.append(st)
+            sts.append(step(b).to(torch.int8))
         _sync(dev)
         out[mode + "_ms_per_step"] = (1e3 * (time.perf_counter() - t0)
                                       / max(1, n_batches - 1))
@@ -371,6 +418,49 @@ def run_sharded_kernel(T: int, n_batches: int, n_shards: int,
     }
 
 
+def run_ablate(T: int, n_batches: int, capacity: int | None = None,
+               device=None, detail: dict | None = None) -> dict:
+    """The ablation profile (scripts/profile_kernel.py): a warm-up chunk
+    of 8 batches fills the window, then the full scan and each of the JAX
+    step's six ablations runs over the same `n_batches` staged batches,
+    each through its own scan graph from a copy of the warmed state (the
+    JAX script's state is not donated): a warm-up run, then the least of 3
+    timed runs, each ending in one sync. Returns ms/step a mode. `detail`,
+    if given, receives the batches, the warmed state and, a mode, the
+    statuses and state of its first run."""
+    dev = cudaenv.resolve_device("cuda" if device is None else device)
+    K = capacity or CAPACITY
+    warm = stage(_encode_batches(8, seed=1, version0=WINDOW, T=T), dev)
+    main_b = stage(_encode_batches(n_batches, seed=2,
+                                   version0=WINDOW + 8 * VERSION_STEP, T=T),
+                   dev)
+    state = ref.init_state(K, LIMBS, dev, phases=kernels.PHASES)
+    _scan_program(state, 8, T, dev.type == "cuda", kernels.PHASES).run(warm)
+    warmed = {k: v.clone() for k, v in state.items()}
+    out = {"txns_per_batch": T, "batches": n_batches, "capacity": K,
+           "device": str(dev), "ms_per_step": {}}
+    if detail is not None:
+        detail.update(batches=main_b, warmed=warmed, runs={})
+    for mode in ref.ABLATE_MODES:
+        prog = _scan_program(state, n_batches, T, dev.type == "cuda",
+                             kernels.PHASES, ablate=mode)
+        times = []
+        for rep in range(4):
+            ref.write_state(state, warmed)
+            _sync(dev)
+            t0 = time.perf_counter()
+            st, comm, ovf = prog.run(main_b)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+            if rep == 0 and detail is not None:
+                detail["runs"][mode] = {
+                    "statuses": st.clone(), "committed": comm.clone(),
+                    "overflow": ovf.clone(),
+                    "state": {k: v.clone() for k, v in state.items()}}
+        out["ms_per_step"][mode or "full"] = 1e3 * min(times[1:]) / n_batches
+    return out
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if len(args) >= 4 and args[0] == "--kernel":
@@ -388,6 +478,11 @@ def main(argv=None) -> int:
         cap = int(args[4]) if len(args) > 4 else None
         print(json.dumps(run_sharded_kernel(int(args[1]), int(args[2]),
                                             int(args[3]), capacity=cap)))
+        return 0
+    if len(args) >= 3 and args[0] == "--ablate":
+        cap = int(args[3]) if len(args) > 3 else None
+        print(json.dumps(run_ablate(int(args[1]), int(args[2]),
+                                    capacity=cap)))
         return 0
     print(__doc__.split("Usage")[1].strip(), file=sys.stderr)
     return 2

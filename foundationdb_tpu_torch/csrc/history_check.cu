@@ -47,7 +47,7 @@ history_grid_kernel(const int32_t* __restrict__ table, int K,
                     const int32_t* __restrict__ snapshot,
                     const uint8_t* __restrict__ txn_valid,
                     const int32_t* __restrict__ oldest, int T,
-                    unsigned int* words, unsigned int* sync,
+                    int skip_history, unsigned int* words, unsigned int* sync,
                     uint8_t* __restrict__ too_old, uint8_t* __restrict__ g0) {
   const int W = (T + 31) >> 5;
   unsigned int* has_reads = words;
@@ -67,7 +67,7 @@ history_grid_kernel(const int32_t* __restrict__ table, int K,
       const int ub = cum_state[spos[K + r]];
       const int lb = cum_state[spos[K + NR + r]];
       const int32_t snap = snapshot[t];
-      if (fdb_key_lt(rb, re, L, NR, r)) {
+      if (!skip_history && fdb_key_lt(rb, re, L, NR, r)) {
         const int i0 = max(ub - 1, 0);
         const int i1 = max(lb, i0 + 1);
         const int lvl = 31 - __clz(i1 - i0);
@@ -112,14 +112,16 @@ history_grid_kernel(const int32_t* __restrict__ table, int K,
 static int g_hist_per_sm[64];
 
 // words: 2 * ceil(T / 32) uint32, zero on entry and left zero; sync: 1
-// uint32 whose low 31 bits are zero on entry, and stay so. One cooperative
-// launch on `stream`.
+// uint32 whose low 31 bits are zero on entry, and stay so. With
+// skip_history set (the `no_hist` and `only_merge` ablations of the JAX
+// step, :427-429) the read pass folds "has a read" and no hit. One
+// cooperative launch on `stream`.
 extern "C" int fdb_history_check(
     const int32_t* table, int K, const int32_t* cum_state, const int32_t* spos,
     const int32_t* rb, const int32_t* re, int L, int NR, const int32_t* rtxn,
     const int32_t* snapshot, const uint8_t* txn_valid, const int32_t* oldest,
-    int T, unsigned int* words, unsigned int* sync, uint8_t* too_old,
-    uint8_t* g0, void* stream) {
+    int T, int skip_history, unsigned int* words, unsigned int* sync,
+    uint8_t* too_old, uint8_t* g0, void* stream) {
   if (T < 1 || NR < 0) return (int)cudaErrorInvalidValue;
   int dev = 0;
   FdbDeviceLimits lim;
@@ -143,8 +145,8 @@ extern "C" int fdb_history_check(
   const int G = (int)(want < cap ? want : cap);
   void* params[] = {&table, &K,        &cum_state, &spos,   &rb,
                     &re,    &L,        &NR,        &rtxn,   &snapshot,
-                    &txn_valid, &oldest, &T,       &words,  &sync,
-                    &too_old,   &g0};
+                    &txn_valid, &oldest, &T,       &skip_history,
+                    &words,     &sync,   &too_old, &g0};
   e = cudaLaunchCooperativeKernel((const void*)history_grid_kernel, dim3(G),
                                   dim3(HIST_THREADS), params, 0,
                                   (cudaStream_t)stream);

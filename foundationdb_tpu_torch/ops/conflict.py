@@ -7,7 +7,16 @@ the strided layout's fixed slots, chunking), `detect_async_impl`,
 `DeviceConflictSet` (with the CONFLICT_INTRA_MODE evaluator), the single fused
 readback per chunk and the drain. The device step is
 `conflict_ref.conflict_step` with the phases of ops/kernels.py: on a CUDA
-state the four Hopper kernels run, on a CPU state their plain versions.
+state the Hopper kernels run, on a CPU state their plain versions.
+
+The engine's state lives in fixed buffers, made once and overwritten by
+every step, rebase and clear (the JAX engine donates its state). On the
+card the scan evaluator runs each chunk as one replay of its shape
+bucket's CUDA graph (ops/step_graph.py, `_compiled_step`'s counterpart):
+the chunk's single host->device copy lands in the graph's own batch
+buffer, and the graph's K13 writes the readback row that the chunk's one
+device->host copy reads. The legacy evaluator, and the CPU, run the same
+step eagerly.
 
 Versions on the device are int32 offsets from a host-kept int64 base (the
 MVCC window is 5e6 versions wide; the host rebases long before an offset
@@ -19,7 +28,6 @@ the readback waits in `drain_handles` / `DetectHandle.result`.
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from dataclasses import dataclass
 
@@ -30,6 +38,8 @@ from foundationdb_tpu_torch.ops import conflict_ref as ref
 from foundationdb_tpu_torch.ops import kernels
 from foundationdb_tpu_torch.ops.batch import (COMMITTED, CONFLICT, TOO_OLD,
                                               TxnConflictInfo)
+from foundationdb_tpu_torch.ops.step_graph import (StepGraph, batch_layout,
+                                                   batch_views)
 from foundationdb_tpu_torch.utils import cudaenv
 from foundationdb_tpu_torch.utils import keys as keylib
 from foundationdb_tpu_torch.utils.errors import FDBError
@@ -104,26 +114,8 @@ def _resolve_shapes(capacity=None, txns=None, reads_per_txn=None,
 
 def _layout(sh: ConflictShapes) -> tuple[dict, int]:
     """({field: (offset, shape)}, total size) of one packed int32 batch
-    buffer, so each chunk moves to the device in a single copy."""
-    L, NR, NW, T = sh.limbs, sh.reads, sh.writes, sh.txns
-    out, off = {}, 0
-    for name, shape in (("rb", (L, NR)), ("re", (L, NR)), ("wb", (L, NW)),
-                        ("we", (L, NW)), ("rtxn", (NR,)), ("wtxn", (NW,)),
-                        ("snapshot", (T,)), ("txn_valid", (T,)),
-                        ("commit_version", ()), ("advance_floor", ())):
-        out[name] = (off, shape)
-        off += math.prod(shape)
-    return out, off
-
-
-def _field(buf, layout: dict, name: str):
-    """The `name` field of a packed batch buffer (numpy array or tensor),
-    as a view of its shape."""
-    off, shape = layout[name]
-    return buf[off:off + math.prod(shape)].reshape(shape)
-
-
-_BOOL_FIELDS = ("txn_valid", "advance_floor")
+    buffer of the shape (`step_graph.batch_layout`)."""
+    return batch_layout(sh.limbs, sh.txns, sh.reads, sh.writes)
 
 
 class BatchEncoder:
@@ -177,12 +169,15 @@ class BatchEncoder:
     def encode_batch(self, txns: list[TxnConflictInfo], commit_version: int,
                      skip: list[bool] | None = None,
                      shapes: ConflictShapes | None = None,
-                     advance_floor: bool = True) -> dict:
+                     advance_floor: bool = True,
+                     dest: torch.Tensor | None = None) -> dict:
         """One device batch (dict of tensors on the engine's device) from
         the chunk's transactions; `skip[t]` leaves txn t out (the host
         already decided it TOO_OLD). Keys encode in bulk (utils/keys.py).
         In the strided layout txn t's i-th range lands in slot
-        t * stride + i, and rtxn/wtxn hold the fixed slot->txn map."""
+        t * stride + i, and rtxn/wtxn hold the fixed slot->txn map. With
+        `dest` (a packed buffer of the shape on the device, a step graph's
+        input) the copy lands there, on the current stream."""
         sh = shapes or self.shapes
         T, L = sh.txns, self.L
         if len(txns) > T:
@@ -190,10 +185,10 @@ class BatchEncoder:
                            f"{len(txns)} transactions exceed the chunk of {T}")
         slot = self._slot(sh)
         lay = slot["layout"]
-        host = slot["buf"].numpy()
+        host = batch_views(slot["buf"].numpy(), lay)
 
         def view(name):
-            return _field(host, lay, name)
+            return host[name]
 
         rkeys_b, rkeys_e, wkeys_b, wkeys_e, rt, wt = [], [], [], [], [], []
         # rs/ws: the strided layout's slot of each range
@@ -242,14 +237,11 @@ class BatchEncoder:
         view("commit_version")[...] = self._clamp_off(commit_version)
         view("advance_floor")[...] = int(bool(advance_floor))
 
-        dev_buf = cudaenv.to_device(slot["buf"], self.device)
+        dev_buf = cudaenv.to_device(slot["buf"], self.device, out=dest)
         if self.device.type == "cuda":
             slot["event"] = torch.cuda.Event()
             slot["event"].record()
-        batch = {name: _field(dev_buf, lay, name) for name in lay}
-        for name in _BOOL_FIELDS:
-            batch[name] = batch[name] != 0
-        return batch
+        return batch_views(dev_buf, lay)
 
     def split_for_capacity(self, txns):
         """Chunks of whole transactions that fit the static shape, in batch
@@ -311,19 +303,15 @@ def detect_async_impl(engine, txns: list[TxnConflictInfo],
         nw = sum(len(t.write_ranges) for t, old in zip(sub, host_too_old)
                  if not old)
         shapes = engine.plan_chunk(nr, nw)
+        _kernel_dispatches.increment()
         # the MVCC floor advances once per logical batch (last chunk), so
         # every chunk's too-old check uses the pre-batch floor
-        batch = enc.encode_batch(sub, commit_version, skip=host_too_old,
-                                 shapes=shapes,
-                                 advance_floor=i == len(subs) - 1)
-        _kernel_dispatches.increment()
-        engine._state, statuses, info = engine._step(engine._state, batch)
-        combined = _combine_status(statuses, info["eligible"],
-                                   info["overflow"], info["converged"])
+        row = engine.dispatch_chunk(sub, commit_version, host_too_old, shapes,
+                                    advance_floor=i == len(subs) - 1)
         # the D2H copy starts now, overlapped with the next chunk's encode
-        # and dispatch
-        chunks.append([sub, host_too_old, combined,
-                       cudaenv.to_host_async(combined)])
+        # and dispatch; it is on the stream before the next replay of the
+        # chunk's graph overwrites the row
+        chunks.append([sub, host_too_old, row, cudaenv.to_host_async(row)])
     engine.oldest_version = max(
         engine.oldest_version,
         commit_version - KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS)
@@ -362,18 +350,53 @@ class DeviceConflictSet:
                            f"CONFLICT_INTRA_MODE must be one of "
                            f"{ref.INTRA_MODES}, got {self._intra_mode!r}")
         self._intra_rounds = int(KNOBS.CONFLICT_INTRA_ROUNDS)
-        self._state = self._init_state()
+        # the fixed state buffers: every step, rebase and clear writes them
+        self._state = ref.init_state(self.shapes.capacity, self.shapes.limbs,
+                                     self.device, oldest=0,
+                                     phases=kernels.PHASES)
+        self._graphs: dict = {}  # (reads, writes) -> StepGraph
 
-    def _init_state(self) -> dict:
-        return ref.init_state(self.shapes.capacity, self.shapes.limbs,
-                              self.device, oldest=0, phases=kernels.PHASES)
+    def _graph(self, shapes: ConflictShapes) -> StepGraph | None:
+        """The shape bucket's step graph (captured at its first replay),
+        or None where the step runs eagerly: on the CPU, and for the legacy
+        evaluator, whose fixpoint loop is unbounded and reads its test on
+        the host every round (`run_legacy`), so it cannot be captured."""
+        if self.device.type != "cuda" or self._intra_mode == "legacy":
+            return None
+        key = (shapes.reads, shapes.writes)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = StepGraph(
+                self._state, txns=shapes.txns, reads=shapes.reads,
+                writes=shapes.writes,
+                max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
+                intra_rounds=self._intra_rounds, strided=shapes.strided)
+        return graph
 
-    def _step(self, state: dict, batch: dict):
-        return ref.conflict_step(
-            state, batch,
+    def _step(self, batch: dict) -> torch.Tensor:
+        """The eager step over the fixed state (the CPU; the legacy
+        evaluator on the card, see `_graph`): the readback row."""
+        _state, _statuses, info = ref.conflict_step(
+            self._state, batch,
             max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
             intra_rounds=self._intra_rounds, intra_mode=self._intra_mode,
-            strided=self.shapes.strided, phases=kernels.PHASES)
+            strided=self.shapes.strided, phases=kernels.PHASES,
+            out=self._state)
+        return info["readback"]
+
+    def dispatch_chunk(self, sub, commit_version: int, skip: list[bool],
+                       shapes: ConflictShapes,
+                       advance_floor: bool) -> torch.Tensor:
+        """Encode one chunk and enqueue its step: the (2T+2,) int32 readback
+        row [statuses | eligible | overflow | converged] on the device. On
+        the card the scan evaluator replays the bucket's graph, its batch
+        copied into the graph's own buffer."""
+        graph = self._graph(shapes)
+        batch = self.encoder.encode_batch(
+            sub, commit_version, skip=skip, shapes=shapes,
+            advance_floor=advance_floor,
+            dest=None if graph is None else graph.buffer)
+        return self._step(batch) if graph is None else graph.run()
 
     @property
     def base_version(self) -> int:
@@ -385,8 +408,8 @@ class DeviceConflictSet:
         while commit_version - self.encoder.base_version > _REBASE_THRESHOLD:
             delta = min(commit_version - self.encoder.base_version - (1 << 24),
                         1 << 30)
-            self._state = ref.rebase_state(self._state, delta,
-                                           phases=kernels.PHASES)
+            ref.rebase_state(self._state, delta, phases=kernels.PHASES,
+                             out=self._state)
             self.encoder.base_version += delta
 
     # -- ConflictBatch interface --
@@ -407,15 +430,21 @@ class DeviceConflictSet:
         return self.encoder.bucket_shapes(nr, nw)
 
     def warmup(self):
-        """Run one empty step per serving bucket, building the kernels on
-        first use, so the first served batch pays no build."""
+        """Make every serving bucket's program ready, so that the first
+        served batch pays no build: on the card, capture each bucket's
+        graph (building the kernels on first use; the capture's warm-up
+        step runs on a copy of the state); eagerly, run one empty step per
+        bucket."""
         sh = self.shapes
         buckets = {self.plan_chunk(r, w) for r in (0, sh.reads)
                    for w in (0, sh.writes)}
         for shapes in sorted(buckets, key=lambda b: (b.reads, b.writes)):
-            batch = self.encoder.encode_batch(
-                [], self.encoder.base_version + 1, shapes=shapes)
-            self._state, _statuses, _info = self._step(self._state, batch)
+            graph = self._graph(shapes)
+            if graph is not None:
+                graph.capture()
+            else:
+                self._step(self.encoder.encode_batch(
+                    [], self.encoder.base_version + 1, shapes=shapes))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -423,15 +452,8 @@ class DeviceConflictSet:
         """clearConflictSet (SkipList.cpp:957): the state is soft."""
         self.encoder.base_version = oldest_version
         self.oldest_version = oldest_version
-        self._state = self._init_state()
-
-
-def _combine_status(statuses, eligible, overflow, converged) -> torch.Tensor:
-    """[statuses | eligible | overflow | converged] as one (2T+2,) int32
-    tensor, so each chunk reads back in a single copy."""
-    return torch.cat([statuses.to(torch.int32), eligible.to(torch.int32),
-                      overflow.to(torch.int32).reshape(1),
-                      converged.to(torch.int32).reshape(1)])
+        ref.init_state(self.shapes.capacity, self.shapes.limbs, self.device,
+                       oldest=0, phases=kernels.PHASES, out=self._state)
 
 
 def drain_handles(handles: list["DetectHandle"]) -> None:

@@ -16,10 +16,11 @@ with reshapes there, because a scatter costs a TPU far more than a
 reshape; on the card an atomic-OR fold costs about what a reshape does, so
 the same phases and kernels serve both layouts.
 
-The step is written as plain tensor code around seven phase functions,
-passed in as `phases` (an object with `sort_and_rank`, `build_table`,
-`history_check`, `intra_levels`, `intra_sandwich`, `merge_compact` and
-`legacy_sweep`); `rebase_state` calls an eighth, `rebase_table`, and the
+The step is written as plain tensor code around nine phase functions,
+passed in as `phases` (an object with `sort_and_rank`, `step_masks`,
+`build_table`, `history_check`, `intra_levels`, `intra_sandwich`,
+`merge_compact`, `legacy_sweep` and `step_verdicts`); `rebase_state`
+calls a tenth, `rebase_table`, and the
 sharded engine (parallel/sharded_conflict.py) two more around the step of
 each shard, `clip_ranges` and `shard_combine`.
 `PLAIN` holds the plain versions below;
@@ -133,9 +134,12 @@ def floor_log2(w: torch.Tensor) -> torch.Tensor:
 # the phases, plain versions (each Hopper kernel is held to one)
 # ---------------------------------------------------------------------------
 
-def build_table(vals: torch.Tensor) -> torch.Tensor:
+def build_table(vals: torch.Tensor, out=None) -> torch.Tensor:
     """(K,) int32 -> (LEVELS, K) window maxima `_build_table`:
-    table[l, i] = max(vals[i : i + 2**l]), NEG past K."""
+    table[l, i] = max(vals[i : i + 2**l]), NEG past K. With `out`, the
+    table is written there and `out` returned."""
+    if out is not None:
+        return out.copy_(build_table(vals))
     K = vals.shape[0]
     rows = [vals]
     cur = vals
@@ -159,20 +163,24 @@ def range_max(table: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor):
 
 
 def history_check(table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
-                  oldest):
+                  oldest, skip_history: bool = False):
     """Too-old and history verdicts per txn (conflict.py:423-444).
 
     Each read's segment range comes from the sorted positions of its
     endpoints (`spos`, state elements counted by `cum_state`); the range
     max of the step function is compared with the txn's snapshot and the
     hits fold to their txn. Returns (too_old, g0) with
-    g0 = txn_valid & ~too_old & ~hist_conflict."""
+    g0 = txn_valid & ~too_old & ~hist_conflict. With `skip_history` (the
+    `no_hist` and `only_merge` ablations) no read hits: too_old is still
+    computed."""
     K = table.shape[1]
     NR = rb.shape[1]
     T = snapshot.shape[0]
     rvalid = rtxn < T
     has_reads = fold_any(rvalid, rtxn, T)
     too_old = txn_valid & has_reads & (snapshot < oldest)
+    if skip_history:
+        return too_old, txn_valid & ~too_old
     ub_rb = cum_state[spos[K:K + NR].to(torch.int64)]
     lb_re = cum_state[spos[K + NR:K + 2 * NR].to(torch.int64)]
     i0 = torch.clamp(ub_rb - 1, min=0)
@@ -213,13 +221,22 @@ def intra_sweep(c, g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, skip=None,
 
 def merge_compact(skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn,
                   nb, oldest, poisoned, vnew, advance_floor, *, K: int,
-                  max_write_life: int):
+                  max_write_life: int, out=None):
     """Merge the committed writes into the step function at vnew, clamp to
     the new MVCC floor, coalesce and compact to K slots (`_merge_phase`,
     conflict.py:589-704). Overflow poisons the state (sticky), never
     truncates it.
 
-    Returns (keys (L,K), vals (K,), nb, oldest, poisoned, boundaries)."""
+    Returns (keys (L,K), vals (K,), nb, oldest, poisoned, boundaries).
+    With `out` = (keys, vals), those two are written there: the state's
+    own buffers may be given, since the phase reads the sorted union, not
+    the state's keys or values."""
+    if out is not None:
+        keys, vals, *rest = merge_compact(
+            skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn, nb,
+            oldest, poisoned, vnew, advance_floor, K=K,
+            max_write_life=max_write_life)
+        return (out[0].copy_(keys), out[1].copy_(vals), *rest)
     L, N = skeys.shape
     NW = wb.shape[1]
     NR = (N - K - 2 * NW) // 2
@@ -569,11 +586,60 @@ def shard_combine(statuses, eligible, overflow, boundaries, converged,
     return st, info
 
 
-PLAIN = SimpleNamespace(sort_and_rank=sort_and_rank,
+def strided_owners(begins: torch.Tensor, T: int) -> torch.Tensor:
+    """The strided layout's range->txn map (conflict.py:385-391, 436-442,
+    486-489, 601-605): slot j of NS belongs to txn j // (NS // T), or to T
+    (padding) when its begin key carries the padding length limb. Real
+    keys never carry it, so an empty real range still belongs to its txn."""
+    L, NS = begins.shape
+    owner = torch.arange(NS, dtype=_I32, device=begins.device) // (NS // T)
+    return torch.where(begins[L - 1] != PAD_LIMB, owner, T).to(_I32)
+
+
+def step_masks(rb, wb, rtxn, wtxn, rbr, rer, wbr, wer, T: int,
+               strided: bool):
+    """K12's plain version: the range->txn maps and the masks of the
+    intra-batch phase (conflict.py:385-395, 477-489): (rtxn, wtxn, wtxn_c,
+    r_ok, w_ok). In the strided layout the maps come from the keys
+    (`strided_owners`; the batch's rtxn/wtxn are not read), else they are
+    the batch's. wtxn_c = min(wtxn, T - 1); a range is ok when it is real
+    (owner < T) and not empty or inverted (begin rank < end rank)."""
+    if strided:
+        rtxn, wtxn = strided_owners(rb, T), strided_owners(wb, T)
+    return (rtxn, wtxn, torch.clamp(wtxn, max=T - 1),
+            (rtxn < T) & (rbr < rer), (wtxn < T) & (wbr < wer))
+
+
+def step_verdicts(commit, too_old, txn_valid, eligible, overflow, converged,
+                  scan_out=None, index: int = 0):
+    """K13's plain version: the verdicts of a step (conflict.py:545-553)
+    and the readback row of `_combine_fn` (:1190-1198). Returns
+    (statuses (T,) int32, committed () int32, row (2T+2,) int32): row =
+    [statuses | eligible | overflow | converged], statuses a view of its
+    head; a txn that is not valid reads Committed. With `scan_out` =
+    (statuses (M, T) int8, committed (M,) int32, overflow (M,) bool),
+    entry `index` of each is written too: the outputs of
+    `conflict_scan`."""
+    T = commit.shape[0]
+    st = torch.where(commit, COMMITTED,
+                     torch.where(too_old, TOO_OLD, CONFLICT))
+    st = torch.where(txn_valid, st, COMMITTED).to(_I32)
+    row = torch.cat([st, eligible.to(_I32), overflow.to(_I32).reshape(1),
+                     converged.to(_I32).reshape(1)])
+    committed = commit.sum(dtype=_I32)
+    if scan_out is not None:
+        scan_out[0][index].copy_(st)
+        scan_out[1][index].copy_(committed)
+        scan_out[2][index].copy_(overflow)
+    return row[:T], committed, row
+
+
+PLAIN = SimpleNamespace(sort_and_rank=sort_and_rank, step_masks=step_masks,
                         build_table=build_table, history_check=history_check,
                         intra_levels=intra_levels,
                         intra_sandwich=intra_sandwich,
                         merge_compact=merge_compact, legacy_sweep=legacy_sweep,
+                        step_verdicts=step_verdicts,
                         rebase_table=rebase_table, clip_ranges=clip_ranges,
                         shard_combine=shard_combine)
 
@@ -592,70 +658,84 @@ def run_legacy(sweep, g):
             return lower
 
 
-def strided_owners(begins: torch.Tensor, T: int) -> torch.Tensor:
-    """The strided layout's range->txn map (conflict.py:385-391, 436-442,
-    486-489, 601-605): slot j of NS belongs to txn j // (NS // T), or to T
-    (padding) when its begin key carries the padding length limb. Real
-    keys never carry it, so an empty real range still belongs to its txn."""
-    L, NS = begins.shape
-    owner = torch.arange(NS, dtype=_I32, device=begins.device) // (NS // T)
-    return torch.where(begins[L - 1] != PAD_LIMB, owner, T).to(_I32)
-
-
 INTRA_MODES = ("scan", "legacy")
+# the `ablate` values of the JAX step (conflict.py:346), for the bench's
+# per-phase profile: what each leaves out
+ABLATE_MODES = ("", "no_hist", "only_merge", "no_intra", "only_hist",
+                "no_merge", "no_table")
+_NO_HIST = ("no_hist", "only_merge")  # no history hits (too-old stays)
+_NO_INTRA = ("no_intra", "only_merge", "only_hist")  # commit = eligible
+_NO_MERGE = ("no_merge", "only_hist")  # the state keeps its boundaries
+
+
+def write_state(out: dict, new: dict) -> dict:
+    """The state `new` written into the tensors of `out` (fixed buffers:
+    the counterpart of the JAX step's donated state), field by field; a
+    field a kernel already wrote in place is not copied. Returns `out`."""
+    for k in _STATE_FIELDS:
+        if out[k].data_ptr() != new[k].data_ptr():
+            out[k].copy_(new[k])
+    return out
 
 
 def conflict_step(state: dict, batch: dict, *, max_write_life: int,
                   intra_rounds: int = 0, intra_mode: str = "scan",
-                  strided: bool = False, phases=PLAIN):
+                  strided: bool = False, phases=PLAIN, ablate: str = "",
+                  out: dict | None = None, scan_out=None, scan_index: int = 0):
     """(state, batch) -> (state', statuses, info), as the JAX
     `conflict_step`. `strided` selects the strided layout (every txn owns
     NR/T read and NW/T write slots; the batch's rtxn/wtxn are not read),
-    `intra_mode` the intra-batch evaluator ("scan" or "legacy").
+    `intra_mode` the intra-batch evaluator ("scan" or "legacy"), `ablate`
+    one of the JAX step's ablations (`ABLATE_MODES`; "" runs everything).
 
     state: bkeys (L,K) i32 sorted; bval (K,) i32; nb, oldest () i32;
       table (LEVELS,K) i32; poisoned () bool
     batch: txn_valid (T,) bool; snapshot (T,) i32; rb, re (L,NR) i32;
       rtxn (NR,) i32 (= T for padding); wb, we (L,NW) i32; wtxn (NW,) i32;
       commit_version () i32; advance_floor () bool
-    Shapes come from the tensors. Outputs are new tensors; the inputs are
-    not modified."""
+    Shapes come from the tensors. Without `out` the new state is new
+    tensors and the inputs are not modified; with `out` (a state dict of
+    fixed buffers, which may be `state` itself) it is written there, and
+    `out` is returned. Every reader of a state field runs before that
+    field is written. `info` holds the JAX step's five fields and
+    "readback", the (2T+2,) int32 row [statuses | eligible | overflow |
+    converged] that the resolver reads back; `scan_out` and `scan_index`
+    go to `step_verdicts` (the outputs of `conflict_scan`)."""
     if intra_mode not in INTRA_MODES:
         raise ValueError(f"intra_mode must be one of {INTRA_MODES}, got "
                          f"{intra_mode!r}")
-    if strided:
-        T = batch["snapshot"].shape[0]
-        batch = dict(batch, rtxn=strided_owners(batch["rb"], T),
-                     wtxn=strided_owners(batch["wb"], T))
+    if ablate not in ABLATE_MODES:
+        raise ValueError(f"ablate must be one of {ABLATE_MODES}, got "
+                         f"{ablate!r}")
     bkeys, bval, table = state["bkeys"], state["bval"], state["table"]
-    rb, re, rtxn = batch["rb"], batch["re"], batch["rtxn"]
-    wb, we, wtxn = batch["wb"], batch["we"], batch["wtxn"]
+    rb, re, wb, we = batch["rb"], batch["re"], batch["wb"], batch["we"]
     snapshot, txn_valid = batch["snapshot"], batch["txn_valid"]
     K = bkeys.shape[1]
     NR, NW, T = rb.shape[1], wb.shape[1], snapshot.shape[0]
     dev = bkeys.device
-    rvalid = rtxn < T
-    wvalid = wtxn < T
 
     # ---- 0. the sort of [state | rb | re | wb | we], 3. endpoint ranks ----
     skeys, scls, sval, sidx, spos, cum_state, qranks = phases.sort_and_rank(
         bkeys, bval, rb, re, wb, we)
-
-    # ---- 1+2. too-old and history check ----
-    too_old, g = phases.history_check(table, cum_state, spos, rb, re, rtxn,
-                                      snapshot, txn_valid, state["oldest"])
-
-    # ---- 3. intra-batch: endpoint ranks -> dyadic levels -> sandwich ----
     rbr, rer = qranks[:NR], qranks[NR:2 * NR]
     wbr, wer = qranks[2 * NR:2 * NR + NW], qranks[2 * NR + NW:]
+    # the range->txn maps and the masks: empty/inverted ranges take part in
+    # neither side of the intra-batch phase
+    rtxn, wtxn, wtxn_c, r_ok, w_ok = phases.step_masks(
+        rb, wb, batch["rtxn"], batch["wtxn"], rbr, rer, wbr, wer, T, strided)
 
-    # empty/inverted ranges take part in neither side; strict wtxn < rtxn
-    # is "earlier txns win" (SkipList.cpp:1139-1152)
-    wtxn_c = torch.clamp(wtxn, max=T - 1)
-    r_ok = (rvalid & (rbr < rer)).contiguous()
-    w_ok = (wvalid & (wbr < wer)).contiguous()
+    # ---- 1+2. too-old and history check ----
+    too_old, g = phases.history_check(
+        table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
+        state["oldest"], **({"skip_history": True} if ablate in _NO_HIST
+                            else {}))
 
-    if intra_mode == "legacy":
+    # ---- 3. intra-batch: dyadic levels -> sandwich; strict wtxn < rtxn
+    # is "earlier txns win" (SkipList.cpp:1139-1152) ----
+    if ablate in _NO_INTRA:
+        commit = merge_commit = g
+        converged = torch.ones((), dtype=torch.bool, device=dev)
+    elif intra_mode == "legacy":
         def legacy(c):
             return phases.legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer,
                                        rbr, rer)
@@ -669,64 +749,100 @@ def conflict_step(state: dict, batch: dict, *, max_write_life: int,
         commit, merge_commit, converged = phases.intra_sandwich(
             g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, rounds)
 
-    statuses = torch.where(
-        commit, COMMITTED, torch.where(too_old, TOO_OLD, CONFLICT)).to(_I32)
-    statuses = torch.where(txn_valid, statuses, COMMITTED).to(_I32)
-
     # ---- 4+5. merge, window GC, compaction; then the table ----
-    keys2, vals2, nb2, oldest2, poisoned2, boundaries = phases.merge_compact(
-        skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn,
-        state["nb"], state["oldest"], state["poisoned"],
-        batch["commit_version"], batch["advance_floor"], K=K,
-        max_write_life=max_write_life)
-    new_state = {"bkeys": keys2, "bval": vals2, "nb": nb2, "oldest": oldest2,
-                 "table": phases.build_table(vals2), "poisoned": poisoned2}
-    info = {"overflow": poisoned2, "boundaries": boundaries,
-            "committed": commit.sum(dtype=_I32), "converged": converged,
-            "eligible": g}
+    if ablate in _NO_MERGE:
+        # the boundaries stay; only the MVCC floor advances (:579-587)
+        oldest = state["oldest"]
+        new_state = dict(state, oldest=torch.maximum(oldest, torch.where(
+            batch["advance_floor"], batch["commit_version"] - max_write_life,
+            oldest)).to(_I32))
+        overflow, boundaries = state["poisoned"], state["nb"]
+    else:
+        kw = {} if out is None else {"out": (out["bkeys"], out["bval"])}
+        keys2, vals2, nb2, oldest2, overflow, boundaries = \
+            phases.merge_compact(
+                skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn,
+                state["nb"], state["oldest"], state["poisoned"],
+                batch["commit_version"], batch["advance_floor"], K=K,
+                max_write_life=max_write_life, **kw)
+        if ablate == "no_table":  # the merge runs, the old table stays
+            table2 = table
+        else:
+            table2 = phases.build_table(
+                vals2, **({} if out is None else {"out": out["table"]}))
+        new_state = {"bkeys": keys2, "bval": vals2, "nb": nb2,
+                     "oldest": oldest2, "table": table2, "poisoned": overflow}
+    if out is not None:
+        new_state = write_state(out, new_state)
+
+    statuses, committed, row = phases.step_verdicts(
+        commit, too_old, txn_valid, g, overflow, converged,
+        **({} if scan_out is None else {"scan_out": scan_out,
+                                        "index": scan_index}))
+    info = {"overflow": overflow, "boundaries": boundaries,
+            "committed": committed, "converged": converged, "eligible": g,
+            "readback": row}
     return new_state, statuses, info
 
 
 def conflict_scan(state: dict, stacked: dict, *, max_write_life: int,
                   intra_rounds: int = 0, intra_mode: str = "scan",
-                  strided: bool = False, phases=PLAIN):
+                  strided: bool = False, phases=PLAIN, ablate: str = "",
+                  out: dict | None = None):
     """M batches in order (`conflict_scan`, conflict.py:771-790): `stacked`
     holds a step's batch fields with a leading batch axis. The steps are
-    enqueued back to back with no host sync (for the scan evaluator).
-    Returns (state', statuses (M, T) int8, committed (M,) int32,
-    overflow (M,) bool)."""
-    statuses, committed, overflow = [], [], []
-    for i in range(stacked["snapshot"].shape[0]):
-        state, st, info = conflict_step(
+    enqueued back to back with no host sync (for the scan evaluator), each
+    writing its verdicts into row i of the outputs; with `out` the last
+    step writes the final state there. Returns (state', statuses (M, T)
+    int8, committed (M,) int32, overflow (M,) bool)."""
+    M, T = stacked["snapshot"].shape
+    dev = state["bval"].device
+    scan_out = (torch.empty((M, T), dtype=torch.int8, device=dev),
+                torch.empty(M, dtype=_I32, device=dev),
+                torch.empty(M, dtype=torch.bool, device=dev))
+    for i in range(M):
+        state, _st, _info = conflict_step(
             state, {k: v[i] for k, v in stacked.items()},
             max_write_life=max_write_life, intra_rounds=intra_rounds,
-            intra_mode=intra_mode, strided=strided, phases=phases)
-        statuses.append(st.to(torch.int8))
-        committed.append(info["committed"])
-        overflow.append(info["overflow"])
-    return (state, torch.stack(statuses), torch.stack(committed),
-            torch.stack(overflow))
+            intra_mode=intra_mode, strided=strided, phases=phases,
+            ablate=ablate, out=out if i == M - 1 else None,
+            scan_out=scan_out, scan_index=i)
+    return (state, *scan_out)
 
 
-def rebase_state(state: dict, delta: int, phases=PLAIN) -> dict:
+def rebase_state(state: dict, delta: int, phases=PLAIN,
+                 out: dict | None = None) -> dict:
     """Shift every version offset down by delta (the host rebases its int64
-    base), saturating at NEG, and rebuild the table (`rebase_state`)."""
+    base), saturating at NEG, and rebuild the table (`rebase_state`). With
+    `out` (fixed buffers, may be `state`), the result is written there."""
     bval, oldest, table = phases.rebase_table(state["bval"], state["oldest"],
                                               delta)
-    return dict(state, bval=bval, oldest=oldest, table=table)
+    new = dict(state, bval=bval, oldest=oldest, table=table)
+    return new if out is None else write_state(out, new)
 
 
 def init_state(capacity: int, limbs: int, device, oldest: int = 0,
-               phases=PLAIN) -> dict:
-    """Empty state: segment 0 starts at b"" with no version."""
-    keys = torch.full((limbs, capacity), PAD_LIMB, dtype=_I32, device=device)
-    keys[:, 0] = EMPTY_LIMB
-    bval = torch.full((capacity,), NEG, dtype=_I32, device=device)
-    return {"bkeys": keys, "bval": bval,
-            "nb": torch.tensor(1, dtype=_I32, device=device),
-            "oldest": torch.tensor(oldest, dtype=_I32, device=device),
-            "table": phases.build_table(bval),
-            "poisoned": torch.tensor(False, device=device)}
+               phases=PLAIN, out: dict | None = None) -> dict:
+    """Empty state: segment 0 starts at b"" with no version. With `out` (a
+    state of these shapes) the buffers are filled in place and returned."""
+    if out is None:
+        keys = torch.full((limbs, capacity), PAD_LIMB, dtype=_I32,
+                          device=device)
+        keys[:, 0] = EMPTY_LIMB
+        bval = torch.full((capacity,), NEG, dtype=_I32, device=device)
+        return {"bkeys": keys, "bval": bval,
+                "nb": torch.tensor(1, dtype=_I32, device=device),
+                "oldest": torch.tensor(oldest, dtype=_I32, device=device),
+                "table": phases.build_table(bval),
+                "poisoned": torch.tensor(False, device=device)}
+    out["bkeys"].fill_(PAD_LIMB)
+    out["bkeys"][:, 0] = EMPTY_LIMB
+    out["bval"].fill_(NEG)
+    out["nb"].fill_(1)
+    out["oldest"].fill_(oldest)
+    out["poisoned"].fill_(False)
+    phases.build_table(out["bval"], out=out["table"])
+    return out
 
 
 # ---------------------------------------------------------------------------

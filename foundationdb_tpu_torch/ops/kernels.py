@@ -17,6 +17,11 @@ ops/conflict_ref.py that it replaces, so `PHASES` drops into
   K8 endpoint_ranks csrc/endpoint_ranks.cu  the endpoint ranks (phase 3)
   K10 clip_ranges   csrc/shard_clip.cu      `_clip_ranges` (sharded engine)
   K11 shard_combine csrc/shard_combine.cu   `local_step`'s pmin/pmax combine
+  K12 step_masks    csrc/step_glue.cu       the strided owners and the
+                                            intra-batch masks
+  K13 step_verdicts csrc/step_glue.cu       the statuses, the committed count,
+                                            `conflict_scan`'s rows and
+                                            `_combine_fn`'s readback row
 
 (functions of foundationdb_tpu/ops/conflict.py; K10 and K11 of
 foundationdb_tpu/parallel/sharded_conflict.py). The probe kernels of
@@ -71,6 +76,16 @@ them: their device pointers travel by value in the launch's parameters,
 so the combine costs no stack and no copy; its committed count goes
 through zeroed scratch that the launch leaves zero.
 
+K12 and K13 are the step's elementwise glue, one launch each a step in
+place of about 25 torch launches: K12 derives the range->txn maps (the
+strided layout's from the padding limb) and the masks of the intra-batch
+phase; K13 writes the statuses, the committed count (a block sum and one
+atomic into zeroed scratch that the last block resets, as K11's), the
+resolver's packed readback row and, in a scan, the step's row of the
+scan's outputs. With both, a step on the card is kernel launches and a
+few 4-byte copies only, which is what lets ops/step_graph.py capture it
+as a CUDA graph.
+
 The sources compile at first use with nvcc for sm_90a, one process per
 source, all started together; the objects link into one shared library
 with a plain C interface, bound with ctypes. The library lands in
@@ -99,7 +114,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("endpoint_sort.cu", "state_merge.cu", "endpoint_ranks.cu",
            "sparse_table.cu", "history_check.cu", "intra_levels.cu",
            "intra_sweep.cu", "merge_compact.cu", "legacy_overlap.cu",
-           "shard_clip.cu", "shard_combine.cu", "probes.cu")
+           "shard_clip.cu", "shard_combine.cu", "step_glue.cu", "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -140,6 +155,15 @@ KERNELS = {
     "shard_combine": ("csrc/shard_combine.cu",
                       "foundationdb_tpu/parallel/sharded_conflict.py:193 "
                       "local_step's pmin/pmax combine (:193-210)"),
+    "step_masks": ("csrc/step_glue.cu",
+                   "foundationdb_tpu/ops/conflict.py:385 conflict_step's "
+                   "strided owners and intra-batch masks (:385-395, "
+                   ":477-489)"),
+    "step_verdicts": ("csrc/step_glue.cu",
+                      "foundationdb_tpu/ops/conflict.py:545 conflict_step's "
+                      "statuses and committed count (:545-553), "
+                      "conflict_scan's rows (:782-786) and _combine_fn "
+                      "(:1190-1198)"),
     "probe_add": ("csrc/probes.cu", "scripts/ab_pallas.py:37 add_kernel"),
     "probe_stream_rows": ("csrc/probes.cu",
                           "scripts/ab_pallas.py:49 stream_kernel"),
@@ -172,12 +196,14 @@ _ARGTYPES = {
     "fdb_sparse_table": [_P, _P, _I, _I, _P, _LL, _P, _P, _P, _P],
     "fdb_intra_levels": [_P] * 6 + [_I] * 4 + [_P] * 11,
     "fdb_history_check": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
-                          _P, _P, _P, _P, _P],
+                          _I, _P, _P, _P, _P, _P],
     "fdb_intra_sandwich": [_P] * 12 + [_I] * 5 + [_P] * 12,
     "fdb_merge_compact": [_P] * 14 + [_I] * 7 + [_P] * 10,
     "fdb_legacy_blocked": [_P] * 10 + [_I] * 3 + [_P] * 4,
     "fdb_shard_clip": [_P] * 6 + [_I] * 4 + [_P] * 5,
     "fdb_shard_combine": [_P, _I, _I] + [_P] * 9,
+    "fdb_step_masks": [_P] * 8 + [_I] * 5 + [_P] * 6,
+    "fdb_step_verdicts": [_P] * 6 + [_I] + [_P] * 7,
     "fdb_probe_add": [_P, _P, _LL, _P],
     "fdb_probe_stream": [_P, _I, _I, _LL, _LL, _I, _P, _P],
     "fdb_probe_rank": [_P, _P, _I, _I, _I, _I] + [_LL] * 5 + [_I, _P, _P],
@@ -450,14 +476,19 @@ TABLE_TILE = 1024
 TABLE_LOW_LEVELS = 11
 
 
-def _sparse_table(name, vals, delta=0, oldest=None):
+def _sparse_table(name, vals, delta=0, oldest=None, out=None):
     """K1's launches: the table of vals (shifted by -delta, saturating at
-    NEG, with `oldest`: then also the shifted vals and oldest)."""
+    NEG, with `oldest`: then also the shifted vals and oldest), into `out`
+    if given (not `vals`' own storage)."""
     K = vals.shape[0]
     dev = vals.device
     _check(name, dev, vals=(vals, _I32, (K,)))
     levels = ref.table_levels(K)
-    table = torch.empty((levels, K), dtype=_I32, device=dev)
+    if out is None:
+        table = torch.empty((levels, K), dtype=_I32, device=dev)
+    else:
+        _check(name, dev, out=(out, _I32, (levels, K)))
+        table = out
     scratch = None  # pre, suf and the tile maxima, for the second launch
     if levels > TABLE_LOW_LEVELS:
         scratch = _scratch("table", 2 * K + -(-K // TABLE_TILE), _I32,
@@ -476,11 +507,13 @@ def _sparse_table(name, vals, delta=0, oldest=None):
     return table, shifted, oldest_out
 
 
-def build_table(vals: torch.Tensor) -> torch.Tensor:
-    """(K,) int32 -> (LEVELS, K) power-of-two window maxima."""
+def build_table(vals: torch.Tensor, out=None) -> torch.Tensor:
+    """(K,) int32 -> (LEVELS, K) power-of-two window maxima, written into
+    `out` when given (the state's table: the step's last reader of the old
+    table, K2, has run by then)."""
     if not _on_cuda("sparse_table", vals):
-        return ref.build_table(vals)
-    return _sparse_table("sparse_table", vals)[0]
+        return ref.build_table(vals, out=out)
+    return _sparse_table("sparse_table", vals, out=out)[0]
 
 
 def rebase_table(bval, oldest, delta: int):
@@ -502,11 +535,12 @@ def rebase_table(bval, oldest, delta: int):
 # ---------------------------------------------------------------------------
 
 def history_check(table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
-                  oldest):
-    """Too-old and history verdicts per txn: (too_old, g0), both (T,) bool."""
+                  oldest, skip_history: bool = False):
+    """Too-old and history verdicts per txn: (too_old, g0), both (T,) bool.
+    With `skip_history`, no read hits (the `no_hist` ablations)."""
     if not _on_cuda("history_check", table):
         return ref.history_check(table, cum_state, spos, rb, re, rtxn,
-                                 snapshot, txn_valid, oldest)
+                                 snapshot, txn_valid, oldest, skip_history)
     levels, K = table.shape
     L, NR = rb.shape
     T = snapshot.shape[0]
@@ -527,7 +561,8 @@ def history_check(table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
         table.data_ptr(), K, cum_state.data_ptr(), spos.data_ptr(),
         rb.data_ptr(), re.data_ptr(), L, NR, rtxn.data_ptr(),
         snapshot.data_ptr(), txn_valid.data_ptr(), oldest.data_ptr(), T,
-        words.data_ptr(), sync.data_ptr(), too_old.data_ptr(),
+        int(bool(skip_history)), words.data_ptr(), sync.data_ptr(),
+        too_old.data_ptr(),
         g0.data_ptr(), _stream())
     _launched("history_check", rc)
     return too_old, g0
@@ -649,14 +684,18 @@ MERGE_DESC_WORDS = 24
 
 def merge_compact(skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn,
                   nb, oldest, poisoned, vnew, advance_floor, *, K: int,
-                  max_write_life: int):
+                  max_write_life: int, out=None):
     """Merge, window GC, coalesce and compaction to K slots:
-    (keys (L,K), vals (K,), nb, oldest, poisoned, boundaries)."""
+    (keys (L,K), vals (K,), nb, oldest, poisoned, boundaries); with `out`
+    = (keys, vals) those two are written there (the kernel reads the sorted
+    union, never the state's keys or values, so the state's own buffers may
+    be given). nb, oldest and poisoned are read by every CTA, so they are
+    always new tensors."""
     if not _on_cuda("merge_compact", skeys):
         return ref.merge_compact(
             skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn, nb,
             oldest, poisoned, vnew, advance_floor, K=K,
-            max_write_life=max_write_life)
+            max_write_life=max_write_life, out=out)
     L, N = skeys.shape
     NW = wb.shape[1]
     NR = (N - K - 2 * NW) // 2
@@ -677,8 +716,13 @@ def merge_compact(skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn,
     desc = _scratch("merge_desc", MERGE_DESC_WORDS * n_tiles + 1, _I32, dev)
     delta = _zeroed_scratch("merge_delta", N, _I32, dev)
     csrc = _scratch("merge_csrc", K, _I32, dev)
-    out_keys = torch.empty((L, K), dtype=_I32, device=dev)
-    out_vals = torch.empty(K, dtype=_I32, device=dev)
+    if out is None:
+        out_keys = torch.empty((L, K), dtype=_I32, device=dev)
+        out_vals = torch.empty(K, dtype=_I32, device=dev)
+    else:
+        out_keys, out_vals = out
+        _check("merge_compact", dev, out_keys=(out_keys, _I32, (L, K)),
+               out_vals=(out_vals, _I32, (K,)))
     nb_out = torch.empty((), dtype=_I32, device=dev)
     oldest_out = torch.empty((), dtype=_I32, device=dev)
     poisoned_out = torch.empty((), dtype=_BOOL, device=dev)
@@ -806,10 +850,91 @@ def shard_combine(statuses, eligible, overflow, boundaries, converged,
                 "eligible": el}
 
 
-PHASES = SimpleNamespace(sort_and_rank=sort_and_rank,
+# ---------------------------------------------------------------------------
+# K12 step_masks, K13 step_verdicts (the step's glue)
+# ---------------------------------------------------------------------------
+
+def step_masks(rb, wb, rtxn, wtxn, rbr, rer, wbr, wer, T: int,
+               strided: bool):
+    """K12: (rtxn, wtxn, wtxn_c, r_ok, w_ok) in one launch, as
+    `conflict_ref.step_masks` (in the strided layout the maps come from
+    the keys and the given rtxn / wtxn are not read)."""
+    if not _on_cuda("step_masks", rb):
+        return ref.step_masks(rb, wb, rtxn, wtxn, rbr, rer, wbr, wer, T,
+                              strided)
+    L, NR = rb.shape
+    NW = wb.shape[1]
+    T = int(T)
+    dev = rb.device
+    if T < 1 or (strided and (NR % T or NW % T)):
+        raise FDBError("invalid_option",
+                       f"step_masks: T={T}, NR={NR}, NW={NW} (strided "
+                       f"needs both multiples of T)")
+    _check("step_masks", dev, rb=(rb, _I32, (L, NR)), wb=(wb, _I32, (L, NW)),
+           rtxn=(rtxn, _I32, (NR,)), wtxn=(wtxn, _I32, (NW,)),
+           rbr=(rbr, _I32, (NR,)), rer=(rer, _I32, (NR,)),
+           wbr=(wbr, _I32, (NW,)), wer=(wer, _I32, (NW,)))
+    owners = torch.empty(NR + 2 * NW, dtype=_I32, device=dev)
+    oks = torch.empty(NR + NW, dtype=_BOOL, device=dev)
+    out = (owners[:NR], owners[NR:NR + NW], owners[NR + NW:], oks[:NR],
+           oks[NR:])
+    if NR + NW == 0:
+        return out
+    rc = library().fdb_step_masks(
+        rb.data_ptr(), wb.data_ptr(), rtxn.data_ptr(), wtxn.data_ptr(),
+        rbr.data_ptr(), rer.data_ptr(), wbr.data_ptr(), wer.data_ptr(), L,
+        NR, NW, T, int(bool(strided)), *(t.data_ptr() for t in out),
+        _stream())
+    _launched("step_masks", rc)
+    return out
+
+
+def step_verdicts(commit, too_old, txn_valid, eligible, overflow, converged,
+                  scan_out=None, index: int = 0):
+    """K13: (statuses (T,) int32, committed () int32, row (2T+2,) int32) in
+    one launch, as `conflict_ref.step_verdicts`; with `scan_out` it also
+    writes entry `index` of the scan's (statuses, committed, overflow)."""
+    if not _on_cuda("step_verdicts", commit):
+        return ref.step_verdicts(commit, too_old, txn_valid, eligible,
+                                 overflow, converged, scan_out, index)
+    T = commit.shape[0]
+    dev = commit.device
+    if T < 1:
+        raise FDBError("invalid_option", "step_verdicts: T=0")
+    _check("step_verdicts", dev, commit=(commit, _BOOL, (T,)),
+           too_old=(too_old, _BOOL, (T,)), txn_valid=(txn_valid, _BOOL, (T,)),
+           eligible=(eligible, _BOOL, (T,)), overflow=(overflow, _BOOL, ()),
+           converged=(converged, _BOOL, ()))
+    scan_ptrs = (None, None, None)
+    if scan_out is not None:
+        st, comm, ovf = scan_out
+        M = st.shape[0]
+        _check("step_verdicts", dev, scan_statuses=(st, torch.int8, (M, T)),
+               scan_committed=(comm, _I32, (M,)),
+               scan_overflow=(ovf, _BOOL, (M,)))
+        if not 0 <= index < M:
+            raise FDBError("invalid_option",
+                           f"step_verdicts: index {index} not in [0, {M})")
+        scan_ptrs = (st[index].data_ptr(), comm[index].data_ptr(),
+                     ovf[index].data_ptr())
+    row = torch.empty(2 * T + 2, dtype=_I32, device=dev)
+    committed = torch.empty((), dtype=_I32, device=dev)
+    scratch = _zeroed_scratch("verdicts", 2, _I32, dev)
+    rc = library().fdb_step_verdicts(
+        commit.data_ptr(), too_old.data_ptr(), txn_valid.data_ptr(),
+        eligible.data_ptr(), overflow.data_ptr(), converged.data_ptr(), T,
+        scratch.data_ptr(), row.data_ptr(), committed.data_ptr(), *scan_ptrs,
+        _stream())
+    _launched("step_verdicts", rc)
+    return row[:T], committed, row
+
+
+PHASES = SimpleNamespace(sort_and_rank=sort_and_rank, step_masks=step_masks,
                          build_table=build_table, history_check=history_check,
                          intra_levels=intra_levels,
                          intra_sandwich=intra_sandwich,
                          merge_compact=merge_compact,
-                         legacy_sweep=legacy_sweep, rebase_table=rebase_table,
+                         legacy_sweep=legacy_sweep,
+                         step_verdicts=step_verdicts,
+                         rebase_table=rebase_table,
                          clip_ranges=clip_ranges, shard_combine=shard_combine)

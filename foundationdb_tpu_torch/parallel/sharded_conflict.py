@@ -278,6 +278,21 @@ class ShardedDeviceConflictSet:
         """One shape: no buckets, unlike the single-device engine."""
         return self.shapes
 
+    def dispatch_chunk(self, sub, commit_version: int, skip: list[bool],
+                       shapes: ConflictShapes,
+                       advance_floor: bool) -> torch.Tensor:
+        """Encode one chunk and enqueue the sharded step, eagerly: the
+        (2T+2,) int32 readback row [statuses | eligible | overflow |
+        converged] on the first shard's device."""
+        batch = self.encoder.encode_batch(sub, commit_version, skip=skip,
+                                          shapes=shapes,
+                                          advance_floor=advance_floor)
+        self._state, statuses, info = self._step(self._state, batch)
+        return torch.cat([statuses.to(torch.int32),
+                          info["eligible"].to(torch.int32),
+                          info["overflow"].to(torch.int32).reshape(1),
+                          info["converged"].to(torch.int32).reshape(1)])
+
     def warmup(self):
         self.detect([], self.encoder.base_version + 1)
 

@@ -53,16 +53,22 @@ def host_buffer(shape, dtype, device: torch.device) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
 
 
-def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+def to_device(t: torch.Tensor, device: torch.device,
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """Host tensor -> device. From a pinned buffer the copy is enqueued on
     the current stream and returns at once; the caller keeps the buffer
-    unchanged until an event recorded after this call has completed. On the
-    CPU it is the tensor itself."""
+    unchanged until an event recorded after this call has completed. With
+    `out` (a device tensor of t's shape and type) the copy lands there,
+    ordered after whatever the stream already holds that reads `out` (a
+    step graph's replay), and `out` is returned. On the CPU it is the
+    tensor itself (or `out`, filled)."""
     if device.type == "cpu":
-        return t
+        return t if out is None else out.copy_(t)
     _put_count.increment()
     _put_bytes.increment(t.numel() * t.element_size())
-    return t.to(device, non_blocking=True)
+    if out is None:
+        return t.to(device, non_blocking=True)
+    return out.copy_(t, non_blocking=True)
 
 
 def to_host_async(t: torch.Tensor):

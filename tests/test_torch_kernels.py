@@ -173,7 +173,9 @@ def _captured_phases(batches):
         intra_levels=spy("intra_levels", ref.intra_levels),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
-        legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
+        legacy_sweep=spy("legacy_blocked", ref.legacy_sweep),
+        step_masks=spy("step_masks", ref.step_masks),
+        step_verdicts=spy("step_verdicts", ref.step_verdicts))
     cs = DeviceConflictSet(device="cpu", **SMALL)
     for txns, version in batches:
         batch = cs.encoder.encode_batch(txns, version)
@@ -196,7 +198,9 @@ def test_kernels_equal_plain_versions_on_the_card(cuda):
              "history_check": (kernels.history_check, ref.history_check),
              "intra_levels": (kernels.intra_levels, ref.intra_levels),
              "intra_sandwich": (kernels.intra_sandwich, ref.intra_sandwich),
-             "merge_compact": (kernels.merge_compact, ref.merge_compact)}
+             "merge_compact": (kernels.merge_compact, ref.merge_compact),
+             "step_masks": (kernels.step_masks, ref.step_masks),
+             "step_verdicts": (kernels.step_verdicts, ref.step_verdicts)}
     for name, (kern, plain) in pairs.items():
         for a, kw in calls[name]:
             want = plain(*a, **kw)
@@ -246,7 +250,9 @@ def _bench_step_calls(T, mode, device):
         intra_levels=spy("intra_levels", ref.intra_levels),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
-        legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
+        legacy_sweep=spy("legacy_blocked", ref.legacy_sweep),
+        step_masks=spy("step_masks", ref.step_masks),
+        step_verdicts=spy("step_verdicts", ref.step_verdicts))
     for i in range(2):
         calls.clear()
         state, _s, _i = ref.conflict_step(
@@ -633,3 +639,120 @@ def test_sharded_engine_on_the_card_equals_the_plain_phases(cuda):
     got = ref.sharded_state_to_numpy(eng._state)
     for k, v in ref.sharded_state_to_numpy(plain._state).items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the step graphs and the glue kernels (K12, K13) on the card
+# ---------------------------------------------------------------------------
+
+def _bench_state_and_chunks(dev, T=256, K=4096, M=3):
+    from foundationdb_tpu_torch import bench
+    warm = bench.stage(bench._encode_batches(M, seed=1, version0=bench.WINDOW,
+                                             T=T), dev)
+    main = bench.stage(bench._encode_batches(
+        2 * M, seed=2, version0=bench.WINDOW + M * bench.VERSION_STEP, T=T),
+        dev)
+    chunks = [{k: v[i:i + M] for k, v in main.items()} for i in (0, M)]
+    return (ref.init_state(K, bench.LIMBS, dev, phases=kernels.PHASES), warm,
+            chunks)
+
+
+@pytest.mark.cuda
+def test_scan_graph_equals_the_eager_kernels_and_plain_on_the_card(cuda):
+    from foundationdb_tpu_torch import bench
+    outs = {}
+    for name, kw in (("graph", dict(graphed=True)),
+                     ("eager", dict(graphed=False)),
+                     ("plain", dict(graphed=False, phases=ref.PLAIN))):
+        state, warm, chunks = _bench_state_and_chunks(cuda)
+        ptrs = {k: v.data_ptr() for k, v in state.items()}
+        outs[name] = bench.timed_scan(state, warm, chunks, **kw)
+        assert {k: v.data_ptr() for k, v in state.items()} == ptrs
+    for name in ("eager", "plain"):
+        for a, b in zip(outs["graph"]["statuses"], outs[name]["statuses"]):
+            assert torch.equal(a, b), name
+        np.testing.assert_array_equal(outs["graph"]["committed"],
+                                      outs[name]["committed"])
+        for k, v in outs["graph"]["state"].items():
+            assert torch.equal(v, outs[name]["state"][k]), (name, k)
+
+
+@pytest.mark.cuda
+def test_engine_bucket_graphs_match_the_oracle_on_the_card(cuda):
+    rng = np.random.default_rng(3)
+    cs = DeviceConflictSet(device=cuda, **SMALL)
+    cs.warmup()
+    assert len(cs._graphs) == 4
+    assert all(g.graph is not None for g in cs._graphs.values())
+    ptrs = {k: v.data_ptr() for k, v in cs._state.items()}
+    oracle = OracleConflictSet()
+    kernels.reset_launches()
+    version = 0
+    for i in range(12):
+        version += int(rng.integers(1, 300)) * 10
+        # read snapshots strictly below the commit version, as the protocol
+        # gives them (ROADMAP C: a chunked batch's txn reading AT its commit
+        # version misses an earlier chunk's write, in the JAX engine too)
+        txns = fuzz_batch(rng, version - 1, int(rng.integers(1, 150)))
+        assert cs.detect(txns, version) == oracle.detect(txns, version), i
+    assert {k: v.data_ptr() for k, v in cs._state.items()} == ptrs
+    assert kernels.LAUNCHES["step_verdicts"] >= 12
+    for name in ("intra_sandwich", "intra_levels", "step_masks",
+                 "step_verdicts"):
+        assert kernels.LAUNCHES[name] == kernels.LAUNCHES["history_check"]
+
+
+@pytest.mark.cuda
+def test_glue_kernels_equal_plain_on_the_card(cuda):
+    rng = np.random.default_rng(2)
+    for strided in (False, True):
+        per = 2 if strided else 4
+        cs = DeviceConflictSet(device=cuda, capacity=1024, txns=64,
+                               reads_per_txn=per, writes_per_txn=per,
+                               strided=strided)
+        txns = [TxnConflictInfo(0, [point(b"a%d" % i)] * int(i % 3),
+                                [point(b"b%d" % i)] * int(i % 2))
+                for i in range(60)]
+        batch = cs.encoder.encode_batch(txns, 100)
+        NR, NW = batch["rb"].shape[1], batch["wb"].shape[1]
+        ranks = [torch.from_numpy(rng.integers(0, 6, n).astype(np.int32)).to(
+            cuda) for n in (NR, NR, NW, NW)]
+        args = (batch["rb"], batch["wb"], batch["rtxn"], batch["wtxn"],
+                *ranks, 64, strided)
+        got = kernels.step_masks(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref.step_masks(*args)):
+            assert torch.equal(a, b), strided
+    T = 1000
+    flags = [torch.from_numpy(np.random.default_rng(s).random(T) < 0.6).to(
+        cuda) for s in range(4)]
+    one = torch.tensor(True, device=cuda)
+    scan_k = (torch.zeros((2, T), dtype=torch.int8, device=cuda),
+              torch.zeros(2, dtype=torch.int32, device=cuda),
+              torch.zeros(2, dtype=torch.bool, device=cuda))
+    scan_p = tuple(t.clone() for t in scan_k)
+    got = kernels.step_verdicts(*flags, one, one, scan_out=scan_k, index=1)
+    want = ref.step_verdicts(*flags, one, one, scan_out=scan_p, index=1)
+    torch.cuda.synchronize()
+    for a, b in zip(got + scan_k, want + scan_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_leaves_the_engine_usable(cuda):
+    """A step that reads the card on the host cannot be captured: the
+    program raises FDBError (no eager fallback), and the kernels work on."""
+    from foundationdb_tpu_torch.ops.step_graph import ScanGraph
+
+    def syncing_masks(*a, **kw):
+        bool(a[0].any())  # a host read: refused while the stream captures
+        return kernels.step_masks(*a, **kw)
+    phases = type(ref.PLAIN)(**dict(vars(kernels.PHASES),
+                                    step_masks=syncing_masks))
+    state, _warm, chunks = _bench_state_and_chunks(cuda)
+    prog = ScanGraph(state, steps=3, txns=256, reads=256, writes=256,
+                     max_write_life=5_000_000, strided=True, phases=phases)
+    with pytest.raises(FDBError) as ei:
+        prog.run(chunks[0])
+    assert ei.value.name == "internal_error" and prog.graph is None
+    test_scan_graph_equals_the_eager_kernels_and_plain_on_the_card(cuda)
