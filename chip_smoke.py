@@ -17,14 +17,21 @@ Phases, each of which must pass:
      each kernel to its plain part; the phase may launch nothing but
      K6-K8, at most 8 device launches a call. Its edges: L=3, T=1 and
      T=1,000, a state that poisons, all-padding batches, long keys that
-     collapse, and endpoints that all equal state keys. K1's edges: K on
+     collapse, and endpoints that all equal state keys; K6 alone also at
+     L = 2, 5, 7 and 17 with M about its tiles' and rounds' edges, on
+     all-equal keys and at 524,294 endpoints (endpoint_sort_edge_calls). K1's edges: K on
      and off its 1,024-column tile up to 2^20 (2^19 + 1 among them); K2's:
      shuffled reads (rtxn unsorted), T=1 and T=33 with txns that have no
      reads and snapshots below the floor, all reads padding, and a
      kernel-bench step at T=32,768.
      K9 (the level geometry) field for field, also at T=1, T off a power
-     of two, all padding, shuffled owners and heavy ties, and at T=2^20
-     with one read and one write a txn (timed there too); K3 is the
+     of two, all padding, shuffled owners and heavy ties, at the span
+     path's edges (T one below, at and above a span; txns piled on span
+     edges; a pooled txn past a span's shared memory; nondecreasing owners
+     against the same owners shuffled; the span size forced to 0, 1, 5 and
+     n_levels; 2,049 spans at T=4,096: level_span_edge_calls), and at
+     T=2^20 with one read and one
+     write a txn (timed there too); K3 is the
      whole sandwich of a step: (lower, upper, converged) and its count of
      evaluations against the plain sandwich, also at rounds 0, 1 and 32,
      on a dependency chain deeper than the rounds (converged must be
@@ -60,10 +67,10 @@ Phases, each of which must pass:
      launched during the phase (launch counts are zeroed just before each
      phase and read just after), and K9, K3 and K6-K8 must have launched
      once a step (as often as K2; K12 and K13 too: a replay adds the
-     launches its graph recorded at capture). Then each kernel is held to
-     its plain
-     version
-     again on one more step from phase B's final state (K=2^20).
+     launches its graph recorded at capture); the launches of K9 that
+     took its span path and its general path are logged (`level_paths`).
+     Then each kernel is held to its plain version again on one more step
+     from phase B's final state (K=2^20).
   5. the kernel bench (foundationdb_tpu_torch/bench.py): run_kernel at
      T=16,384 (200 batches in chunks of 100, K=2^18) and T=32,768 (100 in
      chunks of 50, K=2^19: its window of history overflows 2^18), 16-byte
@@ -74,7 +81,9 @@ Phases, each of which must pass:
      pure Python), and the first timed chunk must equal a new scan graph,
      `conflict_scan` with the kernels run eagerly and with the plain phases
      on the card, statuses and the state after it; K9, K3, K6-K8, K12 and
-     K13 must have launched once a step. The timed core runs again graphed
+     K13 must have launched once a step, and every K9 launch but the
+     graph's warm-up step (an all-padding batch) must have taken its span
+     path (`kernels.level_paths`). The timed core runs again graphed
      and eagerly in turns (ms/step, txns/s and peak memory of each). The
      last step of that plain chunk is captured,
      and K1-K4 and K6-K9 are held to their plain versions on its calls (K3
@@ -111,7 +120,8 @@ Phases, each of which must pass:
      sentinel; the strided layout at T=16,384), timed at both shapes.
 
 `python3 chip_smoke.py --time-kernels` only times K1-K4, K6-K13 and bench
-steps, one of them the sharded step at W=4, and a 20-batch bench scan
+steps (cell A's traffic, phase B's, the bench at 16k and 32k, K9 at
+T=2^20), one of them the sharded step at W=4, and a 20-batch bench scan
 through its graph and eagerly (phase-free, same method for any version of
 the port: a copy of this script beside an older checkout's package times
 that checkout).
@@ -937,6 +947,98 @@ def level_edge_calls(dev):
             call(2048, 8192, "pooled", 3), call(2048, 8192, "shuffled", 3)]
 
 
+def level_span_edge_calls(dev):
+    """K9's span-path edges (`kernels.level_plan`), each call with
+    nondecreasing owners and again with the same owners shuffled (which
+    takes the general path), at spread ranks and at 3 (ties): T one below,
+    at and one above the span (4 writes and 4 reads a txn: spans of 128
+    txns), the resolver's shape (T=1,024, 4/4, pooled) with a padding tail
+    of reads, T=1; txns piled on both sides of each span edge; a pooled
+    txn past a span's shared memory (the general path however the owners
+    lie); the bench's strided shape at T=2,048; and the resolver's shape
+    with the span size forced (`span_log2` 0, the general path, 1, 5 and
+    n_levels); and T=4,096 at `span_log2` 1, 2,049 spans, each CTA of the
+    launch taking many in turn."""
+    import torch
+    g = torch.Generator().manual_seed(53)
+
+    def call(T, wt, rt, ranks, **kw):
+        rbr, rer = (torch.randint(0, ranks, (rt.numel(),), generator=g)
+                    for _ in range(2))
+        wbr, wer = (torch.randint(0, ranks, (wt.numel(),), generator=g)
+                    for _ in range(2))
+        return ((T, *(x.to(torch.int32).to(dev)
+                      for x in (wt, rt, rbr, rer, wbr, wer))), kw)
+
+    def owners(T, n, pool=None):
+        if pool is None:
+            return torch.randint(0, T, (n,), generator=g).sort().values
+        pick = torch.randint(0, pool.numel(), (n,), generator=g)
+        return pool[pick].sort().values
+
+    edges = torch.arange(128, 1024, 128)
+    piled = torch.cat([edges - 1, edges])
+    cases = []  # (T, write owners, read owners)
+    for T in (127, 128, 129, 1):
+        cases.append((T, owners(T, 4 * T), owners(T, 4 * T)))
+    wt, rt = owners(1024, 4096), owners(1024, 4096)
+    rt[-300:] = 1024
+    cases.append((1024, wt, rt))
+    cases.append((1024, owners(1024, 4096, piled),
+                  owners(1024, 4096, piled)))
+    big = torch.full((3000,), 20)
+    cases.append((64, torch.cat([owners(64, 256), big]).sort().values,
+                  torch.cat([owners(64, 256), big]).sort().values))
+    ar = torch.arange(2048)
+    cases.append((2048, ar, ar))
+    out = []
+    for T, wt, rt in cases:
+        for ranks in (8 * (wt.numel() + rt.numel()), 3):
+            out.append(call(T, wt, rt, ranks))
+            out.append(call(T, wt[torch.randperm(wt.numel(), generator=g)],
+                            rt[torch.randperm(rt.numel(), generator=g)],
+                            ranks))
+    T, wt, rt = cases[4]
+    for s in (0, 1, 5, 10):
+        out.append(call(T, wt, rt, 3 * 4096, span_log2=s))
+    ar = torch.arange(4096)
+    out.append(call(4096, ar, ar, 3 * 4096, span_log2=1))
+    return out
+
+
+def endpoint_sort_edge_calls(dev):
+    """K6's edges beyond the phase's calls: L = 2, 5, 7 and 17, M = 2 NR +
+    2 NW two below and two above its tile of 1,024 and of 8,192 (the third
+    merge round), and 25,602 (five rounds, the last tile short), on keys
+    that share their first limb and take 4 values a limb after it (ties of
+    every kind, across tiles too); 6,000 endpoints that are all one key
+    (L = 7); and 524,294 (L = 5: ten merge rounds of 1,025 merge tiles
+    each)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import kernels
+    g = torch.Generator().manual_seed(47)
+
+    def split(keys):
+        M = keys.shape[1]
+        NR = M // 4
+        NW = M // 2 - NR
+        ends = torch.split(keys, [NR, NR, NW, NW], dim=1)
+        return tuple(e.contiguous().to(dev) for e in ends), {}
+    out = []
+    for L in (2, 5, 7, 17):
+        for M in (1022, 1026, 8190, 8194, 25602):
+            keys = torch.randint(-2, 2, (L, M), generator=g,
+                                 dtype=torch.int32)
+            keys[0] = 7
+            out.append(split(keys))
+    out.append(split(torch.full((7, 6000), 5, dtype=torch.int32)))
+    keys = torch.randint(-2, 2, (5, 524_294), generator=g, dtype=torch.int32)
+    keys[0] = 7
+    out.append(split(keys))
+    return out
+
+
 def rebase_call(calls):
     """The rebase's call on a cell: the step's merged values (the table
     build's input), oldest 0, delta 2^29."""
@@ -1278,11 +1380,18 @@ def step_wrappers():
                 "merge_compact": (kernels.merge_compact, ref.merge_compact),
                 "step_masks": (kernels.step_masks, ref.step_masks),
                 "step_verdicts": (kernels.step_verdicts, ref.step_verdicts)}
-    checks = {"intra_sandwich": (counted(kernels.intra_sandwich),
+    checks = {"intra_levels": (kernels.intra_levels, plain_levels),
+              "intra_sandwich": (counted(kernels.intra_sandwich),
                                  counted(ref.intra_sandwich)),
               "step_verdicts": (with_scan_rows(kernels.step_verdicts),
                                 with_scan_rows(ref.step_verdicts))}
     return wrappers, checks
+
+
+def plain_levels(*a, span_log2=None):
+    """The plain level geometry, for calls that force K9's span size."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    return ref.intra_levels(*a)
 
 
 def with_scan_rows(verdicts, M=3):
@@ -1322,7 +1431,8 @@ def check_kernels(dev, calls, results, cell, edges=True):
     if edges:
         big_levels, big_sandwich = big_step_calls(dev)
         all_calls["intra_levels"] = calls["intra_levels"] + \
-            level_edge_calls(dev) + [big_levels]
+            level_edge_calls(dev) + level_span_edge_calls(dev) + \
+            [big_levels]
         all_calls["rebase_table"] = calls["rebase_table"] + \
             rebase_edge_calls(dev)
         all_calls["sort_and_rank"] = calls["sort_and_rank"] + \
@@ -1343,6 +1453,8 @@ def check_kernels(dev, calls, results, cell, edges=True):
                 fail(f"intra_sandwich: a {a[0].shape[0]}-deep chain "
                      f"converged in {a[7]} rounds")
     all_calls.update(sort_rank_part_calls(all_calls["sort_and_rank"]))
+    if edges:
+        all_calls["endpoint_sort"] += endpoint_sort_edge_calls(dev)
     for name, (kern, plain) in wrappers.items():
         main = calls[name][-1]
         results[name] = hold_to_plain(
@@ -1667,6 +1779,7 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     counted = ("KernelDispatches", "UnconvergedChunks")
     before = {k: kernel_metrics.as_dict()[k] for k in counted}
     kernels.reset_launches()
+    kernels.level_paths(reset=True)
     loop.run_future(proxy.spawn(drive(), "proxyDriver"), max_time=1e9)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
@@ -1674,6 +1787,7 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     if backend == "sharded":
         path += SHARD_KERNELS
     launches = {k: kernels.LAUNCHES[k] for k in path}
+    level_paths = kernels.level_paths()
     chunks, unconverged = (kernel_metrics.as_dict()[k] - before[k]
                            for k in counted)
     resolver_mod.drain_and_collect = drain
@@ -1709,6 +1823,7 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
         "boundaries": boundaries, "poisoned": poisoned,
         "chunks": chunks, "unconverged_chunks": unconverged,
         "peak_device_bytes": peak, "launches": launches,
+        "level_paths": level_paths,
         "bucket_graphs": sorted(f"{r}x{w}" for (r, w), g in graphs.items()
                                 if g.graph is not None),
         "host_share": {k: v / wall for k, v in host.items()},
@@ -1956,10 +2071,12 @@ def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    kernels.level_paths(reset=True)
     t0 = time.perf_counter()
     res = bench.run_kernel(T, n_batches, chunk, capacity=capacity,
                            device=dev, detail=detail)
     res["launches"] = {k: kernels.LAUNCHES[k] for k in STEP_KERNELS}
+    res["level_paths"] = kernels.level_paths()
     res["call_s"] = time.perf_counter() - t0
     res["boundaries_final"] = int(detail["state"]["nb"])
     res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
@@ -1968,6 +2085,13 @@ def kernel_bench_phase(dev, T, n_batches, chunk, n_oracle, capacity):
         fail(f"kernel bench T={T}: a kernel never launched: "
              f"{res['launches']}")
     once_a_step(f"kernel bench T={T}", res["launches"])
+    # the strided layout's owners are in order and no span overfills, so
+    # every K9 launch of the bench takes the span path but one: the scan
+    # graph's warm-up step before its capture runs on an all-padding
+    # batch, whose elements all fall in the last span
+    if res["level_paths"]["general"] > 1:
+        fail(f"kernel bench T={T}: K9 took the general path on bench "
+             f"batches: {res['level_paths']}")
     t0 = time.perf_counter()
     bench_oracle_check(detail, T, n_oracle)
     res["oracle_batches"] = n_oracle
@@ -2444,8 +2568,11 @@ def check_sharded_kernels(dev, calls8a, calls8c) -> dict:
 
 def time_step_kernels(dev, reps=50):
     """Device ms a call of K1-K4, K6-K9, K12, K13 and the rebase (and of
-    the whole sort-and-rank phase) on the captured calls of cell A's step
-    and of a kernel-bench step at T=16,384 (K=2^18) and T=32,768 (K=2^19),
+    the whole sort-and-rank phase) on the captured calls of cell A's step,
+    of a default-knobs step on phase B's traffic (`B_traffic`: K6, K8, K9
+    and K12 see B's batches; the state is K=65,536, not B's 2^20) and of a
+    kernel-bench step at T=16,384 (K=2^18) and T=32,768 (K=2^19), of K9
+    alone at T=2^20 (`intra_levels_t_2_20`, big_step_calls),
     and of that bench step with the kernels: every device function the
     call launches (profile_device), the step's radix-sort and cummax-scan
     share; each wrapper's host ms a call (`reps` enqueues, no sync); and
@@ -2476,9 +2603,21 @@ def time_step_kernels(dev, reps=50):
     cdf, keys = zipf_keys(20_000)
     cells = {"A": (None, None, capture_main_path_calls(dev, make_batches(
         np.random.default_rng(100), cdf, keys, 4)))}
+    # phase B's traffic (zipfian over 400,000 keys) at the default knobs:
+    # the batch-only kernels (K6, K8, K9, K12, K3) see B's inputs, the
+    # state-sized ones (K1, K2, K4, K7) K=65,536, not B's 2^20
+    cdf_b, keys_b = zipf_keys(400_000)
+    cells["B_traffic"] = (None, None, capture_main_path_calls(
+        dev, make_batches(np.random.default_rng(102), cdf_b, keys_b, 4)))
     for T, capacity in ((16384, 1 << 18), (32768, 1 << 19)):
         cells[f"bench_{T}"] = bench_step_calls(dev, T, capacity)
     out = {}
+    if hasattr(kernels, "intra_levels"):  # K9 at T = 2^20, 1 read/write
+        (big, _kw), _sandwich = big_step_calls(dev)
+        funcs, _wall = profile_device(lambda: kernels.intra_levels(*big), 5)
+        out["intra_levels_t_2_20"] = {"device_ms": busy_ms(funcs)}
+        del big, _sandwich
+        kernels.release_scratch()
     if hasattr(kernels, "clip_ranges"):
         out["sharded_bench_16384_w4"] = time_sharded_step(dev, reps)
     for cell, (state, batch, calls) in cells.items():

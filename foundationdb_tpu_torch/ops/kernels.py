@@ -51,18 +51,26 @@ still raises FDBError, as any failed launch does. K4's merge scan is a
 single-pass decoupled look-back scan over all SMs.
 
 K9 computes the scan evaluator's level geometry, every level of a step,
-in one cooperative launch: a merge sort of the writes and of the queries
-by (txn, rank, class, index), then a pass a level that writes the level's
-arrays from the two sorted run sets and merges sibling txn blocks for the
-next level (grid barriers between passes; no radix sort). `rebase_table`
-is K1 with the rebase folded into its first launch: the values are shifted
-down and saturated as they are loaded, and written out beside the table.
+in one cooperative launch, and picks its path on the card from the
+owners. Where they arrive nondecreasing (both layouts of the main path)
+and no span overfills, a CTA a span of 2^s txns (`level_plan`) does every
+level below s in shared memory with block barriers only, and the levels
+from s up are grid passes; any other input takes the general path, a
+merge sort of the writes and of the queries by (txn, rank, class, index)
+and then a grid pass a level. A grid pass bisects over samples of the
+runs in shared memory and over a short window in L2 (no radix sort).
+`level_paths` reads which path each launch took and how many grid
+barriers the last one made (counters the kernel keeps in its flag words).
+`rebase_table` is K1 with the rebase folded into its first launch: the
+values are shifted down and saturated as they are loaded, and written out
+beside the table.
 
 `sort_and_rank`, the step's first phase, is K6, K8 and K7 in turn. The
 state keys arrive sorted, so K6 sorts only the 2NR + 2NW endpoints (a
-bitonic network per 1,024-element tile in shared memory, then one
-cooperative persistent kernel that runs every merge-path round, a grid
-barrier between rounds); K8 ranks them with one decoupled look-back scan
+bitonic network per 1,024-element tile, its strides below 64 in registers
+and warp shuffles, then one cooperative persistent kernel that runs every
+merge-path round, a grid barrier between rounds, comparing 64-bit primary
+keys in shared memory); K8 ranks them with one decoupled look-back scan
 over their key-change flags; K7 merges them into the state by a
 merge-path co-rank per output position and writes the sorted union,
 `spos` and `cum_state` in one pass. That is 4 device launches (3 when
@@ -194,7 +202,7 @@ _ARGTYPES = {
     "fdb_state_merge": [_P] * 4 + [_I] * 4 + [_P] * 7,
     "fdb_endpoint_ranks": [_P, _P, _I, _I, _P, _P, _P],
     "fdb_sparse_table": [_P, _P, _I, _I, _P, _LL, _P, _P, _P, _P],
-    "fdb_intra_levels": [_P] * 6 + [_I] * 4 + [_P] * 11,
+    "fdb_intra_levels": [_P] * 6 + [_I] * 5 + [_P] * 12,
     "fdb_history_check": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                           _I, _P, _P, _P, _P, _P],
     "fdb_intra_sandwich": [_P] * 12 + [_I] * 5 + [_P] * 12,
@@ -379,7 +387,8 @@ RANK_DESC_WORDS = 4
 
 def endpoint_sort(rb, re, wb, we):
     """K6: the endpoints [rb | re | wb | we] sorted by (limbs, class,
-    index): (keys (L, M), idx (M,) int32)."""
+    index): (keys (L, M), idx (M,) int32): tiles of 1,024 sorted in shared
+    memory, then the merge rounds."""
     if not _on_cuda("endpoint_sort", rb):
         return ref.endpoint_sort(rb, re, wb, we)
     L, NR = rb.shape
@@ -572,10 +581,73 @@ def history_check(table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
 # K9 intra_levels
 # ---------------------------------------------------------------------------
 
-def intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer) -> dict:
+# elements a span of K9's span path holds in shared memory, and the
+# dynamic shared memory of a CTA (LV_SPAN_CAP and LV_SMEM in the source)
+LEVEL_SPAN_CAP = 4096
+LEVEL_SPAN_LOG2_MAX = 10  # LV_SPAN_LOG2_MAX: a span is at most 2^10 txns
+LEVEL_SMEM_BYTES = (2 * LEVEL_SPAN_CAP * 12
+                    + 4 * (2 + 5 * (1 << LEVEL_SPAN_LOG2_MAX) // 2))
+
+
+def level_plan(T: int, NW: int, NR: int, span_log2: int | None = None
+               ) -> dict:
+    """K9's launch plan for a shape: `span_log2` (s) is the largest s up to
+    n_levels and LEVEL_SPAN_LOG2_MAX at which a span of 2^s txns at the
+    shape's average load (its writes, and the queries of a span and a
+    half) fills at most a quarter of LEVEL_SPAN_CAP (the sweep of s on the
+    H100 put the least time there: a larger span runs more levels in
+    fewer CTAs); 0 turns the span path off. Levels below s run in a
+    span's CTA, the rest as grid passes. `grid_barriers` counts the span
+    path's grid barriers, `general_barriers` the general path's (the one
+    that any other input takes: shuffled owners, an overfull span); the
+    kernel counts the barriers it makes (`level_paths`), and the card
+    tests hold the two equal. `span_log2` gives the plan at a forced s."""
+    n_levels = max(1, (int(T) - 1).bit_length())
+    s = 0
+    while (s < min(n_levels, LEVEL_SPAN_LOG2_MAX)
+           and (NW + 3 * NR) * (1 << (s + 1)) <= LEVEL_SPAN_CAP // 4 * T):
+        s += 1
+    if span_log2 is not None:
+        s = int(span_log2)
+    merge_rounds = max(0, (-(-max(NW, 2 * NR, 1) // 1024) - 1).bit_length())
+    return {"n_levels": n_levels, "span_log2": s,
+            "spans": (T >> s) + 1 if s else 0,
+            "grid_levels": n_levels - s,
+            "grid_barriers": 1 + (s < n_levels) + max(0, n_levels - s - 1),
+            "general_barriers": 3 + merge_rounds + n_levels - 1,
+            "smem_bytes": LEVEL_SMEM_BYTES}
+
+
+# K9's flag words: two the kernel leaves zero, then its span-path and
+# general-path launch counters and the grid barriers of its last launch
+LEVEL_FLAG_WORDS = 5
+
+
+def level_paths(reset: bool = False) -> dict:
+    """What K9's launches did, summed over the devices it ran on: how many
+    took the span path and how many the general path (since the last
+    reset), and the grid barriers of the last launch (one device's). Reads
+    the card (a sync); `reset` zeroes the counters after reading."""
+    out = {"span": 0, "general": 0, "barriers": 0}
+    for (kind, *_rest), buf in _zeroed.items():
+        if kind != "levels_flag":
+            continue
+        span, general, barriers = (int(v) for v in buf[2:].tolist())
+        out["span"] += span
+        out["general"] += general
+        out["barriers"] = barriers
+        if reset:
+            buf[2:4].zero_()
+    return out
+
+
+def intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer, *,
+                 span_log2: int | None = None) -> dict:
     """The scan evaluator's level geometry, every level in one cooperative
     launch: {src, is_w, werl, bnd: (n_levels, M); qlo, qhi: (n_levels,
-    NR)}, equal to `conflict_ref.intra_levels` (the total order)."""
+    NR)}, equal to `conflict_ref.intra_levels` (the total order). The
+    kernel picks its path on the card from the owners; `span_log2` (s in
+    0..n_levels, 0 for the general path) overrides `level_plan`'s."""
     if not _on_cuda("intra_levels", wbr):
         return ref.intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
     NW, NR = wbr.shape[0], rbr.shape[0]
@@ -602,11 +674,14 @@ def intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer) -> dict:
     owners = _scratch("levels_owners", 2 * M, _I32, dev)
     counts = _scratch("levels_counts", 2 * (T + 2), _I32, dev)
     sync = _zeroed_scratch("levels_sync", 1, _I32, dev)
+    flag = _zeroed_scratch("levels_flag", LEVEL_FLAG_WORDS, _I32, dev)
     rc = library().fdb_intra_levels(
         wtxn_c.data_ptr(), rtxn.data_ptr(), rbr.data_ptr(), rer.data_ptr(),
-        wbr.data_ptr(), wer.data_ptr(), T, NW, NR, n_levels, keys.data_ptr(),
+        wbr.data_ptr(), wer.data_ptr(), T, NW, NR, n_levels,
+        level_plan(T, NW, NR)["span_log2"] if span_log2 is None
+        else int(span_log2), keys.data_ptr(),
         owners.data_ptr(), counts.data_ptr(), sync.data_ptr(),
-        out["src"].data_ptr(), out["is_w"].data_ptr(),
+        flag.data_ptr(), out["src"].data_ptr(), out["is_w"].data_ptr(),
         out["werl"].data_ptr(), out["bnd"].data_ptr(), out["qlo"].data_ptr(),
         out["qhi"].data_ptr(), _stream())
     _launched("intra_levels", rc)

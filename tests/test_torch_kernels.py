@@ -406,9 +406,12 @@ def test_sandwich_kernel_at_2_20_txns(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1024, 16384])
 def test_level_kernel_on_a_bench_step(cuda, T):
-    # K9 field for field against the plain geometry on a bench step's call
+    # K9 field for field against the plain geometry on a bench step's call;
+    # the strided layout's owners are in order, so each call takes the span
+    # path
     calls = _bench_step_calls(T, "scan", cuda)["intra_levels"]
     kernels.reset_launches()
+    kernels.level_paths(reset=True)
     for a, kw in calls:
         want = ref.intra_levels(*a, **kw)
         got = kernels.intra_levels(*a, **kw)
@@ -417,6 +420,7 @@ def test_level_kernel_on_a_bench_step(cuda, T):
             assert got[k].dtype == want[k].dtype
             assert torch.equal(got[k], want[k]), k
     assert kernels.LAUNCHES["intra_levels"] == len(calls) > 0
+    assert kernels.level_paths()["span"] == len(calls)
 
 
 @pytest.mark.cuda
@@ -432,6 +436,64 @@ def test_level_kernel_on_edge_inputs(cuda):
         torch.cuda.synchronize()
         for k in want:
             assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_level_kernel_span_path_equals_the_general_path(cuda):
+    # K9 at the span path's edges (chip_smoke.py's): nondecreasing owners
+    # against the same owners shuffled, a span past its shared memory, and
+    # every call again with the span size forced to 0 (the general path),
+    # 1 and n_levels: every run equal to the plain geometry
+    # the kernel's own count of its paths and grid barriers: owners out of
+    # order or s = 0 take the general path, and each path makes the grid
+    # barriers that kernels.level_plan works out
+    import chip_smoke
+    calls = chip_smoke.level_span_edge_calls(cuda)
+    kernels.reset_launches()
+    n = 0
+    for a, kw in calls:
+        want = ref.intra_levels(*a)
+        T, wtxn_c, rtxn = a[:3]
+        n_levels = want["src"].shape[0]
+        in_order = all(bool((o[1:] >= o[:-1]).all()) for o in (wtxn_c, rtxn))
+        for s in (kw.get("span_log2"), 0, 1, n_levels):
+            kernels.level_paths(reset=True)
+            got = kernels.intra_levels(*a, span_log2=s)
+            n += 1
+            torch.cuda.synchronize()
+            for k in want:
+                assert got[k].dtype == want[k].dtype
+                assert torch.equal(got[k], want[k]), (k, a[0], s)
+            paths = kernels.level_paths()
+            plan = kernels.level_plan(T, wtxn_c.numel(), rtxn.numel(), s)
+            assert paths["span"] + paths["general"] == 1
+            if not in_order or plan["span_log2"] == 0:
+                assert paths["general"] == 1, (T, s)
+            assert paths["barriers"] == plan[
+                "grid_barriers" if paths["span"] else "general_barriers"]
+    assert kernels.LAUNCHES["intra_levels"] == n
+
+
+@pytest.mark.cuda
+def test_level_kernel_refuses_a_span_past_the_levels(cuda):
+    import chip_smoke
+    (a, _kw) = chip_smoke.level_span_edge_calls(cuda)[0]
+    kernels.reset_launches()
+    with pytest.raises(FDBError):
+        kernels.intra_levels(*a, span_log2=40)
+    assert kernels.LAUNCHES["intra_levels"] == 0
+
+
+@pytest.mark.cuda
+def test_endpoint_sort_kernel_at_its_run_edges(cuda):
+    # K6 at L = 2, 5, 7, 17 with M about its run length and past three
+    # runs, ties of every kind and all-equal keys; twice, since its
+    # barrier word must be left as it was found
+    import chip_smoke
+    calls = chip_smoke.endpoint_sort_edge_calls(cuda)
+    kernels.reset_launches()
+    _equal_to_plain(kernels.endpoint_sort, ref.endpoint_sort, calls + calls)
+    assert kernels.LAUNCHES["endpoint_sort"] == 2 * len(calls)
 
 
 @pytest.mark.cuda

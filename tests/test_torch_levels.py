@@ -111,12 +111,8 @@ def port_levels(T, args, fn=ref.intra_levels):
     return fn(T, *(torch.from_numpy(a) for a in args))
 
 
-@pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("layout", ["pooled", "strided", "shuffled"])
-@pytest.mark.parametrize("T", [1, 2, 5, 32, 100])
-def test_plain_levels_equal_jax_in_the_total_order(T, layout, ties):
-    rng = np.random.default_rng(1000 * T + 10 * len(layout) + ties)
-    args = make_inputs(rng, T, layout, ties)
+def assert_port_equals_jax(T, args):
+    """The port's plain levels equal JAX's, put in the total order."""
     wtxn_c, rtxn, rbr, rer, wbr, wer = args
     NW, NR = wbr.size, rbr.size
     jax_out = jax_levels(T, args)
@@ -137,6 +133,133 @@ def test_plain_levels_equal_jax_in_the_total_order(T, layout, ties):
             np.testing.assert_array_equal(
                 port[k][l].numpy().astype(np.int64),
                 want[k].astype(np.int64), err_msg=f"level {l} {k}")
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("layout", ["pooled", "strided", "shuffled"])
+@pytest.mark.parametrize("T", [1, 2, 5, 32, 100])
+def test_plain_levels_equal_jax_in_the_total_order(T, layout, ties):
+    rng = np.random.default_rng(1000 * T + 10 * len(layout) + ties)
+    assert_port_equals_jax(T, make_inputs(rng, T, layout, ties))
+
+
+# K9's span path: a span of 2^s txns (kernels.level_plan) owns the level
+# blocks below s whose writes it holds, and reads the queries of half a
+# span past it. 64 elements a txn (16 writes, 16 reads) give s = 4.
+SPAN_PER_TXN = 16
+
+
+def span_inputs(rng, T, case, ties):
+    """(wtxn_c, rtxn, rbr, rer, wbr, wer) at the span path's edges:
+    nondecreasing owners (pooled) unless `case` says otherwise."""
+    n = SPAN_PER_TXN * T
+    wtxn = np.sort(rng.integers(0, T, n))
+    rtxn = np.sort(rng.integers(0, T, n))
+    span = 1 << kernels.level_plan(T, n, n)["span_log2"]
+    if case == "straddle":  # txns on both sides of each span edge load up
+        edges = np.arange(span, T, span)
+        heavy = np.concatenate([edges - 1, edges])
+        wtxn = np.sort(np.concatenate([wtxn[:n // 2],
+                                       rng.choice(heavy, n - n // 2)]))
+        rtxn = np.sort(np.concatenate([rtxn[:n // 2],
+                                       rng.choice(heavy, n - n // 2)]))
+    elif case == "big_txn":  # one txn past a span's shared memory
+        big = kernels.LEVEL_SPAN_CAP // 2 + 7
+        wtxn = np.sort(np.concatenate([wtxn, np.full(big, T // 2)]))
+        rtxn = np.sort(np.concatenate([rtxn, np.full(big, T // 2)]))
+    elif case == "padding_tail":  # pooled padding: reads T, writes T - 1
+        rtxn[-n // 5:] = T
+        wtxn[-n // 7:] = T - 1
+    elif case == "shuffled":
+        wtxn, rtxn = rng.permutation(wtxn), rng.permutation(rtxn)
+    elif case == "all_padding":
+        wtxn, rtxn = np.full(n, T - 1), np.full(n, T)
+    nw, nr = wtxn.size, rtxn.size
+    hi = 3 if ties else 4 * (nw + nr)
+    rbr, rer = (rng.integers(0, hi, nr) for _ in range(2))
+    wbr, wer = (rng.integers(0, hi, nw) for _ in range(2))
+    return tuple(a.astype(np.int32) for a in (wtxn, rtxn, rbr, rer, wbr,
+                                              wer))
+
+
+SPAN_CASES = {  # case -> (T, kind)
+    "T_one_below_the_span": (15, "pooled"),
+    "T_at_the_span": (16, "pooled"),
+    "T_one_above_the_span": (17, "pooled"),
+    "txns_straddling_span_edges": (64, "straddle"),
+    "pooled_txn_past_a_span": (8, "big_txn"),
+    "nondecreasing_with_padding": (48, "padding_tail"),
+    "shuffled_owners": (48, "shuffled"),
+    "all_padding": (33, "all_padding"),
+    "T_1": (1, "pooled"),
+}
+
+
+def test_span_cases_hit_the_span_edges():
+    n = SPAN_PER_TXN * 16
+    assert kernels.level_plan(16, n, n)["span_log2"] == 4
+    assert kernels.level_plan(64, 4 * n, 4 * n)["span_log2"] == 4
+    assert kernels.level_plan(64, 4 * n, 4 * n)["grid_levels"] == 2
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("case", list(SPAN_CASES))
+def test_plain_levels_equal_jax_at_the_span_edges(case, ties):
+    T, kind = SPAN_CASES[case]
+    rng = np.random.default_rng(len(case) * 7 + ties)
+    assert_port_equals_jax(T, span_inputs(rng, T, kind, ties))
+
+
+MAIN_SHAPES = {  # (T, NW, NR): cells A and B, the bench at 16k and 32k,
+    "A": (1024, 4096, 4096),   # and K9's T = 2^20 call
+    "bench_16k": (16384, 16384, 16384),
+    "bench_32k": (32768, 32768, 32768),
+    "T_2_20": (1 << 20, 1 << 20, 1 << 20),
+}
+
+
+@pytest.mark.parametrize("shape", list(MAIN_SHAPES))
+def test_level_plan_cuts_the_grid_barriers(shape):
+    T, NW, NR = MAIN_SHAPES[shape]
+    plan = kernels.level_plan(T, NW, NR)
+    s = plan["span_log2"]
+    assert 1 <= s <= plan["n_levels"] == max(1, (T - 1).bit_length())
+    # a span at the shape's average load fills at most a quarter of its
+    # room, and at most 2^10 txns
+    assert (NW + 3 * NR) * (1 << s) <= kernels.LEVEL_SPAN_CAP // 4 * T
+    assert s <= kernels.LEVEL_SPAN_LOG2_MAX
+    assert plan["smem_bytes"] <= 232_448
+    assert plan["grid_levels"] == plan["n_levels"] - s
+    assert plan["grid_barriers"] <= plan["general_barriers"] - 10
+    assert plan["spans"] == (T >> s) + 1
+
+
+def _source_defines(path):
+    """The integer #defines of a kernel source, macros expanded (sizeof of
+    the two types the sources use given in bytes)."""
+    import re
+    text = path.read_text().replace("\\\n", " ")
+    raw = dict(re.findall(r"^#define (\w+) +(.+?)(?: *//.*)?$", text, re.M))
+    out = {}
+    for name, expr in raw.items():
+        expr = (expr.replace("sizeof(unsigned long long)", "8")
+                .replace("sizeof(int)", "4").replace("/", "//"))
+        for other in sorted(out, key=len, reverse=True):
+            expr = re.sub(rf"\b{other}\b", str(out[other]), expr)
+        try:
+            out[name] = int(eval(expr, {}))
+        except (NameError, SyntaxError):
+            pass
+    return out
+
+
+def test_level_plan_constants_are_the_kernels():
+    # level_plan's span room and shared memory are the figures the K9
+    # source launches with, and that memory fits an H100 CTA's 227 KB
+    d = _source_defines(kernels.CSRC_DIR / "intra_levels.cu")
+    assert d["LV_SPAN_CAP"] == kernels.LEVEL_SPAN_CAP
+    assert d["LV_SPAN_LOG2_MAX"] == kernels.LEVEL_SPAN_LOG2_MAX
+    assert d["LV_SMEM"] == kernels.LEVEL_SMEM_BYTES <= 232_448
 
 
 @pytest.mark.parametrize("layout", ["pooled", "shuffled"])

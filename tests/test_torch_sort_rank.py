@@ -82,8 +82,11 @@ def encode(keys, key_bytes, round_up=False):
     return tkeys.encode_keys_bulk(keys, key_bytes, round_up=round_up)
 
 
-def make_case(seed, L, K, NR, NW, *, poisoned=False, long_keys=False):
-    """(bkeys, bval, rb, re, wb, we) in the JAX layout (uint32 limbs)."""
+def make_case(seed, L, K, NR, NW, *, poisoned=False, long_keys=False,
+              all_equal=False, all_state_keys=False):
+    """(bkeys, bval, rb, re, wb, we) in the JAX layout (uint32 limbs).
+    `all_equal`: every endpoint the same key; `all_state_keys`: every
+    endpoint a live state key."""
     rng = np.random.default_rng(seed)
     kb = (L - 1) * 4
     alphabet = np.frombuffer(b"abcd", np.uint8)
@@ -107,6 +110,10 @@ def make_case(seed, L, K, NR, NW, *, poisoned=False, long_keys=False):
         bval[:nb] = rng.integers(NEG, 10_000, nb)
 
     def pick(n):
+        if all_equal:
+            return [live[0]] * n
+        if all_state_keys:
+            return [live[i] for i in rng.integers(0, len(live), n)]
         ks = [space[i] for i in rng.integers(0, len(space), n)]
         # a share of the endpoints equal a live state boundary
         for i in np.flatnonzero(rng.random(n) < 0.3):
@@ -124,6 +131,11 @@ def make_case(seed, L, K, NR, NW, *, poisoned=False, long_keys=False):
                 b[i], e[i] = e[i], b[i]
     rb, re = encode(rbk, kb), encode(rek, kb, round_up=True)
     wb, we = encode(wbk, kb), encode(wek, kb, round_up=True)
+    if all_equal:  # begins and ends alike, none padding
+        return bkeys, bval, encode(rbk, kb), encode(rek, kb), \
+            encode(wbk, kb), encode(wek, kb)
+    if all_state_keys:
+        return bkeys, bval, rb, re, wb, we
     for arr in (rb, re, wb, we):  # padding endpoints
         arr[:, rng.random(arr.shape[1]) < 0.1] = PAD
     return bkeys, bval, rb, re, wb, we
@@ -136,6 +148,25 @@ CASES = {
     "L7_poisoned": dict(seed=4, L=7, K=96, NR=29, NW=31, poisoned=True),
     "L7_long_keys": dict(seed=5, L=7, K=128, NR=45, NW=40, long_keys=True),
     "L5_one_txn": dict(seed=6, L=5, K=16, NR=1, NW=1),
+    # K6 sorts tiles of 1,024 endpoints in a CTA's shared memory and
+    # merges them in rounds that double the runs: M = 2 NR + 2 NW one
+    # below and one above a tile and one below, at and one above eight (the
+    # third round), at the widths the encoder gives (L = 2 to 17, key_bytes
+    # up to 64)
+    "L2": dict(seed=7, L=2, K=64, NR=37, NW=23),
+    "L17": dict(seed=8, L=17, K=64, NR=40, NW=41),
+    "L3_tile_minus_one": dict(seed=9, L=3, K=64, NR=256, NW=255),
+    "L3_tile_plus_one": dict(seed=10, L=3, K=64, NR=256, NW=257),
+    "L5_eight_tiles_minus_one": dict(seed=11, L=5, K=64, NR=2048, NW=2047),
+    "L5_eight_tiles": dict(seed=12, L=5, K=64, NR=2048, NW=2048),
+    "L5_eight_tiles_plus_one": dict(seed=13, L=5, K=64, NR=2049, NW=2048),
+    "L7_eight_tiles_minus_one": dict(seed=14, L=7, K=64, NR=2048, NW=2047),
+    "L7_eight_tiles_plus_one": dict(seed=15, L=7, K=64, NR=2049, NW=2048),
+    "L17_eight_tiles": dict(seed=16, L=17, K=64, NR=2048, NW=2048),
+    "L7_all_equal_keys": dict(seed=17, L=7, K=64, NR=700, NW=600,
+                              all_equal=True),
+    "L5_all_state_keys": dict(seed=18, L=5, K=256, NR=300, NW=200,
+                              all_state_keys=True),
 }
 
 
