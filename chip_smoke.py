@@ -15,11 +15,18 @@ Phases, each of which must pass:
      make at most 2). The sort-and-rank phase (K6 endpoint_sort, K8
      endpoint_ranks, K7 state_merge) is held whole, all seven outputs, and
      each kernel to its plain part; the phase may launch nothing but
-     K6-K8, at most 8 device launches a call. Its edges: L=3, T=1 and
+     K6-K8, at most 4 device launches a call. Its edges: L=3, T=1 and
      T=1,000, a state that poisons, all-padding batches, long keys that
      collapse, and endpoints that all equal state keys; K6 alone also at
      L = 2, 5, 7 and 17 with M about its tiles' and rounds' edges, on
-     all-equal keys and at 524,294 endpoints (endpoint_sort_edge_calls). K1's edges: K on
+     all-equal keys and at 524,294 endpoints (endpoint_sort_edge_calls);
+     K7 alone also about its tiles of 2,048, on tiles of state alone and
+     of endpoints alone, endpoints all equal to state keys, all-equal
+     keys, L = 2, 5 and 7, M = 0 and 1,024, cell B's K=2^20 and the
+     bench's 32k shape (state_merge_edge_calls); K8 alone also at M = 1,
+     2 and about its tiles of 512, on all-equal keys, L = 2 to 17, and at
+     2,050 tiles, more than the card holds at once
+     (endpoint_ranks_edge_calls). K1's edges: K on
      and off its 1,024-column tile up to 2^20 (2^19 + 1 among them); K2's:
      shuffled reads (rtxn unsorted), T=1 and T=33 with txns that have no
      reads and snapshots below the floor, all reads padding, and a
@@ -306,7 +313,7 @@ STEP_KERNELS = SORT_KERNELS + ("step_masks", "sparse_table",
 PATH_KERNELS = STEP_KERNELS + ("rebase_table",)
 # the sharded engine's own kernels, once a chunk around the shards' steps
 SHARD_KERNELS = ("shard_clip", "shard_combine")
-SORT_RANK_MAX_LAUNCHES = 8  # device launches a call of the whole phase
+SORT_RANK_MAX_LAUNCHES = 4  # device launches a call of the whole phase
 
 
 def _device_us(evt) -> float:
@@ -1039,6 +1046,108 @@ def endpoint_sort_edge_calls(dev):
     return out
 
 
+def endpoint_ranks_edge_calls(dev):
+    """K8's edges beyond the phase's calls, as (keys, ids) calls on sorted
+    keys: M = 1 and 2; M one below, at and one above a tile of 512 and of
+    four; all keys equal; L = 2, 5, 7 and 17 with many ties; and
+    M = 1,049,089 at L = 5 (2,050 tiles: more than the card holds CTAs at
+    once, so each loops over tiles and flags them again after the
+    barrier)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    g = torch.Generator().manual_seed(61)
+
+    def call(L, M, values=4):
+        keys = torch.randint(0, values, (L, M), generator=g,
+                             dtype=torch.int32).to(dev)
+        keys[0] = 7
+        keys = keys[:, ref.lex_sort_perm(keys, torch.zeros(
+            M, dtype=torch.int32, device=dev))].contiguous()
+        ids = torch.randperm(M, generator=g).to(torch.int32).to(dev)
+        return ((keys, ids), {})
+    out = [call(5, M) for M in (1, 2, 511, 512, 513, 2047, 2048, 2049)]
+    out.append(call(7, 6000, values=1))
+    out += [call(L, 9001) for L in (2, 5, 7, 17)]
+    out.append(call(5, 2049 * 512 + 1, values=1 << 20))
+    return out
+
+
+def merge_case(dev, g, L, K, NR, NW, live=None, values=3, from_state=0.3,
+               pad=0.1):
+    """One K7 call (bkeys, bval, ekeys, eidx, NR) on `dev`: `live` sorted
+    state keys (all K by default) then a padding tail, each limb one of
+    `values` small integers (ties of every kind) or, with `values` None,
+    any int32; the endpoints drawn from the same space, a share
+    `from_state` of them equal to state keys (padding tail included), a
+    share `pad` padding, then sorted by the plain K6."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    live = K if live is None else live
+
+    def limbs(n):
+        if values is None:
+            return torch.randint(-(1 << 31), (1 << 31) - 1, (L, n),
+                                 generator=g, dtype=torch.int32)
+        return torch.randint(-(values // 2), values - values // 2, (L, n),
+                             generator=g, dtype=torch.int32)
+    keys = limbs(live).to(dev)
+    keys = keys[:, ref.lex_sort_perm(keys, torch.zeros(
+        live, dtype=torch.int32, device=dev))]
+    bkeys = torch.full((L, K), ref.PAD_LIMB, dtype=torch.int32, device=dev)
+    bkeys[:, :live] = keys
+    bval = torch.randint(ref.NEG, 10_000, (K,), generator=g,
+                         dtype=torch.int32).to(dev)
+
+    def ends(n):
+        e = limbs(n).to(dev)
+        take = (torch.rand(n, generator=g) < from_state).to(dev)
+        pick = torch.randint(0, max(K, 1), (n,), generator=g).to(dev)
+        if K:
+            e = torch.where(take[None, :], bkeys[:, pick], e)
+        padded = (torch.rand(n, generator=g) < pad).to(dev)
+        return torch.where(padded[None, :], ref.PAD_LIMB, e).contiguous()
+    ekeys, eidx = ref.endpoint_sort(ends(NR), ends(NR), ends(NW), ends(NW))
+    return ((bkeys, bval, ekeys, eidx, NR), {})
+
+
+def state_merge_edge_calls(dev):
+    """K7's edges beyond the phase's calls: N = K + M one below, at and
+    one above two tiles of 2,048 outputs; a long padding tail (tiles of
+    state alone); a tiny state (tiles of endpoints alone); every endpoint
+    a state key, live or padding, in every class; all-equal keys; L = 2, 5
+    and 7; M = 0 and M = 1,024; and the shapes of cell B (K=2^20, L=7,
+    M=16,384, ~400k live boundaries) and of the 32k bench step (K=2^19,
+    L=5, M=131,072)."""
+    import torch
+    g = torch.Generator().manual_seed(53)
+    out = [merge_case(dev, g, 5, 4096 - 400 + d, 100, 100)
+           for d in (-1, 0, 1)]
+    out += [merge_case(dev, g, 7, 20_000, 50, 50, live=3000, pad=0.0),
+            merge_case(dev, g, 5, 3, 3000, 3000),
+            merge_case(dev, g, 7, 8192, 1500, 1500, live=6000,
+                       from_state=1.0, pad=0.0),
+            merge_case(dev, g, 7, 4096, 2000, 2000, values=1, pad=0.0)]
+    out += [merge_case(dev, g, L, 10_000, 1500, 1500, values=5)
+            for L in (2, 5, 7)]
+    out += [merge_case(dev, g, 5, 5000, 0, 0),
+            merge_case(dev, g, 5, 9000, 256, 256, values=5)]
+    out += [merge_b_call(dev, g),
+            merge_case(dev, g, 5, 1 << 19, 32768, 32768, live=450_000,
+                       values=None)]
+    return out
+
+
+def merge_b_call(dev, g=None):
+    """A K7 call at cell B's shape: K=2^20 with ~400k live boundaries, L=7,
+    T=1,024 txns of 4 reads and 4 writes (M=16,384)."""
+    import torch
+    g = g or torch.Generator().manual_seed(59)
+    return merge_case(dev, g, 7, 1 << 20, 4096, 4096, live=400_000,
+                      values=None)
+
+
 def rebase_call(calls):
     """The rebase's call on a cell: the step's merged values (the table
     build's input), oldest 0, delta 2^29."""
@@ -1419,7 +1528,8 @@ def check_kernels(dev, calls, results, cell, edges=True):
     last one captured from the step (the rebase's: `rebase_call`). K13 is
     held with a scan's rows written too (`with_scan_rows`).
     The sort-and-rank phase is held whole (all seven outputs) and each of
-    its kernels to its plain part, on the calls the phase makes. K3 is
+    its kernels to its plain part, on the calls the phase makes (K7 also on
+    `state_merge_edge_calls`, K8 on `endpoint_ranks_edge_calls`). K3 is
     checked with its evaluation count; on the edge chain at 1 and 32 rounds
     it must report converged = False."""
     from foundationdb_tpu_torch.ops import conflict_ref as ref
@@ -1455,6 +1565,8 @@ def check_kernels(dev, calls, results, cell, edges=True):
     all_calls.update(sort_rank_part_calls(all_calls["sort_and_rank"]))
     if edges:
         all_calls["endpoint_sort"] += endpoint_sort_edge_calls(dev)
+        all_calls["state_merge"] += state_merge_edge_calls(dev)
+        all_calls["endpoint_ranks"] += endpoint_ranks_edge_calls(dev)
     for name, (kern, plain) in wrappers.items():
         main = calls[name][-1]
         results[name] = hold_to_plain(
@@ -2572,7 +2684,8 @@ def time_step_kernels(dev, reps=50):
     of a default-knobs step on phase B's traffic (`B_traffic`: K6, K8, K9
     and K12 see B's batches; the state is K=65,536, not B's 2^20) and of a
     kernel-bench step at T=16,384 (K=2^18) and T=32,768 (K=2^19), of K9
-    alone at T=2^20 (`intra_levels_t_2_20`, big_step_calls),
+    alone at T=2^20 (`intra_levels_t_2_20`, big_step_calls), of K7 at cell
+    B's K=2^20 (`B_k_2_20`, merge_b_call),
     and of that bench step with the kernels: every device function the
     call launches (profile_device), the step's radix-sort and cummax-scan
     share; each wrapper's host ms a call (`reps` enqueues, no sync); and
@@ -2620,6 +2733,11 @@ def time_step_kernels(dev, reps=50):
         kernels.release_scratch()
     if hasattr(kernels, "clip_ranges"):
         out["sharded_bench_16384_w4"] = time_sharded_step(dev, reps)
+    if "state_merge" in wrappers:  # K7 at cell B's K = 2^20
+        a, _kw = merge_b_call(dev)
+        funcs, _wall = profile_device(lambda: kernels.state_merge(*a), reps)
+        out["B_k_2_20"] = {"state_merge": {"device_ms": busy_ms(funcs)}}
+        del a
     for cell, (state, batch, calls) in cells.items():
         row = out[cell] = {}
         if "sort_and_rank" in calls:

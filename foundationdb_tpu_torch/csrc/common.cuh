@@ -39,9 +39,18 @@ __device__ __forceinline__ int fdb_key_cmp(const int32_t* a, long long sa,
 
 // fdb_key_cmp with the limbs loaded W at a time: a comparison that reaches
 // limb l waits for l / W + 1 loads instead of l + 1, for keys where equal
-// limbs are common. With CG the loads bypass L1 (__ldcg), for global memory
-// that other CTAs may have written earlier in the same launch.
-template <int W, bool CG = false>
+// limbs are common. With SELECTS every load of a batch is needed whatever
+// the earlier limbs hold, so the W loads issue together: a limb past L
+// loads limb L - 1 again (in bounds, and equal whenever the comparison
+// gets that far), and the batch is reduced by selects. Without it a limb
+// past L is not loaded and the first limb that differs returns. Which is
+// faster depends on the caller, so each call site takes the one measured
+// faster on the H100: K7's probes (nvcc sank each limb's load into the
+// branch of the early return there, a dependent round trip a limb) and
+// K6's shared-memory merge take SELECTS, K6's warp-wide co-rank search
+// does not. With CG the loads bypass L1 (__ldcg), for global memory that
+// other CTAs may have written earlier in the same launch.
+template <int W, bool CG = false, bool SELECTS = true>
 __device__ __forceinline__ int fdb_key_cmp_wide(const int32_t* a,
                                                 long long sa,
                                                 const int32_t* b,
@@ -50,15 +59,26 @@ __device__ __forceinline__ int fdb_key_cmp_wide(const int32_t* a,
     int32_t x[W], y[W];
 #pragma unroll
     for (int u = 0; u < W; ++u) {
-      const bool in = l0 + u < L;
-      const int32_t* pa = a + (l0 + u) * sa;
-      const int32_t* pb = b + (l0 + u) * sb;
+      const bool in = SELECTS || l0 + u < L;
+      const int l = SELECTS ? min(l0 + u, L - 1) : l0 + u;
+      const int32_t* pa = a + l * sa;
+      const int32_t* pb = b + l * sb;
       x[u] = in ? (CG ? __ldcg(pa) : *pa) : 0;
       y[u] = in ? (CG ? __ldcg(pb) : *pb) : 0;
     }
+    if (SELECTS) {
+      int r = 0;
 #pragma unroll
-    for (int u = 0; u < W; ++u)
-      if (x[u] != y[u]) return x[u] < y[u] ? -1 : 1;
+      for (int u = 0; u < W; ++u) {
+        const int d = (x[u] > y[u]) - (x[u] < y[u]);
+        r = r != 0 ? r : d;
+      }
+      if (r != 0) return r;
+    } else {
+#pragma unroll
+      for (int u = 0; u < W; ++u)
+        if (x[u] != y[u]) return x[u] < y[u] ? -1 : 1;
+    }
   }
   return 0;
 }

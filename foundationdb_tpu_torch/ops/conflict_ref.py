@@ -427,8 +427,10 @@ def state_merge(bkeys, bval, ekeys, eidx, NR: int):
     cls = torch.cat([torch.ones(K, dtype=_I32, device=dev), ecls])
     perm = lex_sort_perm(allk, cls)
     from_state = perm < K
-    sidx = torch.where(from_state, perm,
-                       K + eidx.to(torch.int64)[(perm - K).clamp(min=0)])
+    # one spare id, so that the gather is in range when M is 0
+    ids = torch.cat([eidx.to(torch.int64),
+                     torch.zeros(1, dtype=torch.int64, device=dev)])
+    sidx = torch.where(from_state, perm, K + ids[(perm - K).clamp(min=0)])
     sval = torch.where(from_state, bval[perm.clamp(max=K - 1)], NEG)
     spos = torch.empty(N, dtype=_I32, device=dev)
     spos.scatter_(0, sidx, torch.arange(N, dtype=_I32, device=dev))

@@ -70,11 +70,14 @@ state keys arrive sorted, so K6 sorts only the 2NR + 2NW endpoints (a
 bitonic network per 1,024-element tile, its strides below 64 in registers
 and warp shuffles, then one cooperative persistent kernel that runs every
 merge-path round, a grid barrier between rounds, comparing 64-bit primary
-keys in shared memory); K8 ranks them with one decoupled look-back scan
-over their key-change flags; K7 merges them into the state by a
-merge-path co-rank per output position and writes the sorted union,
-`spos` and `cum_state` in one pass. That is 4 device launches (3 when
-M <= 1,024), in place of about 40 torch launches.
+keys in shared memory); K8 ranks them in one cooperative launch (each
+tile's key changes as warp ballots, its count, one grid barrier, then
+each tile's prefix from the counts before it); K7 merges them into the
+state, a CTA a tile of 512 to 2,048 outputs: the tile's two co-ranks by
+a few rounds of probes in global memory, both slices to shared memory by
+cp.async, a run of outputs a thread merged with two fingers, and the
+sorted union, `spos` and `cum_state` written in one pass. That is 4 device
+launches (3 when M <= 1,024), in place of about 40 torch launches.
 
 The sharded engine (parallel/sharded_conflict.py) runs a chunk as one K10
 launch, the step of each shard, then one K11 launch. K10 writes every
@@ -200,7 +203,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "fdb_endpoint_sort": [_P] * 4 + [_I] * 3 + [_P] * 6,
     "fdb_state_merge": [_P] * 4 + [_I] * 4 + [_P] * 7,
-    "fdb_endpoint_ranks": [_P, _P, _I, _I, _P, _P, _P],
+    "fdb_endpoint_ranks": [_P, _P, _I, _I, _P, _P, _P, _P],
     "fdb_sparse_table": [_P, _P, _I, _I, _P, _LL, _P, _P, _P, _P],
     "fdb_intra_levels": [_P] * 6 + [_I] * 5 + [_P] * 12,
     "fdb_history_check": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
@@ -379,10 +382,8 @@ _I32, _BOOL = torch.int32, torch.bool
 # K6-K8 sort_and_rank
 # ---------------------------------------------------------------------------
 
-# endpoints a tile of K8's rank scan holds and int32 per tile descriptor
-# (RANK_TILE and RANK_DESC_WORDS in the source)
-RANK_TILE = 2048
-RANK_DESC_WORDS = 4
+# endpoints a tile of K8 (RANK_TILE in the source)
+RANK_TILE = 512
 
 
 def endpoint_sort(rb, re, wb, we):
@@ -425,13 +426,16 @@ def endpoint_ranks(ekeys, eidx):
     qranks = torch.empty(M, dtype=_I32, device=dev)
     if M == 0:
         return qranks
-    desc = _zeroed_scratch("rank_desc", RANK_DESC_WORDS * -(-M // RANK_TILE)
-                           + 2, _I32, dev)
+    counts = _scratch("rank_counts", -(-M // RANK_TILE), _I32, dev)
+    sync = _zeroed_scratch("rank_sync", 1, _I32, dev)
     rc = library().fdb_endpoint_ranks(ekeys.data_ptr(), eidx.data_ptr(), L,
-                                      M, desc.data_ptr(), qranks.data_ptr(),
-                                      _stream())
+                                      M, counts.data_ptr(), sync.data_ptr(),
+                                      qranks.data_ptr(), _stream())
     _launched("endpoint_ranks", rc)
     return qranks
+
+
+MERGE_MAX_LIMBS = 17  # SM_MAX_LIMBS in the source: 64-byte keys
 
 
 def state_merge(bkeys, bval, ekeys, eidx, NR: int):
@@ -443,6 +447,9 @@ def state_merge(bkeys, bval, ekeys, eidx, NR: int):
     M = eidx.shape[0]
     N = K + M
     dev = bkeys.device
+    if not 1 <= L <= MERGE_MAX_LIMBS:
+        raise FDBError("invalid_option",
+                       f"state_merge: L={L} (at most {MERGE_MAX_LIMBS})")
     if NR < 0 or M < 2 * NR or (M - 2 * NR) % 2:
         raise FDBError("invalid_option",
                        f"state_merge: M={M} is not 2 NR + 2 NW (NR={NR})")

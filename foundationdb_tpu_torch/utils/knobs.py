@@ -35,6 +35,14 @@ class Knobs:
             return values[name]
         raise AttributeError(name)
 
+    def __setattr__(self, name: str, value: Any):
+        # `KNOBS.X = v` is `KNOBS.set("X", v)`: an instance attribute would
+        # shadow `__getattr__` and outlive `reset()`
+        if name.startswith("_"):
+            object.__setattr__(self, name, value)
+        else:
+            self.set(name, value)
+
     def set(self, name: str, value: Any):
         if name not in self._defs:
             raise KeyError(f"unknown knob: {name}")

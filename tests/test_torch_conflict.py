@@ -364,6 +364,21 @@ def test_deep_parity_fuzz(seed, jax_engine):
 # device choice, wrappers, import isolation
 # ---------------------------------------------------------------------------
 
+def test_knob_assignment_is_a_set_that_reset_undoes():
+    # an assignment used to become an instance attribute that shadowed the
+    # bank and outlived reset(), so it leaked into later tests of a worker
+    TKNOBS.CONFLICT_INTRA_MODE = "legacy"
+    assert TKNOBS.CONFLICT_INTRA_MODE == "legacy"
+    TKNOBS.reset()
+    assert TKNOBS.CONFLICT_INTRA_MODE == "scan"
+    TKNOBS.set("CONFLICT_INTRA_MODE", "dense")
+    with pytest.raises(FDBError) as ei:
+        DeviceConflictSet(device="cpu", capacity=1024, txns=8)
+    assert ei.value.name == "invalid_option"
+    with pytest.raises(KeyError):
+        TKNOBS.NO_SUCH_KNOB = 1
+
+
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert TKNOBS.CONFLICT_DEVICE == "cuda"

@@ -296,6 +296,7 @@ def _equal_to_plain(kern, plain, calls):
         torch.cuda.synchronize()
         want = want if isinstance(want, tuple) else (want,)
         got = got if isinstance(got, tuple) else (got,)
+        assert len(got) == len(want)
         for w, g in zip(want, got):
             assert torch.equal(g, w)
 
@@ -524,8 +525,12 @@ def test_sort_and_rank_kernels_equal_the_plain_phase(cuda):
     # K6-K8 against the plain phase on chip_smoke.py's edge calls (L=3,
     # T=1 and 1,000, a poisoned state, an all-padding batch, endpoints all
     # equal to state keys, long keys that collapse) and on a bench step
-    # at T=16,384; each part against its plain part; K8's scratch is left
-    # zero, so each call again gives the same answer
+    # at T=16,384; each part against its plain part, K7 also on
+    # state_merge_edge_calls (tile edges, tiles of state or endpoints
+    # alone, all-equal keys, L = 2, 5, 7, M = 0 and 1,024, K=2^20 and the
+    # 32k shape) and K8 on endpoint_ranks_edge_calls (more tiles than the
+    # card holds CTAs at once); each call twice, since K8's barrier word
+    # must be left as it found it
     import chip_smoke
     calls = chip_smoke.sort_rank_edge_calls(cuda)
     calls += _bench_step_calls(16384, "scan", cuda)["sort_and_rank"]
@@ -533,15 +538,17 @@ def test_sort_and_rank_kernels_equal_the_plain_phase(cuda):
     _equal_to_plain(kernels.sort_and_rank, ref.sort_and_rank, calls + calls)
     for part in SORT_KERNELS:
         assert kernels.LAUNCHES[part] == 2 * len(calls)
+    merges = chip_smoke.state_merge_edge_calls(cuda)
+    ranks = chip_smoke.endpoint_ranks_edge_calls(cuda)
     for a, _kw in calls:
         ends = a[2:]
         _equal_to_plain(kernels.endpoint_sort, ref.endpoint_sort,
                         [(ends, {})])
         ekeys, eidx = ref.endpoint_sort(*ends)
-        _equal_to_plain(kernels.endpoint_ranks, ref.endpoint_ranks,
-                        [((ekeys, eidx), {})])
-        _equal_to_plain(kernels.state_merge, ref.state_merge,
-                        [((*a[:2], ekeys, eidx, ends[0].shape[1]), {})])
+        ranks.append(((ekeys, eidx), {}))
+        merges.append(((*a[:2], ekeys, eidx, ends[0].shape[1]), {}))
+    _equal_to_plain(kernels.endpoint_ranks, ref.endpoint_ranks, ranks + ranks)
+    _equal_to_plain(kernels.state_merge, ref.state_merge, merges)
 
 
 def _merge_calls(device, capacity, txns, batches):

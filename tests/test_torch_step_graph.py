@@ -448,7 +448,7 @@ def test_programs_refuse_the_legacy_evaluator_and_a_cpu_graph(kind):
 
 
 def test_legacy_engine_runs_eagerly_and_matches_the_oracle():
-    TKNOBS.CONFLICT_INTRA_MODE = "legacy"
+    TKNOBS.set("CONFLICT_INTRA_MODE", "legacy")
     cs = DeviceConflictSet(device="cpu", capacity=512, txns=16,
                            reads_per_txn=2, writes_per_txn=2)
     assert cs._graph(cs.shapes) is None
