@@ -53,9 +53,14 @@ Phases, each of which must pass:
      then the engine's chunks through its bucket CUDA graphs against the
      eager kernel step and the plain step, readback row and state for
      state, over a small trajectory that overflows and rebases, its state
-     buffers unmoved; K5
-     (the legacy evaluator) on the calls of one legacy step at the kernel
-     bench's T=16,384; and each probe at the Pallas scripts' shapes;
+     buffers unmoved; K5 (the legacy evaluator's whole fixpoint in one
+     launch: commit, converged and its count of evaluations) on the calls
+     of two legacy steps at the kernel bench's T=16,384 and of one at the
+     bench's warmed state, and on edges (dependency chains of 64, 1,000
+     and 4,097 txns, reads and writes shuffled, T=1, no reads, no writes,
+     no eligible txn, random pooled owners), and its one-evaluation launch
+     on every evaluation's input of those steps; and each probe at the
+     Pallas scripts' shapes;
   4. the resolver role: the port's Resolver (CONFLICT_BACKEND=device,
      CONFLICT_DEVICE=cuda) in the port's EventLoop/SimNetwork answers
      chained ResolveTransactionBatchRequests from a proxy-like driver actor,
@@ -103,10 +108,14 @@ Phases, each of which must pass:
      six `ablate` modes through their graphs, each mode's run equal to
      the plain step with the same `ablate`, verdicts and state.
   6. the evaluator A/B: run_kernel_ab(16,384, 8), scan against legacy,
-     with equal statuses on every batch;
+     each through its one-step scan graph, with equal statuses on every
+     batch and K5 launched once a legacy step (and once for the capture's
+     warm-up step);
   7. the probes' main (ops/probes.py), the Pallas scripts' top level;
   8. the sharded engine (parallel/sharded_conflict.py), every shard on the
-     one card: 8a the engine at the default knobs with W=4 shards over 80
+     one card, each chunk one replay of its CUDA graph (`ShardedStepGraph`:
+     K10, the W shard steps, K11; the engine reports `graphed`, which must
+     be true): 8a the engine at the default knobs with W=4 shards over 80
      batches of phase A's zipfian mix (the keys 16-byte hashes, whose first
      4 bytes, where the engine cuts, differ), one 2^29 version jump (every
      shard rebases) and the load check at batch 64, which must re-cut;
@@ -118,7 +127,9 @@ Phases, each of which must pass:
      CONFLICT_BACKEND=sharded (CONFLICT_DEVICE=cuda, CONFLICT_NUM_SHARDS=0:
      width 1 on one card) serving phase A's 40 batches, every reply equal
      to the oracle; 8c run_sharded_kernel(16,384, 50, W) at W=1 and W=4
-     (K=2^18 a shard, strided, 24-byte spread keys), no overflow, the first
+     (K=2^18 a shard, strided, 24-byte spread keys), no overflow, then the
+     same run with the chunk eager, every batch and the final state equal
+     between the two, the first
      timed batch equal to the plain phases state for state, and at W=1
      every batch equal to the unsharded step; then the step's kernels held
      to their plain versions on 8a's calls (ties at the cuts), and K10
@@ -126,9 +137,15 @@ Phases, each of which must pass:
      edges (W = 1, 2, 4, 8; T=1; all padding; endpoints at the cuts and the
      sentinel; the strided layout at T=16,384), timed at both shapes.
 
-`python3 chip_smoke.py --time-kernels` only times K1-K4, K6-K13 and bench
-steps (cell A's traffic, phase B's, the bench at 16k and 32k, K9 at
-T=2^20), one of them the sharded step at W=4, and a 20-batch bench scan
+`python3 chip_smoke.py --serve-cells` only serves phase 4's cells A and B
+(each reply checked against the oracle) and prints their numbers.
+`python3 chip_smoke.py --time-kernels` only times K1-K13 and bench steps
+(cell A's traffic, phase B's, the bench at 16k and 32k, K9 at T=2^20):
+K5's whole fixpoint and one evaluation at the bench's warmed state and
+on phase 6's eight steps, and run_kernel_ab(16,384, 8); K10 and K11
+(device, wall, host, and K11 replayed alone in a graph) on the sharded
+step at W=1 and W=4, and the sharded bench's ms/batch with the chunk
+graphed and eager in turns at W=1 and W=4; and a 20-batch bench scan
 through its graph and eagerly (phase-free, same method for any version of
 the port: a copy of this script beside an older checkout's package times
 that checkout).
@@ -290,6 +307,7 @@ DEVICE_FUNCTIONS = {
     "merge_compact": ("merge_prep_kernel", "merge_scan_kernel",
                       "merge_fill_kernel"),
     "legacy_blocked": ("legacy_kernel",),
+    "legacy_sweep": ("legacy_kernel",),
     "shard_clip": ("shard_clip_kernel",),
     "shard_combine": ("shard_combine_kernel",),
     "step_masks": ("step_masks_kernel",),
@@ -442,14 +460,19 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         nbytes = (N * (L + 4) * 4 + 2 * L * NW * 4 + NW * 4 + T
                   + (L + 1) * K * 4)
         return float(nbytes), float(N * (2 * L + 24) + K * L)
-    if name == "legacy_blocked":
-        c, g, wtxn, rtxn, w_ok, r_ok = args[:6]
-        T, NW, NR = c.shape[0], wtxn.shape[0], rtxn.shape[0]
-        # every live read is tested against every committed live write
-        # (4 integer ops a pair); each input read once, the output written
-        active = int((w_ok & c[wtxn.clamp(max=T - 1).long()]).sum())
-        nbytes = 3 * T + NW * 13 + NR * 13
-        return float(nbytes), float(4 * active * int(r_ok.sum()))
+    if name in ("legacy_blocked", "legacy_sweep"):
+        # the fixpoint (g, ...) or one evaluation (c, g, ...): each input
+        # read once, the output (and the fixpoint's converged flag)
+        # written once; 4 integer operations a (write, read) pair that an
+        # evaluation needs: the write active in its input, the read live
+        # (r_ok, its txn eligible), the write's txn before the read's
+        g = args[0] if name == "legacy_blocked" else args[1]
+        T = g.shape[0]
+        NW, NR = args[-8].shape[0], args[-7].shape[0]
+        nbytes = (2 if name == "legacy_blocked" else 3) * T + 1 \
+            + NW * 13 + NR * 13
+        return float(nbytes), float(4 * sum(
+            legacy_pairs(c, *args[-9:]) for c in legacy_inputs(name, args)))
     if name == "shard_clip":
         # the endpoints read once and written once a shard, the cuts read;
         # up to L limb comparisons a column and shard
@@ -476,9 +499,10 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         # per shard the statuses (4 B) and eligible (1 B) of every txn and
         # three scalars read, txn_valid read; the combined vectors and
         # scalars written; a min and an and a txn and shard
+        # (the row, eligible, two scalars and two flags)
         statuses, _el, _ov, _bd, _cv, txn_valid = args
         W, T = len(statuses), txn_valid.shape[0]
-        return float(W * (5 * T + 6) + T + 5 * T + 10), float(2 * W * T + T)
+        return float(W * (5 * T + 6) + T + 9 * T + 18), float(2 * W * T + T)
     if name == "probe_add":
         (x,) = args
         return 8.0 * x.numel(), float(x.numel())
@@ -502,6 +526,34 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         return 4.0 * (x.numel() + kw["rows"] * x.shape[1] + 1), \
             float(kw["rows"] * x.shape[1])
     raise KeyError(name)
+
+
+def legacy_inputs(name, args) -> list:
+    """The committed sets each evaluation of this K5 call takes as its
+    input: the call's c for one evaluation (`legacy_sweep`), and every
+    evaluation's input of the plain fixpoint for the whole fixpoint."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    if name == "legacy_sweep":
+        return [args[0]]
+    seen = []
+
+    def sweep(c):
+        seen.append(c)
+        return ref.legacy_sweep(c, *args)
+    ref.run_legacy(sweep, args[0])
+    return seen
+
+
+def legacy_pairs(c, g, wtxn, rtxn, w_ok, r_ok, *_ranks) -> int:
+    """(write, read) pairs one evaluation of f on `c` needs: the write
+    active (w_ok, its txn in c), the read live (r_ok, its txn in g), the
+    write's txn before the read's."""
+    import torch
+    T = g.shape[0]
+    act = w_ok & (wtxn < T) & c[wtxn.clamp(0, T - 1).long()]
+    live = r_ok & (rtxn < T) & g[rtxn.clamp(0, T - 1).long()]
+    owners = torch.sort(wtxn[act]).values
+    return int(torch.searchsorted(owners, rtxn[live]).sum())
 
 
 def sort_rank_work(name, args) -> tuple[float, float]:
@@ -590,9 +642,10 @@ def lexjoin_operations(state, queries, limbs: int) -> float:
 def library_call(name: str, args, kw=None):
     """One PyTorch yardstick for the same function, or None: for the
     sparse table, the level doubling with max_pool1d (NEG padding); for
-    the legacy evaluator, torch.mv of the materialised (NR, NW) overlap
-    matrix in fp16 with the committed-write vector (the matrix is built
-    once, outside the timed call); for add, torch.add; for the stream
+    one evaluation of the legacy evaluator (`legacy_sweep`), torch.mv of
+    the materialised (NR, NW) overlap matrix in fp16 with the
+    committed-write vector (the matrix is built once, outside the timed
+    call; no one call computes the whole fixpoint); for add, torch.add; for the stream
     probes, torch.amax over the rows (the probes' data lies below 2^31, so
     the signed max is the unsigned one); for the endpoint ranks,
     torch.unique over the endpoint keys in endpoint order (put back in that
@@ -623,7 +676,7 @@ def library_call(name: str, args, kw=None):
         from foundationdb_tpu_torch.ops import conflict_ref as ref
         packed = ref.level_sort_keys(*args)
         return lambda: torch.sort(packed, dim=1, stable=True)
-    if name == "legacy_blocked":
+    if name == "legacy_sweep":
         c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer = args
         T = c.shape[0]
         overlap_t = ((wbr[None, :] < rer[:, None])
@@ -700,7 +753,10 @@ def spied_phases(calls: dict, dev, last_step_only=False, record=None,
             if last_step_only and name == "sort_and_rank":
                 calls.clear()
             if record is None or record["on"]:
-                calls.setdefault(name, []).append(clone_to((a, kw), dev))
+                # not `out`: a kernel and its plain version held to each
+                # other on a call must not write into the same tensors
+                calls.setdefault(name, []).append(clone_to(
+                    (a, {k: v for k, v in kw.items() if k != "out"}), dev))
             return fn(*a, **kw)
         return wrapped
     phases = SimpleNamespace(
@@ -709,8 +765,11 @@ def spied_phases(calls: dict, dev, last_step_only=False, record=None,
         intra_levels=spy("intra_levels", ref.intra_levels),
         intra_sandwich=spy("intra_sandwich",
                            sandwich or ref.intra_sandwich),
-        merge_compact=spy("merge_compact", ref.merge_compact),
-        legacy_sweep=spy("legacy_blocked", ref.legacy_sweep))
+        merge_compact=spy("merge_compact", ref.merge_compact))
+    if hasattr(ref, "legacy_fixpoint"):  # K5 as the whole fixpoint
+        phases.legacy_fixpoint = spy("legacy_blocked", ref.legacy_fixpoint)
+    else:
+        phases.legacy_sweep = spy("legacy_blocked", ref.legacy_sweep)
     if hasattr(ref, "sort_and_rank"):  # a package older than K6-K8 lacks it
         phases.sort_and_rank = spy("sort_and_rank", ref.sort_and_rank)
     if hasattr(ref, "clip_ranges"):  # older than the sharded engine
@@ -873,10 +932,11 @@ def history_edge_calls(dev):
     return out
 
 
-def bench_step_calls(dev, T, capacity, warm_batches=12):
+def bench_step_calls(dev, T, capacity, warm_batches=12, intra_mode="scan"):
     """A kernel-bench state after `warm_batches` strided batches of T txns
     (the bench's traffic, run with the kernels), the next batch, and that
-    step's phase calls with the plain phases."""
+    step's phase calls with the plain phases and `intra_mode`'s
+    evaluator."""
     from foundationdb_tpu_torch import bench
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     from foundationdb_tpu_torch.ops import kernels
@@ -889,8 +949,76 @@ def bench_step_calls(dev, T, capacity, warm_batches=12):
     batch = {k: v[warm_batches] for k, v in batches.items()}
     calls: dict = {}
     ref.conflict_step(state, batch, max_write_life=bench.WINDOW, strided=True,
-                      phases=spied_phases(calls, dev))
+                      intra_mode=intra_mode, phases=spied_phases(calls, dev))
     return state, batch, calls
+
+
+def legacy_chain_args(dev, T=64):
+    """The legacy fixpoint's inputs for a dependency chain through all T
+    txns (txn t reads the key txn t - 1 writes, `chain_sandwich_args`' ranks):
+    the committed set alternates, and the fixpoint needs about an
+    evaluation a txn."""
+    import torch
+    ar = torch.arange(T, dtype=torch.int32, device=dev)
+    ok = torch.ones(T, dtype=torch.bool, device=dev)
+    return (ok, ar, ar, ok, ok, ar + 1, ar + 2, ar, ar + 1)
+
+
+def legacy_edge_calls(dev, bench_call):
+    """K5's edge inputs (fixpoint arguments): the chain at T = 64, 1,000
+    and 4,097 (many bodies; tiles about the chain's diagonal); the chain
+    and `bench_call` with their reads shuffled and their writes shuffled
+    (owners in no order); T = 1; no reads; no writes; no eligible txn;
+    random pooled owners with repeats and padding over few ranks (many
+    overlaps)."""
+    import torch
+    g = torch.Generator().manual_seed(71)
+    out = [(legacy_chain_args(dev, T), {}) for T in (64, 1000, 4097)]
+
+    def shuffled(a, reads):
+        a = list(a)
+        idx = (2, 4, 7, 8) if reads else (1, 3, 5, 6)
+        n = a[idx[0]].shape[0]
+        perm = torch.randperm(n, generator=g).to(dev)
+        for i in idx:
+            a[i] = a[i][perm].contiguous()
+        return tuple(a)
+    for base in (legacy_chain_args(dev, 1000), bench_call[0]):
+        out += [(shuffled(base, True), {}), (shuffled(base, False), {}),
+                (shuffled(shuffled(base, True), False), {})]
+    chain = legacy_chain_args(dev, 300)
+    out.append((legacy_chain_args(dev, 1), {}))
+    out.append((tuple(x[:0] if i in (2, 4, 7, 8) else x
+                      for i, x in enumerate(chain)), {}))
+    out.append((tuple(x[:0] if i in (1, 3, 5, 6) else x
+                      for i, x in enumerate(chain)), {}))
+    out.append(((torch.zeros_like(chain[0]),) + chain[1:], {}))
+    for T, NW, NR in ((700, 2100, 1900), (64, 4096, 4096)):
+        def owners(n):
+            return torch.randint(0, T + 1, (n,), generator=g,
+                                 dtype=torch.int32).to(dev)
+
+        def ranks(n):
+            b = torch.randint(0, 40, (n,), generator=g, dtype=torch.int32)
+            return b.to(dev), (b + torch.randint(0, 5, (n,), generator=g,
+                                                 dtype=torch.int32)).to(dev)
+        wt, rt = owners(NW), owners(NR)
+        (wb, we), (rb, re) = ranks(NW), ranks(NR)
+        elig = (torch.rand(T, generator=g) < 0.9).to(dev)
+        out.append(((elig, wt, rt, (wt < T) & (wb < we), (rt < T) & (rb < re),
+                     wb, we, rb, re), {}))
+    return out
+
+
+def counted_legacy(fixpoint):
+    """A legacy fixpoint function that also returns its evaluation
+    count."""
+    import torch
+
+    def run(*a, **kw):
+        n = torch.zeros((), dtype=torch.int32, device=a[0].device)
+        return tuple(fixpoint(*a, **kw, evals=n)) + (n,)
+    return run
 
 
 def chain_sandwich_args(dev, T=128):
@@ -1412,7 +1540,10 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
     torch.cuda.synchronize()
     plain_ms = time_cuda(lambda: plain(*a, **kw), max(reps // 5, 5))
     lib = library_call(name, a, kw)
-    lib_ms = time_cuda(lib, reps) if lib is not None else None
+    lib_ms = lib_device_ms = None
+    if lib is not None:  # its wall time a call, and its device time
+        lib_ms = time_cuda(lib, reps)
+        lib_device_ms = busy_ms(profile_device(lib, reps)[0])
     del lib
     # device time and launches a call
     device_ms = launches_per_call = functions_ms = traced = None
@@ -1448,6 +1579,7 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
         f"kernel_ms={ms:.4f} "
         f"(device-only {device_ms}) plain_ms={plain_ms:.4f} "
         f"bound_ms={b_ms:.5f} ({b_by}) library_ms={lib_ms} "
+        f"(device-only {lib_device_ms}) "
         f"host_ms={host_ms:.4f} device launches a call={launches_per_call}")
     if name == "sparse_table" and (launches_per_call or 0) > 2:
         fail(f"sparse_table: {launches_per_call} device launches a call "
@@ -1466,6 +1598,7 @@ def hold_to_plain(name, kern, plain, calls, main_call, cell, reps=50,
             "functions_ms": functions_ms, **extra,
             "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
+            "library_device_ms": lib_device_ms,
             "bytes": nbytes, "operations": nops}
 
 
@@ -1588,31 +1721,69 @@ def check_kernels(dev, calls, results, cell, edges=True):
             sandwich_evaluations(big_sandwich[0])
 
 
-def check_legacy(dev, results, T=16384):
-    """K5 against its plain version on every evaluation of one legacy step
-    at the kernel bench's shape (T=16,384, strided, K=2^18), one batch
-    into the bench's A/B trajectory; the plain version materialises the
-    (NW, NR) matrix."""
+def legacy_ab_calls(dev, T=16384, n=2, per_step=False):
+    """The K5 calls of the first `n` steps of phase 6's trajectory
+    (`run_kernel_ab`'s batches, T=16,384, strided, K=2^18), with the plain
+    phases: a list, or with `per_step` a list a step."""
     from foundationdb_tpu_torch import bench
     from foundationdb_tpu_torch.ops import conflict_ref as ref
-    from foundationdb_tpu_torch.ops import kernels
-    batches = bench.stage(bench._encode_batches(2, seed=3,
+    batches = bench.stage(bench._encode_batches(n, seed=3,
                                                 version0=bench.WINDOW, T=T),
                           dev)
     state = ref.init_state(bench.CAPACITY, bench.LIMBS, dev)
-    calls: dict = {}
-    for i in range(2):
-        calls.clear()
+    steps = []
+    for i in range(n):
+        calls: dict = {}
         state, _st, _info = ref.conflict_step(
             state, {k: v[i] for k, v in batches.items()},
             max_write_life=bench.WINDOW, intra_mode="legacy", strided=True,
             phases=spied_phases(calls, dev))
-    legacy = calls["legacy_blocked"]
-    results["legacy_blocked"] = hold_to_plain(
-        "legacy_blocked", kernels.legacy_sweep, ref.legacy_sweep, legacy,
-        legacy[-1], f"bench T={T}", reps=20)
-    results["legacy_blocked"]["evaluations"] = len(legacy)
-    del calls, legacy, batches, state
+        steps.append(calls["legacy_blocked"])
+    return steps if per_step else [c for step in steps for c in step]
+
+
+def check_legacy(dev, results, T=16384):
+    """K5 against its plain version: the whole fixpoint (commit, converged
+    and its count of evaluations) on the calls of two legacy steps at the
+    kernel bench's shape (phase 6's first two batches, T=16,384, strided,
+    K=2^18), of a legacy step at the bench's warmed state, and on the
+    edges (`legacy_edge_calls`); one evaluation (`legacy_sweep`) on every
+    evaluation's input of those steps' fixpoints. The plain version
+    materialises the (NW, NR) matrix. Timed on the second step's call."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    calls = legacy_ab_calls(dev, T)
+    _state, _batch, warmed = bench_step_calls(dev, T, 1 << 18,
+                                              intra_mode="legacy")
+    calls += warmed["legacy_blocked"]
+    del _state, _batch, warmed
+    sweeps = [((c, *a), kw) for a, kw in calls
+              for c in legacy_inputs("legacy_blocked", a)]
+    main = calls[1]
+    res = results["legacy_blocked"] = hold_to_plain(
+        "legacy_blocked", kernels.legacy_fixpoint, ref.legacy_fixpoint,
+        calls + legacy_edge_calls(dev, main), main, f"bench T={T}", reps=20,
+        check=(counted_legacy(kernels.legacy_fixpoint),
+               counted_legacy(ref.legacy_fixpoint)))
+    n = torch.zeros((), dtype=torch.int32, device=dev)
+    kernels.legacy_fixpoint(*main[0], evals=n)
+    res["evaluations"] = int(n)
+    res["per_evaluation"] = hold_to_plain(
+        "legacy_sweep", kernels.legacy_sweep, ref.legacy_sweep, sweeps,
+        sweeps[len(legacy_inputs("legacy_blocked", calls[0][0]))],
+        f"bench T={T} one evaluation", reps=20)
+    res["per_evaluation"]["checked_evaluations"] = len(sweeps)
+    res["ms_per_evaluation"] = res["ms"] / res["evaluations"]
+    res["device_ms_per_evaluation"] = (res["device_ms"] / res["evaluations"]
+                                       if res["device_ms"] else None)
+    for a, _kw in calls:
+        kernels.legacy_fixpoint(*a, evals=n)
+        if int(n) != len(legacy_inputs("legacy_blocked", a)):
+            fail(f"legacy_blocked: {int(n)} evaluations, the plain fixpoint "
+                 f"{len(legacy_inputs('legacy_blocked', a))}")
+    del calls, sweeps, main
 
 
 def check_probes(dev, results):
@@ -1936,6 +2107,7 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
         "chunks": chunks, "unconverged_chunks": unconverged,
         "peak_device_bytes": peak, "launches": launches,
         "level_paths": level_paths,
+        "graphed": getattr(resolver.conflict_set, "graphed", None),
         "bucket_graphs": sorted(f"{r}x{w}" for (r, w), g in graphs.items()
                                 if g.graph is not None),
         "host_share": {k: v / wall for k, v in host.items()},
@@ -1952,6 +2124,8 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
     once_a_step(f"phase {name}", launches)
     if backend == "device" and not out["bucket_graphs"]:
         fail(f"phase {name}: the resolver served through no bucket graph")
+    if backend == "sharded" and not out["graphed"]:
+        fail(f"phase {name}: the sharded engine's chunk is not graphed")
     for k in SHARD_KERNELS if backend == "sharded" else ():
         if launches[k] != chunks:
             fail(f"phase {name}: {launches[k]} {k} launches for {chunks} "
@@ -2269,15 +2443,17 @@ def ablate_phase(dev, T=16384, n_batches=10):
     return out
 
 
-def ab_phase(dev, T=16384):
-    """Phase 6: scan against legacy at T=16,384 over 8 batches; equal
-    statuses on every batch, and K5 launched."""
+def ab_phase(dev, T=16384, n_batches=8):
+    """Phase 6: scan against legacy at T=16,384 over 8 batches, each
+    evaluator through its one-step scan graph; equal statuses on every
+    batch, and K5 launched once a step (the whole fixpoint) and once for
+    the capture's warm-up step."""
     from foundationdb_tpu_torch import bench
     from foundationdb_tpu_torch.ops import kernels
     from foundationdb_tpu_torch.utils.knobs import KNOBS
     KNOBS.reset()
     kernels.reset_launches()
-    out = bench.run_kernel_ab(T, 8, device=dev)
+    out = bench.run_kernel_ab(T, n_batches, device=dev)
     out["launches"] = {k: kernels.LAUNCHES[k]
                        for k in STEP_KERNELS + ("legacy_blocked",)}
     log("evaluator A/B: " + json.dumps(out))
@@ -2285,6 +2461,11 @@ def ab_phase(dev, T=16384):
         fail("evaluator A/B: scan and legacy statuses differ")
     if any(v <= 0 for v in out["launches"].values()):
         fail(f"evaluator A/B: a kernel never launched: {out['launches']}")
+    if not out["graphed"]:
+        fail("evaluator A/B: the steps did not run through their graphs")
+    if out["launches"]["legacy_blocked"] != n_batches + 1:
+        fail(f"evaluator A/B: {out['launches']['legacy_blocked']} K5 "
+             f"launches for {n_batches} legacy steps and a warm-up step")
     return out
 
 
@@ -2338,12 +2519,12 @@ def shard_oracle_detect(oracles, cuts, txns, version):
 
 
 def flat_combine(fn):
-    """K11 or its plain version, returning (statuses, *info) flat."""
+    """K11 or its plain version, returning (statuses, *info, row) flat."""
     def run(*a, **kw):
-        st, info = fn(*a, **kw)
+        st, info, row = fn(*a, **kw)
         if list(info) != list(INFO_FIELDS):
             fail(f"shard_combine: info fields {list(info)}")
-        return (st, *info.values())
+        return (st, *info.values(), row)
     return run
 
 
@@ -2457,7 +2638,8 @@ def sharded_engine_phase(dev, seed):
     T=1,024, 4 point reads and 4 point writes a txn), W=4 shards on the one
     card, over SHARDED_BATCHES batches of phase A's zipfian mix over 20,000
     keys (16-byte hashes: see `zipf_keys`), batch SHARDED_JUMP_AT's
-    version 2^29 further (every shard rebases). Every batch must equal the
+    version 2^29 further (every shard rebases). Every chunk must be one
+    replay of the engine's chunk graph (`graphed`). Every batch must equal the
     same engine with the plain phases on the card (its sandwich stopping at
     the pinch, `pinch_read_sandwich`), and every batch before
     the first rebalance the clipped-oracle model; the load check at batch
@@ -2489,6 +2671,10 @@ def sharded_engine_phase(dev, seed):
         devices=[dev] * W, phases=spied_phases(calls, dev, record=record,
                                                sandwich=pinch_read_sandwich))
     eng = ShardedDeviceConflictSet(devices=[dev] * W)
+    if not eng.graphed or plain.graphed:
+        fail(f"phase 8a: the engine's chunk graphed={eng.graphed}, the "
+             f"plain engine's {plain.graphed} (want True, False)")
+    eng._program.capture()  # before the counts are zeroed, as a warmup
     cuts0 = list(eng.cut_bytes)
     oracles = [OracleConflictSet() for _ in range(W)]
 
@@ -2527,6 +2713,7 @@ def sharded_engine_phase(dev, seed):
                  f"plain phases after the last batch")
     n_txns = sum(len(b[2]) for b in batches)
     out = {"shards": W, "batches": len(batches), "txns": n_txns,
+           "graphed": eng.graphed,
            "chunks": chunks, "unconverged_chunks": unconverged,
            "rebalances": eng.rebalances, "first_recut_batch": first_recut,
            "cuts_before": [c.hex() for c in cuts0],
@@ -2563,10 +2750,13 @@ def sharded_engine_phase(dev, seed):
 def sharded_bench_phase(dev, W):
     """8c at one width: run_sharded_kernel(16,384, SHARDED_BENCH_BATCHES, W)
     with every shard on the card (K=2^18 a shard, strided, 24-byte spread
-    keys). No shard may overflow; the first timed batch must equal the
-    sharded step with the plain phases on the card, state for state; at W
-    = 1 every timed batch's statuses must equal the unsharded step with
-    the kernels. Returns the numbers and the plain step's K10 and K11
+    keys), a batch a replay of the chunk's graph, then the same run with
+    the chunk eager (`graphed=False`, its ms/batch beside the graph's).
+    No shard may overflow; every batch's statuses and the final state must
+    equal between the two; the first timed batch must equal the sharded
+    step with the plain phases on the card, state for state; at W = 1
+    every timed batch's statuses must equal the unsharded step with the
+    kernels. Returns the numbers and the plain step's K10 and K11
     calls."""
     import torch
 
@@ -2589,13 +2779,32 @@ def sharded_bench_phase(dev, W):
     res["call_s"] = time.perf_counter() - t0
     res["launches"] = {k: kernels.LAUNCHES[k]
                        for k in STEP_KERNELS + SHARD_KERNELS}
+    if not res["graphed"]:
+        fail(f"phase 8c W={W}: the sharded chunk did not run as a graph")
+    eager_detail: dict = {}
+    eager = bench.run_sharded_kernel(T, SHARDED_BENCH_BATCHES, W,
+                                     devices=[dev] * W, graphed=False,
+                                     detail=eager_detail)
+    res["eager_ms_per_batch"] = eager["ms_per_batch"]
+    for i, (a, b) in enumerate(zip(detail["statuses"],
+                                   eager_detail["statuses"])):
+        if not torch.equal(a, b):
+            fail(f"phase 8c W={W}: batch {i}'s statuses differ between the "
+                 f"graph and the eager chunk")
+    want_np = ref.sharded_state_to_numpy(eager_detail["state"])
+    for k, v in ref.sharded_state_to_numpy(detail["state"]).items():
+        if not np.array_equal(want_np[k], v):
+            fail(f"phase 8c W={W}: state[{k}] differs between the graph and "
+                 f"the eager chunk")
+    del eager_detail, want_np
     res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     res["boundaries_final"] = [int(s["nb"]) for s in detail["state"]["shards"]]
     if W > 1:
         res["note"] = (f"{W} shards share one card: about {W} steps a "
                        f"batch, the cost of sharding, not its scaling")
     log(f"phase 8c W={W}: " + json.dumps(res))
-    steps = SHARDED_BENCH_BATCHES + 1
+    # the warm-up batch, the timed ones and the capture's warm-up step
+    steps = SHARDED_BENCH_BATCHES + 2
     for k, n in res["launches"].items():
         # K1 also built each shard's empty table
         want = steps if k in SHARD_KERNELS else W * steps
@@ -2690,9 +2899,11 @@ def time_step_kernels(dev, reps=50):
     call launches (profile_device), the step's radix-sort and cummax-scan
     share; each wrapper's host ms a call (`reps` enqueues, no sync); and
     ms a step of a 20-batch bench scan through its graph and eagerly
-    (`time_scan_graph`). K6-K8, K9, the rebase, K12-K13 and the graphs are
-    timed where the package has them, so a copy of this script beside an
-    older checkout's package times that checkout alike."""
+    (`time_scan_graph`). Then K5 (`time_legacy`), K10 and K11 at W = 1
+    and 4 (`time_sharded_step`) and the sharded chunk graphed and eager
+    (`time_sharded_chunk`). K6-K8, K9, the rebase, K10-K13 and the graphs
+    are timed where the package has them, so a copy of this script beside
+    an older checkout's package times that checkout alike."""
     import torch
 
     from foundationdb_tpu_torch import bench
@@ -2731,8 +2942,11 @@ def time_step_kernels(dev, reps=50):
         out["intra_levels_t_2_20"] = {"device_ms": busy_ms(funcs)}
         del big, _sandwich
         kernels.release_scratch()
+    out["legacy"] = time_legacy(dev)
     if hasattr(kernels, "clip_ranges"):
-        out["sharded_bench_16384_w4"] = time_sharded_step(dev, reps)
+        for W in (1, SHARDED_W):
+            out[f"sharded_bench_16384_w{W}"] = time_sharded_step(dev, reps, W)
+        out["sharded_chunk_16384"] = time_sharded_chunk(dev)
     if "state_merge" in wrappers:  # K7 at cell B's K = 2^20
         a, _kw = merge_b_call(dev)
         funcs, _wall = profile_device(lambda: kernels.state_merge(*a), reps)
@@ -2804,11 +3018,100 @@ def time_scan_graph(dev, state, T, M=20, reps=3,
     return {f"{label}_ms_per_step": v for label, v in out.items()}
 
 
+def legacy_fixpoint_args(call):
+    """The fixpoint's arguments (g, wtxn, ...) from a recorded K5 call: the
+    fixpoint's own, or, for a package whose K5 is one evaluation, its
+    step's first evaluation (c = g, then the same arguments)."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    a, _kw = call
+    return a if hasattr(ref, "legacy_fixpoint") else a[1:]
+
+
+def time_legacy(dev, T=16384, reps=20):
+    """K5 at T=16,384 (strided, K=2^18): the whole fixpoint of a legacy
+    step and one evaluation of f (its first, c = g): device ms
+    (profile_device), wall ms (CUDA events a call) and host ms; on the
+    legacy step at the bench's warmed state (`bench_16384`) and on phase
+    6's eight steps (`ab_16384`, summed; each step's fixpoint from the
+    plain trajectory); then `run_kernel_ab(16384, 8)` itself
+    (`legacy_ms_per_step`, through its graph where the package has one).
+    For a package whose K5 is one evaluation, the fixpoint is
+    `run_legacy` over it, as that package's step ran it: launches and a
+    host read a body."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+    KNOBS.reset()
+    if hasattr(kernels, "legacy_fixpoint"):
+        fixpoint = kernels.legacy_fixpoint
+    else:
+        def fixpoint(*a):
+            return ref.run_legacy(lambda c: kernels.legacy_sweep(c, *a),
+                                  a[0])
+
+    def timed(fn, n):
+        funcs, _wall = profile_device(fn, n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        return {"device_ms": busy_ms(funcs), "ms": time_cuda(fn, n),
+                "host_ms": host_ms,
+                "launches_per_call": sum(v[1] for v in funcs.values())}
+
+    def one(args):
+        return {"evaluations": len(legacy_inputs("legacy_blocked", args)),
+                "fixpoint": timed(lambda: fixpoint(*args), reps),
+                "evaluation": timed(
+                    lambda: kernels.legacy_sweep(args[0], *args), reps)}
+    out = {}
+    _state, _batch, calls = bench_step_calls(dev, T, 1 << 18,
+                                             intra_mode="legacy")
+    out["bench_16384"] = one(legacy_fixpoint_args(calls["legacy_blocked"][0]))
+    del _state, _batch, calls
+    per = [one(legacy_fixpoint_args(step[0]))  # each step's first K5 call
+           for step in legacy_ab_calls(dev, T, 8, per_step=True)]
+    out["ab_16384"] = {
+        "steps": len(per),
+        "evaluations": [p["evaluations"] for p in per],
+        **{f"{k}_{f}_sum": sum(p[k][f] for p in per)
+           for k in ("fixpoint", "evaluation") for f in ("device_ms", "ms")}}
+    out["run_kernel_ab"] = bench.run_kernel_ab(T, 8, device=dev)
+    return out
+
+
+def time_sharded_chunk(dev, T=SHARDED_BENCH_T, n=20,
+                       rounds=("graph", "eager", "eager", "graph")):
+    """ms a batch of `run_sharded_kernel(16,384, n, W)` at W = 1 and 4 on
+    the card, the chunk graphed and eager in turns (a package without the
+    chunk graph runs its eager chunk only)."""
+    import inspect
+
+    from foundationdb_tpu_torch import bench
+    has_graph = "graphed" in inspect.signature(
+        bench.run_sharded_kernel).parameters
+    out = {}
+    for W in (1, SHARDED_W):
+        row = out[f"w{W}"] = {}
+        for label in rounds if has_graph else ("eager", "eager"):
+            kw = {"graphed": label == "graph"} if has_graph else {}
+            res = bench.run_sharded_kernel(T, n, W, devices=[dev] * W, **kw)
+            row.setdefault(f"{label}_ms_per_batch", []).append(
+                res["ms_per_batch"])
+    return out
+
+
 def time_sharded_step(dev, reps, W=SHARDED_W, T=SHARDED_BENCH_T):
-    """K10's and K11's device and host ms a call on the calls of one
+    """K10's and K11's device, wall and host ms a call on the calls of one
     sharded bench step (W shards on the card, T=16,384, K=2^18 a shard,
-    after two batches), and that whole step's device ms with the
-    kernels."""
+    after two batches), K11's wall ms a call replayed alone in a CUDA
+    graph, and that whole step's device ms with the kernels, run
+    eagerly."""
     import torch
 
     from foundationdb_tpu_torch import bench
@@ -2842,12 +3145,33 @@ def time_sharded_step(dev, reps, W=SHARDED_W, T=SHARDED_BENCH_T):
             kern(*a, **kw)
         host_ms = (time.perf_counter() - t0) / reps * 1e3
         torch.cuda.synchronize()
-        out[name] = {"device_ms": busy_ms(funcs), "host_ms": host_ms}
+        out[name] = {"device_ms": busy_ms(funcs), "host_ms": host_ms,
+                     "ms": time_cuda(lambda: kern(*a, **kw), reps)}
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kern(*a, **kw)  # its scratch exists before the capture
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            kern(*a, **kw)
+        out[name]["graph_ms"] = time_cuda(graph.replay, reps)
+        del graph
     step = sharded_conflict_step([dev] * W, shapes, bench.WINDOW, "scan",
                                  T // 2 + 1)
     funcs, wall = profile_device(lambda: step(state, batch), 5)
     out["step"] = {"device_ms": busy_ms(funcs), "wall_ms": wall / 5 * 1e3}
     return out
+
+
+def serve_cells(dev, seed):
+    """Phase 4's cells through the resolver: A at the default knobs, its
+    versions jumping 2^29 halfway; B at K=2^20 after YCSB's load phase,
+    cut to 48 batches. [(name, serve_phase's result)]."""
+    return [("A", serve_phase("A", dev, 1 << 16, PHASE_A_BATCHES, 20_000,
+                              seed + 1, jump_at=PHASE_A_BATCHES // 2)),
+            ("B", serve_phase("B", dev, 1 << 20, PHASE_B_BATCHES, 400_000,
+                              seed + 2, n_load=PHASE_B_LOAD_BATCHES))]
 
 
 # ---------------------------------------------------------------------------
@@ -2857,9 +3181,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
     ap.add_argument("--time-kernels", action="store_true",
-                    help="only time K1-K4, K6-K13 and bench steps on the "
-                         "card (time_step_kernels), print them as JSON and "
-                         "exit")
+                    help="only time K1-K13, bench steps and the sharded "
+                         "chunk on the card (time_step_kernels), print them "
+                         "as JSON and exit")
+    ap.add_argument("--serve-cells", action="store_true",
+                    help="only serve cells A and B through the resolver "
+                         "(phase 4, oracle-checked), print their numbers as "
+                         "JSON and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -2897,6 +3225,14 @@ def main(argv=None) -> int:
         print(json.dumps({"card": card, "source_digest": digest,
                           "device_ms": time_step_kernels(dev)}), flush=True)
         return 0
+    if args.serve_cells:
+        cells = {name: {k: out[k] for k in (
+            "txns_per_s", "batch_latency_ms_p50", "batch_latency_ms_p99",
+            "wall_s", "chunks", "launches", "host_share")}
+            for name, (out, _cs, _next) in serve_cells(dev, args.seed)}
+        print(json.dumps({"card": card, "source_digest": digest,
+                          "cells": cells}), flush=True)
+        return 0
     report["build"] = {"seconds": build_s,
                        "library": kernels.BUILD_INFO.get("library")}
     log(f"build: {build_s:.1f} s ({kernels.BUILD_INFO.get('library')})")
@@ -2924,12 +3260,8 @@ def main(argv=None) -> int:
     # phase, cut to 48 batches (196,608 of its 400,000 keys), so its state
     # holds about 400k boundaries; then every kernel is held to its plain
     # version again at B's shapes (K=2^20), from B's final state
-    phase_a, _cs, _next = serve_phase("A", dev, 1 << 16, PHASE_A_BATCHES,
-                                      20_000, args.seed + 1,
-                                      jump_at=PHASE_A_BATCHES // 2)
-    phase_b, cs_b, next_b = serve_phase("B", dev, 1 << 20, PHASE_B_BATCHES,
-                                        400_000, args.seed + 2,
-                                        n_load=PHASE_B_LOAD_BATCHES)
+    (_a, (phase_a, _cs, _next)), (_b, (phase_b, cs_b, next_b)) = \
+        serve_cells(dev, args.seed)
     report["phases"] = [phase_a, phase_b]
     kres_b: dict = {}
     check_kernels(dev, capture_calls_from(dev, cs_b, next_b), kres_b, "B",
@@ -2976,7 +3308,8 @@ def main(argv=None) -> int:
     kres.update({k: kres8[k] for k in SHARD_KERNELS})
 
     timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                   "library_ms", "host_ms", "launches_per_call")
+                   "library_ms", "library_device_ms", "host_ms",
+                   "launches_per_call")
     kernels_line = []
     for name, (source, replaces) in kernels.KERNELS.items():
         r = kres[name]
@@ -3003,7 +3336,11 @@ def main(argv=None) -> int:
             entry["max_abs_err"] = max(errs)
         elif name == "legacy_blocked":
             entry["launches"] = ab["launches"][name]
-            entry["max_abs_err"] = r["max_abs_err"]
+            entry["max_abs_err"] = max(r["max_abs_err"],
+                                       r["per_evaluation"]["max_abs_err"])
+            entry["evaluations"] = r["evaluations"]
+            entry["per_evaluation"] = {k: r["per_evaluation"][k]
+                                       for k in timing_keys}
         else:
             entry["launches"] = probe_run["launches"][name]
             entry["max_abs_err"] = r["max_abs_err"]

@@ -26,9 +26,12 @@ SkipList algorithm (native/skiplist_baseline.c) is compiled with the host's
 
 `run_sharded_kernel` (bench.py:295-400) times the sharded engine's step
 (parallel/sharded_conflict.py) the same way, a batch a dispatch, on keys
-spread over the first limb so that every shard gets traffic. On one card
-its W shards share the card: W = 4 is then about four steps a batch, which
-measures the cost of sharding, not its scaling.
+spread over the first limb so that every shard gets traffic: each batch is
+one replay of the sharded chunk's CUDA graph (`ShardedStepGraph`: K10, the
+W shard steps, K11) from a packed batch buffer, or the same chunk run
+eagerly (`graphed=False`). On one card its W shards share the card: W = 4
+is then about four steps a batch, which measures the cost of sharding, not
+its scaling.
 
 There is no CPU fallback: `run_kernel`, `run_kernel_ab` and
 `run_sharded_kernel` run on CUDA unless the caller passes device="cpu" (or
@@ -60,9 +63,11 @@ import torch
 from foundationdb_tpu_torch.ops import conflict_ref as ref
 from foundationdb_tpu_torch.ops import kernels
 from foundationdb_tpu_torch.ops.conflict import ConflictShapes
-from foundationdb_tpu_torch.ops.step_graph import ScanGraph
+from foundationdb_tpu_torch.ops.step_graph import (ScanGraph, batch_layout,
+                                                   batch_views)
 from foundationdb_tpu_torch.parallel.sharded_conflict import (
-    init_sharded_state, make_resolver_mesh, sharded_conflict_step)
+    ShardedStepGraph, clone_sharded_state, graph_fits, init_sharded_state,
+    make_resolver_mesh)
 from foundationdb_tpu_torch.utils import cudaenv
 from foundationdb_tpu_torch.utils import keys as keylib
 from foundationdb_tpu_torch.utils.errors import FDBError
@@ -161,11 +166,11 @@ def _sync(device: torch.device):
 
 
 def _scan_program(state: dict, steps: int, T: int, graphed: bool, phases,
-                  ablate: str = "") -> ScanGraph:
+                  ablate: str = "", intra_mode: str = "scan") -> ScanGraph:
     return ScanGraph(state, steps=steps, txns=T, reads=T, writes=T,
                      max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
-                     strided=True, ablate=ablate, phases=phases,
-                     graphed=graphed)
+                     strided=True, ablate=ablate, intra_mode=intra_mode,
+                     phases=phases, graphed=graphed)
 
 
 def timed_scan(state: dict, warm: dict, chunks: list[dict], *,
@@ -263,10 +268,11 @@ def run_kernel_ab(T: int, n_batches: int = 8, capacity: int | None = None,
                   device=None) -> dict:
     """The intra-batch evaluators side by side at one batch size: "scan"
     (per-level prefix scans, bounded sweeps) against "legacy" (every
-    write/read pair, a fixpoint read on the host), over the same staged
-    batches and state trajectory. Reports ms/step of each (the first step,
-    which fills the window, is not timed) and whether the two gave equal
-    statuses on every batch."""
+    write/read pair, the fixpoint in one K5 launch), over the same staged
+    batches and state trajectory, each step one replay of its evaluator's
+    one-step scan graph on the card. Reports ms/step of each (the first
+    step, which fills the window, is not timed) and whether the two gave
+    equal statuses on every batch."""
     dev = cudaenv.resolve_device("cuda" if device is None else device)
     if n_batches < 2:
         raise ValueError("run_kernel_ab times n_batches - 1 steps: give >= 2")
@@ -275,27 +281,17 @@ def run_kernel_ab(T: int, n_batches: int = 8, capacity: int | None = None,
                     dev)
     staged = [{k: v[i] for k, v in batches.items()} for i in range(n_batches)]
     out = {"txns_per_batch": T, "batches": n_batches, "device": str(dev)}
-    statuses = {}
-    life = KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS
+    statuses, graphs = {}, []
     for mode in ref.INTRA_MODES:
         state = ref.init_state(K, LIMBS, dev, phases=kernels.PHASES)
-        if mode == "scan":
-            # one step a dispatch: a one-step scan graph on the card
-            prog = _scan_program(state, 1, T, dev.type == "cuda",
-                                 kernels.PHASES)
-            prog.capture()
+        # one step a dispatch: a one-step scan graph on the card
+        prog = _scan_program(state, 1, T, dev.type == "cuda", kernels.PHASES,
+                             intra_mode=mode)
+        prog.capture()
+        graphs.append(prog.graph is not None)
 
-            def step(b):  # the graph's output: copied before the next
-                return prog.run({k: v[None] for k, v in b.items()})[0][0] \
-                    .clone()
-        else:
-            # the legacy fixpoint reads its test on the host every round
-            # (run_legacy), so it cannot be captured: it runs eagerly
-            def step(b):
-                _s, st, _i = ref.conflict_step(
-                    state, b, max_write_life=life, intra_mode="legacy",
-                    strided=True, phases=kernels.PHASES, out=state)
-                return st
+        def step(b):  # the graph's output: copied before the next
+            return prog.run({k: v[None] for k, v in b.items()})[0][0].clone()
         sts = []
         for i, b in enumerate(staged):
             if i == 1:
@@ -306,6 +302,7 @@ def run_kernel_ab(T: int, n_batches: int = 8, capacity: int | None = None,
         out[mode + "_ms_per_step"] = (1e3 * (time.perf_counter() - t0)
                                       / max(1, n_batches - 1))
         statuses[mode] = torch.stack(sts)
+    out["graphed"] = all(graphs)  # both evaluators' programs captured
     out["step_time_reduction"] = (out["legacy_ms_per_step"]
                                   / out["scan_ms_per_step"])
     out["statuses_equal"] = bool(torch.equal(statuses["scan"],
@@ -357,15 +354,35 @@ def _encode_spread_batches(n_batches: int, seed: int, version0: int,
     }
 
 
+def pack_batches(stacked: dict, L: int, T: int, NR: int, NW: int
+                 ) -> np.ndarray:
+    """Stacked numpy batches (leading axis n) -> (n, size) int32 packed
+    batch buffers (`step_graph.batch_layout`)."""
+    layout, size = batch_layout(L, T, NR, NW)
+    n = stacked["snapshot"].shape[0]
+    out = np.zeros((n, size), dtype=np.int32)
+    for i in range(n):
+        views = batch_views(out[i], layout)
+        for k, v in views.items():
+            v[...] = stacked[k][i]
+    return out
+
+
 def run_sharded_kernel(T: int, n_batches: int, n_shards: int,
                        capacity: int | None = None, devices=None,
+                       graphed: bool | None = None,
                        detail: dict | None = None) -> dict:
     """The sharded step over `n_shards` shards (`devices`, one a shard; by
     default cards 0..n_shards-1, which raises invalid_option past the
     attached cards): a warm-up batch, then `n_batches` timed batches, a
     batch a dispatch, full sandwich rounds (T // 2 + 1, as the engine), one
-    host sync at the end. Raises internal_error if a shard overflowed.
-    `detail`, if given, receives the staged batches, the statuses of every
+    host sync at the end. Each batch is staged on the first device as a
+    packed buffer and copied into the `ShardedStepGraph`'s own. `graphed`
+    (default: where the engine would, `graph_fits`) makes each dispatch
+    one replay, the graph captured before the warm-up batch, outside the
+    clock; `graphed=False` runs it eagerly (the yardstick). Raises
+    internal_error if a shard overflowed. `detail`, if given, receives the
+    staged batches (views of the packed buffers), the statuses of every
     timed batch and the states after the warm-up, after the first timed
     batch and at the end."""
     devices = ([cudaenv.resolve_device(d) for d in devices] if devices
@@ -375,36 +392,49 @@ def run_sharded_kernel(T: int, n_batches: int, n_shards: int,
     K = capacity or CAPACITY
     shapes = ConflictShapes(capacity=K, txns=T, reads=T, writes=T,
                             key_bytes=keylib.KEY_BYTES, strided=True)
-    step = sharded_conflict_step(
-        devices, shapes, KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS, "scan",
-        T // 2 + 1)
     dev = devices[0]
-    warm = {k: v[0] for k, v in stage(
-        _encode_spread_batches(1, seed=1, version0=WINDOW, T=T), dev).items()}
-    main = stage(_encode_spread_batches(
-        n_batches, seed=2, version0=WINDOW + VERSION_STEP, T=T), dev)
-    staged = [{k: v[i] for k, v in main.items()} for i in range(n_batches)]
+    if graphed is None:
+        graphed = graph_fits(devices, kernels.PHASES)
+    L = shapes.limbs
+    layout, _size = batch_layout(L, T, T, T)
+    warm = torch.from_numpy(pack_batches(_encode_spread_batches(
+        1, seed=1, version0=WINDOW, T=T), L, T, T, T)).to(dev)[0]
+    main = torch.from_numpy(pack_batches(_encode_spread_batches(
+        n_batches, seed=2, version0=WINDOW + VERSION_STEP, T=T), L, T, T,
+        T)).to(dev)
     state = init_sharded_state(shapes, devices)
-    state, _st, warm_info = step(state, warm)  # the first window fill
+    prog = ShardedStepGraph(
+        state, txns=T, reads=T, writes=T,
+        max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
+        intra_rounds=T // 2 + 1, strided=True, graphed=graphed)
+    prog.capture()
+    prog.buffer.copy_(warm)
+    _row, warm_info = prog.run()  # the first window fill
+    warm_overflow = bool(warm_info["overflow"])
     for d in dict.fromkeys(devices):
         _sync(d)
-    after_warm, after_first = state, None
+    after_warm = clone_sharded_state(state) if detail is not None else None
+    after_first = None
+    rows = torch.empty((n_batches, 2 * T + 2), dtype=torch.int32, device=dev)
+    comms = torch.empty(n_batches, dtype=torch.int32, device=dev)
     t0 = time.perf_counter()
-    statuses, comms, ovfs = [], [], []
-    for i, b in enumerate(staged):
-        state, st, info = step(state, b)
-        if i == 0:
-            after_first = state
-        statuses.append(st)
-        comms.append(info["committed"])
-        ovfs.append(info["overflow"])
-    committed = torch.stack(comms).cpu().numpy()  # the one sync
+    for i in range(n_batches):
+        prog.buffer.copy_(main[i])
+        row, info = prog.run()
+        rows[i].copy_(row)
+        comms[i].copy_(info["committed"])
+        if i == 0 and detail is not None:
+            after_first = clone_sharded_state(state)
+    committed = comms.cpu().numpy()  # the one sync
     seconds = time.perf_counter() - t0
-    if bool(warm_info["overflow"]) or bool(torch.stack(ovfs).any()):
+    if warm_overflow or bool(rows[:, 2 * T].any()):
         raise FDBError("internal_error",
                        "conflict state overflowed; the capacity is too small")
     if detail is not None:
-        detail.update(batches=staged, warm=warm, statuses=statuses,
+        detail.update(batches=[batch_views(main[i], layout)
+                               for i in range(n_batches)],
+                      warm=batch_views(warm, layout),
+                      statuses=[rows[i, :T] for i in range(n_batches)],
                       state_after_warm=after_warm,
                       state_after_first=after_first, state=state)
     total = n_batches * T
@@ -414,6 +444,7 @@ def run_sharded_kernel(T: int, n_batches: int, n_shards: int,
         "ms_per_batch": 1e3 * seconds / n_batches,
         "committed_frac": int(committed.sum()) / total,
         "txns_per_batch": T, "batches": n_batches, "capacity": K,
+        "graphed": prog.graph is not None,
         "devices": [str(d) for d in devices],
     }
 

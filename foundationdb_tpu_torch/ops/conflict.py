@@ -15,8 +15,8 @@ card the scan evaluator runs each chunk as one replay of its shape
 bucket's CUDA graph (ops/step_graph.py, `_compiled_step`'s counterpart):
 the chunk's single host->device copy lands in the graph's own batch
 buffer, and the graph's K13 writes the readback row that the chunk's one
-device->host copy reads. The legacy evaluator, and the CPU, run the same
-step eagerly.
+device->host copy reads. Both evaluators run so (the legacy evaluator's
+fixpoint is one launch of K5); the CPU runs the same step eagerly.
 
 Versions on the device are int32 offsets from a host-kept int64 base (the
 MVCC window is 5e6 versions wide; the host rebases long before an offset
@@ -328,10 +328,6 @@ class DeviceConflictSet:
     where there is none raises platform_error. The intra-batch evaluator is
     the CONFLICT_INTRA_MODE knob's, read at construction."""
 
-    # an unconverged chunk's intra-batch verdicts come from the exact host
-    # pass (`_exact_intra_host`)
-    host_fallback = True
-
     def __init__(self, capacity: int | None = None, txns: int | None = None,
                  reads_per_txn: int | None = None,
                  writes_per_txn: int | None = None, oldest_version: int = 0,
@@ -350,6 +346,11 @@ class DeviceConflictSet:
                            f"CONFLICT_INTRA_MODE must be one of "
                            f"{ref.INTRA_MODES}, got {self._intra_mode!r}")
         self._intra_rounds = int(KNOBS.CONFLICT_INTRA_ROUNDS)
+        # an unconverged scan chunk's intra-batch verdicts come from the
+        # exact host pass (`_exact_intra_host`): its rounds are a knob. The
+        # legacy fixpoint converges unless K5 is at fault (it stops only at
+        # its guard), so an unconverged legacy chunk raises internal_error
+        self.host_fallback = self._intra_mode == "scan"
         # the fixed state buffers: every step, rebase and clear writes them
         self._state = ref.init_state(self.shapes.capacity, self.shapes.limbs,
                                      self.device, oldest=0,
@@ -358,10 +359,8 @@ class DeviceConflictSet:
 
     def _graph(self, shapes: ConflictShapes) -> StepGraph | None:
         """The shape bucket's step graph (captured at its first replay),
-        or None where the step runs eagerly: on the CPU, and for the legacy
-        evaluator, whose fixpoint loop is unbounded and reads its test on
-        the host every round (`run_legacy`), so it cannot be captured."""
-        if self.device.type != "cuda" or self._intra_mode == "legacy":
+        or None on the CPU, where the step runs eagerly."""
+        if self.device.type != "cuda":
             return None
         key = (shapes.reads, shapes.writes)
         graph = self._graphs.get(key)
@@ -370,12 +369,13 @@ class DeviceConflictSet:
                 self._state, txns=shapes.txns, reads=shapes.reads,
                 writes=shapes.writes,
                 max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
-                intra_rounds=self._intra_rounds, strided=shapes.strided)
+                intra_rounds=self._intra_rounds, strided=shapes.strided,
+                intra_mode=self._intra_mode)
         return graph
 
     def _step(self, batch: dict) -> torch.Tensor:
-        """The eager step over the fixed state (the CPU; the legacy
-        evaluator on the card, see `_graph`): the readback row."""
+        """The eager step over the fixed state (the CPU): the readback
+        row."""
         _state, _statuses, info = ref.conflict_step(
             self._state, batch,
             max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
@@ -389,8 +389,8 @@ class DeviceConflictSet:
                        advance_floor: bool) -> torch.Tensor:
         """Encode one chunk and enqueue its step: the (2T+2,) int32 readback
         row [statuses | eligible | overflow | converged] on the device. On
-        the card the scan evaluator replays the bucket's graph, its batch
-        copied into the graph's own buffer."""
+        the card the bucket's graph replays, its batch copied into the
+        graph's own buffer."""
         graph = self._graph(shapes)
         batch = self.encoder.encode_batch(
             sub, commit_version, skip=skip, shapes=shapes,

@@ -19,15 +19,17 @@ the same phases and kernels serve both layouts.
 The step is written as plain tensor code around nine phase functions,
 passed in as `phases` (an object with `sort_and_rank`, `step_masks`,
 `build_table`, `history_check`, `intra_levels`, `intra_sandwich`,
-`merge_compact`, `legacy_sweep` and `step_verdicts`); `rebase_state`
+`merge_compact`, `legacy_fixpoint` and `step_verdicts`); `rebase_state`
 calls a tenth, `rebase_table`, and the
 sharded engine (parallel/sharded_conflict.py) two more around the step of
 each shard, `clip_ranges` and `shard_combine`.
 `PLAIN` holds the plain versions below;
 ops/kernels.py holds wrappers with the same signatures that launch the CUDA
-kernels for CUDA tensors. Nothing here synchronises with the device: every
-data-dependent choice is a tensor op, so the step enqueues without a host
-round trip on the card.
+kernels for CUDA tensors. Nothing here synchronises with the device but the
+plain legacy fixpoint (`run_legacy` reads its test on the host once a
+body, as the JAX `while_loop` tests on the device): every other
+data-dependent choice is a tensor op, so the step with the kernels
+enqueues without a host round trip on the card.
 
 Representation (see utils/keys.py): key limbs are int32 holding
 u32 ^ 0x80000000, so signed order is the unsigned order of the JAX limbs.
@@ -551,14 +553,15 @@ def rebase_table(bval, oldest, delta: int):
     return bval2, torch.clamp(oldest - delta, min=NEG), build_table(bval2)
 
 
-def clip_ranges(rb, re, wb, we, lo, hi):
+def clip_ranges(rb, re, wb, we, lo, hi, out=None):
     """K10's plain version: every range clipped to every shard's key range
     (`_clip_ranges`, parallel/sharded_conflict.py:111-121, once per shard):
     begin' = lo if begin < lo else begin, end' = hi if hi < end else end,
     lexicographic over the limbs. rb, re (L, NR) and wb, we (L, NW); lo, hi
     (W, L). Returns four (W, L, N) tensors, shard d's slice [d] contiguous.
     A range the shard does not own comes out empty or inverted, and every
-    phase of the step ignores it."""
+    phase of the step ignores it. With `out` (four such tensors) the
+    result is written there and `out` returned."""
     W = lo.shape[0]
 
     def clip(keys, bound, begin):
@@ -567,8 +570,13 @@ def clip_ranges(rb, re, wb, we, lo, hi):
         kt, bt = k.transpose(0, 1), b.transpose(0, 1)  # limbs first
         take = key_lt(kt, bt) if begin else key_lt(bt, kt)  # (W, N)
         return torch.where(take[:, None, :], b, k).contiguous()
-    return (clip(rb, lo, True), clip(re, hi, False), clip(wb, lo, True),
-            clip(we, hi, False))
+    got = (clip(rb, lo, True), clip(re, hi, False), clip(wb, lo, True),
+           clip(we, hi, False))
+    if out is None:
+        return got
+    for o, g in zip(out, got):
+        o.copy_(g)
+    return tuple(out)
 
 
 def shard_combine(statuses, eligible, overflow, boundaries, converged,
@@ -578,14 +586,20 @@ def shard_combine(statuses, eligible, overflow, boundaries, converged,
     argument but txn_valid a sequence of W tensors): statuses min over the
     shards (Conflict 0 < TooOld 1 < Committed 2, the proxy's rule), eligible
     and converged all, overflow any, boundaries max, and committed the
-    count of committed valid txns. Returns (statuses, info)."""
+    count of committed valid txns. Returns (statuses, info, row): row
+    the engine's (2T+2,) int32 readback row [statuses | eligible |
+    overflow | converged] (`_combine_fn`, as `step_verdicts` writes it for
+    one device), statuses a view of its head."""
     st = torch.stack(list(statuses)).amin(dim=0).to(_I32)
     info = {"overflow": torch.stack(list(overflow)).any(),
             "boundaries": torch.stack(list(boundaries)).amax(),
             "committed": ((st == COMMITTED) & txn_valid).sum(dtype=_I32),
             "converged": torch.stack(list(converged)).all(),
             "eligible": torch.stack(list(eligible)).all(dim=0)}
-    return st, info
+    row = torch.cat([st, info["eligible"].to(_I32),
+                     info["overflow"].to(_I32).reshape(1),
+                     info["converged"].to(_I32).reshape(1)])
+    return row[:st.shape[0]], info, row
 
 
 def strided_owners(begins: torch.Tensor, T: int) -> torch.Tensor:
@@ -636,28 +650,63 @@ def step_verdicts(commit, too_old, txn_valid, eligible, overflow, converged,
     return row[:T], committed, row
 
 
+def run_legacy(sweep, g, max_bodies=None):
+    """The legacy evaluator's fixpoint (conflict.py:516-530): one `body`,
+    then `body` again while the bounds differ, reading the test on the
+    host once per `body`. Unbounded, as the JAX `while_loop` is, it
+    returns the committed set (lower == upper). With `max_bodies` it
+    returns (lower, converged), stopping after that many bodies."""
+    upper = g
+    lower = sweep(upper)
+    bodies = 0
+    while True:
+        upper = sweep(lower)
+        lower = sweep(upper)
+        bodies += 1
+        if not bool(torch.any(lower != upper)):
+            return lower if max_bodies is None else (lower, True)
+        if max_bodies is not None and bodies >= max_bodies:
+            return lower, False
+
+
+def legacy_guard(T: int) -> int:
+    """The legacy fixpoint's guard in bodies: more than a monotone map
+    needs (after k evaluations the first k txns are exact)."""
+    return T // 2 + 2
+
+
+def legacy_fixpoint(g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer,
+                    evals=None, max_bodies=None):
+    """K5's plain version: the legacy evaluator's fixpoint, `run_legacy`
+    over `legacy_sweep`, guarded as the kernel is. Returns (commit (T,)
+    bool, converged () bool): converged is False, and commit the last
+    lower bound, only if the bounds still differ after `max_bodies`
+    bodies (default `legacy_guard(T)`, which a monotone map never
+    reaches, so the result is JAX's unbounded loop's). With `evals` (a
+    0-dim int32 tensor) the evaluations of f are written there."""
+    guard = legacy_guard(g.shape[0]) if max_bodies is None else max_bodies
+    if guard < 1:
+        raise ValueError(f"legacy_fixpoint: max_bodies={guard}")
+    n = [0]
+
+    def sweep(c):
+        n[0] += 1
+        return legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer)
+    commit, converged = run_legacy(sweep, g, guard)
+    if evals is not None:
+        evals.fill_(n[0])
+    return commit, torch.tensor(converged, device=g.device)
+
+
 PLAIN = SimpleNamespace(sort_and_rank=sort_and_rank, step_masks=step_masks,
                         build_table=build_table, history_check=history_check,
                         intra_levels=intra_levels,
                         intra_sandwich=intra_sandwich,
-                        merge_compact=merge_compact, legacy_sweep=legacy_sweep,
+                        merge_compact=merge_compact,
+                        legacy_fixpoint=legacy_fixpoint,
                         step_verdicts=step_verdicts,
                         rebase_table=rebase_table, clip_ranges=clip_ranges,
                         shard_combine=shard_combine)
-
-
-def run_legacy(sweep, g):
-    """The legacy evaluator's fixpoint (conflict.py:516-530): one `body`,
-    then `body` again while the bounds differ. The loop is unbounded, as
-    the JAX `while_loop` is, so it reads the test on the host once per
-    `body`. Returns the committed set (lower == upper)."""
-    upper = g
-    lower = sweep(upper)
-    while True:
-        upper = sweep(lower)
-        lower = sweep(upper)
-        if not bool(torch.any(lower != upper)):
-            return lower
 
 
 INTRA_MODES = ("scan", "legacy")
@@ -738,11 +787,9 @@ def conflict_step(state: dict, batch: dict, *, max_write_life: int,
         commit = merge_commit = g
         converged = torch.ones((), dtype=torch.bool, device=dev)
     elif intra_mode == "legacy":
-        def legacy(c):
-            return phases.legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer,
-                                       rbr, rer)
-        commit = merge_commit = run_legacy(legacy, g)
-        converged = torch.ones((), dtype=torch.bool, device=dev)
+        commit, converged = phases.legacy_fixpoint(g, wtxn, rtxn, w_ok, r_ok,
+                                                   wbr, wer, rbr, rer)
+        merge_commit = commit
     else:
         geo = phases.intra_levels(T, wtxn_c, rtxn, rbr, rer, wbr, wer)
         rounds = intra_rounds if intra_rounds > 0 else auto_rounds(T)

@@ -10,7 +10,9 @@ ops/conflict_ref.py that it replaces, so `PHASES` drops into
   K9 intra_levels   csrc/intra_levels.cu    `_intra_scan_levels`
   K3 intra_sandwich csrc/intra_sweep.cu     `_run_sandwich` (over `_f_commit`)
   K4 merge_compact  csrc/merge_compact.cu   `_merge_phase` up to the table
-  K5 legacy_sweep   csrc/legacy_overlap.cu  the legacy evaluator's `_f_commit`
+  K5 legacy_fixpoint csrc/legacy_overlap.cu the legacy evaluator's fixpoint
+     legacy_sweep                           (`while_loop` over `_f_commit`),
+                                            or one evaluation of `_f_commit`
   K6 endpoint_sort  csrc/endpoint_sort.cu   phase 0's sort, the endpoints
   K7 state_merge    csrc/state_merge.cu     phase 0's sorted union, spos,
                                             cum_state
@@ -79,13 +81,23 @@ cp.async, a run of outputs a thread merged with two fingers, and the
 sorted union, `spos` and `cum_state` written in one pass. That is 4 device
 launches (3 when M <= 1,024), in place of about 40 torch launches.
 
+K5 runs the legacy evaluator's whole fixpoint in one cooperative launch:
+every evaluation of f is a grid pass over tiles of 512 reads by 256
+writes (a tile whose writes all belong at or after its reads' txns is
+skipped; CTAs take tiles from a ticket a pass), with a grid barrier
+between passes and each body's test counted
+on the card, so the step reads nothing on the host. `legacy_sweep` runs
+the same kernel for one evaluation.
+
 The sharded engine (parallel/sharded_conflict.py) runs a chunk as one K10
-launch, the step of each shard, then one K11 launch. K10 writes every
-shard's clipped copy of the batch's four endpoint arrays, a thread per
-(shard, column). K11 takes the shards' verdicts where their steps left
-them: their device pointers travel by value in the launch's parameters,
-so the combine costs no stack and no copy; its committed count goes
-through zeroed scratch that the launch leaves zero.
+launch, the step of each shard, then one K11 launch; on one card the whole
+chunk is one CUDA graph. K10 writes every shard's clipped copy of the
+batch's four endpoint arrays, a thread per (shard, column), into given
+buffers. K11 takes the shards' verdicts where their steps left them:
+their device pointers travel by value in the launch's parameters, so the
+combine costs no stack and no copy; it writes the engine's readback row
+with the combined verdicts, and its committed count goes through zeroed
+scratch that the launch leaves zero.
 
 K12 and K13 are the step's elementwise glue, one launch each a step in
 place of about 25 torch launches: K12 derives the range->txn maps (the
@@ -158,8 +170,8 @@ KERNELS = {
     "merge_compact": ("csrc/merge_compact.cu",
                       "foundationdb_tpu/ops/conflict.py:561 _merge_phase"),
     "legacy_blocked": ("csrc/legacy_overlap.cu",
-                       "foundationdb_tpu/ops/conflict.py:506 _f_commit of "
-                       "the legacy evaluator (:491-533)"),
+                       "foundationdb_tpu/ops/conflict.py:506 _f_commit and "
+                       "the while_loop of the legacy evaluator (:491-533)"),
     "shard_clip": ("csrc/shard_clip.cu",
                    "foundationdb_tpu/parallel/sharded_conflict.py:111 "
                    "_clip_ranges (in local_step :185-186)"),
@@ -210,9 +222,9 @@ _ARGTYPES = {
                           _I, _P, _P, _P, _P, _P],
     "fdb_intra_sandwich": [_P] * 12 + [_I] * 5 + [_P] * 12,
     "fdb_merge_compact": [_P] * 14 + [_I] * 7 + [_P] * 10,
-    "fdb_legacy_blocked": [_P] * 10 + [_I] * 3 + [_P] * 4,
+    "fdb_legacy_overlap": [_P] * 10 + [_I] * 5 + [_P] * 7,
     "fdb_shard_clip": [_P] * 6 + [_I] * 4 + [_P] * 5,
-    "fdb_shard_combine": [_P, _I, _I] + [_P] * 9,
+    "fdb_shard_combine": [_P, _I, _I] + [_P] * 7,
     "fdb_step_masks": [_P] * 8 + [_I] * 5 + [_P] * 6,
     "fdb_step_verdicts": [_P] * 6 + [_I] + [_P] * 7,
     "fdb_probe_add": [_P, _P, _LL, _P],
@@ -826,30 +838,74 @@ def merge_compact(skeys, scls, sval, sidx, spos, merge_commit, wb, we, wtxn,
 # K5 legacy_blocked
 # ---------------------------------------------------------------------------
 
-def legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer):
-    """One evaluation of the legacy evaluator's map f (see conflict_ref),
-    without the (NW, NR) matrix."""
-    if not _on_cuda("legacy_blocked", c):
-        return ref.legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr,
-                                rer)
-    T = c.shape[0]
+# reads and writes a tile of K5, and the T-bit sets it rotates (LG_RCHUNK,
+# LG_WCHUNK and LG_BITSETS in the source)
+LEGACY_TILE_READS = 512
+LEGACY_TILE_WRITES = 256
+LEGACY_BITSETS = 4
+
+
+def _legacy(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer, fixpoint,
+            evals, max_bodies=None):
+    """K5's launch: one evaluation of f on c, or the fixpoint from g.
+    Returns (out (T,) bool, converged () bool)."""
+    T = g.shape[0]
     NW, NR = wtxn.shape[0], rtxn.shape[0]
-    dev = c.device
+    dev = g.device
+    max_bodies = ref.legacy_guard(T) if max_bodies is None else max_bodies
+    if T < 1 or max_bodies < 1:
+        raise FDBError("invalid_option",
+                       f"legacy_blocked: T={T}, max_bodies={max_bodies}")
     _check("legacy_blocked", dev, c=(c, _BOOL, (T,)), g=(g, _BOOL, (T,)),
            wtxn=(wtxn, _I32, (NW,)), rtxn=(rtxn, _I32, (NR,)),
            w_ok=(w_ok, _BOOL, (NW,)), r_ok=(r_ok, _BOOL, (NR,)),
            wbr=(wbr, _I32, (NW,)), wer=(wer, _I32, (NW,)),
            rbr=(rbr, _I32, (NR,)), rer=(rer, _I32, (NR,)))
-    marks = _zeroed_scratch("legacy", T, _I32, dev)
-    counter = _zeroed_scratch("legacy_counter", 1, _I32, dev)
-    out = torch.empty(T, dtype=_BOOL, device=dev)
-    rc = library().fdb_legacy_blocked(
+    if evals is not None:
+        _check("legacy_blocked", dev, evals=(evals, _I32, ()))
+    words = -(-T // 32)
+    # the bit sets, then a tile ticket a bit set
+    marks = _zeroed_scratch("legacy_marks", LEGACY_BITSETS * (words + 1),
+                            _I32, dev)
+    bounds = _scratch("legacy_bounds", -(-NR // LEGACY_TILE_READS)
+                      + -(-NW // LEGACY_TILE_WRITES), _I32, dev)
+    sync = _zeroed_scratch("legacy_sync", 1, _I32, dev)
+    out = torch.empty(T + 1, dtype=_BOOL, device=dev)
+    rc = library().fdb_legacy_overlap(
         c.data_ptr(), g.data_ptr(), wtxn.data_ptr(), rtxn.data_ptr(),
         w_ok.data_ptr(), r_ok.data_ptr(), wbr.data_ptr(), wer.data_ptr(),
-        rbr.data_ptr(), rer.data_ptr(), T, NW, NR, marks.data_ptr(),
-        counter.data_ptr(), out.data_ptr(), _stream())
+        rbr.data_ptr(), rer.data_ptr(), T, NW, NR, int(fixpoint),
+        int(max_bodies), marks.data_ptr(), bounds.data_ptr(), sync.data_ptr(),
+        out.data_ptr(), out[T].data_ptr(),
+        None if evals is None else evals.data_ptr(), _stream())
     _launched("legacy_blocked", rc)
-    return out
+    return out[:T], out[T]
+
+
+def legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer):
+    """One evaluation of the legacy evaluator's map f (see conflict_ref),
+    without the (NW, NR) matrix: K5 for a single pass."""
+    if not _on_cuda("legacy_blocked", c):
+        return ref.legacy_sweep(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr,
+                                rer)
+    return _legacy(c, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer, False,
+                   None)[0]
+
+
+def legacy_fixpoint(g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer,
+                    evals=None, max_bodies=None):
+    """The legacy evaluator's whole fixpoint (`conflict_ref.run_legacy`
+    over `legacy_sweep`) in one cooperative launch: (commit (T,) bool,
+    converged () bool). converged is False only if the loop reached its
+    guard of `max_bodies` bodies (default `conflict_ref.legacy_guard(T)`,
+    which a monotone map never reaches); the engine raises on it. With
+    `evals` (a 0-dim int32 tensor) the evaluations of f that ran are
+    written there."""
+    if not _on_cuda("legacy_blocked", g):
+        return ref.legacy_fixpoint(g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr,
+                                   rer, evals, max_bodies)
+    return _legacy(g, g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer, True,
+                   evals, max_bodies)
 
 
 # ---------------------------------------------------------------------------
@@ -862,11 +918,12 @@ CLIP_MAX_LIMBS = 17
 COMBINE_MAX_SHARDS = 64
 
 
-def clip_ranges(rb, re, wb, we, lo, hi):
+def clip_ranges(rb, re, wb, we, lo, hi, out=None):
     """K10: every range clipped to every shard's [lo, hi): four (W, L, N)
-    int32 tensors (rb', re', wb', we'), as `conflict_ref.clip_ranges`."""
+    int32 tensors (rb', re', wb', we'), as `conflict_ref.clip_ranges`;
+    with `out` (four such tensors) written there."""
     if not _on_cuda("shard_clip", rb):
-        return ref.clip_ranges(rb, re, wb, we, lo, hi)
+        return ref.clip_ranges(rb, re, wb, we, lo, hi, out=out)
     L, NR = rb.shape
     NW = wb.shape[1]
     W = lo.shape[0]
@@ -878,8 +935,14 @@ def clip_ranges(rb, re, wb, we, lo, hi):
     _check("shard_clip", dev, rb=(rb, _I32, (L, NR)), re=(re, _I32, (L, NR)),
            wb=(wb, _I32, (L, NW)), we=(we, _I32, (L, NW)),
            lo=(lo, _I32, (W, L)), hi=(hi, _I32, (W, L)))
-    outs = tuple(torch.empty((W, L, n), dtype=_I32, device=dev)
-                 for n in (NR, NR, NW, NW))
+    if out is None:
+        outs = tuple(torch.empty((W, L, n), dtype=_I32, device=dev)
+                     for n in (NR, NR, NW, NW))
+    else:
+        outs = tuple(out)
+        _check("shard_clip", dev, **{
+            f"out[{i}]": (o, _I32, (W, L, n))
+            for i, (o, n) in enumerate(zip(outs, (NR, NR, NW, NW)))})
     if NR + NW == 0:
         return outs
     rc = library().fdb_shard_clip(
@@ -893,7 +956,9 @@ def clip_ranges(rb, re, wb, we, lo, hi):
 def shard_combine(statuses, eligible, overflow, boundaries, converged,
                   txn_valid):
     """K11: the W shards' outputs (sequences of W tensors) combined into
-    (statuses, info) in one launch, as `conflict_ref.shard_combine`."""
+    (statuses, info, row) in one launch, as `conflict_ref.shard_combine`:
+    row the (2T+2,) int32 readback row [statuses | eligible | overflow |
+    converged], statuses a view of its head."""
     if not _on_cuda("shard_combine", txn_valid):
         return ref.shard_combine(statuses, eligible, overflow, boundaries,
                                  converged, txn_valid)
@@ -918,18 +983,19 @@ def shard_combine(statuses, eligible, overflow, boundaries, converged,
     ptrs = (ctypes.c_void_p * (5 * W))(*(t.data_ptr() for g in groups
                                          for t in g))
     scratch = _zeroed_scratch("combine", 2, _I32, dev)
-    st = torch.empty(T, dtype=_I32, device=dev)
-    el = torch.empty(T, dtype=_BOOL, device=dev)
-    scalars = torch.empty(2, dtype=_I32, device=dev)  # boundaries, committed
-    flags = torch.empty(2, dtype=_BOOL, device=dev)  # overflow, converged
+    # the row, then boundaries and committed
+    words = torch.empty(2 * T + 4, dtype=_I32, device=dev)
+    # eligible, then overflow and converged
+    flags = torch.empty(T + 2, dtype=_BOOL, device=dev)
     rc = library().fdb_shard_combine(
-        ptrs, W, T, txn_valid.data_ptr(), scratch.data_ptr(), st.data_ptr(),
-        el.data_ptr(), flags[0].data_ptr(), scalars[0].data_ptr(),
-        scalars[1].data_ptr(), flags[1].data_ptr(), _stream())
+        ptrs, W, T, txn_valid.data_ptr(), scratch.data_ptr(),
+        words.data_ptr(), flags.data_ptr(), words[2 * T + 2].data_ptr(),
+        flags[T].data_ptr(), _stream())
     _launched("shard_combine", rc)
-    return st, {"overflow": flags[0], "boundaries": scalars[0],
-                "committed": scalars[1], "converged": flags[1],
-                "eligible": el}
+    row = words[:2 * T + 2]
+    return row[:T], {"overflow": flags[T], "boundaries": words[2 * T + 2],
+                     "committed": words[2 * T + 3], "converged": flags[T + 1],
+                     "eligible": flags[:T]}, row
 
 
 # ---------------------------------------------------------------------------
@@ -1016,7 +1082,7 @@ PHASES = SimpleNamespace(sort_and_rank=sort_and_rank, step_masks=step_masks,
                          intra_levels=intra_levels,
                          intra_sandwich=intra_sandwich,
                          merge_compact=merge_compact,
-                         legacy_sweep=legacy_sweep,
+                         legacy_fixpoint=legacy_fixpoint,
                          step_verdicts=step_verdicts,
                          rebase_table=rebase_table,
                          clip_ranges=clip_ranges, shard_combine=shard_combine)

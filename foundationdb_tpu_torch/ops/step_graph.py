@@ -35,11 +35,11 @@ replay.
 On CUDA a capture or replay that fails raises FDBError("internal_error");
 nothing runs the eager step in its place. `graphed=False` runs the same
 step function eagerly at each call (the yardstick the smoke times the
-graphs against, and the only mode on the CPU). The legacy evaluator's
-fixpoint loop is unbounded and read on the host (`run_legacy`, as the JAX
-`while_loop`), so it cannot be captured: both programs refuse
-intra_mode="legacy" with invalid_option, in either mode, and its callers
-run `conflict_step` eagerly by name.
+graphs against, and the only mode on the CPU). Both evaluators capture:
+the legacy evaluator's unbounded fixpoint is one cooperative launch of K5,
+which tests each body on the card, as the JAX `while_loop` does. The
+sharded engine's chunk program (`ShardedStepGraph`,
+parallel/sharded_conflict.py) is built on `_Program` too.
 """
 
 from __future__ import annotations
@@ -112,12 +112,10 @@ def fill_empty_batch(batch: dict, T: int):
 
 
 def _check_modes(intra_mode: str, ablate: str):
-    if intra_mode != "scan":
-        raise FDBError(
-            "invalid_option",
-            f"a step graph runs the scan evaluator only, not "
-            f"intra_mode={intra_mode!r}: the legacy fixpoint is read on the "
-            f"host every round, so its callers run conflict_step eagerly")
+    if intra_mode not in ref.INTRA_MODES:
+        raise FDBError("invalid_option",
+                       f"intra_mode must be one of {ref.INTRA_MODES}, got "
+                       f"{intra_mode!r}")
     if ablate not in ref.ABLATE_MODES:
         raise FDBError("invalid_option",
                        f"ablate must be one of {ref.ABLATE_MODES}, got "
@@ -130,15 +128,16 @@ def _launch_delta(before: dict) -> dict:
 
 
 class _Program:
-    """What both programs share: the fixed state, the step's options, the
-    warm-up, the capture and the replay with its launch counts."""
+    """What the programs share: the fixed state, the step's options, the
+    warm-up, the capture and the replay with its launch counts. `device`
+    is the card the graph runs on."""
 
-    def __init__(self, state: dict, *, max_write_life: int, intra_rounds: int,
-                 strided: bool, ablate: str, intra_mode: str, phases,
-                 graphed: bool):
+    def __init__(self, state: dict, device: torch.device, *,
+                 max_write_life: int, intra_rounds: int, strided: bool,
+                 ablate: str, intra_mode: str, phases, graphed: bool):
         _check_modes(intra_mode, ablate)
         self.state = state
-        self.device = state["bval"].device
+        self.device = device
         if graphed and self.device.type != "cuda":
             raise FDBError("invalid_option",
                            f"a CUDA graph needs the state on a CUDA device, "
@@ -162,6 +161,10 @@ class _Program:
     def _warm_step(self, state: dict):
         raise NotImplementedError
 
+    def _state_copy(self) -> dict:
+        """A copy of the fixed state for the warm-up step."""
+        return {k: v.clone() for k, v in self.state.items()}
+
     def _capture(self):
         """Warm up, then capture `_body` over the fixed state."""
         dev = self.device
@@ -169,7 +172,7 @@ class _Program:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                self._warm_step({k: v.clone() for k, v in self.state.items()})
+                self._warm_step(self._state_copy())
             torch.cuda.current_stream(dev).wait_stream(side)
             before = dict(kernels.LAUNCHES)
             caches = (kernels._zeroed, kernels._scratches)
@@ -240,7 +243,8 @@ class StepGraph(_Program):
                  max_write_life: int, intra_rounds: int = 0,
                  strided: bool = False, ablate: str = "",
                  intra_mode: str = "scan", phases=None, graphed: bool = True):
-        super().__init__(state, max_write_life=max_write_life,
+        super().__init__(state, state["bval"].device,
+                         max_write_life=max_write_life,
                          intra_rounds=intra_rounds, strided=strided,
                          ablate=ablate, intra_mode=intra_mode, phases=phases,
                          graphed=graphed)
@@ -274,7 +278,8 @@ class ScanGraph(_Program):
                  writes: int, max_write_life: int, intra_rounds: int = 0,
                  strided: bool = False, ablate: str = "",
                  intra_mode: str = "scan", phases=None, graphed: bool = True):
-        super().__init__(state, max_write_life=max_write_life,
+        super().__init__(state, state["bval"].device,
+                         max_write_life=max_write_life,
                          intra_rounds=intra_rounds, strided=strided,
                          ablate=ablate, intra_mode=intra_mode, phases=phases,
                          graphed=graphed)

@@ -21,6 +21,14 @@ every resolver it touched said Committed, the min over their verdicts
   repeat: W shards may share one card, or the CPU (the tests). A shard on
   another card gets its clipped batch with a non-blocking copy, and its
   verdicts come back to the first shard's card for K11.
+- The engine's state lives in fixed buffers (each shard's, the cuts) that
+  every chunk, rebase, re-cut and clear writes in place, as JAX donates
+  its state. `ShardedStepGraph` runs a chunk over them from one packed
+  batch buffer: with every shard on one card, as one CUDA graph (K10, the
+  W shard steps, K11: one replay from the host, the `shard_map` program's
+  counterpart); with shards on several cards, eagerly. The engine makes
+  that choice at construction and reports it (`graphed`). K11 writes the
+  readback row the engine copies back.
 
 Per-shard "earlier txns win" is the reference's resolver semantics: each
 shard merges the writes of the txns IT judged committed, so a txn aborted
@@ -46,6 +54,9 @@ from foundationdb_tpu_torch.ops.conflict import (_REBASE_THRESHOLD,
                                                  BatchEncoder, ConflictShapes,
                                                  _resolve_shapes,
                                                  detect_async_impl)
+from foundationdb_tpu_torch.ops.step_graph import (_Program, batch_layout,
+                                                   batch_views,
+                                                   fill_empty_batch)
 from foundationdb_tpu_torch.utils import cudaenv
 from foundationdb_tpu_torch.utils import keys as keylib
 from foundationdb_tpu_torch.utils.errors import FDBError
@@ -130,15 +141,32 @@ def _on(dev: torch.device):
         else contextlib.nullcontext()
 
 
-def _sharded_step(state: dict, batch: dict, *, max_write_life: int,
-                  intra_mode: str, intra_rounds: int, strided: bool, phases):
-    """(state, batch) -> (state', statuses, info), as the JAX sharded step.
-    state: {"shards": W state dicts, "lo", "hi": (W, L) int32 on the first
-    shard's device}; batch: one encoded batch on that device."""
+def graph_fits(devices, phases) -> bool:
+    """Whether a sharded chunk over shards on `devices` with `phases` runs
+    as one CUDA graph: every shard on one card, and the phases the kernels
+    (the plain phases read the host). Shards on several cards run eagerly
+    (ROADMAP B13)."""
+    home = devices[0]
+    return (home.type == "cuda" and phases is kernels.PHASES
+            and all(d == home for d in devices))
+
+
+def _sharded_chunk(state: dict, batch: dict, *, max_write_life: int,
+                   intra_mode: str, intra_rounds: int, strided: bool, phases,
+                   ablate: str = "", out: dict | None = None, clipped=None):
+    """(state, batch) -> (state', statuses, info, row), as the JAX sharded
+    step, with K11's (2T+2,) readback row. state: {"shards": W state
+    dicts, "lo", "hi": (W, L) int32 on the first shard's device}; batch:
+    one encoded batch on that device. With `out` (a sharded state of fixed
+    buffers, which may be `state`) every shard's step writes its state
+    there and `out` is returned; with `clipped` (four (W, L, N) int32
+    tensors) K10 writes the clipped ranges there."""
     lo, hi = state["lo"], state["hi"]
     home = lo.device
     clipped = phases.clip_ranges(batch["rb"], batch["re"], batch["wb"],
-                                 batch["we"], lo, hi)
+                                 batch["we"], lo, hi,
+                                 **({} if clipped is None
+                                    else {"out": clipped}))
     shards, outs = [], []
     for d, shard in enumerate(state["shards"]):
         dev = shard["bval"].device
@@ -150,18 +178,83 @@ def _sharded_step(state: dict, batch: dict, *, max_write_life: int,
             new, st, info = ref.conflict_step(
                 shard, sub, max_write_life=max_write_life,
                 intra_rounds=intra_rounds, intra_mode=intra_mode,
-                strided=strided, phases=phases)
+                strided=strided, phases=phases, ablate=ablate,
+                **({} if out is None else {"out": out["shards"][d]}))
         shards.append(new)
         outs.append((st, info))
 
     def at_home(t):
         return t if t.device == home else t.to(home, non_blocking=True)
-    statuses, info = phases.shard_combine(
+    statuses, info, row = phases.shard_combine(
         [at_home(st) for st, _i in outs],
         *([at_home(i[k]) for _st, i in outs]
           for k in ("eligible", "overflow", "boundaries", "converged")),
         batch["txn_valid"])
-    return {"shards": shards, "lo": lo, "hi": hi}, statuses, info
+    new_state = {"shards": shards, "lo": lo, "hi": hi} if out is None else out
+    return new_state, statuses, info, row
+
+
+def _sharded_step(state: dict, batch: dict, **kw):
+    """(state, batch) -> (state', statuses, info), as the JAX sharded step
+    (`_sharded_chunk` without the row)."""
+    new_state, statuses, info, _row = _sharded_chunk(state, batch, **kw)
+    return new_state, statuses, info
+
+
+class ShardedStepGraph(_Program):
+    """One sharded chunk over the fixed sharded state `state` (as
+    `init_sharded_state` lays it out) from the packed batch buffer
+    `buffer` (fill it, then `run()`): K10 into fixed clipped buffers, each
+    shard's step writing its fixed state, K11. `run()` returns (row,
+    info): K11's (2T+2,) int32 readback row and the chunk's `info`; a
+    graphed program returns the same tensors at every run, overwritten by
+    the next. Graphed (one CUDA graph, one replay a chunk) needs every
+    shard on the cuts' card; `graphed=False` runs the same chunk eagerly,
+    on any devices (the yardstick on the card, the only mode on the CPU
+    and across cards)."""
+
+    def __init__(self, state: dict, *, txns: int, reads: int, writes: int,
+                 max_write_life: int, intra_rounds: int = 0,
+                 strided: bool = False, intra_mode: str = "scan",
+                 phases=None, graphed: bool = True):
+        home = state["lo"].device
+        if graphed and any(s["bval"].device != home for s in state["shards"]):
+            raise FDBError("invalid_option",
+                           f"a sharded CUDA graph needs every shard on "
+                           f"{home}; shards on several cards run eagerly")
+        super().__init__(state, home, max_write_life=max_write_life,
+                         intra_rounds=intra_rounds, strided=strided,
+                         ablate="", intra_mode=intra_mode, phases=phases,
+                         graphed=graphed)
+        W, L = state["lo"].shape
+        self.layout, size = batch_layout(L, txns, reads, writes)
+        self.buffer = torch.empty(size, dtype=torch.int32, device=home)
+        self.batch = batch_views(self.buffer, self.layout)
+        fill_empty_batch(self.batch, txns)
+        self.clipped = tuple(torch.empty((W, L, n), dtype=torch.int32,
+                                         device=home)
+                             for n in (reads, reads, writes, writes))
+
+    def _state_copy(self) -> dict:
+        return clone_sharded_state(self.state)
+
+    def _body(self, state: dict):
+        _s, _st, info, row = _sharded_chunk(state, self.batch, out=state,
+                                            clipped=self.clipped,
+                                            **self.step_kw)
+        return row, info
+
+    _warm_step = _body
+
+    def run(self):
+        return self._run()
+
+
+def clone_sharded_state(state: dict) -> dict:
+    """A copy of a sharded state, every shard's tensors and the cuts."""
+    return {"shards": [{k: v.clone() for k, v in s.items()}
+                       for s in state["shards"]],
+            "lo": state["lo"].clone(), "hi": state["hi"].clone()}
 
 
 def sharded_conflict_step(devices, shapes: ConflictShapes,
@@ -201,8 +294,7 @@ def init_sharded_state(shapes: ConflictShapes, devices, oldest: int = 0,
                                          oldest=oldest, phases=phases))
     cuts = torch.from_numpy(keylib.to_signed_limbs(
         _cut_limbs(cut_bytes or shard_cut_bytes(n)))).to(devices[0])
-    return {"shards": shards, "lo": cuts[:n].contiguous(),
-            "hi": cuts[1:].contiguous()}
+    return {"shards": shards, "lo": cuts[:n].clone(), "hi": cuts[1:].clone()}
 
 
 class ShardedDeviceConflictSet:
@@ -211,7 +303,13 @@ class ShardedDeviceConflictSet:
     shard the CONFLICT_DEVICE knob gives, `make_resolver_mesh()`). One
     logical resolver spanning devices: the reference's N-resolver topology
     collapsed into one program; the Resolver role's ordering and recovery
-    are unchanged. `phases` defaults to the kernels (`kernels.PHASES`)."""
+    are unchanged. `phases` defaults to the kernels (`kernels.PHASES`).
+
+    The state is fixed buffers, and every chunk runs through one
+    `ShardedStepGraph`: a CUDA graph, one replay a chunk, where
+    `graph_fits` (every shard on one card, the kernels' phases), else
+    eagerly (shards on several cards, the CPU, other phases). The choice
+    is made here and kept in `graphed`."""
 
     # the exact host pass has single-resolver semantics: an unconverged
     # chunk is an error here (full sandwich rounds make it unreachable)
@@ -242,9 +340,13 @@ class ShardedDeviceConflictSet:
         # sandwich skips the rounds it does not need once it has pinched
         intra_mode = str(KNOBS.CONFLICT_INTRA_MODE)
         intra_rounds = self.shapes.txns // 2 + 1 if intra_mode == "scan" else 0
-        self._step = sharded_conflict_step(
-            self.devices, self.shapes, KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
-            intra_mode, intra_rounds, phases=self.phases)
+        self.graphed = graph_fits(self.devices, self.phases)
+        sh = self.shapes
+        self._program = ShardedStepGraph(
+            self._state, txns=sh.txns, reads=sh.reads, writes=sh.writes,
+            max_write_life=KNOBS.MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
+            intra_rounds=intra_rounds, intra_mode=intra_mode,
+            phases=self.phases, graphed=self.graphed)
         # resolutionBalancing inputs (masterserver.actor.cpp:955-1012 via
         # the Resolver's iops sampling :146-151): per-shard range counts
         # and a bounded reservoir of range-begin prefixes
@@ -266,12 +368,10 @@ class ShardedDeviceConflictSet:
         while commit_version - self.encoder.base_version > _REBASE_THRESHOLD:
             delta = min(commit_version - self.encoder.base_version - (1 << 24),
                         1 << 30)
-            shards = []
             for shard in self._state["shards"]:
                 with _on(shard["bval"].device):
-                    shards.append(ref.rebase_state(shard, delta,
-                                                   phases=self.phases))
-            self._state = dict(self._state, shards=shards)
+                    ref.rebase_state(shard, delta, phases=self.phases,
+                                     out=shard)
             self.encoder.base_version += delta
 
     def plan_chunk(self, nr: int, nw: int) -> ConflictShapes:
@@ -281,19 +381,20 @@ class ShardedDeviceConflictSet:
     def dispatch_chunk(self, sub, commit_version: int, skip: list[bool],
                        shapes: ConflictShapes,
                        advance_floor: bool) -> torch.Tensor:
-        """Encode one chunk and enqueue the sharded step, eagerly: the
-        (2T+2,) int32 readback row [statuses | eligible | overflow |
-        converged] on the first shard's device."""
-        batch = self.encoder.encode_batch(sub, commit_version, skip=skip,
-                                          shapes=shapes,
-                                          advance_floor=advance_floor)
-        self._state, statuses, info = self._step(self._state, batch)
-        return torch.cat([statuses.to(torch.int32),
-                          info["eligible"].to(torch.int32),
-                          info["overflow"].to(torch.int32).reshape(1),
-                          info["converged"].to(torch.int32).reshape(1)])
+        """Encode one chunk into the program's batch buffer (one H2D copy)
+        and run it, a replay where `graphed`: K11's (2T+2,) int32 readback
+        row [statuses | eligible | overflow | converged] on the first
+        shard's device."""
+        self.encoder.encode_batch(sub, commit_version, skip=skip,
+                                  shapes=shapes, advance_floor=advance_floor,
+                                  dest=self._program.buffer)
+        row, _info = self._program.run()
+        return row
 
     def warmup(self):
+        """Capture the chunk's graph (building the kernels; its warm-up
+        step runs on a copy of the state), then serve one empty batch."""
+        self._program.capture()
         self.detect([], self.encoder.base_version + 1)
 
     def detect(self, txns: list[TxnConflictInfo],
@@ -313,11 +414,15 @@ class ShardedDeviceConflictSet:
         return detect_async_impl(self, txns, commit_version)
 
     def clear(self, oldest_version: int = 0):
+        """clearConflictSet: every shard's buffers refilled in place, the
+        cuts kept."""
         self.encoder.base_version = oldest_version
         self.oldest_version = oldest_version
-        self._state = init_sharded_state(self.shapes, self.devices, oldest=0,
-                                         cut_bytes=self.cut_bytes,
-                                         phases=self.phases)
+        for shard in self._state["shards"]:
+            with _on(shard["bval"].device):
+                ref.init_state(self.shapes.capacity, self.shapes.limbs,
+                               shard["bval"].device, oldest=0,
+                               phases=self.phases, out=shard)
         # stale load and samples must not drive a rebalance of the fresh
         # state
         self._load_counts[:] = 0
@@ -431,7 +536,8 @@ class ShardedDeviceConflictSet:
         subranges are filled at `at_version` (conservative: stale reads
         there conflict, never a false commit), retained subranges keep
         their exact history. No state moves between shards; each shard's
-        table is rebuilt (K1)."""
+        keys and values are written into its fixed buffers and its table
+        rebuilt there (K1), and the cuts are written in place."""
         assert len(new_cut_bytes) == self.n_shards and new_cut_bytes[0] == b""
         K = self.shapes.capacity
         st = ref.sharded_state_to_numpy(self._state)
@@ -500,23 +606,16 @@ class ShardedDeviceConflictSet:
             new_bval[d, :n] = vcat
             new_nb[d] = n
 
-        shards = []
-        for d, (dev, old) in enumerate(zip(self.devices,
-                                           self._state["shards"])):
-            bval = torch.from_numpy(new_bval[d].copy()).to(dev)
-            with _on(dev):
-                table = self.phases.build_table(bval)
-            shards.append({
-                "bkeys": torch.from_numpy(np.ascontiguousarray(
-                    keylib.to_signed_limbs(new_bkeys[d]))).to(dev),
-                "bval": bval,
-                "nb": torch.tensor(int(new_nb[d]), dtype=torch.int32,
-                                   device=dev),
-                "oldest": old["oldest"], "table": table,
-                "poisoned": old["poisoned"]})
-        signed = torch.from_numpy(keylib.to_signed_limbs(cuts)).to(self.device)
-        self._state = {"shards": shards, "lo": signed[:self.n_shards].contiguous(),
-                       "hi": signed[1:].contiguous()}
+        for d, shard in enumerate(self._state["shards"]):
+            with _on(shard["bval"].device):
+                shard["bkeys"].copy_(torch.from_numpy(np.ascontiguousarray(
+                    keylib.to_signed_limbs(new_bkeys[d]))))
+                shard["bval"].copy_(torch.from_numpy(new_bval[d]))
+                shard["nb"].fill_(int(new_nb[d]))
+                self.phases.build_table(shard["bval"], out=shard["table"])
+        signed = torch.from_numpy(keylib.to_signed_limbs(cuts))
+        self._state["lo"].copy_(signed[:self.n_shards])
+        self._state["hi"].copy_(signed[1:])
         self.cut_bytes = list(new_cut_bytes)
         self._load_counts[:] = 0
         self._samples.clear()

@@ -173,7 +173,7 @@ def _captured_phases(batches):
         intra_levels=spy("intra_levels", ref.intra_levels),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
-        legacy_sweep=spy("legacy_blocked", ref.legacy_sweep),
+        legacy_fixpoint=spy("legacy_blocked", ref.legacy_fixpoint),
         step_masks=spy("step_masks", ref.step_masks),
         step_verdicts=spy("step_verdicts", ref.step_verdicts))
     cs = DeviceConflictSet(device="cpu", **SMALL)
@@ -250,7 +250,7 @@ def _bench_step_calls(T, mode, device):
         intra_levels=spy("intra_levels", ref.intra_levels),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
-        legacy_sweep=spy("legacy_blocked", ref.legacy_sweep),
+        legacy_fixpoint=spy("legacy_blocked", ref.legacy_fixpoint),
         step_masks=spy("step_masks", ref.step_masks),
         step_verdicts=spy("step_verdicts", ref.step_verdicts))
     for i in range(2):
@@ -611,13 +611,113 @@ def test_merge_kernel_overflow_poisons(cuda):
     assert bool(last[4]) and int(last[5]) == 1
 
 
+def _legacy_equal(a):
+    """K5's fixpoint against the plain loop (`run_legacy` over
+    `legacy_sweep`), commit, converged and the count of evaluations, and
+    its one-evaluation launch on every evaluation's input; returns the
+    count."""
+    dev = a[0].device
+    n = torch.zeros((), dtype=torch.int32, device=dev)
+    commit, converged = kernels.legacy_fixpoint(*a, evals=n)
+    seen = []
+
+    def sweep(c):
+        seen.append(c)
+        return ref.legacy_sweep(c, *a)
+    want = ref.run_legacy(sweep, a[0])
+    torch.cuda.synchronize()
+    assert torch.equal(commit, want) and bool(converged)
+    assert int(n) == len(seen)
+    for c in seen:
+        assert torch.equal(kernels.legacy_sweep(c, *a), ref.legacy_sweep(c, *a))
+    return int(n)
+
+
 @pytest.mark.cuda
 def test_legacy_kernel_equals_its_plain_version(cuda):
     calls = _bench_step_calls(2048, "legacy", cuda)["legacy_blocked"]
-    assert len(calls) >= 3
+    assert len(calls) == 1
+    kernels.reset_launches()
     for a, kw in calls:
-        assert torch.equal(kernels.legacy_sweep(*a, **kw),
-                           ref.legacy_sweep(*a, **kw))
+        assert _legacy_equal(a) >= 3
+        want = ref.legacy_fixpoint(*a, **kw)
+        got = kernels.legacy_fixpoint(*a, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert kernels.LAUNCHES["legacy_blocked"] > 0
+
+
+@pytest.mark.cuda
+def test_legacy_fixpoint_kernel_on_chains_shuffles_and_the_bench(cuda):
+    # chains of 64, 1,000 and 4,097 txns (an evaluation a txn), reads and
+    # writes shuffled, T=1, no reads or writes, random pooled owners
+    # (chip_smoke.py's edges), and the bench's T=16,384 strided steps
+    import chip_smoke
+    bench_calls = chip_smoke.legacy_ab_calls(cuda, 16384, 2)
+    edges = chip_smoke.legacy_edge_calls(cuda, bench_calls[-1])
+    counts = [_legacy_equal(a) for a, _kw in bench_calls + edges]
+    assert max(counts) >= 4097 and min(counts) >= 3
+    chain = chip_smoke.legacy_chain_args(cuda, 64)
+    commit, _converged = kernels.legacy_fixpoint(*chain)
+    assert commit.cpu().tolist() == [t % 2 == 0 for t in range(64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,max_bodies", [(64, 1), (4097, 100)])
+def test_legacy_fixpoint_kernel_stops_at_its_guard(cuda, T, max_bodies):
+    """A chain stopped by a small guard: K5's last lower bound, converged
+    False and its count of evaluations equal the guarded plain
+    version's."""
+    import chip_smoke
+    a = chip_smoke.legacy_chain_args(cuda, T)
+    n = torch.zeros((), dtype=torch.int32, device=cuda)
+    commit, converged = kernels.legacy_fixpoint(*a, evals=n,
+                                                max_bodies=max_bodies)
+    m = torch.zeros((), dtype=torch.int32)
+    want, want_conv = ref.legacy_fixpoint(*(x.cpu() for x in a), evals=m,
+                                          max_bodies=max_bodies)
+    assert torch.equal(commit.cpu(), want)
+    assert not bool(converged) and not bool(want_conv)
+    assert int(n) == int(m) == 1 + 2 * max_bodies
+
+
+@pytest.mark.cuda
+def test_legacy_engine_raises_at_the_guard_through_its_graphs(cuda,
+                                                               monkeypatch):
+    """The bucket graph captured with a guard of one body: a chain's chunk
+    comes back unconverged and the engine raises internal_error (no host
+    pass)."""
+    KNOBS.set("CONFLICT_INTRA_MODE", "legacy")
+
+    def guarded(*a, **kw):
+        return kernels.legacy_fixpoint(*a, **kw, max_bodies=1)
+    monkeypatch.setattr(kernels.PHASES, "legacy_fixpoint", guarded)
+    cs = DeviceConflictSet(device=cuda, **SMALL)
+    cs.warmup()
+    assert all(g.graph is not None for g in cs._graphs.values())
+    txns = [TxnConflictInfo(9, [point(b"c%04d" % t)],
+                            [point(b"c%04d" % (t + 1))]) for t in range(40)]
+    with pytest.raises(FDBError) as ei:
+        cs.detect(txns, 10)
+    assert ei.value.name == "internal_error"
+
+
+@pytest.mark.cuda
+def test_legacy_engine_runs_through_its_bucket_graphs(cuda):
+    KNOBS.set("CONFLICT_INTRA_MODE", "legacy")
+    rng = np.random.default_rng(21)
+    cs = DeviceConflictSet(device=cuda, **SMALL)
+    cs.warmup()
+    assert all(g.graph is not None for g in cs._graphs.values())
+    oracle = OracleConflictSet()
+    kernels.reset_launches()
+    version = 0
+    for i in range(12):
+        version += int(rng.integers(1, 300)) * 10
+        txns = fuzz_batch(rng, version - 1, int(rng.integers(1, 150)))
+        assert cs.detect(txns, version) == oracle.detect(txns, version), i
+    assert kernels.LAUNCHES["legacy_blocked"] == kernels.LAUNCHES[
+        "history_check"] >= 12
+    assert kernels.LAUNCHES["intra_sandwich"] == 0
 
 
 @pytest.mark.cuda
@@ -677,10 +777,11 @@ def test_shard_combine_kernel_on_edge_inputs(cuda):
     import chip_smoke
     calls = chip_smoke.combine_edge_calls(cuda)
     for a, kw in calls + calls:
-        want_st, want = ref.shard_combine(*a, **kw)
-        got_st, got = kernels.shard_combine(*a, **kw)
+        want_st, want, want_row = ref.shard_combine(*a, **kw)
+        got_st, got, got_row = kernels.shard_combine(*a, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got_st, want_st)
+        assert torch.equal(got_row, want_row)
         assert list(got) == list(want)
         for k in want:
             assert got[k].dtype == want[k].dtype
@@ -696,6 +797,9 @@ def test_sharded_engine_on_the_card_equals_the_plain_phases(cuda):
     eng = ShardedDeviceConflictSet(devices=[cuda] * W, **SMALL)
     plain = ShardedDeviceConflictSet(devices=[cuda] * W, phases=ref.PLAIN,
                                      **SMALL)
+    assert eng.graphed and not plain.graphed
+    eng.warmup()
+    plain.warmup()
     kernels.reset_launches()
     version = 0
     for _ in range(12):
@@ -708,6 +812,51 @@ def test_sharded_engine_on_the_card_equals_the_plain_phases(cuda):
     got = ref.sharded_state_to_numpy(eng._state)
     for k, v in ref.sharded_state_to_numpy(plain._state).items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def _buffer_ptrs(state):
+    return ([{k: v.data_ptr() for k, v in sh.items()}
+             for sh in state["shards"]],
+            state["lo"].data_ptr(), state["hi"].data_ptr())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 4])
+def test_sharded_graph_replays_equal_its_eager_chunk(cuda, W):
+    """The engine's chunk graph against the same engine with the chunk
+    eager, through a version jump (every shard rebases) and a re-cut:
+    every batch, the state, the buffers unmoved, one K10 and one K11 a
+    chunk."""
+    from foundationdb_tpu_torch.parallel.sharded_conflict import (
+        ShardedDeviceConflictSet)
+    rng = np.random.default_rng(17 + W)
+    graph = ShardedDeviceConflictSet(devices=[cuda] * W, **SMALL)
+    eager = ShardedDeviceConflictSet(devices=[cuda] * W, **SMALL)
+    assert graph.graphed and eager.graphed
+    eager._program.graphed = False  # the same chunk, run eagerly
+    graph.warmup()
+    eager.warmup()
+    ptrs = _buffer_ptrs(graph._state)
+    kernels.reset_launches()
+    recut = [b""] + [bytes([0x61 + i]) for i in range(W - 1)]
+    version, chunks = 0, 0
+    for i in range(14):
+        version += int(rng.integers(1, 300)) * 10
+        if i == 6:
+            version += (1 << 29) + 3
+        if i == 10:
+            for eng in (graph, eager):
+                eng.rebalance_cuts(recut, version)
+        txns = fuzz_batch(rng, version - 1, 64)
+        assert graph.detect(txns, version) == eager.detect(txns, version), i
+        chunks += 1
+    assert graph.base_version == eager.base_version > 0
+    got = ref.sharded_state_to_numpy(graph._state)
+    for k, v in ref.sharded_state_to_numpy(eager._state).items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert _buffer_ptrs(graph._state) == ptrs
+    assert graph._program.graph is not None and eager._program.graph is None
+    assert kernels.LAUNCHES["shard_combine"] == 2 * chunks
 
 
 # ---------------------------------------------------------------------------

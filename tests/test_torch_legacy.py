@@ -8,7 +8,10 @@ the strided layout (T=32, two slots of each a txn): state, statuses and
 every `info` field must be EQUAL after each step. It must also equal the
 port's scan step, and the port's `DeviceConflictSet` under
 CONFLICT_INTRA_MODE=legacy must decide as the scan engine and the oracle do
-(tests/test_conflict.py:513-528).
+(tests/test_conflict.py:513-528). The fixpoint wrapper (K5's plain
+version on the CPU) equals the JAX legacy step on a dependency chain whose
+fixpoint takes an evaluation a txn; a legacy chunk stopped at its guard
+raises in the engine.
 """
 
 import numpy as np
@@ -131,6 +134,64 @@ def test_legacy_wrapper_runs_its_plain_version_on_cpu():
     assert kernels.LAUNCHES["legacy_blocked"] == 0
 
 
+# the chain's shapes: T=64, so its fixpoint takes about T / 2 bodies
+CHAIN = {"pooled": jconf.ConflictShapes(capacity=1024, txns=64, reads=256,
+                                        writes=256),
+         "strided": jconf.ConflictShapes(capacity=1024, txns=64, reads=128,
+                                         writes=128, strided=True)}
+
+
+@pytest.mark.parametrize("layout", ["pooled", "strided"])
+def test_fixpoint_wrapper_equals_the_jax_legacy_step_on_a_chain(layout):
+    """A dependency chain through every txn (txn t reads the key txn t - 1
+    writes, chip_smoke.chain_sandwich_args' pattern): the committed set
+    alternates, and the fixpoint needs an evaluation a txn. The fixpoint
+    wrapper (the plain version, on the CPU) inside the port's legacy step
+    equals the JAX legacy step, statuses and state, and equals the plain
+    loop read body by body."""
+    shapes = CHAIN[layout]
+    T = shapes.txns
+
+    def key(i):
+        return b"chain%05d" % i
+    version = STEP
+    txns = [TxnConflictInfo(version - 1, [(key(t), key(t) + b"\x00")],
+                            [(key(t + 1), key(t + 1) + b"\x00")])
+            for t in range(T)]
+    batch = encode(txns, version, shapes)
+    jstate, jst, jinfo = jconf._compiled_step(shapes, WINDOW, "legacy", 0)(
+        jconf.init_state(shapes), batch)
+    calls = []
+
+    def spy(*a):
+        evals = torch.zeros((), dtype=torch.int32)
+        out = kernels.legacy_fixpoint(*a, evals=evals)
+        calls.append((a, int(evals)))
+        return out
+    phases = type(ref.PLAIN)(**dict(vars(ref.PLAIN), legacy_fixpoint=spy))
+    kernels.reset_launches()
+    state, st, info = ref.conflict_step(
+        ref.state_from_numpy(to_np(jconf.init_state(shapes)), CPU),
+        ref.batch_from_numpy(batch, CPU), max_write_life=WINDOW,
+        intra_mode="legacy", strided=shapes.strided, phases=phases)
+    assert kernels.LAUNCHES["legacy_blocked"] == 0  # the plain version
+    np.testing.assert_array_equal(st.numpy(), np.asarray(jst))
+    assert st.tolist() == [2 - 2 * (t % 2) for t in range(T)]
+    for k in INFO:
+        np.testing.assert_array_equal(info[k].numpy(), np.asarray(jinfo[k]),
+                                      err_msg=k)
+    got = ref.state_to_numpy(state)
+    for k, v in to_np(jstate).items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    (args, evals), = calls
+    assert evals >= T  # about T / 2 bodies of two evaluations each
+    commit, converged = kernels.legacy_fixpoint(*args)
+    assert commit.tolist() == [t % 2 == 0 for t in range(T)]
+    assert bool(converged) and converged.shape == ()
+    assert torch.equal(commit, ref.run_legacy(
+        lambda c: ref.legacy_sweep(c, *args), args[0]))
+
+
 def _fuzz_key(rng):
     return bytes(rng.randint(97, 99) for _ in range(rng.randint(1, 5)))
 
@@ -175,6 +236,40 @@ def test_legacy_engine_matches_scan_and_the_oracle():
         a = legacy.detect(txns, version)
         b = scan.detect(txns, version)
         assert a == b == oracle.detect(txns, version), (a, b)
+
+
+def test_a_legacy_chunk_at_its_guard_raises(monkeypatch):
+    """The legacy fixpoint stops unconverged only at its guard, which a
+    correct evaluator never reaches: the engine raises internal_error for
+    such a chunk and never takes the exact host pass (which would hide a
+    fault of K5). A guard of one body on a chain forces it; with the
+    default guard the same batch commits every other txn."""
+    from foundationdb_tpu_torch.ops import conflict as tconf
+    TKNOBS.set("CONFLICT_INTRA_MODE", "legacy")
+
+    def key(i):
+        return b"chain%05d" % i
+    T = 64
+    txns = [TxnConflictInfo(STEP - 1, [(key(t), key(t) + b"\x00")],
+                            [(key(t + 1), key(t + 1) + b"\x00")])
+            for t in range(T)]
+    small = dict(device="cpu", capacity=1024, txns=T, reads_per_txn=1,
+                 writes_per_txn=1)
+    want = DeviceConflictSet(**small).detect(txns, STEP)
+    assert want == [2 - 2 * (t % 2) for t in range(T)]
+    cs = DeviceConflictSet(**small)
+    assert not cs.host_fallback
+    TKNOBS.set("CONFLICT_INTRA_MODE", "scan")
+    assert DeviceConflictSet(**small).host_fallback
+
+    def guarded(*a, **kw):
+        return ref.legacy_fixpoint(*a, **kw, max_bodies=1)
+    monkeypatch.setattr(kernels.PHASES, "legacy_fixpoint", guarded)
+    before = tconf.kernel_metrics.as_dict()["UnconvergedChunks"]
+    with pytest.raises(FDBError) as ei:
+        cs.detect(txns, STEP)
+    assert ei.value.name == "internal_error"
+    assert tconf.kernel_metrics.as_dict()["UnconvergedChunks"] == before + 1
 
 
 def test_unknown_intra_mode_is_refused():

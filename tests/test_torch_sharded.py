@@ -236,8 +236,16 @@ def test_shard_combine_is_the_proxy_rule(W):
           for _ in range(W)]
     cv = [torch.tensor(bool(rng.random() < 0.9)) for _ in range(W)]
     valid = torch.from_numpy(rng.random(n) < 0.7)
-    statuses, info = kernels.shard_combine(st, el, ov, bd, cv, valid)
+    statuses, info, row = kernels.shard_combine(st, el, ov, bd, cv, valid)
     want = np.min(np.stack([s.numpy() for s in st]), axis=0)
+    # the readback row the engine's chunk built from the combine's outputs
+    # before K11 wrote it (four casts and a cat)
+    np.testing.assert_array_equal(row.numpy(), torch.cat([
+        statuses.to(torch.int32), info["eligible"].to(torch.int32),
+        info["overflow"].to(torch.int32).reshape(1),
+        info["converged"].to(torch.int32).reshape(1)]).numpy())
+    assert row.dtype == torch.int32 and row.shape == (2 * n + 2,)
+    assert statuses.data_ptr() == row.data_ptr()  # a view of its head
     np.testing.assert_array_equal(statuses.numpy(), want)
     assert statuses.dtype == torch.int32 and list(info) == list(INFO_FIELDS)
     assert int(info["committed"]) == int(((want == 2) & valid.numpy()).sum())
@@ -326,6 +334,98 @@ def test_engine_equals_jax_through_rebase_and_clear(W, seed):
     for txns, version in _random_batches(seed + 50, 3, 10):
         assert t.detect(txns, version + v0) == j.detect(txns, version + v0)
     _assert_states_equal(j._state, t._state, "after clear")
+
+
+def _buffer_ptrs(state):
+    return ([{k: v.data_ptr() for k, v in sh.items()}
+             for sh in state["shards"]],
+            state["lo"].data_ptr(), state["hi"].data_ptr())
+
+
+# the re-cut of each width: new cuts inside the test keys' first byte
+RECUTS = {1: [b""], 2: [b"", b"\x60"], 4: [b"", b"\x20", b"\x60", b"\x90"]}
+
+
+@pytest.mark.parametrize("W,seed", [(1, 4), (2, 5), (4, 6)])
+def test_sharded_program_equals_the_step_and_jax_through_rebase_recut_clear(
+        W, seed):
+    """The engine runs every chunk through its `ShardedStepGraph` (eagerly
+    on the CPU) over fixed buffers. Each chunk's row, info and state equal
+    the functional `_sharded_step` from a copy of the state before it; the
+    engine's decisions and state equal the JAX engine's through a version
+    jump (every shard rebases), a re-cut and a clear; the buffers never
+    move."""
+    j, t = _engines(W)
+    prog = t._program
+    assert not t.graphed and not prog.graphed
+    ptrs = _buffer_ptrs(t._state)
+    assert prog.state is t._state
+    run, checked = prog.run, [0]
+
+    def run_checked():
+        before = tsh.clone_sharded_state(prog.state)
+        batch = {k: v.clone() for k, v in prog.batch.items()}
+        want_state, want_st, want_info = tsh._sharded_step(
+            before, batch, **prog.step_kw)
+        row, info = run()
+        assert torch.equal(row[:T], want_st)
+        assert row.shape == (2 * T + 2,) and row.dtype == torch.int32
+        assert int(row[2 * T]) == int(want_info["overflow"])
+        assert int(row[2 * T + 1]) == int(want_info["converged"])
+        assert torch.equal(row[T:2 * T], want_info["eligible"].to(torch.int32))
+        for k in INFO_FIELDS:
+            assert torch.equal(info[k], want_info[k]), k
+        got = ref.sharded_state_to_numpy(prog.state)
+        for k, v in ref.sharded_state_to_numpy(want_state).items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        checked[0] += 1
+        return row, info
+    prog.run = run_checked
+    batches = _random_batches(seed, n_batches=12, txns_per_batch=10)
+    jump = (1 << 29) + 777  # past the rebase threshold: every shard rebases
+    batches = batches[:5] + [(txns, v + jump) for txns, v in batches[5:]]
+    for i, (txns, version) in enumerate(batches):
+        if i == 8:
+            for eng in (j, t):
+                eng.rebalance_cuts(RECUTS[W], version)
+            assert t.cut_bytes == j.cut_bytes == RECUTS[W]
+        assert t.detect(txns, version) == j.detect(txns, version), i
+    assert t.base_version == j.base_version > 0
+    _assert_states_equal(j._state, t._state, "after the jump and the re-cut")
+    v0 = batches[-1][1] + 10
+    j.clear(oldest_version=v0)
+    t.clear(oldest_version=v0)
+    _assert_states_equal(j._state, t._state, "cleared")
+    for txns, version in _random_batches(seed + 50, 3, 10):
+        assert t.detect(txns, version + v0) == j.detect(txns, version + v0)
+    _assert_states_equal(j._state, t._state, "after clear")
+    assert checked[0] == 12 + 3
+    assert _buffer_ptrs(t._state) == ptrs
+
+
+def test_the_engine_graphs_a_chunk_where_every_shard_shares_a_card():
+    """The one rule the engine and the bench share: a graph needs every
+    shard on one CUDA card and the kernels' phases, however the caller
+    named them."""
+    c0, c1 = torch.device("cuda:0"), torch.device("cuda:1")
+    assert tsh.graph_fits([c0] * 4, kernels.PHASES)
+    assert not tsh.graph_fits([c0, c1], kernels.PHASES)
+    assert not tsh.graph_fits([c0] * 2, ref.PLAIN)
+    assert not tsh.graph_fits([CPU] * 2, kernels.PHASES)
+    eng = tsh.ShardedDeviceConflictSet(devices=["cpu"] * 2, capacity=1024,
+                                       txns=T, phases=kernels.PHASES)
+    assert not eng.graphed and not eng._program.graphed
+
+
+def test_sharded_program_refuses_a_graph_off_the_card():
+    state = tsh.init_sharded_state(TSHAPES, [CPU] * 2)
+    kw = dict(txns=T, reads=4 * T, writes=4 * T, max_write_life=WINDOW)
+    with pytest.raises(FDBError) as ei:  # a CUDA graph of CPU shards
+        tsh.ShardedStepGraph(state, **kw)
+    assert ei.value.name == "invalid_option"
+    with pytest.raises(FDBError) as ei:
+        tsh.ShardedStepGraph(state, intra_mode="dense", graphed=False, **kw)
+    assert ei.value.name == "invalid_option"
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ buffers and the step / scan programs of ops/step_graph.py, on the CPU.
   buffers, against the oracle.
 - The step and scan programs in their eager mode (the CPU's only mode):
   equal to the plain step and to the JAX scan, their launch accounting,
-  and their refusals (the legacy evaluator, a graph on the CPU).
+  and their refusals (an unknown evaluator or ablation, a graph on the
+  CPU); both programs with the legacy evaluator against the eager step.
 The card tests of the graphs and of K12/K13 are in test_torch_kernels.py,
 which imports no JAX and so runs on the machine with the card.
 """
@@ -435,16 +436,62 @@ def test_programs_refuse_the_legacy_evaluator_and_a_cpu_graph(kind):
     if kind == "scan":
         kw["steps"] = 2
     cls = sg.StepGraph if kind == "step" else sg.ScanGraph
-    for graphed in (False, True):
-        with pytest.raises(FDBError) as ei:
-            cls(state, intra_mode="legacy", graphed=graphed, **kw)
-        assert ei.value.name == "invalid_option"
+    # the legacy evaluator is a program's like the scan's (one launch of
+    # K5); an evaluator that does not exist is refused
+    with pytest.raises(FDBError) as ei:
+        cls(state, intra_mode="dense", graphed=False, **kw)
+    assert ei.value.name == "invalid_option"
     with pytest.raises(FDBError) as ei:
         cls(state, ablate="no_sort", graphed=False, **kw)
     assert ei.value.name == "invalid_option"
     with pytest.raises(FDBError) as ei:  # a CUDA graph of a CPU state
         cls(state, **kw)
     assert ei.value.name == "invalid_option"
+
+
+@pytest.mark.parametrize("kind", ["step", "scan"])
+def test_programs_with_the_legacy_evaluator_equal_the_eager_step(kind):
+    """StepGraph and ScanGraph with intra_mode="legacy" (eagerly, as on the
+    CPU) against `conflict_step` in that mode into new tensors and the JAX
+    legacy step: readback rows or scan rows, and the state."""
+    layout = "pooled" if kind == "step" else "strided"
+    shapes = SHAPES[layout]
+    T = shapes.txns
+    batches = np_batches(shapes, seed=13, steps=4)
+    jstep = jconf._compiled_step(shapes, WINDOW, "legacy", 0)
+    jstate = jconf.init_state(shapes)
+    fresh = ref.init_state(shapes.capacity, shapes.limbs, CPU)
+    state = ref.init_state(shapes.capacity, shapes.limbs, CPU)
+    kw = dict(txns=T, reads=shapes.reads, writes=shapes.writes,
+              max_write_life=WINDOW, strided=shapes.strided,
+              intra_mode="legacy", graphed=False)
+    want_rows, conflicts = [], 0
+    for b in batches:
+        jstate, jst, jinfo = jstep(jstate, b)
+        fresh, st, info = ref.conflict_step(
+            fresh, ref.batch_from_numpy(b, CPU), max_write_life=WINDOW,
+            intra_mode="legacy", strided=shapes.strided)
+        np.testing.assert_array_equal(st.numpy(), np.asarray(jst))
+        want_rows.append((info["readback"], st, info["committed"],
+                          info["overflow"]))
+        conflicts += int((st == 0).sum())
+    assert conflicts > 0
+    if kind == "step":
+        prog = sg.StepGraph(state, **kw)
+        for i, b in enumerate(batches):
+            for k, v in ref.batch_from_numpy(b, CPU).items():
+                prog.batch[k].copy_(v)
+            assert torch.equal(prog.run(), want_rows[i][0]), i
+    else:
+        prog = sg.ScanGraph(state, steps=len(batches), **kw)
+        stacked = {k: ref._from_np(k, np.stack([b[k] for b in batches]), CPU)
+                   for k in batches[0]}
+        st, comm, ovf = prog.run(stacked)
+        for i, (_row, s_i, c_i, o_i) in enumerate(want_rows):
+            assert torch.equal(st[i], s_i.to(torch.int8)), i
+            assert int(comm[i]) == int(c_i) and bool(ovf[i]) == bool(o_i)
+    assert_state_equal(state, fresh, kind)
+    assert_jax_state(jstate, state, kind)
 
 
 def test_legacy_engine_runs_eagerly_and_matches_the_oracle():
