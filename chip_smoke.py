@@ -15,11 +15,16 @@ Phases, each of which must pass:
      make at most 2). The sort-and-rank phase (K6 endpoint_sort, K8
      endpoint_ranks, K7 state_merge) is held whole, all seven outputs, and
      each kernel to its plain part; the phase may launch nothing but
-     K6-K8, at most 4 device launches a call. Its edges: L=3, T=1 and
+     K6-K8, at most 3 device launches a call (K6 one cooperative launch
+     on every path). Its edges: L=3, T=1 and
      T=1,000, a state that poisons, all-padding batches, long keys that
      collapse, and endpoints that all equal state keys; K6 alone also at
      L = 2, 5, 7 and 17 with M about its tiles' and rounds' edges, on
-     all-equal keys and at 524,294 endpoints (endpoint_sort_edge_calls);
+     all-equal keys and at 524,294 endpoints (endpoint_sort_edge_calls),
+     and its sample path (forced where the plan takes the rounds) on a
+     bucket filled to its cap and one below at L = 5, 17 and 32, and on
+     sorted, reverse-sorted and all-equal keys at the main path's M
+     (endpoint_sort_bucket_calls);
      K7 alone also about its tiles of 2,048, on tiles of state alone and
      of endpoints alone, endpoints all equal to state keys, all-equal
      keys, L = 2, 5 and 7, M = 0 and 1,024, cell B's K=2^20 and the
@@ -47,9 +52,10 @@ Phases, each of which must pass:
      K=2^20 with deltas 2^29 and 2^30, saturating; K4 also on a key
      group across its scan tiles and on steps that overflow (N off the
      tile size);
-     K12 (step_masks) and K13 (step_verdicts, with a scan's rows written
-     too) on the captured calls and on edges: T=1, all padding, both
-     layouts, a poisoned state;
+     K12 (step_masks) and K13 (step_verdicts, one cluster, with a scan's
+     rows written too) on the captured calls and on edges: T=1, all
+     padding, both layouts, a poisoned state; K13 also at T = 1 to 2^20
+     from aligned and unaligned pointers (verdict_edge_calls);
      then the engine's chunks through its bucket CUDA graphs against the
      eager kernel step and the plain step, readback row and state for
      state, over a small trajectory that overflows and rebases, its state
@@ -148,7 +154,10 @@ step at W=1 and W=4, and the sharded bench's ms/batch with the chunk
 graphed and eager in turns at W=1 and W=4; and a 20-batch bench scan
 through its graph and eagerly (phase-free, same method for any version of
 the port: a copy of this script beside an older checkout's package times
-that checkout).
+that checkout). Where the package has K6's sample sort, K6 is also timed
+by both of its paths at each shape, and on cell A's and the bench's
+traffic at 16, 32, 64 and 128 tiles (time_sort_paths); K13 also at
+T = 2^18 and 2^20.
 
 It prints a digest of the code it runs, the kernels line
 ({"kernels": [...]}), the nvidia-smi line, and last {"ok": true, "device":
@@ -296,7 +305,7 @@ def time_cuda(fn, reps: int) -> float:
 
 # device functions of each kernel wrapper, as the profiler names them
 DEVICE_FUNCTIONS = {
-    "endpoint_sort": ("endpoint_tile_sort_kernel", "endpoint_merge_kernel"),
+    "endpoint_sort": ("endpoint_sample_kernel", "endpoint_merge_kernel"),
     "state_merge": ("state_merge_kernel",),
     "endpoint_ranks": ("endpoint_ranks_kernel",),
     "sparse_table": ("table_low_kernel", "table_high_kernel"),
@@ -331,7 +340,7 @@ STEP_KERNELS = SORT_KERNELS + ("step_masks", "sparse_table",
 PATH_KERNELS = STEP_KERNELS + ("rebase_table",)
 # the sharded engine's own kernels, once a chunk around the shards' steps
 SHARD_KERNELS = ("shard_clip", "shard_combine")
-SORT_RANK_MAX_LAUNCHES = 4  # device launches a call of the whole phase
+SORT_RANK_MAX_LAUNCHES = 3  # device launches a call of the whole phase
 
 
 def _device_us(evt) -> float:
@@ -1174,6 +1183,118 @@ def endpoint_sort_edge_calls(dev):
     return out
 
 
+def sort_worst_keys(M: int, L: int, short: int = 0, seed: int = 0):
+    """Keys (L, M) int32 (numpy) whose first bucket under K6's sample path
+    (kernels.sort_samples samples a tile) holds the bucket cap less `short`
+    endpoints: tile 0 holds keys 0, 2, ..., 2,046, so its samples are the
+    smallest and its largest key is the first splitter; every other tile
+    holds g - 1 odd keys below it (the first `short` tiles one fewer) and
+    the rest far above. The keys differ in their last limb only; each tile
+    is shuffled. The last tile must hold g - 1 endpoints at least."""
+    from foundationdb_tpu_torch.ops import kernels
+    tile = kernels.SORT_TILE
+    g = tile // kernels.sort_samples(M, L)
+    rng = np.random.default_rng(seed)
+    v = np.empty(M, np.int64)
+    for i in range(-(-M // tile)):
+        n = min(tile, M - i * tile)
+        if i == 0:
+            vals = 2 * np.arange(n)
+        else:
+            small = g - 1 - (1 if i <= short else 0)
+            assert n >= small, "the last tile is too short"
+            vals = np.concatenate([2 * rng.integers(0, tile - 1, small) + 1,
+                                   10 ** 6 + rng.integers(0, 10 ** 6,
+                                                          n - small)])
+        v[i * tile:i * tile + n] = rng.permutation(vals)
+    keys = np.full((L, M), 7, np.int32)
+    keys[L - 1] = v.astype(np.int32)
+    return keys
+
+
+def endpoint_sort_bucket_calls(dev):
+    """K6's sample sort at its buckets' edges, forced (`samples`, the
+    plan's sort_samples; never turned to the rounds) where the plan takes
+    the rounds path: for L = 5, 17 and 32, inputs whose first bucket holds
+    exactly the cap and one less (`sort_worst_keys`: the most a bucket can
+    hold), at 4 and 9 tiles (L = 32, the last short) or 4 and 16 (else);
+    and the CPU model's other worst inputs at the main path's M of 16,384
+    (L = 7), 65,536 and 131,072 (L = 5): keys sorted, reverse sorted and
+    all equal (they differ by class and index only), by the plan's path,
+    by the sample sort and by the sample path's kernel turned to the merge
+    rounds."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import kernels
+    out = []
+
+    def split(keys, **kw):
+        keys = torch.from_numpy(np.ascontiguousarray(keys))
+        M = keys.shape[1]
+        NR = M // 4
+        NW = M // 2 - NR
+        ends = torch.split(keys, [NR, NR, NW, NW], dim=1)
+        return tuple(e.contiguous().to(dev) for e in ends), kw
+    for L in (5, 17, 32):
+        for M in ((4096, 9214) if L == 32 else (4096, 16384)):
+            s = kernels.sort_samples(M, L)
+            assert s > 0
+            for short in (0, 1):
+                out.append(split(sort_worst_keys(M, L, short, seed=M + L),
+                                 samples=s, tie_limit=2 ** 31 - 1))
+    rng = np.random.default_rng(53)
+    for M, L in ((16384, 7), (65536, 5), (131072, 5)):
+        v = np.sort(rng.integers(-2 ** 31, 2 ** 31, M)).astype(np.int32)
+        for kind in ("sorted", "reversed", "equal"):
+            keys = np.full((L, M), 3, np.int32)
+            keys[1] = {"sorted": v, "reversed": v[::-1],
+                       "equal": np.full(M, 5, np.int32)}[kind]
+            out.append(split(keys))
+            for tie_limit in (2 ** 31 - 1, -1):
+                out.append(split(keys, samples=kernels.sort_samples(M, L),
+                                 tie_limit=tie_limit))
+    return out
+
+
+def plain_sort(rb, re, wb, we, samples=None, tie_limit=None):
+    """K6's plain version, for calls that force the kernel's samples."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    return ref.endpoint_sort(rb, re, wb, we)
+
+
+def forced_sort(rb, re, wb, we, samples=None, tie_limit=None):
+    """K6 with `samples` samples a tile (0: the tile sort and the merge
+    rounds; None: the plan's path) and the sample path's `tie_limit` (-1:
+    always the merge rounds; 2**31 - 1: never; None: the plan's), through
+    the wrapper's override."""
+    from foundationdb_tpu_torch.ops import kernels
+    old = kernels.SORT_OVERRIDE
+    kernels.SORT_OVERRIDE = {k: v for k, v in (
+        ("samples", samples), ("tie_limit", tie_limit)) if v is not None}
+    try:
+        return kernels.endpoint_sort(rb, re, wb, we)
+    finally:
+        kernels.SORT_OVERRIDE = old
+
+
+def verdict_edge_calls(dev):
+    """K13's edges: T = 1, 15, 16, 17, 1,024, 16,384, 16,385, 32,768 and
+    2^20 txns of random flags (both scalar flags set and cleared), each
+    from pointers one byte past a 16-byte boundary as well (the scalar
+    path); the scan's rows are written by `with_scan_rows`."""
+    import torch
+    g = torch.Generator().manual_seed(59)
+    out = []
+    for T in (1, 15, 16, 17, 1024, 16384, 16385, 32768, 1 << 20):
+        for offset in (0, 1):
+            flags = [(torch.rand(T + offset, generator=g) < p)
+                     .to(dev)[offset:] for p in (0.6, 0.2, 0.9, 0.5)]
+            scalars = [torch.tensor(bool((T + offset) % 2), device=dev),
+                       torch.tensor(bool(offset == 0), device=dev)]
+            out.append(((*flags, *scalars), {}))
+    return out
+
+
 def endpoint_ranks_edge_calls(dev):
     """K8's edges beyond the phase's calls, as (keys, ids) calls on sorted
     keys: M = 1 and 2; M one below, at and one above a tile of 512 and of
@@ -1622,7 +1743,8 @@ def step_wrappers():
                 "merge_compact": (kernels.merge_compact, ref.merge_compact),
                 "step_masks": (kernels.step_masks, ref.step_masks),
                 "step_verdicts": (kernels.step_verdicts, ref.step_verdicts)}
-    checks = {"intra_levels": (kernels.intra_levels, plain_levels),
+    checks = {"endpoint_sort": (forced_sort, plain_sort),
+              "intra_levels": (kernels.intra_levels, plain_levels),
               "intra_sandwich": (counted(kernels.intra_sandwich),
                                  counted(ref.intra_sandwich)),
               "step_verdicts": (with_scan_rows(kernels.step_verdicts),
@@ -1697,7 +1819,9 @@ def check_kernels(dev, calls, results, cell, edges=True):
                      f"converged in {a[7]} rounds")
     all_calls.update(sort_rank_part_calls(all_calls["sort_and_rank"]))
     if edges:
-        all_calls["endpoint_sort"] += endpoint_sort_edge_calls(dev)
+        all_calls["endpoint_sort"] += endpoint_sort_edge_calls(dev) + \
+            endpoint_sort_bucket_calls(dev)
+        all_calls["step_verdicts"] += verdict_edge_calls(dev)
         all_calls["state_merge"] += state_merge_edge_calls(dev)
         all_calls["endpoint_ranks"] += endpoint_ranks_edge_calls(dev)
     for name, (kern, plain) in wrappers.items():
@@ -2901,9 +3025,15 @@ def time_step_kernels(dev, reps=50):
     ms a step of a 20-batch bench scan through its graph and eagerly
     (`time_scan_graph`). Then K5 (`time_legacy`), K10 and K11 at W = 1
     and 4 (`time_sharded_step`) and the sharded chunk graphed and eager
-    (`time_sharded_chunk`). K6-K8, K9, the rebase, K10-K13 and the graphs
-    are timed where the package has them, so a copy of this script beside
-    an older checkout's package times that checkout alike."""
+    (`time_sharded_chunk`). K6 also by each of its two paths at each
+    shape, whichever the plan takes (`endpoint_sort_rounds`: the tile sort
+    and the merge rounds; `endpoint_sort_sample`: the sample sort), and
+    K6's two paths on cell A's and the bench's traffic at 16 to 128 tiles
+    (`sort_paths`, time_sort_paths), and K13 at T = 2^18 and 2^20
+    (`step_verdicts_t_2_18`, `_t_2_20`). K6-K8, K9, the rebase,
+    K10-K13 and the graphs are timed where the package has them, so a copy
+    of this script beside an older checkout's package times that checkout
+    alike."""
     import torch
 
     from foundationdb_tpu_torch import bench
@@ -2924,6 +3054,13 @@ def time_step_kernels(dev, reps=50):
     if hasattr(kernels, "step_masks"):
         wrappers.update(step_masks=kernels.step_masks,
                         step_verdicts=kernels.step_verdicts)
+    if hasattr(kernels, "sort_plan"):  # K6 by its rounds and sample paths
+        wrappers["endpoint_sort_rounds"] = \
+            lambda *a: forced_sort(*a, samples=0)
+        wrappers["endpoint_sort_sample"] = \
+            lambda *a: forced_sort(*a, samples=kernels.sort_samples(
+                2 * a[0].shape[1] + 2 * a[2].shape[1], a[0].shape[0]),
+                tie_limit=2 ** 31 - 1)
     cdf, keys = zipf_keys(20_000)
     cells = {"A": (None, None, capture_main_path_calls(dev, make_batches(
         np.random.default_rng(100), cdf, keys, 4)))}
@@ -2952,10 +3089,25 @@ def time_step_kernels(dev, reps=50):
         funcs, _wall = profile_device(lambda: kernels.state_merge(*a), reps)
         out["B_k_2_20"] = {"state_merge": {"device_ms": busy_ms(funcs)}}
         del a
+    if "step_verdicts" in wrappers:  # K13 past the cluster's one pass
+        g = torch.Generator().manual_seed(67)
+        for log2 in (18, 20):
+            a = [(torch.rand(1 << log2, generator=g) < p).to(dev)
+                 for p in (0.6, 0.2, 0.9, 0.5)]
+            a += [torch.tensor(True, device=dev),
+                  torch.tensor(False, device=dev)]
+            funcs, _wall = profile_device(
+                lambda: kernels.step_verdicts(*a), reps)
+            out[f"step_verdicts_t_2_{log2}"] = {"device_ms": busy_ms(funcs)}
+        del a
+    if hasattr(kernels, "sort_plan"):
+        out["sort_paths"] = time_sort_paths(dev, reps)
     for cell, (state, batch, calls) in cells.items():
         row = out[cell] = {}
         if "sort_and_rank" in calls:
             calls.update(sort_rank_part_calls(calls["sort_and_rank"][-1:]))
+            calls["endpoint_sort_rounds"] = calls["endpoint_sort"]
+            calls["endpoint_sort_sample"] = calls["endpoint_sort"]
         calls["rebase_table"] = [rebase_call(calls)]
         for name, kern in wrappers.items():
             a, kw = calls[name][-1]
@@ -2981,6 +3133,102 @@ def time_step_kernels(dev, reps=50):
             if hasattr(kernels, "step_masks"):  # the package has graphs
                 row["scan"] = time_scan_graph(dev, state,
                                               batch["snapshot"].shape[0])
+    return out
+
+
+def sort_ties(keys: np.ndarray) -> int:
+    """The ties K6's sample path counts in keys (L, M): in each sorted
+    tile of SORT_TILE, the endpoints whose primary key (the tile's first
+    varying limb and the next, unsigned) equals their predecessor's."""
+    from foundationdb_tpu_torch.ops import kernels
+    L, M = keys.shape
+    u = keys.astype(np.int64) + 2 ** 31
+    ties = 0
+    for base in range(0, M, kernels.SORT_TILE):
+        t = u[:, base:base + kernels.SORT_TILE]
+        vary = np.flatnonzero((t != t[:, :1]).any(axis=1))
+        if len(vary) == 0:
+            ties += t.shape[1] - 1
+            continue
+        f = vary[0]
+        prim = t[f] << 32 | (t[f + 1] if f + 1 < L else 0)
+        ties += t.shape[1] - len(np.unique(prim))
+    return ties
+
+
+def tied_keys(M: int, L: int, share: float, seed: int) -> np.ndarray:
+    """Keys (L, M) int32: random after a shared first limb, with a `share`
+    of the endpoints copies of 64 hot keys (the ties of skewed traffic)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-2 ** 31, 2 ** 31, (L, M)).astype(np.int32)
+    keys[0] = 7
+    hot = keys[:, :64].copy()
+    pick = rng.random(M) < share
+    keys[:, pick] = hot[:, rng.integers(0, 64, int(pick.sum()))]
+    return keys
+
+
+def time_sort_paths(dev, reps=50):
+    """K6's device ms a call by each of its designs: `rounds` (the tile
+    sort and the merge rounds, endpoint_merge_kernel), `sample` (the
+    sample sort, never turning to the rounds), `turned` (the sample path's
+    kernel turned to the merge rounds from its runs) and `plan` (the
+    wrapper's own choice), at 16, 32, 64 and 128 tiles on cell A's traffic
+    (zipfian, L = 7: 1, 2, 4 and 8 of its 1,024-txn batches side by side)
+    and on the bench's (strided, L = 5: T = 4,096 to 32,768); and the
+    first three at 16 and 128 tiles on `tied_keys` (L = 5) with 0 to 1/4
+    of the endpoints copies of hot keys. Each output is held to the plain
+    sort; `ties` is `sort_ties`' count, `ties_share` it over M."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.ops.conflict import DeviceConflictSet
+    sms = kernels._sm_count(dev)
+    cdf, keys = zipf_keys(20_000)
+    cs = DeviceConflictSet(device=dev)
+    cell_a = [cs.encoder.encode_batch(txns, version) for _prev, version, txns
+              in make_batches(np.random.default_rng(104), cdf, keys, 8)]
+    ends = ("rb", "re", "wb", "we")
+    inputs = {}
+    for tiles in (16, 32, 64, 128):
+        inputs[f"A_{tiles}_tiles"] = tuple(torch.cat(
+            [b[k].to(dev) for b in cell_a[:tiles // 16]], dim=1).contiguous()
+            for k in ends)
+        staged = bench.stage(bench._encode_batches(
+            1, seed=1, version0=bench.WINDOW, T=256 * tiles), dev)
+        inputs[f"bench_{tiles}_tiles"] = tuple(
+            staged[k][0].contiguous() for k in ends)
+    for tiles in (16, 128):
+        for share in (0, 1 / 64, 1 / 32, 1 / 16, 1 / 8, 1 / 4):
+            M = tiles * kernels.SORT_TILE
+            t = torch.from_numpy(tied_keys(M, 5, share, seed=tiles))
+            inputs[f"tied_{share:.4f}_{tiles}_tiles"] = tuple(
+                e.contiguous().to(dev)
+                for e in torch.split(t, [M // 4] * 4, dim=1))
+    never = 2 ** 31 - 1
+    out = {}
+    for name, a in inputs.items():
+        L, M = a[0].shape[0], 2 * a[0].shape[1] + 2 * a[2].shape[1]
+        s = kernels.sort_samples(M, L, sms)
+        ties = sort_ties(torch.cat(a, dim=1).cpu().numpy())
+        row = out[name] = {"M": M, "L": L, "samples": s, "ties": ties,
+                           "ties_share": ties / M,
+                           "plan_path": kernels.sort_plan(M, L, sms)["path"]}
+        want = ref.endpoint_sort(*a)
+        modes = {"rounds": {"samples": 0}}
+        if s:
+            modes.update(sample={"samples": s, "tie_limit": never},
+                         turned={"samples": s, "tie_limit": -1})
+        if not name.startswith("tied"):
+            modes["plan"] = {}
+        for mode, kw in modes.items():
+            got = forced_sort(*a, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                fail(f"K6 ({mode}) differs from the plain sort on {name}")
+            funcs, _wall = profile_device(lambda: forced_sort(*a, **kw), reps)
+            row[mode] = busy_ms(funcs)
     return out
 
 

@@ -68,18 +68,23 @@ values are shifted down and saturated as they are loaded, and written out
 beside the table.
 
 `sort_and_rank`, the step's first phase, is K6, K8 and K7 in turn. The
-state keys arrive sorted, so K6 sorts only the 2NR + 2NW endpoints (a
+state keys arrive sorted, so K6 sorts only the 2NR + 2NW endpoints: a
 bitonic network per 1,024-element tile, its strides below 64 in registers
-and warp shuffles, then one cooperative persistent kernel that runs every
-merge-path round, a grid barrier between rounds, comparing 64-bit primary
-keys in shared memory); K8 ranks them in one cooperative launch (each
+and warp shuffles, then, in the same cooperative launch, from 32 tiles
+up (`sort_plan`'s sample path), a sample sort: every tile's regular
+samples ranked once, spread over the CTAs, the splitters found in each
+run, and each bucket's pieces merged in shared memory, three grid
+barriers whatever M is; below 32 tiles (cell A's 16), or past the SMs or
+the shared memory, the merge-path rounds instead, a grid barrier a round;
+K8 ranks them in one
+cooperative launch (each
 tile's key changes as warp ballots, its count, one grid barrier, then
 each tile's prefix from the counts before it); K7 merges them into the
 state, a CTA a tile of 512 to 2,048 outputs: the tile's two co-ranks by
 a few rounds of probes in global memory, both slices to shared memory by
 cp.async, a run of outputs a thread merged with two fingers, and the
-sorted union, `spos` and `cum_state` written in one pass. That is 4 device
-launches (3 when M <= 1,024), in place of about 40 torch launches.
+sorted union, `spos` and `cum_state` written in one pass. That is 3 device
+launches, in place of about 40 torch launches.
 
 K5 runs the legacy evaluator's whole fixpoint in one cooperative launch:
 every evaluation of f is a grid pass over tiles of 512 reads by 256
@@ -102,9 +107,10 @@ scratch that the launch leaves zero.
 K12 and K13 are the step's elementwise glue, one launch each a step in
 place of about 25 torch launches: K12 derives the range->txn maps (the
 strided layout's from the padding limb) and the masks of the intra-batch
-phase; K13 writes the statuses, the committed count (a block sum and one
-atomic into zeroed scratch that the last block resets, as K11's), the
-resolver's packed readback row and, in a scan, the step's row of the
+phase; K13, one thread-block cluster (a grid of clusters past T =
+32,768, cluster 0 counting), writes the statuses, the committed count
+(each CTA's sum read by rank 0 through distributed shared memory),
+the resolver's packed readback row and, in a scan, the step's row of the
 scan's outputs. With both, a step on the card is kernel launches and a
 few 4-byte copies only, which is what lets ops/step_graph.py capture it
 as a CUDA graph.
@@ -213,7 +219,7 @@ def reset_launches():
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "fdb_endpoint_sort": [_P] * 4 + [_I] * 3 + [_P] * 6,
+    "fdb_endpoint_sort": [_P] * 4 + [_I] * 5 + [_P] * 7,
     "fdb_state_merge": [_P] * 4 + [_I] * 4 + [_P] * 7,
     "fdb_endpoint_ranks": [_P, _P, _I, _I, _P, _P, _P, _P],
     "fdb_sparse_table": [_P, _P, _I, _I, _P, _LL, _P, _P, _P, _P],
@@ -226,7 +232,7 @@ _ARGTYPES = {
     "fdb_shard_clip": [_P] * 6 + [_I] * 4 + [_P] * 5,
     "fdb_shard_combine": [_P, _I, _I] + [_P] * 7,
     "fdb_step_masks": [_P] * 8 + [_I] * 5 + [_P] * 6,
-    "fdb_step_verdicts": [_P] * 6 + [_I] + [_P] * 7,
+    "fdb_step_verdicts": [_P] * 6 + [_I] + [_P] * 6,
     "fdb_probe_add": [_P, _P, _LL, _P],
     "fdb_probe_stream": [_P, _I, _I, _LL, _LL, _I, _P, _P],
     "fdb_probe_rank": [_P, _P, _I, _I, _I, _I] + [_LL] * 5 + [_I, _P, _P],
@@ -397,11 +403,121 @@ _I32, _BOOL = torch.int32, torch.bool
 # endpoints a tile of K8 (RANK_TILE in the source)
 RANK_TILE = 512
 
+# K6's tile and the sample path's limits (SORT_TILE, SS_MAX_SAMPLES,
+# SS_MIN_SAMPLES, SS_SAMPLE_BUDGET and SS_SMEM_MAX in the source)
+SORT_TILE = 1024
+SORT_MAX_SAMPLES = 64
+SORT_MIN_SAMPLES = 8
+SORT_SAMPLE_BUDGET = 8192
+SORT_SMEM_MAX = 227 * 1024 - 1024
+
+
+def sort_cap(tiles: int, samples: int) -> int:
+    """The most endpoints a bucket of K6's sample path can hold (padding
+    included), for `tiles` tiles of SORT_TILE and `samples` samples a
+    tile: run i adds at most (c_i + 1) g - 1 endpoints for the c_i of the
+    bucket's samples it holds (g = SORT_TILE / samples), the run holding
+    the upper splitter at most c_i g, and the c_i sum to `samples`
+    (`ss_cap` in the source)."""
+    g = SORT_TILE // samples
+    return (samples + tiles - 1) * g - tiles + 1
+
+
+def _sort_smem_bytes(L: int, tiles: int, samples: int) -> int:
+    """The sample path's dynamic shared memory (`ss_smem_words` in the
+    source): the run and the larger of the hash table, the samples' keys
+    and ranks and the splitters; or the bucket and its pieces' offsets."""
+    ns = tiles * samples
+    run = (L + 3) * SORT_TILE
+    extra = max(3 * SORT_TILE, 2 * ns + samples, (L + 1) * (tiles - 1))
+    bucket = (L + 8) * sort_cap(tiles, samples) + 2 * tiles + 1
+    return 4 * max(run + extra, bucket)
+
+
+# tiles from which the plan takes the sample path's kernel: from there it
+# was timed no slower than the rounds kernel on cell A's zipfian traffic,
+# and faster on keys with few ties; below it, on cell A's 16 tiles, the
+# rounds kernel was the faster (PERF.md)
+SORT_SAMPLE_MIN_TILES = 32
+# the sample path's kernel takes the merge rounds where more than
+# M / SORT_TIE_DIV endpoints tie their run predecessor's primary key: the
+# sample sort was timed the faster up to 0.8% of M and the slower from
+# 2.4% at 16 tiles, up to 2.3% and from 7.2% at 128 (PERF.md)
+SORT_TIE_DIV = 64
+
+
+def sort_samples(M: int, L: int, sms: int = 132) -> int:
+    """The samples a tile K6's sample path takes for M endpoints of L limbs
+    on a card of `sms` SMs, whatever the tiles: the most, a power of two
+    from SORT_MAX_SAMPLES down to SORT_MIN_SAMPLES, with at most
+    SORT_SAMPLE_BUDGET samples in all, whose shared memory fits
+    SORT_SMEM_MAX; 0 where none fits, or the tiles are one or more than
+    the SMs (a CTA a tile, each on its own SM)."""
+    tiles = max(1, -(-int(M) // SORT_TILE))
+    s = SORT_MAX_SAMPLES
+    while 1 < tiles <= sms and s >= SORT_MIN_SAMPLES:
+        if (tiles * s <= SORT_SAMPLE_BUDGET
+                and _sort_smem_bytes(L, tiles, s) <= SORT_SMEM_MAX):
+            return s
+        s //= 2
+    return 0
+
+
+def sort_plan(M: int, L: int, sms: int = 132, samples: int | None = None
+              ) -> dict:
+    """K6's launch plan for M endpoints of L limbs on a card of `sms` SMs.
+    `path` is "tile" (one tile: the tile sort alone), "sample" (a
+    cooperative launch of `tiles` CTAs, a tile and a bucket each, with
+    `sort_samples` samples a tile: the sample sort, or the merge rounds
+    where more than `tie_limit` endpoints tie their run predecessor's
+    primary key) or "rounds" (a cooperative launch of the tile sort and
+    the merge rounds): one launch each. The sample path is taken from
+    SORT_SAMPLE_MIN_TILES tiles up where it fits. `samples` forces the
+    samples a tile (0: the tile or rounds path). `cap` bounds a bucket
+    (sort_cap); `scratch_words` is the sample path's int32 scratch: the
+    samples, the splitters, the tiles x tiles counts and two words a
+    tile."""
+    tiles = max(1, -(-int(M) // SORT_TILE))
+    if samples is None:
+        samples = (sort_samples(M, L, sms)
+                   if tiles >= SORT_SAMPLE_MIN_TILES else 0)
+    samples = int(samples)
+    if samples == 0:
+        path = "tile" if tiles == 1 else "rounds"
+        return {"tiles": tiles, "samples": 0, "buckets": 0, "cap": 0,
+                "path": path, "launches": 1,
+                "grid_barriers": (tiles - 1).bit_length(),
+                "smem_bytes": 0, "scratch_words": 0, "tie_limit": 0}
+    return {"tiles": tiles, "samples": samples, "buckets": tiles,
+            "cap": sort_cap(tiles, samples), "path": "sample",
+            "launches": 1, "grid_barriers": 3,
+            "smem_bytes": _sort_smem_bytes(L, tiles, samples),
+            "scratch_words": (L + 1) * (tiles * samples + tiles - 1)
+            + tiles * tiles + 2 * tiles,
+            "tie_limit": int(M) // SORT_TIE_DIV}
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    key = str(dev)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[key]
+
+
+# Overrides K6's plan ({"samples": s} forces the samples a tile, 0 the
+# tile sort and the merge rounds; {"tie_limit": n} the sample path's tie
+# limit, -1 always the rounds, 2**31 - 1 never), for the tests and the
+# timing of each design at one shape; None in production.
+SORT_OVERRIDE: dict | None = None
+
 
 def endpoint_sort(rb, re, wb, we):
     """K6: the endpoints [rb | re | wb | we] sorted by (limbs, class,
-    index): (keys (L, M), idx (M,) int32): tiles of 1,024 sorted in shared
-    memory, then the merge rounds."""
+    index): (keys (L, M), idx (M,) int32), in one cooperative launch by
+    the path `sort_plan` picks."""
     if not _on_cuda("endpoint_sort", rb):
         return ref.endpoint_sort(rb, re, wb, we)
     L, NR = rb.shape
@@ -415,13 +531,18 @@ def endpoint_sort(rb, re, wb, we):
     idx = torch.empty(M, dtype=_I32, device=dev)
     if M == 0:
         return keys, idx
+    force = SORT_OVERRIDE or {}
+    plan = sort_plan(M, L, _sm_count(dev), force.get("samples"))
+    tie_limit = force.get("tie_limit", plan["tie_limit"])
     tmp_keys = _scratch("sort_keys", L * M, _I32, dev)
     tmp_idx = _scratch("sort_idx", M, _I32, dev)
+    scratch = _scratch("sort_samples", plan["scratch_words"], _I32, dev)
     sync = _zeroed_scratch("sort_sync", 1, _I32, dev)
     rc = library().fdb_endpoint_sort(
         rb.data_ptr(), re.data_ptr(), wb.data_ptr(), we.data_ptr(), L, NR,
-        NW, keys.data_ptr(), idx.data_ptr(), tmp_keys.data_ptr(),
-        tmp_idx.data_ptr(), sync.data_ptr(), _stream())
+        NW, plan["samples"], tie_limit, keys.data_ptr(), idx.data_ptr(),
+        tmp_keys.data_ptr(), tmp_idx.data_ptr(), scratch.data_ptr(),
+        sync.data_ptr(), _stream())
     _launched("endpoint_sort", rc)
     return keys, idx
 
@@ -1040,8 +1161,10 @@ def step_masks(rb, wb, rtxn, wtxn, rbr, rer, wbr, wer, T: int,
 def step_verdicts(commit, too_old, txn_valid, eligible, overflow, converged,
                   scan_out=None, index: int = 0):
     """K13: (statuses (T,) int32, committed () int32, row (2T+2,) int32) in
-    one launch, as `conflict_ref.step_verdicts`; with `scan_out` it also
-    writes entry `index` of the scan's (statuses, committed, overflow)."""
+    one launch of one thread-block cluster (past T = 32,768 a grid of
+    clusters, cluster 0 counting), as `conflict_ref.step_verdicts`;
+    with `scan_out` it also writes entry `index` of the scan's (statuses,
+    committed, overflow)."""
     if not _on_cuda("step_verdicts", commit):
         return ref.step_verdicts(commit, too_old, txn_valid, eligible,
                                  overflow, converged, scan_out, index)
@@ -1067,12 +1190,10 @@ def step_verdicts(commit, too_old, txn_valid, eligible, overflow, converged,
                      ovf[index].data_ptr())
     row = torch.empty(2 * T + 2, dtype=_I32, device=dev)
     committed = torch.empty((), dtype=_I32, device=dev)
-    scratch = _zeroed_scratch("verdicts", 2, _I32, dev)
     rc = library().fdb_step_verdicts(
         commit.data_ptr(), too_old.data_ptr(), txn_valid.data_ptr(),
         eligible.data_ptr(), overflow.data_ptr(), converged.data_ptr(), T,
-        scratch.data_ptr(), row.data_ptr(), committed.data_ptr(), *scan_ptrs,
-        _stream())
+        row.data_ptr(), committed.data_ptr(), *scan_ptrs, _stream())
     _launched("step_verdicts", rc)
     return row[:T], committed, row
 

@@ -6,8 +6,7 @@ separate nondeterministic generator exists for things that must not affect the
 simulation (flow/IRandom.h).
 
 We wrap Python's Mersenne Twister (stable across versions, fast enough for the
-host control plane). Device-side randomness uses jax PRNG keys derived from the
-same seed.
+host control plane). The port draws no randomness on the device.
 """
 
 from __future__ import annotations

@@ -488,13 +488,99 @@ def test_level_kernel_refuses_a_span_past_the_levels(cuda):
 @pytest.mark.cuda
 def test_endpoint_sort_kernel_at_its_run_edges(cuda):
     # K6 at L = 2, 5, 7, 17 with M about its run length and past three
-    # runs, ties of every kind and all-equal keys; twice, since its
-    # barrier word must be left as it was found
+    # runs, ties of every kind and all-equal keys, and at its sample
+    # path's bucket edges (a bucket at its cap and one below, L = 5, 17
+    # and 32; sorted, reverse-sorted and all-equal keys at the main path's
+    # M); twice, since its barrier word must be left as it was found
     import chip_smoke
-    calls = chip_smoke.endpoint_sort_edge_calls(cuda)
+    calls = chip_smoke.endpoint_sort_edge_calls(cuda) + \
+        chip_smoke.endpoint_sort_bucket_calls(cuda)
     kernels.reset_launches()
-    _equal_to_plain(kernels.endpoint_sort, ref.endpoint_sort, calls + calls)
+    _equal_to_plain(chip_smoke.forced_sort, chip_smoke.plain_sort,
+                    calls + calls)
     assert kernels.LAUNCHES["endpoint_sort"] == 2 * len(calls)
+    paths = {kernels.sort_plan(2 * a[0].shape[1] + 2 * a[2].shape[1],
+                               a[0].shape[0], samples=kw.get("samples"))[
+                                   "path"] for a, kw in calls}
+    assert paths == {"tile", "sample", "rounds"}
+
+
+@pytest.mark.cuda
+def test_endpoint_sort_sample_path_equals_the_rounds_path(cuda):
+    # the main path's shapes by every design: the plan's path, the tile
+    # sort with the merge rounds (samples=0), the sample sort (the samples
+    # sort_samples takes, and fewer a tile: a larger cap) and the sample
+    # path's kernel turned to the merge rounds (tie_limit=-1)
+    import chip_smoke
+    calls = [c for c in chip_smoke.endpoint_sort_bucket_calls(cuda)
+             if c[0][0].shape[1] >= 4096]
+    for a, _kw in calls:
+        want = ref.endpoint_sort(*a)
+        M, L = 2 * a[0].shape[1] + 2 * a[2].shape[1], a[0].shape[0]
+        for samples, tie_limit in (
+                (None, None), (0, None),
+                (kernels.sort_samples(M, L), 2 ** 31 - 1),
+                (kernels.SORT_MIN_SAMPLES, 2 ** 31 - 1),
+                (kernels.sort_samples(M, L), -1)):
+            if samples and kernels.sort_plan(M, L, samples=samples)[
+                    "smem_bytes"] > kernels.SORT_SMEM_MAX:
+                continue
+            got = chip_smoke.forced_sort(*a, samples=samples,
+                                         tie_limit=tie_limit)
+            torch.cuda.synchronize()
+            for w, g in zip(want, got):
+                assert torch.equal(g, w), (M, L, samples, tie_limit)
+
+
+@pytest.mark.cuda
+def test_step_verdicts_at_edge_widths(cuda):
+    # K13, one cluster, at T = 1 .. 2^20 (T mod 16 and the cluster's loop),
+    # from 16-byte aligned pointers and from pointers one byte past, with
+    # and without the scan's rows
+    import chip_smoke
+    calls = chip_smoke.verdict_edge_calls(cuda)
+    kernels.reset_launches()
+    for a, _kw in calls:
+        for scan in (False, True):
+            wrap = chip_smoke.with_scan_rows if scan else (lambda v: v)
+            got = wrap(kernels.step_verdicts)(*a)
+            want = wrap(ref.step_verdicts)(*a)
+            torch.cuda.synchronize()
+            for w, g in zip(want, got):
+                assert torch.equal(g, w), (a[0].shape[0], scan)
+    assert kernels.LAUNCHES["step_verdicts"] == 2 * len(calls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [17, 16384, 1 << 20])
+def test_step_verdicts_replayed_in_a_graph(cuda, T):
+    # captured once, replayed three times on new inputs: no state is left
+    # from one replay to the next (no scratch, no ticket)
+    flags = [torch.zeros(T, dtype=torch.bool, device=cuda)
+             for _ in range(4)]
+    scalars = [torch.zeros((), dtype=torch.bool, device=cuda)
+               for _ in range(2)]
+    rows = (torch.zeros((3, T), dtype=torch.int8, device=cuda),
+            torch.zeros(3, dtype=torch.int32, device=cuda),
+            torch.zeros(3, dtype=torch.bool, device=cuda))
+    kernels.step_verdicts(*flags, *scalars, scan_out=rows, index=1)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernels.step_verdicts(*flags, *scalars, scan_out=rows, index=1)
+    gen = torch.Generator().manual_seed(T)
+    for rep in range(3):
+        for f, p in zip(flags, (0.7, 0.2, 0.9, 0.4)):
+            f.copy_(torch.rand(T, generator=gen) < p)
+        scalars[0].fill_(rep == 1)
+        scalars[1].fill_(rep != 2)
+        graph.replay()
+        torch.cuda.synchronize()
+        plain_rows = tuple(t.clone() for t in rows)
+        want = ref.step_verdicts(*flags, *scalars, scan_out=plain_rows,
+                                 index=1)
+        for w, g in zip(want + plain_rows, out + rows):
+            assert torch.equal(g, w), rep
 
 
 @pytest.mark.cuda
