@@ -32,10 +32,14 @@ Phases, each of which must pass:
      2 and about its tiles of 512, on all-equal keys, L = 2 to 17, and at
      2,050 tiles, more than the card holds at once
      (endpoint_ranks_edge_calls). K1's edges: K on
-     and off its 1,024-column tile up to 2^20 (2^19 + 1 among them); K2's:
-     shuffled reads (rtxn unsorted), T=1 and T=33 with txns that have no
-     reads and snapshots below the floor, all reads padding, and a
-     kernel-bench step at T=32,768.
+     and off its 1,024-column tile up to 2^20 (2^19 + 1 among them); K2's
+     (masks_and_history: the five masks of `step_masks` and the verdicts of
+     `history_check` in one launch, held to the two plain parts; and
+     `history_check`, the same launch on given owners): shuffled reads
+     (rtxn unsorted), T=1 and T=33 with txns that have no reads and
+     snapshots below the floor, all reads padding, inverted and empty
+     reads, a kernel-bench step at T=32,768, and the glue's edges (T=1,
+     all padding, both layouts, a poisoned state).
      K9 (the level geometry) field for field, also at T=1, T off a power
      of two, all padding, shuffled owners and heavy ties, at the span
      path's edges (T one below, at and above a span; txns piled on span
@@ -52,10 +56,10 @@ Phases, each of which must pass:
      K=2^20 with deltas 2^29 and 2^30, saturating; K4 also on a key
      group across its scan tiles and on steps that overflow (N off the
      tile size);
-     K12 (step_masks) and K13 (step_verdicts, one cluster, with a scan's
-     rows written too) on the captured calls and on edges: T=1, all
-     padding, both layouts, a poisoned state; K13 also at T = 1 to 2^20
-     from aligned and unaligned pointers (verdict_edge_calls);
+     K13 (step_verdicts, one cluster, with a scan's rows written too) on
+     the captured calls and on edges: T=1, all padding, both layouts, a
+     poisoned state, and at T = 1 to 2^20 from aligned and unaligned
+     pointers (verdict_edge_calls);
      then the engine's chunks through its bucket CUDA graphs against the
      eager kernel step and the plain step, readback row and state for
      state, over a small trajectory that overflows and rebases, its state
@@ -66,7 +70,9 @@ Phases, each of which must pass:
      and 4,097 txns, reads and writes shuffled, T=1, no reads, no writes,
      no eligible txn, random pooled owners), and its one-evaluation launch
      on every evaluation's input of those steps; and each probe at the
-     Pallas scripts' shapes;
+     Pallas scripts' shapes, the rank joins also on ties, limbs with the
+     high bit set, LK = 1 to 8 and a tile that is not a power of two
+     (probes.rank_edge_calls);
   4. the resolver role: the port's Resolver (CONFLICT_BACKEND=device,
      CONFLICT_DEVICE=cuda) in the port's EventLoop/SimNetwork answers
      chained ResolveTransactionBatchRequests from a proxy-like driver actor,
@@ -84,9 +90,10 @@ Phases, each of which must pass:
      not the host pass, decided its statuses), each kernel must have
      launched during the phase (launch counts are zeroed just before each
      phase and read just after), and K9, K3 and K6-K8 must have launched
-     once a step (as often as K2; K12 and K13 too: a replay adds the
-     launches its graph recorded at capture); the launches of K9 that
-     took its span path and its general path are logged (`level_paths`).
+     once a step (as often as K2; K13 too: a replay adds the launches its
+     graph recorded at capture; no masks kernel of its own runs); the
+     launches of K9 that took its span path and its general path are
+     logged (`level_paths`).
      Then each kernel is held to its plain version again on one more step
      from phase B's final state (K=2^20).
   5. the kernel bench (foundationdb_tpu_torch/bench.py): run_kernel at
@@ -98,7 +105,7 @@ Phases, each of which must pass:
      same byte keys (8 batches at T=16,384, 2 at T=32,768: the oracle is
      pure Python), and the first timed chunk must equal a new scan graph,
      `conflict_scan` with the kernels run eagerly and with the plain phases
-     on the card, statuses and the state after it; K9, K3, K6-K8, K12 and
+     on the card, statuses and the state after it; K9, K3, K6-K8, K2 and
      K13 must have launched once a step, and every K9 launch but the
      graph's warm-up step (an all-padding batch) must have taken its span
      path (`kernels.level_paths`). The timed core runs again graphed
@@ -145,7 +152,7 @@ Phases, each of which must pass:
 
 `python3 chip_smoke.py --serve-cells` only serves phase 4's cells A and B
 (each reply checked against the oracle) and prints their numbers.
-`python3 chip_smoke.py --time-kernels` only times K1-K13 and bench steps
+`python3 chip_smoke.py --time-kernels` only times K1-K11, K13 and bench steps
 (cell A's traffic, phase B's, the bench at 16k and 32k, K9 at T=2^20):
 K5's whole fixpoint and one evaluation at the bench's warmed state and
 on phase 6's eight steps, and run_kernel_ab(16,384, 8); K10 and K11
@@ -157,7 +164,8 @@ the port: a copy of this script beside an older checkout's package times
 that checkout). Where the package has K6's sample sort, K6 is also timed
 by both of its paths at each shape, and on cell A's and the bench's
 traffic at 16, 32, 64 and 128 tiles (time_sort_paths); K13 also at
-T = 2^18 and 2^20.
+T = 2^18 and 2^20; and the rank-join probes (join, lexjoin) at the
+scripts' shapes, device ms and the scripts' ms/pass (time_probes).
 
 It prints a digest of the code it runs, the kernels line
 ({"kernels": [...]}), the nvidia-smi line, and last {"ok": true, "device":
@@ -310,7 +318,8 @@ DEVICE_FUNCTIONS = {
     "endpoint_ranks": ("endpoint_ranks_kernel",),
     "sparse_table": ("table_low_kernel", "table_high_kernel"),
     "rebase_table": ("table_low_kernel", "table_high_kernel"),
-    "history_check": ("history_grid_kernel",),
+    "masks_and_history": ("masks_history_kernel",),
+    "history_check": ("masks_history_kernel",),
     "intra_levels": ("intra_levels_kernel",),
     "intra_sandwich": ("sandwich_kernel",),
     "merge_compact": ("merge_prep_kernel", "merge_scan_kernel",
@@ -319,22 +328,20 @@ DEVICE_FUNCTIONS = {
     "legacy_sweep": ("legacy_kernel",),
     "shard_clip": ("shard_clip_kernel",),
     "shard_combine": ("shard_combine_kernel",),
-    "step_masks": ("step_masks_kernel",),
     "step_verdicts": ("step_verdicts_kernel",),
     "probe_add": ("probe_add_kernel",),
     "probe_stream_rows": ("probe_stream_kernel<true>",),
-    "probe_join": ("probe_rank_kernel<true>",),
+    "probe_join": ("probe_rank_kernel",),
     "probe_dynwrite": ("probe_dynwrite_kernel",),
     "probe_stream_limbs": ("probe_stream_kernel<false>",),
-    "probe_lexjoin": ("probe_rank_kernel<false>",),
+    "probe_lexjoin": ("probe_rank_kernel",),
 }
 SORT_KERNELS = ("endpoint_sort", "state_merge", "endpoint_ranks")
 DEVICE_FUNCTIONS["sort_and_rank"] = sum(
     (DEVICE_FUNCTIONS[k] for k in SORT_KERNELS), ())
-STEP_KERNELS = SORT_KERNELS + ("step_masks", "sparse_table",
-                               "history_check", "intra_levels",
-                               "intra_sandwich", "merge_compact",
-                               "step_verdicts")
+STEP_KERNELS = SORT_KERNELS + ("masks_and_history", "sparse_table",
+                               "intra_levels", "intra_sandwich",
+                               "merge_compact", "step_verdicts")
 # every kernel of the resolver's path: the step's, and the rebase that runs
 # when versions pass 2^29
 PATH_KERNELS = STEP_KERNELS + ("rebase_table",)
@@ -442,12 +449,27 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         return float(12 * (NW + NR) + nl * (10 * M + 8 * NR)), float(nl * M)
     if name == "history_check":
         table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid, oldest = args
-        L, NR = rb.shape
-        T = snapshot.shape[0]
-        nv = int((rtxn < T).sum())
-        per_read = 4 * (1 + 2 * L + 2 + 2 + 2)  # rtxn, limbs, spos, cum, table
-        return float(NR * 4 + nv * per_read + T * (4 + 1 + 2) + 4), \
-            float(nv * (2 * L + 12))
+        return history_work(rb, re, rtxn, snapshot,
+                            skip=kw.get("skip_history", False))
+    if name == "masks_and_history":
+        # the verdicts' work on the owners the masks give, and the masks':
+        # the four rank vectors and the write owners (strided: the length
+        # limb of each write's begin key; pooled: wtxn) read; wtxn_c, the
+        # two masks and the strided owners written; a few operations a
+        # range. With the ranks given, the hit's rb < re compares them, so
+        # no key limb is read but the strided owner's
+        from foundationdb_tpu_torch.ops import conflict_ref as ref
+        rb, re, wb, rtxn, wtxn, rbr, rer, wbr, wer, snapshot = args[3:13]
+        strided = kw.get("strided", args[15] if len(args) > 15 else False)
+        skip = kw.get("skip_history", args[16] if len(args) > 16 else False)
+        owners = ref.step_masks(rb, wb, rtxn, wtxn, rbr, rer, wbr, wer,
+                                snapshot.shape[0], strided)
+        NR, NW = rb.shape[1], wb.shape[1]
+        h_bytes, h_ops = history_work(rb, re, owners[0], snapshot,
+                                      live=owners[3], skip=skip)
+        m_bytes = 8 * (NR + NW) + 4 * NW + NR + 5 * NW \
+            + (4 * (NR + NW) if strided else 0)
+        return h_bytes + m_bytes, h_ops + float(4 * (NR + NW))
     if name == "intra_sandwich":
         g, geo, wtxn_c, w_ok, r_ok, rtxn, rbr, _rounds = args
         nl, M = geo["src"].shape
@@ -489,14 +511,6 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         L, W = rb.shape[0], lo.shape[0]
         M = 2 * rb.shape[1] + 2 * wb.shape[1]
         return float(4 * L * M * (1 + W) + 8 * W * L), float(W * M * L)
-    if name == "step_masks":
-        # the owners (strided: the length limb of each begin key; pooled:
-        # rtxn, wtxn) and the four rank vectors read; the owners, wtxn_c
-        # and the two masks written; a few operations a range
-        rb, wb = args[0], args[1]
-        NR, NW = rb.shape[1], wb.shape[1]
-        return float(4 * (NR + NW) + 8 * (NR + NW) + 5 * NR + 9 * NW), \
-            float(4 * (NR + NW))
     if name == "step_verdicts":
         # commit, too_old, txn_valid and eligible (1 B a txn) and two flags
         # read; the row (4 B a txn twice, two words) and the count written
@@ -519,22 +533,53 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         (state,) = args
         return 4.0 * state.numel() + 4 * min(state.shape), \
             float(state.numel())
-    if name == "probe_join":
+    if name in ("probe_join", "probe_lexjoin"):
+        # the state, the queries and the counts; a lower bound of
+        # ceil(log2 TILE) + 1 compares of LK limbs a query
         state, queries = args
-        nt, qt, _ = queries.shape
-        pairs = nt * qt * (state.shape[0] // nt)
-        return 4.0 * (state.numel() + queries.numel() + nt * qt), \
-            3.0 * pairs
-    if name == "probe_lexjoin":
-        state, queries = args
-        return 4.0 * (state.numel() + queries.numel()
-                      + queries.shape[0] * queries.shape[2]), \
-            lexjoin_operations(state, queries, kw["limbs"])
+        nt = queries.shape[0]
+        qt = queries.shape[1 if name == "probe_join" else 2]
+        # (join: whole rows, a row a 32-byte sector; lexjoin: the LK limb
+        # rows of the limb-major state and queries that it reads)
+        if name == "probe_join":
+            lk, tile = 1, state.shape[0] // nt
+            nbytes = 4.0 * (state.numel() + queries.numel() + nt * qt)
+        else:
+            lk, tile = kw["limbs"], state.shape[1] // nt
+            nbytes = 4.0 * (lk * state.shape[1] + lk * nt * qt + nt * qt)
+        return nbytes, float(nt * qt * lk * ((tile - 1).bit_length() + 1))
     if name == "probe_dynwrite":
         off, x = args
         return 4.0 * (x.numel() + kw["rows"] * x.shape[1] + 1), \
             float(kw["rows"] * x.shape[1])
     raise KeyError(name)
+
+
+def history_work(rb, re, rtxn, snapshot, live=None,
+                 skip=False) -> tuple[float, float]:
+    """(bytes, operations) of K2's verdicts: per read its owner; per real
+    read (owner < T) two spos and two cum_state gathered, and two table
+    entries where its range is not empty; per txn its snapshot and valid
+    flag read and two verdicts written. `live` is the fused launch's r_ok:
+    there the ranks (counted with the masks) say which ranges are not
+    empty; without it (`history_check`) each real read compares its 2L
+    key limbs. With `skip` (no_hist) no read is gathered."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    L, NR = rb.shape
+    T = snapshot.shape[0]
+    fixed = float(NR * 4 + T * (4 + 1 + 2) + 4)
+    if skip:
+        return fixed, float(NR + T)
+    real = rtxn < T
+    nv = int(real.sum())
+    if live is None:
+        live = real & ref.key_lt(rb, re)
+        keys = 2 * L
+    else:
+        keys = 0
+    nl = int(live.sum())
+    return fixed + 4.0 * (nv * (4 + keys) + 2 * nl), \
+        float(nv * (keys + 8) + 4 * nl + T)
 
 
 def legacy_inputs(name, args) -> list:
@@ -622,32 +667,6 @@ def sandwich_evaluations(args) -> int:
     return int(n)
 
 
-def lexjoin_operations(state, queries, limbs: int) -> float:
-    """Integer operations the early-exit lexicographic rank join does on
-    these inputs: per (state row, query) pair of a tile, one add and a
-    compare pair per limb examined, where a pair examines limb p + 1 only
-    if its first p + 1 limbs are equal. Equal-prefix pairs are counted per
-    tile by grouping the keys' prefixes."""
-    import torch
-    nt, L, qt = queries.shape
-    tile = state.shape[1] // nt
-    s_tile = torch.arange(nt, device=state.device).repeat_interleave(tile)
-    q_tile = torch.arange(nt, device=state.device).repeat_interleave(qt)
-    s_keys = state[:limbs].T  # (K, limbs)
-    q_keys = queries.transpose(1, 2).reshape(nt * qt, L)[:, :limbs]
-    pairs = nt * qt * tile
-    ops = 3.0 * pairs
-    for p in range(1, limbs):
-        rows = torch.cat([torch.cat([s_tile[:, None], s_keys[:, :p]], 1),
-                          torch.cat([q_tile[:, None], q_keys[:, :p]], 1)])
-        _u, inv = torch.unique(rows, dim=0, return_inverse=True)
-        n = int(inv.max()) + 1
-        ns = torch.bincount(inv[:s_keys.shape[0]], minlength=n)
-        nq = torch.bincount(inv[s_keys.shape[0]:], minlength=n)
-        ops += 2.0 * float((ns * nq).sum())
-    return ops
-
-
 def library_call(name: str, args, kw=None):
     """One PyTorch yardstick for the same function, or None: for the
     sparse table, the level doubling with max_pool1d (NEG padding); for
@@ -666,7 +685,10 @@ def library_call(name: str, args, kw=None):
     the six arrays; for the shard combine, torch.amin over the shards'
     statuses (stacked outside the timed call), the statuses alone; for the
     step's verdicts, the readback row by torch.where and torch.cat (the
-    row alone, not the committed count)."""
+    row alone, not the committed count); for the join probe, two calls:
+    torch.sort of each tile's limb-0 column, then torch.searchsorted of
+    the queries' (the scripts' data lie below 2^31, so int32 order is
+    their uint32 order; held to the plain join here)."""
     import torch
     if name == "endpoint_ranks":
         from foundationdb_tpu_torch.ops import conflict_ref as ref
@@ -707,6 +729,20 @@ def library_call(name: str, args, kw=None):
                               overflow.to(torch.int32).reshape(1),
                               converged.to(torch.int32).reshape(1)])
         return row
+    if name == "probe_join":
+        from foundationdb_tpu_torch.ops import probes
+        state, queries = args
+        nt = queries.shape[0]
+        col = state[:, 0].reshape(nt, -1)
+        q0 = queries[:, :, 0].contiguous()
+
+        def sort_search():
+            return torch.searchsorted(torch.sort(col, dim=1).values, q0,
+                                      side="left", out_int32=True)
+        if not torch.equal(sort_search(), probes.join_plain(*args, **kw)):
+            fail("probe_join: torch.sort + torch.searchsorted is not the "
+                 "plain join on these inputs")
+        return sort_search
     if name == "probe_add":
         return lambda: torch.add(args[0], 1)
     if name.startswith("probe_stream"):
@@ -788,6 +824,9 @@ def spied_phases(calls: dict, dev, last_step_only=False, record=None,
     if hasattr(ref, "step_masks"):  # older than K12 and K13
         phases.step_masks = spy("step_masks", ref.step_masks)
         phases.step_verdicts = spy("step_verdicts", ref.step_verdicts)
+    if hasattr(ref, "masks_and_history"):  # K2 with the masks
+        phases.masks_and_history = spy("masks_and_history",
+                                       ref.masks_and_history)
     return phases
 
 
@@ -842,42 +881,64 @@ def table_edge_calls(dev):
 
 
 def spied_history_calls(cs, steps, max_write_life, strided=False):
-    """The history check's inputs of each step of `steps` ((txns, version)
-    pairs) through the plain step from `cs`'s state, on its device."""
+    """K2's inputs (`masks_and_history` calls) of each step of `steps`
+    ((txns, version) pairs) through the plain step from `cs`'s state, on
+    its device."""
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     calls: dict = {}
     spied = type(ref.PLAIN)(**dict(
         vars(ref.PLAIN),
-        history_check=spied_phases(calls, cs.device).history_check))
+        masks_and_history=spied_phases(calls, cs.device).masks_and_history))
     for txns, version in steps:
         batch = cs.encoder.encode_batch(txns, version)
         cs._state, _s, _i = ref.conflict_step(
             cs._state, batch, max_write_life=max_write_life, strided=strided,
             phases=spied)
-    return calls["history_check"]
+    return calls["masks_and_history"]
+
+
+def history_calls(calls):
+    """The `history_check` calls that K2's `masks_and_history` calls make
+    (their verdict half), on the owners the plain masks give."""
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    out = []
+    for a, kw in calls:
+        table, cum_state, spos, rb, re, wb, rtxn, wtxn, rbr, rer, wbr, wer, \
+            snapshot, txn_valid, oldest = a
+        owner = ref.step_masks(rb, wb, rtxn, wtxn, rbr, rer, wbr, wer,
+                               snapshot.shape[0], kw.get("strided", False))[0]
+        out.append(((table, cum_state, spos, rb, re, owner, snapshot,
+                     txn_valid, oldest),
+                    {k: v for k, v in kw.items() if k == "skip_history"}))
+    return out
 
 
 def shuffled_reads(call, seed):
-    """A history-check call with its reads in a random order: rb, re, rtxn
-    and the reads' sorted positions in spos permuted alike."""
+    """A K2 call with its reads in a random order: rb, re, the owners (and
+    for a `masks_and_history` call, pooled, rbr and rer) and the reads'
+    sorted positions in spos permuted alike."""
     import torch
-    (table, cum_state, spos, rb, re, rtxn, snap, valid, oldest), kw = call
-    K, NR = table.shape[1], rtxn.shape[0]
+    a, kw = call
+    a = list(a)
+    fused = len(a) > 9  # masks_and_history, else history_check
+    K, NR = a[0].shape[1], a[3].shape[1]
     g = torch.Generator().manual_seed(seed)
-    p = torch.randperm(NR, generator=g).to(rtxn.device)
-    spos = torch.cat([spos[:K], spos[K:K + NR][p], spos[K + NR:K + 2 * NR][p],
-                      spos[K + 2 * NR:]])
-    return ((table, cum_state, spos, rb[:, p].contiguous(),
-             re[:, p].contiguous(), rtxn[p].contiguous(), snap, valid,
-             oldest), kw)
+    p = torch.randperm(NR, generator=g).to(a[3].device)
+    spos = a[2]
+    a[2] = torch.cat([spos[:K], spos[K:K + NR][p],
+                      spos[K + NR:K + 2 * NR][p], spos[K + 2 * NR:]])
+    for i in (3, 4) + ((6, 8, 9) if fused else (5,)):
+        a[i] = (a[i][:, p] if a[i].dim() == 2 else a[i][p]).contiguous()
+    return (tuple(a), kw)
 
 
 def inverted_read_calls(dev):
-    """K2's calls on reads that are inverted or empty over keys written
-    after the readers' snapshots (every such read would be a hit were it
-    not inverted), beside txns whose proper reads of the same keys are
-    hits: the two steps of a pooled T=64 set. Clipping to a shard makes
-    such reads (begin' > end' when a range lies wholly outside)."""
+    """K2's calls (`masks_and_history`) on reads that are inverted or empty
+    over keys written after the readers' snapshots (every such read would
+    be a hit were it not inverted), beside txns whose proper reads of the
+    same keys are hits: the two steps of a pooled T=64 set. Clipping to a
+    shard makes such reads (begin' > end' when a range lies wholly
+    outside)."""
     from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
     from foundationdb_tpu_torch.ops.conflict import DeviceConflictSet
     keys = [b"v%04d" % i for i in range(200)]
@@ -895,7 +956,8 @@ def inverted_read_calls(dev):
 
 
 def history_edge_calls(dev):
-    """K2's edge inputs, from plain steps on the card: a pooled T=1,024
+    """K2's edge inputs (`masks_and_history` calls), from plain steps on
+    the card: a pooled T=1,024
     call with its reads shuffled (rtxn unsorted), pooled steps at T=1 and
     T=33 with txns that have no reads and snapshots below the MVCC floor,
     a step whose reads are all padding, inverted and empty reads over
@@ -929,13 +991,13 @@ def history_edge_calls(dev):
         if T == 1024:
             calls = [shuffled_reads(c, i) for i, c in enumerate(calls)]
         out += calls
-    ((_t, _c, _s, _rb, _re, rtxn, _sn, _v, _o), _kw) = out[-1]
+    rtxn = out[-1][0][6]
     if bool((rtxn < 1).any()):
         fail("history edge inputs: the last step has a real read")
     out += inverted_read_calls(dev)
     _state, _batch, calls = bench_step_calls(dev, 32768, 1 << 19,
                                              warm_batches=1)
-    out += calls["history_check"]
+    out += calls["masks_and_history"]
     del calls, _state, _batch
     torch.cuda.empty_cache()
     return out
@@ -1562,7 +1624,8 @@ def sort_rank_edge_calls(dev):
 
 
 def glue_edge_calls(dev):
-    """K12's and K13's edge inputs, from plain steps on the card: T=1 txn;
+    """K2's (`masks_and_history`) and K13's edge inputs, from plain steps
+    on the card: T=1 txn;
     batches that are all padding; the strided layout (T=64, two reads and
     two writes a txn) beside the pooled; and a K=1,536 state that 64 txns
     of 4 fresh point writes a step overflow and poison (K13's overflow
@@ -1595,14 +1658,14 @@ def glue_edge_calls(dev):
         (1 << 12, 64, True, [batch(64, 1000 * (i + 1)) for i in range(3)]
          + [empty]),
         (1536, 64, False, fresh + [empty]))
-    out: dict = {"step_masks": [], "step_verdicts": []}
+    out: dict = {"masks_and_history": [], "step_verdicts": []}
     poisoned = False
     for capacity, txns, strided, batches in runs:
         store: dict = {}
         spy = spied_phases(store, dev)
-        spied = type(ref.PLAIN)(**dict(vars(ref.PLAIN),
-                                       step_masks=spy.step_masks,
-                                       step_verdicts=spy.step_verdicts))
+        spied = type(ref.PLAIN)(**dict(
+            vars(ref.PLAIN), masks_and_history=spy.masks_and_history,
+            step_verdicts=spy.step_verdicts))
         per = 2 if strided else 4
         cs = DeviceConflictSet(device=dev, capacity=capacity, txns=txns,
                                reads_per_txn=per, writes_per_txn=per,
@@ -1736,12 +1799,12 @@ def step_wrappers():
                 "state_merge": (kernels.state_merge, ref.state_merge),
                 "sparse_table": (kernels.build_table, ref.build_table),
                 "rebase_table": (kernels.rebase_table, ref.rebase_table),
-                "history_check": (kernels.history_check, ref.history_check),
+                "masks_and_history": (kernels.masks_and_history,
+                                      ref.masks_and_history),
                 "intra_levels": (kernels.intra_levels, ref.intra_levels),
                 "intra_sandwich": (kernels.intra_sandwich,
                                    ref.intra_sandwich),
                 "merge_compact": (kernels.merge_compact, ref.merge_compact),
-                "step_masks": (kernels.step_masks, ref.step_masks),
                 "step_verdicts": (kernels.step_verdicts, ref.step_verdicts)}
     checks = {"endpoint_sort": (forced_sort, plain_sort),
               "intra_levels": (kernels.intra_levels, plain_levels),
@@ -1777,11 +1840,15 @@ def with_scan_rows(verdicts, M=3):
 
 
 def check_kernels(dev, calls, results, cell, edges=True):
-    """Hold each kernel of the path (K1-K4, K6-K9, K12, K13 and the rebase)
-    to its plain version on every captured call of `cell` (and, with
-    `edges`, on the edge inputs), then time the cell's main-path call: the
-    last one captured from the step (the rebase's: `rebase_call`). K13 is
-    held with a scan's rows written too (`with_scan_rows`).
+    """Hold each kernel of the path (K1-K4, K6-K9, K13 and the rebase) to
+    its plain version on every captured call of `cell` (and, with `edges`,
+    on the edge inputs), then time the cell's main-path call: the last one
+    captured from the step (the rebase's: `rebase_call`). K13 is held with
+    a scan's rows written too (`with_scan_rows`). K2 is held whole (its
+    five masks and two verdicts against `step_masks` then
+    `history_check`), and its launch on given owners (`history_check`) to
+    the verdict half of the same calls (`history_calls`), timed on the
+    main call's.
     The sort-and-rank phase is held whole (all seven outputs) and each of
     its kernels to its plain part, on the calls the phase makes (K7 also on
     `state_merge_edge_calls`, K8 on `endpoint_ranks_edge_calls`). K3 is
@@ -1804,7 +1871,7 @@ def check_kernels(dev, calls, results, cell, edges=True):
             sort_rank_edge_calls(dev)
         all_calls["sparse_table"] = calls["sparse_table"] + \
             table_edge_calls(dev)
-        all_calls["history_check"] = calls["history_check"] + \
+        all_calls["masks_and_history"] = calls["masks_and_history"] + \
             history_edge_calls(dev)
         all_calls["intra_sandwich"] = calls["intra_sandwich"] + \
             sandwich_edge_calls(dev, calls["intra_sandwich"][-1],
@@ -1833,6 +1900,11 @@ def check_kernels(dev, calls, results, cell, edges=True):
         if name == "intra_sandwich":
             results[name]["M"] = int(main[0][1]["src"].shape[1])
             results[name]["evaluations"] = sandwich_evaluations(main[0])
+        if name == "masks_and_history":  # the verdicts alone, same launch
+            results[name]["history_check"] = hold_to_plain(
+                "history_check", kernels.history_check, ref.history_check,
+                history_calls(all_calls[name]), history_calls([main])[0],
+                cell)
     if edges:
         # K9 and K3 timed at T = 2^20 too (K3's bit sets in global memory)
         for name, big in (("intra_levels", big_levels),
@@ -1911,11 +1983,18 @@ def check_legacy(dev, results, T=16384):
 
 
 def check_probes(dev, results):
-    """Each probe against its plain version at the Pallas scripts' shapes."""
+    """Each probe against its plain version at the Pallas scripts' shapes,
+    the rank joins also on their edges (`probes.rank_edge_calls`: ties,
+    high bits, LK = 1 to 8, tiles that are not a power of two); timed at
+    the scripts' shapes."""
     from foundationdb_tpu_torch.ops import probes
+    edges: dict = {}
+    for name, a, kw in probes.rank_edge_calls(dev):
+        edges.setdefault(name, []).append((a, kw))
     for name, call in probes.script_calls(dev).items():
         results[name] = hold_to_plain(name, probes.WRAPPERS[name],
-                                      probes.PLAIN[name], [call], call,
+                                      probes.PLAIN[name],
+                                      [call] + edges.get(name, []), call,
                                       "probes", reps=20)
 
 
@@ -1979,8 +2058,12 @@ def profile_step(dev, batches):
                 wall_ms=wall / 3 * 1e3,
                 device_idle_share=max(0.0, 1 - busy / (wall / 3 * 1e3)),
                 radix_sort_device_ms=radix_sort_ms(funcs),
+                masks_functions=[k[:80] for k in funcs if "step_masks" in k],
                 top_device_functions=[(k[:80], v[0]) for k, v in top])
     log("step profile: " + json.dumps(out))
+    if out["masks_functions"]:
+        fail(f"the default-knobs step launches a masks kernel: "
+             f"{out['masks_functions']}")
     if out["radix_sort_device_ms"] > 0:
         fail(f"the default-knobs step still runs a cub radix sort "
              f"({out['radix_sort_device_ms']} ms)")
@@ -2073,15 +2156,19 @@ def check_step_trajectory(dev):
 # ---------------------------------------------------------------------------
 
 def once_a_step(where, launches):
-    """Every step launches K2 once; the level geometry, the sandwich, the
-    sort-and-rank phase and the glue (K9, K3, K6-K8, K12, K13) must run
-    once a step too (on replays: the counts a graph recorded at capture,
-    added at each replay)."""
-    for name in ("intra_levels", "intra_sandwich", "step_masks",
+    """Every step launches K2 (the masks and the verdicts) once; the level
+    geometry, the sandwich, the sort-and-rank phase and the verdict glue
+    (K9, K3, K6-K8, K13) must run once a step too (on replays: the counts
+    a graph recorded at capture, added at each replay). No kernel of the
+    library but these runs the masks (`kernels.KERNELS` has none)."""
+    from foundationdb_tpu_torch.ops import kernels
+    if "step_masks" in kernels.KERNELS:
+        fail(f"{where}: the package still has a masks kernel of its own")
+    for name in ("intra_levels", "intra_sandwich",
                  "step_verdicts") + SORT_KERNELS:
-        if launches[name] != launches["history_check"]:
+        if launches[name] != launches["masks_and_history"]:
             fail(f"{where}: {launches[name]} {name} launches for "
-                 f"{launches['history_check']} steps")
+                 f"{launches['masks_and_history']} steps")
 
 
 def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
@@ -3012,10 +3099,13 @@ def check_sharded_kernels(dev, calls8a, calls8c) -> dict:
 # ---------------------------------------------------------------------------
 
 def time_step_kernels(dev, reps=50):
-    """Device ms a call of K1-K4, K6-K9, K12, K13 and the rebase (and of
-    the whole sort-and-rank phase) on the captured calls of cell A's step,
-    of a default-knobs step on phase B's traffic (`B_traffic`: K6, K8, K9
-    and K12 see B's batches; the state is K=65,536, not B's 2^20) and of a
+    """Device ms a call of K1-K4, K6-K9, K13 and the rebase (and of the
+    whole sort-and-rank phase; K2 as `masks_and_history` and as
+    `history_check` on given owners, and K12 `step_masks` where the package
+    still has it) on the captured calls of cell A's step,
+    of a default-knobs step on phase B's traffic (`B_traffic`: K2's masks,
+    K6, K8 and K9 see B's batches; the state is K=65,536, not B's 2^20)
+    and of a
     kernel-bench step at T=16,384 (K=2^18) and T=32,768 (K=2^19), of K9
     alone at T=2^20 (`intra_levels_t_2_20`, big_step_calls), of K7 at cell
     B's K=2^20 (`B_k_2_20`, merge_b_call),
@@ -3030,10 +3120,10 @@ def time_step_kernels(dev, reps=50):
     and the merge rounds; `endpoint_sort_sample`: the sample sort), and
     K6's two paths on cell A's and the bench's traffic at 16 to 128 tiles
     (`sort_paths`, time_sort_paths), and K13 at T = 2^18 and 2^20
-    (`step_verdicts_t_2_18`, `_t_2_20`). K6-K8, K9, the rebase,
-    K10-K13 and the graphs are timed where the package has them, so a copy
-    of this script beside an older checkout's package times that checkout
-    alike."""
+    (`step_verdicts_t_2_18`, `_t_2_20`), and the rank-join probes
+    (`probes`, time_probes). K6-K8, K9, the rebase, K10-K13 and the graphs
+    are timed where the package has them, so a copy of this script beside
+    an older checkout's package times that checkout alike."""
     import torch
 
     from foundationdb_tpu_torch import bench
@@ -3052,8 +3142,11 @@ def time_step_kernels(dev, reps=50):
         wrappers.update(intra_levels=kernels.intra_levels,
                         rebase_table=kernels.rebase_table)
     if hasattr(kernels, "step_masks"):
-        wrappers.update(step_masks=kernels.step_masks,
-                        step_verdicts=kernels.step_verdicts)
+        wrappers["step_masks"] = kernels.step_masks
+    if hasattr(kernels, "step_verdicts"):
+        wrappers["step_verdicts"] = kernels.step_verdicts
+    if hasattr(kernels, "masks_and_history"):
+        wrappers["masks_and_history"] = kernels.masks_and_history
     if hasattr(kernels, "sort_plan"):  # K6 by its rounds and sample paths
         wrappers["endpoint_sort_rounds"] = \
             lambda *a: forced_sort(*a, samples=0)
@@ -3065,8 +3158,8 @@ def time_step_kernels(dev, reps=50):
     cells = {"A": (None, None, capture_main_path_calls(dev, make_batches(
         np.random.default_rng(100), cdf, keys, 4)))}
     # phase B's traffic (zipfian over 400,000 keys) at the default knobs:
-    # the batch-only kernels (K6, K8, K9, K12, K3) see B's inputs, the
-    # state-sized ones (K1, K2, K4, K7) K=65,536, not B's 2^20
+    # the batch-only kernels (K6, K8, K9, K3, K2's masks) see B's inputs,
+    # the state-sized ones (K1, K2, K4, K7) K=65,536, not B's 2^20
     cdf_b, keys_b = zipf_keys(400_000)
     cells["B_traffic"] = (None, None, capture_main_path_calls(
         dev, make_batches(np.random.default_rng(102), cdf_b, keys_b, 4)))
@@ -3102,6 +3195,7 @@ def time_step_kernels(dev, reps=50):
         del a
     if hasattr(kernels, "sort_plan"):
         out["sort_paths"] = time_sort_paths(dev, reps)
+    out["probes"] = time_probes(dev)
     for cell, (state, batch, calls) in cells.items():
         row = out[cell] = {}
         if "sort_and_rank" in calls:
@@ -3109,6 +3203,8 @@ def time_step_kernels(dev, reps=50):
             calls["endpoint_sort_rounds"] = calls["endpoint_sort"]
             calls["endpoint_sort_sample"] = calls["endpoint_sort"]
         calls["rebase_table"] = [rebase_call(calls)]
+        if "masks_and_history" in calls:  # K2 on given owners too
+            calls["history_check"] = history_calls(calls["masks_and_history"])
         for name, kern in wrappers.items():
             a, kw = calls[name][-1]
             funcs, _wall = profile_device(lambda: kern(*a, **kw), reps)
@@ -3130,9 +3226,29 @@ def time_step_kernels(dev, reps=50):
                 "cummax_device_ms": sum(
                     v[0] for k, v in funcs.items()
                     if "scan_innermost_dim_with_indices" in k)}
-            if hasattr(kernels, "step_masks"):  # the package has graphs
+            if hasattr(kernels, "step_verdicts"):  # the package has graphs
                 row["scan"] = time_scan_graph(dev, state,
                                               batch["snapshot"].shape[0])
+    return out
+
+
+def time_probes(dev, reps=20):
+    """The rank-join probes at the Pallas scripts' shapes: {probe: device
+    ms a call (profile_device), ms a call (CUDA events), and ms/pass as
+    phase 7 prints it (`probes.time_passes`)}."""
+    from foundationdb_tpu_torch.ops import probes
+    calls = probes.script_calls(dev)
+    out = {}
+    for name in ("probe_join", "probe_lexjoin"):
+        a, kw = calls[name]
+        fn = probes.WRAPPERS[name]
+
+        def run(fn=fn, a=a, kw=kw):
+            return fn(*a, **kw)
+        out[name] = {"device_ms": busy_ms(profile_device(run, reps)[0]),
+                     "ms": time_cuda(run, reps),
+                     "ms_per_pass": probes.time_passes(run)}
+    log("probes: " + json.dumps(out))
     return out
 
 

@@ -1,24 +1,18 @@
-// K12 step_masks and K13 step_verdicts: the conflict step's elementwise
-// glue, each one launch.
+// K13 step_verdicts: the conflict step's closing glue, one launch.
 //
 // Replaces: in foundationdb_tpu/ops/conflict.py `conflict_step`, part of
-// the jitted XLA step,
-//   K12: the range->txn maps of the strided layout and the intra-batch
-//        masks (:385-395, :477-489): rvalid / wvalid from the padding
-//        length limb, the strided owner j // (N / T), wtxn_c =
-//        min(wtxn, T - 1), r_ok = rvalid & (rbr < rer), w_ok alike;
-//   K13: the statuses (:545-553), info["committed"] (:697), the int8
-//        statuses, committed and overflow rows of `conflict_scan`
-//        (:782-786), and the resolver's readback row, `_combine_fn`
-//        (:1190-1198): [statuses | eligible | overflow | converged].
-// Both ran as about 25 small torch launches a step.
+// the jitted XLA step, the statuses (:545-553), info["committed"] (:697),
+// the int8 statuses, committed and overflow rows of `conflict_scan`
+// (:782-786), and the resolver's readback row, `_combine_fn`
+// (:1190-1198): [statuses | eligible | overflow | converged], in place
+// of a string of small torch launches a step. (The step's other glue,
+// the range->txn maps and the intra-batch masks, rides in K2's launch:
+// csrc/history_check.cu.)
 //
-// Bound on H100: the launch. K12 reads at most 12 bytes a range and
-// writes 5 (reads) or 9 (writes): 0.2 MB at the kernel bench's
-// NR = NW = 16,384, 0.07 us of HBM time. K13 reads 4 and writes 9 bytes a
-// txn (0.2 MB at T = 16,384). A launch costs a few microseconds, so each
-// is one launch and nothing more: K12 independent threads, grid-strided;
-// K13 one thread-block cluster.
+// Bound on H100: the launch. K13 reads 4 and writes 9 bytes a txn
+// (0.2 MB at T = 16,384, 0.07 us of HBM time). A launch costs a few
+// microseconds, so it is one launch and nothing more: one thread-block
+// cluster.
 //
 // K13: one thread-block cluster, launched with cudaLaunchKernelEx, of as
 // many CTAs of VERDICT_THREADS as T needs at VERDICT_TXNS txns a thread,
@@ -49,49 +43,6 @@
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
-
-#define GLUE_THREADS 256
-
-__global__ void __launch_bounds__(GLUE_THREADS)
-step_masks_kernel(const int32_t* __restrict__ rb,
-                  const int32_t* __restrict__ wb,
-                  const int32_t* __restrict__ rtxn,
-                  const int32_t* __restrict__ wtxn,
-                  const int32_t* __restrict__ rbr,
-                  const int32_t* __restrict__ rer,
-                  const int32_t* __restrict__ wbr,
-                  const int32_t* __restrict__ wer, int L, int NR, int NW,
-                  int T, int strided, int32_t* __restrict__ rtxn_out,
-                  int32_t* __restrict__ wtxn_out,
-                  int32_t* __restrict__ wtxn_c, uint8_t* __restrict__ r_ok,
-                  uint8_t* __restrict__ w_ok) {
-  const long long n = (long long)NR + NW;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += (long long)gridDim.x * blockDim.x) {
-    if (j < NR) {
-      const int r = (int)j;
-      int owner;
-      if (strided)  // a real key never carries the padding length limb
-        owner = rb[(long long)(L - 1) * NR + r] != FDB_PAD_LIMB
-                    ? r / (NR / T) : T;
-      else
-        owner = rtxn[r];
-      rtxn_out[r] = owner;
-      r_ok[r] = owner < T && rbr[r] < rer[r];
-    } else {
-      const int w = (int)(j - NR);
-      int owner;
-      if (strided)
-        owner = wb[(long long)(L - 1) * NW + w] != FDB_PAD_LIMB
-                    ? w / (NW / T) : T;
-      else
-        owner = wtxn[w];
-      wtxn_out[w] = owner;
-      wtxn_c[w] = min(owner, T - 1);
-      w_ok[w] = owner < T && wbr[w] < wer[w];
-    }
-  }
-}
 
 #define VERDICT_THREADS 128  // a CTA's threads, one cluster
 #define VERDICT_GRID_THREADS 512  // a CTA's threads, a grid of clusters
@@ -306,42 +257,6 @@ step_verdicts_kernel(const uint8_t* __restrict__ commit,
     row[2 * T + 1] = cv;
     if (scan_overflow) *scan_overflow = ov;
   }
-}
-
-// A thread per element, at most 8 blocks an SM (grid-strided past that).
-static cudaError_t glue_blocks(long long n, int* blocks) {
-  int dev = 0;
-  FdbDeviceLimits lim;
-  const cudaError_t e = fdb_device_limits(&dev, &lim);
-  if (e != cudaSuccess) return e;
-  long long b = (n + GLUE_THREADS - 1) / GLUE_THREADS;
-  const long long cap = (long long)lim.sms * 8;
-  if (b > cap) b = cap;
-  *blocks = (int)(b < 1 ? 1 : b);
-  return cudaSuccess;
-}
-
-// One launch on `stream`. In the strided layout NR and NW are multiples of
-// T and rtxn / wtxn are not read.
-extern "C" int fdb_step_masks(const int32_t* rb, const int32_t* wb,
-                              const int32_t* rtxn, const int32_t* wtxn,
-                              const int32_t* rbr, const int32_t* rer,
-                              const int32_t* wbr, const int32_t* wer, int L,
-                              int NR, int NW, int T, int strided,
-                              int32_t* rtxn_out, int32_t* wtxn_out,
-                              int32_t* wtxn_c, uint8_t* r_ok, uint8_t* w_ok,
-                              void* stream) {
-  if (T < 1 || L < 1 || NR < 0 || NW < 0 ||
-      (strided && (NR % T || NW % T)))
-    return (int)cudaErrorInvalidValue;
-  if (NR + NW == 0) return (int)cudaSuccess;
-  int blocks = 0;
-  const cudaError_t e = glue_blocks((long long)NR + NW, &blocks);
-  if (e != cudaSuccess) return (int)e;
-  step_masks_kernel<<<blocks, GLUE_THREADS, 0, (cudaStream_t)stream>>>(
-      rb, wb, rtxn, wtxn, rbr, rer, wbr, wer, L, NR, NW, T, strided, rtxn_out,
-      wtxn_out, wtxn_c, r_ok, w_ok);
-  return (int)cudaGetLastError();
 }
 
 // The scan outputs may be null (a lone step); given, they are row i of the

@@ -16,11 +16,11 @@ with reshapes there, because a scatter costs a TPU far more than a
 reshape; on the card an atomic-OR fold costs about what a reshape does, so
 the same phases and kernels serve both layouts.
 
-The step is written as plain tensor code around nine phase functions,
-passed in as `phases` (an object with `sort_and_rank`, `step_masks`,
-`build_table`, `history_check`, `intra_levels`, `intra_sandwich`,
-`merge_compact`, `legacy_fixpoint` and `step_verdicts`); `rebase_state`
-calls a tenth, `rebase_table`, and the
+The step is written as plain tensor code around eight phase functions,
+passed in as `phases` (an object with `sort_and_rank`, `masks_and_history`,
+`build_table`, `intra_levels`, `intra_sandwich`, `merge_compact`,
+`legacy_fixpoint` and `step_verdicts`); `rebase_state`
+calls a ninth, `rebase_table`, and the
 sharded engine (parallel/sharded_conflict.py) two more around the step of
 each shard, `clip_ranges` and `shard_combine`.
 `PLAIN` holds the plain versions below;
@@ -614,16 +614,29 @@ def strided_owners(begins: torch.Tensor, T: int) -> torch.Tensor:
 
 def step_masks(rb, wb, rtxn, wtxn, rbr, rer, wbr, wer, T: int,
                strided: bool):
-    """K12's plain version: the range->txn maps and the masks of the
-    intra-batch phase (conflict.py:385-395, 477-489): (rtxn, wtxn, wtxn_c,
-    r_ok, w_ok). In the strided layout the maps come from the keys
-    (`strided_owners`; the batch's rtxn/wtxn are not read), else they are
-    the batch's. wtxn_c = min(wtxn, T - 1); a range is ok when it is real
+    """The first part of K2's plain version: the range->txn maps and the
+    masks of the intra-batch phase (conflict.py:385-395, 477-489): (rtxn,
+    wtxn, wtxn_c, r_ok, w_ok). In the strided layout the maps come from
+    the keys (`strided_owners`; the batch's rtxn/wtxn are not read), else
+    they are the batch's. wtxn_c = min(wtxn, T - 1); a range is ok when it is real
     (owner < T) and not empty or inverted (begin rank < end rank)."""
     if strided:
         rtxn, wtxn = strided_owners(rb, T), strided_owners(wb, T)
     return (rtxn, wtxn, torch.clamp(wtxn, max=T - 1),
             (rtxn < T) & (rbr < rer), (wtxn < T) & (wbr < wer))
+
+
+def masks_and_history(table, cum_state, spos, rb, re, wb, rtxn, wtxn, rbr,
+                      rer, wbr, wer, snapshot, txn_valid, oldest,
+                      strided: bool = False, skip_history: bool = False):
+    """K2's plain version: `step_masks`, then `history_check` with the
+    owners it gives, as the phase's two parts (the kernel does both in one
+    launch). Returns (rtxn, wtxn, wtxn_c, r_ok, w_ok, too_old, g0)."""
+    owners = step_masks(rb, wb, rtxn, wtxn, rbr, rer, wbr, wer,
+                        snapshot.shape[0], strided)
+    return (*owners, *history_check(table, cum_state, spos, rb, re,
+                                    owners[0], snapshot, txn_valid, oldest,
+                                    skip_history))
 
 
 def step_verdicts(commit, too_old, txn_valid, eligible, overflow, converged,
@@ -698,8 +711,9 @@ def legacy_fixpoint(g, wtxn, rtxn, w_ok, r_ok, wbr, wer, rbr, rer,
     return commit, torch.tensor(converged, device=g.device)
 
 
-PLAIN = SimpleNamespace(sort_and_rank=sort_and_rank, step_masks=step_masks,
-                        build_table=build_table, history_check=history_check,
+PLAIN = SimpleNamespace(sort_and_rank=sort_and_rank,
+                        masks_and_history=masks_and_history,
+                        build_table=build_table,
                         intra_levels=intra_levels,
                         intra_sandwich=intra_sandwich,
                         merge_compact=merge_compact,
@@ -770,16 +784,13 @@ def conflict_step(state: dict, batch: dict, *, max_write_life: int,
         bkeys, bval, rb, re, wb, we)
     rbr, rer = qranks[:NR], qranks[NR:2 * NR]
     wbr, wer = qranks[2 * NR:2 * NR + NW], qranks[2 * NR + NW:]
-    # the range->txn maps and the masks: empty/inverted ranges take part in
-    # neither side of the intra-batch phase
-    rtxn, wtxn, wtxn_c, r_ok, w_ok = phases.step_masks(
-        rb, wb, batch["rtxn"], batch["wtxn"], rbr, rer, wbr, wer, T, strided)
-
-    # ---- 1+2. too-old and history check ----
-    too_old, g = phases.history_check(
-        table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
-        state["oldest"], **({"skip_history": True} if ablate in _NO_HIST
-                            else {}))
+    # ---- the range->txn maps and the masks (empty/inverted ranges take
+    # part in neither side of the intra-batch phase); 1+2. too-old and
+    # history check ----
+    rtxn, wtxn, wtxn_c, r_ok, w_ok, too_old, g = phases.masks_and_history(
+        table, cum_state, spos, rb, re, wb, batch["rtxn"], batch["wtxn"],
+        rbr, rer, wbr, wer, snapshot, txn_valid, state["oldest"],
+        strided=strided, skip_history=ablate in _NO_HIST)
 
     # ---- 3. intra-batch: dyadic levels -> sandwich; strict wtxn < rtxn
     # is "earlier txns win" (SkipList.cpp:1139-1152) ----

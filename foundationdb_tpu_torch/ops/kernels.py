@@ -6,7 +6,10 @@ ops/conflict_ref.py that it replaces, so `PHASES` drops into
 
   K1 build_table    csrc/sparse_table.cu    `_build_table`
      rebase_table   csrc/sparse_table.cu    `rebase_state` (`_compiled_rebase`)
-  K2 history_check  csrc/history_check.cu   phases 1-2 of `conflict_step`
+  K2 masks_and_history                      the strided owners, the
+                    csrc/history_check.cu   intra-batch masks and phases
+                                            1-2 of `conflict_step`
+     history_check                          phases 1-2 alone (owners given)
   K9 intra_levels   csrc/intra_levels.cu    `_intra_scan_levels`
   K3 intra_sandwich csrc/intra_sweep.cu     `_run_sandwich` (over `_f_commit`)
   K4 merge_compact  csrc/merge_compact.cu   `_merge_phase` up to the table
@@ -19,8 +22,6 @@ ops/conflict_ref.py that it replaces, so `PHASES` drops into
   K8 endpoint_ranks csrc/endpoint_ranks.cu  the endpoint ranks (phase 3)
   K10 clip_ranges   csrc/shard_clip.cu      `_clip_ranges` (sharded engine)
   K11 shard_combine csrc/shard_combine.cu   `local_step`'s pmin/pmax combine
-  K12 step_masks    csrc/step_glue.cu       the strided owners and the
-                                            intra-batch masks
   K13 step_verdicts csrc/step_glue.cu       the statuses, the committed count,
                                             `conflict_scan`'s rows and
                                             `_combine_fn`'s readback row
@@ -38,9 +39,11 @@ K1 writes every row of the table once, in at most two launches for any K:
 levels 0-10 per 1,024-column tile in shared memory, then (K > 1,024) every
 higher level from each column's in-tile suffix maximum, a prefix maximum
 over the whole tiles in between and the in-tile prefix maximum where the
-window ends. K2 is one cooperative launch: a thread per read folds "has a
-read" and "hit" into per-txn bit words (warp-aggregated atomicOr), one grid
-barrier, then a thread per txn writes the verdicts; no CTA loops over T.
+window ends. K2 is one cooperative launch: a thread per slot j (read j
+and write j) writes the write's owner and masks, finds the read's owner,
+writes its masks and folds "has a read" and "hit" into per-txn bit words
+(warp-aggregated atomicOr), one grid barrier, then a thread per txn
+writes the verdicts; no CTA loops over T.
 K3 runs the whole sandwich of a step (every evaluation and the pinch test)
 in one persistent kernel: one CTA per SM, launched with
 cudaLaunchCooperativeKernel so that its grid-wide barriers cannot
@@ -104,11 +107,12 @@ combine costs no stack and no copy; it writes the engine's readback row
 with the combined verdicts, and its committed count goes through zeroed
 scratch that the launch leaves zero.
 
-K12 and K13 are the step's elementwise glue, one launch each a step in
-place of about 25 torch launches: K12 derives the range->txn maps (the
-strided layout's from the padding limb) and the masks of the intra-batch
-phase; K13, one thread-block cluster (a grid of clusters past T =
-32,768, cluster 0 counting), writes the statuses, the committed count
+The step's elementwise glue costs no launch of its own: K2 derives the
+range->txn maps (the strided layout's from the padding limb) and the masks
+of the intra-batch phase in its range pass (once a launch of its own, K12:
+a launch cost 1.6-1.9 us for 0.07 us of bytes), and K13, one
+thread-block cluster (a grid of clusters past T = 32,768, cluster 0
+counting), writes the statuses, the committed count
 (each CTA's sum read by rank 0 through distributed shared memory),
 the resolver's packed readback row and, in a scan, the step's row of the
 scan's outputs. With both, a step on the card is kernel launches and a
@@ -164,9 +168,11 @@ KERNELS = {
     "rebase_table": ("csrc/sparse_table.cu",
                      "foundationdb_tpu/ops/conflict.py:707 rebase_state "
                      "(_compiled_rebase :761)"),
-    "history_check": ("csrc/history_check.cu",
-                      "foundationdb_tpu/ops/conflict.py:423 conflict_step "
-                      "phases 1-2 (+ _range_max :163)"),
+    "masks_and_history": ("csrc/history_check.cu",
+                          "foundationdb_tpu/ops/conflict.py:423 "
+                          "conflict_step phases 1-2 (+ _range_max :163), "
+                          "the strided owners and intra-batch masks "
+                          "(:385-395, :477-489)"),
     "intra_levels": ("csrc/intra_levels.cu",
                      "foundationdb_tpu/ops/conflict.py:243 "
                      "_intra_scan_levels"),
@@ -184,10 +190,6 @@ KERNELS = {
     "shard_combine": ("csrc/shard_combine.cu",
                       "foundationdb_tpu/parallel/sharded_conflict.py:193 "
                       "local_step's pmin/pmax combine (:193-210)"),
-    "step_masks": ("csrc/step_glue.cu",
-                   "foundationdb_tpu/ops/conflict.py:385 conflict_step's "
-                   "strided owners and intra-batch masks (:385-395, "
-                   ":477-489)"),
     "step_verdicts": ("csrc/step_glue.cu",
                       "foundationdb_tpu/ops/conflict.py:545 conflict_step's "
                       "statuses and committed count (:545-553), "
@@ -224,14 +226,13 @@ _ARGTYPES = {
     "fdb_endpoint_ranks": [_P, _P, _I, _I, _P, _P, _P, _P],
     "fdb_sparse_table": [_P, _P, _I, _I, _P, _LL, _P, _P, _P, _P],
     "fdb_intra_levels": [_P] * 6 + [_I] * 5 + [_P] * 12,
-    "fdb_history_check": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
-                          _I, _P, _P, _P, _P, _P],
+    "fdb_masks_history": [_P, _I] + [_P] * 5 + [_I] * 4 + [_P] * 9
+                         + [_I, _I] + [_P] * 10,
     "fdb_intra_sandwich": [_P] * 12 + [_I] * 5 + [_P] * 12,
     "fdb_merge_compact": [_P] * 14 + [_I] * 7 + [_P] * 10,
     "fdb_legacy_overlap": [_P] * 10 + [_I] * 5 + [_P] * 7,
     "fdb_shard_clip": [_P] * 6 + [_I] * 4 + [_P] * 5,
     "fdb_shard_combine": [_P, _I, _I] + [_P] * 7,
-    "fdb_step_masks": [_P] * 8 + [_I] * 5 + [_P] * 6,
     "fdb_step_verdicts": [_P] * 6 + [_I] + [_P] * 6,
     "fdb_probe_add": [_P, _P, _LL, _P],
     "fdb_probe_stream": [_P, _I, _I, _LL, _LL, _I, _P, _P],
@@ -680,41 +681,102 @@ def rebase_table(bval, oldest, delta: int):
 
 
 # ---------------------------------------------------------------------------
-# K2 history_check
+# K2 masks_and_history (and history_check, the same launch, owners given)
 # ---------------------------------------------------------------------------
 
-def history_check(table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
-                  oldest, skip_history: bool = False):
-    """Too-old and history verdicts per txn: (too_old, g0), both (T,) bool.
-    With `skip_history`, no read hits (the `no_hist` ablations)."""
-    if not _on_cuda("history_check", table):
-        return ref.history_check(table, cum_state, spos, rb, re, rtxn,
-                                 snapshot, txn_valid, oldest, skip_history)
+def _masks_history(name, table, cum_state, spos, rb, re, rtxn, snapshot,
+                   txn_valid, oldest, skip_history, masks=None):
+    """Launch K2: the verdicts (too_old, g0), and with `masks` = (wb, wtxn,
+    rbr, rer, wbr, wer, strided) the owners and masks first (rtxn, wtxn,
+    wtxn_c, r_ok, w_ok; the pooled owners are the given tensors)."""
     levels, K = table.shape
     L, NR = rb.shape
     T = snapshot.shape[0]
     N = cum_state.shape[0]
     dev = table.device
-    _check("history_check", dev, table=(table, _I32, (levels, K)),
+    _check(name, dev, table=(table, _I32, (levels, K)),
            cum_state=(cum_state, _I32, (N,)), spos=(spos, _I32, (N,)),
            rb=(rb, _I32, (L, NR)), re=(re, _I32, (L, NR)),
            rtxn=(rtxn, _I32, (NR,)), snapshot=(snapshot, _I32, (T,)),
            txn_valid=(txn_valid, _BOOL, (T,)), oldest=(oldest, _I32, ()))
     if N < K + 2 * NR:
-        raise FDBError("invalid_option", "history_check: spos too short")
+        raise FDBError("invalid_option", f"{name}: spos too short")
     words = _zeroed_scratch("history_words", 2 * (-(-T // 32)), _I32, dev)
     sync = _zeroed_scratch("history_sync", 1, _I32, dev)
     too_old = torch.empty(T, dtype=_BOOL, device=dev)
     g0 = torch.empty(T, dtype=_BOOL, device=dev)
-    rc = library().fdb_history_check(
+    if masks is None:  # the verdicts alone: no masks, no writes
+        wb, wtxn, rbr, rer, wbr, wer, strided = rb, rtxn, None, None, None, \
+            None, False
+        NW = 0
+        rtxn_o = wtxn_o = wtxn_c = r_ok = w_ok = None
+    else:
+        wb, wtxn, rbr, rer, wbr, wer, strided = masks
+        NW = wb.shape[1]
+        if strided and T >= 1 and (NR % T or NW % T):
+            raise FDBError("invalid_option",
+                           f"{name}: T={T}, NR={NR}, NW={NW} (strided "
+                           f"needs both multiples of T)")
+        _check(name, dev, wb=(wb, _I32, (L, NW)), wtxn=(wtxn, _I32, (NW,)),
+               rbr=(rbr, _I32, (NR,)), rer=(rer, _I32, (NR,)),
+               wbr=(wbr, _I32, (NW,)), wer=(wer, _I32, (NW,)))
+        # the strided owners, then wtxn_c; the pooled owners are the given
+        owners = torch.empty(NR + 2 * NW if strided else NW, dtype=_I32,
+                             device=dev)
+        rtxn_o, wtxn_o = ((owners[:NR], owners[NR:NR + NW]) if strided
+                          else (None, None))
+        wtxn_c = owners[owners.shape[0] - NW:]
+        oks = torch.empty(NR + NW, dtype=_BOOL, device=dev)
+        r_ok, w_ok = oks[:NR], oks[NR:]
+    rc = library().fdb_masks_history(
         table.data_ptr(), K, cum_state.data_ptr(), spos.data_ptr(),
-        rb.data_ptr(), re.data_ptr(), L, NR, rtxn.data_ptr(),
-        snapshot.data_ptr(), txn_valid.data_ptr(), oldest.data_ptr(), T,
-        int(bool(skip_history)), words.data_ptr(), sync.data_ptr(),
-        too_old.data_ptr(),
-        g0.data_ptr(), _stream())
-    _launched("history_check", rc)
-    return too_old, g0
+        rb.data_ptr(), re.data_ptr(), wb.data_ptr(), L, NR, NW,
+        int(bool(strided)), rtxn.data_ptr(), wtxn.data_ptr(),
+        *(_ptr(x) for x in (rbr, rer, wbr, wer)), snapshot.data_ptr(),
+        txn_valid.data_ptr(), oldest.data_ptr(), T, int(bool(skip_history)),
+        words.data_ptr(), sync.data_ptr(), too_old.data_ptr(), g0.data_ptr(),
+        *(_ptr(x) for x in (rtxn_o, wtxn_o, wtxn_c, r_ok, w_ok)), _stream())
+    _launched("masks_and_history", rc)
+    if masks is None:
+        return too_old, g0
+    if not strided:
+        rtxn_o, wtxn_o = rtxn, wtxn
+    return rtxn_o, wtxn_o, wtxn_c, r_ok, w_ok, too_old, g0
+
+
+def _ptr(t) -> int:
+    """A tensor's device pointer, or 0 (null) for None."""
+    return 0 if t is None else t.data_ptr()
+
+
+def masks_and_history(table, cum_state, spos, rb, re, wb, rtxn, wtxn, rbr,
+                      rer, wbr, wer, snapshot, txn_valid, oldest,
+                      strided: bool = False, skip_history: bool = False):
+    """K2, as `conflict_ref.masks_and_history`: (rtxn, wtxn, wtxn_c, r_ok,
+    w_ok, too_old, g0) in one cooperative launch (in the strided layout
+    the owners come from the keys and the given rtxn / wtxn are not read;
+    in the pooled one they are returned as given)."""
+    if not _on_cuda("masks_and_history", table):
+        return ref.masks_and_history(table, cum_state, spos, rb, re, wb,
+                                     rtxn, wtxn, rbr, rer, wbr, wer,
+                                     snapshot, txn_valid, oldest, strided,
+                                     skip_history)
+    return _masks_history("masks_and_history", table, cum_state, spos, rb,
+                          re, rtxn, snapshot, txn_valid, oldest,
+                          skip_history,
+                          masks=(wb, wtxn, rbr, rer, wbr, wer, strided))
+
+
+def history_check(table, cum_state, spos, rb, re, rtxn, snapshot, txn_valid,
+                  oldest, skip_history: bool = False):
+    """Too-old and history verdicts per txn: (too_old, g0), both (T,) bool,
+    from the given owners: K2's launch with no masks and no writes. With
+    `skip_history`, no read hits (the `no_hist` ablations)."""
+    if not _on_cuda("history_check", table):
+        return ref.history_check(table, cum_state, spos, rb, re, rtxn,
+                                 snapshot, txn_valid, oldest, skip_history)
+    return _masks_history("history_check", table, cum_state, spos, rb, re,
+                          rtxn, snapshot, txn_valid, oldest, skip_history)
 
 
 # ---------------------------------------------------------------------------
@@ -1120,43 +1182,8 @@ def shard_combine(statuses, eligible, overflow, boundaries, converged,
 
 
 # ---------------------------------------------------------------------------
-# K12 step_masks, K13 step_verdicts (the step's glue)
+# K13 step_verdicts (the step's closing glue)
 # ---------------------------------------------------------------------------
-
-def step_masks(rb, wb, rtxn, wtxn, rbr, rer, wbr, wer, T: int,
-               strided: bool):
-    """K12: (rtxn, wtxn, wtxn_c, r_ok, w_ok) in one launch, as
-    `conflict_ref.step_masks` (in the strided layout the maps come from
-    the keys and the given rtxn / wtxn are not read)."""
-    if not _on_cuda("step_masks", rb):
-        return ref.step_masks(rb, wb, rtxn, wtxn, rbr, rer, wbr, wer, T,
-                              strided)
-    L, NR = rb.shape
-    NW = wb.shape[1]
-    T = int(T)
-    dev = rb.device
-    if T < 1 or (strided and (NR % T or NW % T)):
-        raise FDBError("invalid_option",
-                       f"step_masks: T={T}, NR={NR}, NW={NW} (strided "
-                       f"needs both multiples of T)")
-    _check("step_masks", dev, rb=(rb, _I32, (L, NR)), wb=(wb, _I32, (L, NW)),
-           rtxn=(rtxn, _I32, (NR,)), wtxn=(wtxn, _I32, (NW,)),
-           rbr=(rbr, _I32, (NR,)), rer=(rer, _I32, (NR,)),
-           wbr=(wbr, _I32, (NW,)), wer=(wer, _I32, (NW,)))
-    owners = torch.empty(NR + 2 * NW, dtype=_I32, device=dev)
-    oks = torch.empty(NR + NW, dtype=_BOOL, device=dev)
-    out = (owners[:NR], owners[NR:NR + NW], owners[NR + NW:], oks[:NR],
-           oks[NR:])
-    if NR + NW == 0:
-        return out
-    rc = library().fdb_step_masks(
-        rb.data_ptr(), wb.data_ptr(), rtxn.data_ptr(), wtxn.data_ptr(),
-        rbr.data_ptr(), rer.data_ptr(), wbr.data_ptr(), wer.data_ptr(), L,
-        NR, NW, T, int(bool(strided)), *(t.data_ptr() for t in out),
-        _stream())
-    _launched("step_masks", rc)
-    return out
-
 
 def step_verdicts(commit, too_old, txn_valid, eligible, overflow, converged,
                   scan_out=None, index: int = 0):
@@ -1198,8 +1225,9 @@ def step_verdicts(commit, too_old, txn_valid, eligible, overflow, converged,
     return row[:T], committed, row
 
 
-PHASES = SimpleNamespace(sort_and_rank=sort_and_rank, step_masks=step_masks,
-                         build_table=build_table, history_check=history_check,
+PHASES = SimpleNamespace(sort_and_rank=sort_and_rank,
+                         masks_and_history=masks_and_history,
+                         build_table=build_table,
                          intra_levels=intra_levels,
                          intra_sandwich=intra_sandwich,
                          merge_compact=merge_compact,

@@ -47,7 +47,9 @@ QT_JOIN = 256
 QT_LEX = 1024
 LK = 5
 MAX_LIMBS = 8  # PROBE_MAX_L in the source
-_SMEM_LIMIT = 48 * 1024  # static shared memory a block gets without opt-in
+RANK_PRIMARY = 2  # limbs in the rank join's 64-bit primary key
+RANK_MAX_QT = (1 << 16) - 1  # queries a tile: their indices are 16 bits
+RANK_SMEM_LIMIT = 227 * 1024  # shared memory an H100 block may opt in to
 
 _I32 = torch.int32
 _U32 = 1 << 32
@@ -193,6 +195,14 @@ def lexjoin(state, queries, *, limbs: int = LK, unsigned: bool = False):
                         (1, nk), (nl * qt, 1, qt), unsigned, (nt * qt,))
 
 
+def rank_smem_bytes(qt: int, lk: int) -> int:
+    """Shared memory of a rank-join CTA (`rank_smem_bytes` in the source):
+    two buffers of the qt queries' primary keys (8 bytes) and indices (2),
+    the limbs past the primary key of every query and qt + 1 histogram
+    bins (4 bytes each)."""
+    return qt * 20 + (max(0, lk - RANK_PRIMARY) * qt + qt + 1) * 4
+
+
 def _launch_rank(name, state, queries, nk, nt, qt, lk, s_strides,
                  q_strides, unsigned, out_shape):
     """Launch probe_rank: tile t's rows are [t * nk / nt, (t + 1) * nk / nt),
@@ -204,10 +214,12 @@ def _launch_rank(name, state, queries, nk, nt, qt, lk, s_strides,
         raise FDBError("invalid_option",
                        f"{name}: {nt} tiles do not divide the state, or "
                        f"{lk} limbs is not in [1, {MAX_LIMBS}]")
-    if tile * lk * 4 > _SMEM_LIMIT:
+    if qt > RANK_MAX_QT or rank_smem_bytes(qt, lk) > RANK_SMEM_LIMIT:
         raise FDBError("invalid_option",
-                       f"{name}: a tile of {tile} x {lk} limbs exceeds the "
-                       f"{_SMEM_LIMIT} bytes of shared memory")
+                       f"{name}: {qt} queries a tile x {lk} limbs need "
+                       f"{rank_smem_bytes(qt, lk)} bytes of shared memory "
+                       f"(at most {RANK_SMEM_LIMIT}, and {RANK_MAX_QT} "
+                       f"queries)")
     out = torch.empty(out_shape, dtype=_I32, device=state.device)
     rc = kernels.library().fdb_probe_rank(
         state.data_ptr(), queries.data_ptr(), nt, tile, qt, lk, *s_strides,
@@ -269,6 +281,76 @@ def script_calls(device) -> dict:
         "probe_stream_limbs": ((t(state2),), {"layout": "limbs"}),
         "probe_lexjoin": ((t(state2), t(queries2)), {"limbs": LK}),
     }
+
+
+def rank_edge_calls(device) -> list:
+    """[(probe name, args, kwargs)]: the rank joins' edge inputs, drawn
+    from a seeded numpy generator. join (uint32 bits, row-major): an
+    all-equal tile with queries below, at and above it; the full uint32
+    range with half the queries equal to tile keys; four values with the
+    high bits set in tiles of 1,000 rows (not a power of two) and more
+    queries than a block has threads; tiles of one row. lexjoin (int32,
+    limb-major): LK = 1 to 8 over few values (ties on every prefix);
+    rows that share their first LK - 1 limbs (LK = 5 and 8); an all-equal
+    tile; queries equal to tile keys; tiles of 3,000 rows and 2,500
+    queries at LK = 8 (past 48 KB of shared memory, and more queries than
+    a block has threads); unsigned limbs with the high bit set."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(41)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(
+            dev)
+
+    def u32(lo, hi, shape):
+        return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.uint32)
+    out = []
+
+    def join(state, queries):
+        out.append(("probe_join", (t(state), t(queries)), {"unsigned": True}))
+
+    def lex(state, queries, limbs, unsigned=False):
+        out.append(("probe_lexjoin", (t(state), t(queries)),
+                    {"limbs": limbs, "unsigned": unsigned}))
+    v = 0x80000005
+    join(np.full((2048, 8), v, np.uint32),
+         rng.choice(np.array([v - 1, v, v + 1], np.uint32), (2, 256, 8)))
+    state = u32(0, 1 << 32, (4096, 8))
+    queries = u32(0, 1 << 32, (2, 512, 8))
+    tiles = state.reshape(2, 2048, 8)
+    take = rng.random((2, 512)) < 0.5
+    rows = rng.integers(0, 2048, (2, 512))
+    tile_of = np.broadcast_to(np.arange(2)[:, None], (2, 512))
+    queries[take] = tiles[tile_of[take], rows[take]]
+    join(state, queries)
+    four = np.array([0, 1 << 30, 1 << 31, 3 << 30], np.uint32)
+    join(rng.choice(four, (3000, 3)), rng.choice(four, (3, 1500, 3)))
+    join(u32(0, 8, (64, 2)), u32(0, 8, (64, 5, 2)))
+    for lk in range(1, L + 1):
+        lex(rng.integers(-2, 2, (L, 4096)).astype(np.int32),
+            rng.integers(-2, 2, (2, L, 300)).astype(np.int32), lk)
+    for lk in (5, 8):
+        state = np.full((L, 2048), 9, np.int32)
+        state[lk - 1] = rng.integers(-3, 3, 2048)
+        queries = np.full((1, L, 256), 9, np.int32)
+        queries[0, lk - 1] = rng.integers(-4, 4, 256)
+        queries[0, rng.integers(0, lk - 1, 64), rng.integers(0, 256, 64)] = \
+            rng.integers(8, 11, 64)  # some differ earlier
+        lex(state, queries, lk)
+    lex(np.full((L, 2048), 7, np.int32),
+        rng.integers(6, 9, (2, L, 256)).astype(np.int32), LK)
+    state = rng.integers(-(1 << 31), 1 << 31, (L, 4096)).astype(np.int32)
+    queries = rng.integers(-(1 << 31), 1 << 31, (2, L, 512)).astype(np.int32)
+    cols = rng.integers(0, 2048, (2, 512))
+    for i in range(2):
+        queries[i, :, ::2] = state[:, i * 2048 + cols[i, ::2]]
+    lex(state, queries, LK)
+    lex(rng.integers(-1, 2, (L, 9000)).astype(np.int32),
+        rng.integers(-1, 2, (3, L, 2500)).astype(np.int32), L)
+    high = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
+    lex(rng.choice(high, (L, 2048)), rng.choice(high, (2, L, 300)), LK,
+        unsigned=True)
+    return out
 
 
 def time_passes(fn, passes: int = PASSES, reps: int = 3) -> float:

@@ -1,7 +1,8 @@
 """K1's and K2's plain versions against the JAX package, on the inputs
 that the kernels' partitions stress.
 
-`ref.history_check` is held to the JAX step's phases 1-2: the same numpy
+`ref.history_check` (the second part of K2's phase `masks_and_history`) is
+held to the JAX step's phases 1-2: the same numpy
 state and batch go through the jitted JAX `conflict_step(...,
 ablate="only_hist")` (statuses from the history verdicts alone; the merge
 is skipped) and through the port's plain step with an intra-batch phase
@@ -114,13 +115,15 @@ def only_hist_phases(seen):
     """The plain phases, with the history verdicts kept in `seen` and an
     intra-batch phase that commits exactly the eligible set (the JAX
     step's `only_hist` ablation)."""
-    def history_check(*a):
-        seen["verdicts"] = ref.history_check(*a)
-        return seen["verdicts"]
+    def masks_and_history(*a, **kw):
+        out = ref.masks_and_history(*a, **kw)
+        seen["verdicts"] = out[5:]
+        return out
 
     def intra_sandwich(g, *_a, **_kw):
         return g, g, torch.ones((), dtype=torch.bool)
-    return type(ref.PLAIN)(**dict(vars(ref.PLAIN), history_check=history_check,
+    return type(ref.PLAIN)(**dict(vars(ref.PLAIN),
+                                  masks_and_history=masks_and_history,
                                   intra_sandwich=intra_sandwich))
 
 

@@ -169,12 +169,11 @@ def _captured_phases(batches):
     spied = type(ref.PLAIN)(
         sort_and_rank=spy("sort_and_rank", ref.sort_and_rank),
         build_table=spy("sparse_table", ref.build_table),
-        history_check=spy("history_check", ref.history_check),
+        masks_and_history=spy("masks_and_history", ref.masks_and_history),
         intra_levels=spy("intra_levels", ref.intra_levels),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
         legacy_fixpoint=spy("legacy_blocked", ref.legacy_fixpoint),
-        step_masks=spy("step_masks", ref.step_masks),
         step_verdicts=spy("step_verdicts", ref.step_verdicts))
     cs = DeviceConflictSet(device="cpu", **SMALL)
     for txns, version in batches:
@@ -195,11 +194,11 @@ def test_kernels_equal_plain_versions_on_the_card(cuda):
     kernels.reset_launches()
     pairs = {"sort_and_rank": (kernels.sort_and_rank, ref.sort_and_rank),
              "sparse_table": (kernels.build_table, ref.build_table),
-             "history_check": (kernels.history_check, ref.history_check),
+             "masks_and_history": (kernels.masks_and_history,
+                                   ref.masks_and_history),
              "intra_levels": (kernels.intra_levels, ref.intra_levels),
              "intra_sandwich": (kernels.intra_sandwich, ref.intra_sandwich),
              "merge_compact": (kernels.merge_compact, ref.merge_compact),
-             "step_masks": (kernels.step_masks, ref.step_masks),
              "step_verdicts": (kernels.step_verdicts, ref.step_verdicts)}
     for name, (kern, plain) in pairs.items():
         for a, kw in calls[name]:
@@ -246,12 +245,11 @@ def _bench_step_calls(T, mode, device):
     spied = type(ref.PLAIN)(
         sort_and_rank=spy("sort_and_rank", ref.sort_and_rank),
         build_table=spy("sparse_table", ref.build_table),
-        history_check=spy("history_check", ref.history_check),
+        masks_and_history=spy("masks_and_history", ref.masks_and_history),
         intra_levels=spy("intra_levels", ref.intra_levels),
         intra_sandwich=spy("intra_sandwich", ref.intra_sandwich),
         merge_compact=spy("merge_compact", ref.merge_compact),
         legacy_fixpoint=spy("legacy_blocked", ref.legacy_fixpoint),
-        step_masks=spy("step_masks", ref.step_masks),
         step_verdicts=spy("step_verdicts", ref.step_verdicts))
     for i in range(2):
         calls.clear()
@@ -316,13 +314,17 @@ def test_history_kernel_on_edge_inputs(cuda):
     # shuffled reads, T=1 and 33, txns without reads, snapshots below the
     # floor, all reads padding, a bench step at T=32,768 (chip_smoke.py's
     # edges); the bit-set scratch is left zero: each call again gives the
-    # same answer
+    # same answer. K2 with its masks, and alone on the owners they give
     import chip_smoke
     calls = chip_smoke.history_edge_calls(cuda)
-    _equal_to_plain(kernels.history_check, ref.history_check, calls + calls)
+    _equal_to_plain(kernels.masks_and_history, ref.masks_and_history,
+                    calls + calls)
+    alone = chip_smoke.history_calls(calls)
+    _equal_to_plain(kernels.history_check, ref.history_check, alone + alone)
     # the verdicts do not depend on the order of the reads
-    a, kw = calls[-1]
-    got = kernels.history_check(*chip_smoke.shuffled_reads((a, kw), 7)[0])
+    a, kw = alone[-1]
+    got = kernels.history_check(*chip_smoke.shuffled_reads((a, kw), 7)[0],
+                                **kw)
     for w, g in zip(ref.history_check(*a, **kw), got):
         assert torch.equal(g, w)
 
@@ -330,11 +332,14 @@ def test_history_kernel_on_edge_inputs(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1024, 16384])
 def test_table_and_history_kernels_on_a_bench_step(cuda, T):
+    import chip_smoke
     calls = _bench_step_calls(T, "scan", cuda)
     _equal_to_plain(kernels.build_table, ref.build_table,
                     calls["sparse_table"])
+    _equal_to_plain(kernels.masks_and_history, ref.masks_and_history,
+                    calls["masks_and_history"])
     _equal_to_plain(kernels.history_check, ref.history_check,
-                    calls["history_check"])
+                    chip_smoke.history_calls(calls["masks_and_history"]))
 
 
 def _chain_sandwich_args(T, device):
@@ -802,7 +807,7 @@ def test_legacy_engine_runs_through_its_bucket_graphs(cuda):
         txns = fuzz_batch(rng, version - 1, int(rng.integers(1, 150)))
         assert cs.detect(txns, version) == oracle.detect(txns, version), i
     assert kernels.LAUNCHES["legacy_blocked"] == kernels.LAUNCHES[
-        "history_check"] >= 12
+        "masks_and_history"] >= 12
     assert kernels.LAUNCHES["intra_sandwich"] == 0
 
 
@@ -841,8 +846,9 @@ def test_history_kernel_ignores_inverted_reads(cuda):
     # range outside a shard) are no hits; a proper read of them is
     import chip_smoke
     calls = chip_smoke.inverted_read_calls(cuda)
-    _equal_to_plain(kernels.history_check, ref.history_check, calls)
-    _too_old, g0 = kernels.history_check(*calls[-1][0])
+    _equal_to_plain(kernels.masks_and_history, ref.masks_and_history, calls)
+    a, kw = calls[-1]
+    g0 = kernels.masks_and_history(*a, **kw)[6]
     assert g0.cpu().tolist() == [t % 4 != 0 for t in range(64)]
 
 
@@ -894,7 +900,7 @@ def test_sharded_engine_on_the_card_equals_the_plain_phases(cuda):
         assert eng.detect(txns, version) == plain.detect(txns, version)
     assert kernels.LAUNCHES["shard_clip"] == kernels.LAUNCHES[
         "shard_combine"] == 12
-    assert kernels.LAUNCHES["history_check"] == W * 12
+    assert kernels.LAUNCHES["masks_and_history"] == W * 12
     got = ref.sharded_state_to_numpy(eng._state)
     for k, v in ref.sharded_state_to_numpy(plain._state).items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
@@ -946,7 +952,7 @@ def test_sharded_graph_replays_equal_its_eager_chunk(cuda, W):
 
 
 # ---------------------------------------------------------------------------
-# the step graphs and the glue kernels (K12, K13) on the card
+# the step graphs and the glue kernels (K2 with the masks, K13) on the card
 # ---------------------------------------------------------------------------
 
 def _bench_state_and_chunks(dev, T=256, K=4096, M=3):
@@ -1001,9 +1007,9 @@ def test_engine_bucket_graphs_match_the_oracle_on_the_card(cuda):
         assert cs.detect(txns, version) == oracle.detect(txns, version), i
     assert {k: v.data_ptr() for k, v in cs._state.items()} == ptrs
     assert kernels.LAUNCHES["step_verdicts"] >= 12
-    for name in ("intra_sandwich", "intra_levels", "step_masks",
-                 "step_verdicts"):
-        assert kernels.LAUNCHES[name] == kernels.LAUNCHES["history_check"]
+    for name in ("intra_sandwich", "intra_levels", "step_verdicts"):
+        assert kernels.LAUNCHES[name] == kernels.LAUNCHES["masks_and_history"]
+    assert "step_masks" not in kernels.LAUNCHES  # no masks kernel of its own
 
 
 @pytest.mark.cuda
@@ -1014,19 +1020,39 @@ def test_glue_kernels_equal_plain_on_the_card(cuda):
         cs = DeviceConflictSet(device=cuda, capacity=1024, txns=64,
                                reads_per_txn=per, writes_per_txn=per,
                                strided=strided)
+        # history: writes at version 50 over half the keys that the batch
+        # reads at snapshot 0, so that reads hit
+        cs.detect([TxnConflictInfo(10, [], [point(b"a%d" % i)])
+                   for i in range(0, 60, 2)], 50)
         txns = [TxnConflictInfo(0, [point(b"a%d" % i)] * int(i % 3),
                                 [point(b"b%d" % i)] * int(i % 2))
                 for i in range(60)]
         batch = cs.encoder.encode_batch(txns, 100)
         NR, NW = batch["rb"].shape[1], batch["wb"].shape[1]
-        ranks = [torch.from_numpy(rng.integers(0, 6, n).astype(np.int32)).to(
-            cuda) for n in (NR, NR, NW, NW)]
-        args = (batch["rb"], batch["wb"], batch["rtxn"], batch["wtxn"],
-                *ranks, 64, strided)
-        got = kernels.step_masks(*args)
-        torch.cuda.synchronize()
-        for a, b in zip(got, ref.step_masks(*args)):
-            assert torch.equal(a, b), strided
+        st = cs._state
+        sr = ref.sort_and_rank(st["bkeys"], st["bval"], batch["rb"],
+                               batch["re"], batch["wb"], batch["we"])
+        spos, cum, q = sr[4], sr[5], sr[6]
+        # the batch's own ranks, with the verdicts (the kernel's hit
+        # compares them, the plain phase the keys); then random ranks
+        # (ties, empty and inverted ranges) for the masks alone
+        own = (q[:NR], q[NR:2 * NR], q[2 * NR:2 * NR + NW], q[2 * NR + NW:])
+        rand = tuple(torch.from_numpy(rng.integers(0, 6, n).astype(
+            np.int32)).to(cuda) for n in (NR, NR, NW, NW))
+        for ranks, skip in ((own, False), (rand, True)):
+            args = (st["table"], cum, spos, batch["rb"], batch["re"],
+                    batch["wb"], batch["rtxn"], batch["wtxn"], *ranks,
+                    batch["snapshot"], batch["txn_valid"], st["oldest"])
+            got = kernels.masks_and_history(*args, strided=strided,
+                                            skip_history=skip)
+            torch.cuda.synchronize()
+            want = ref.masks_and_history(*args, strided=strided,
+                                         skip_history=skip)
+            assert len(got) == len(want) == 7
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (strided, skip)
+            hits = batch["txn_valid"] & ~want[5] & ~want[6]
+            assert bool(hits.any()) != skip, (strided, skip)
     T = 1000
     flags = [torch.from_numpy(np.random.default_rng(s).random(T) < 0.6).to(
         cuda) for s in range(4)]
@@ -1050,9 +1076,9 @@ def test_a_failed_capture_raises_and_leaves_the_engine_usable(cuda):
 
     def syncing_masks(*a, **kw):
         bool(a[0].any())  # a host read: refused while the stream captures
-        return kernels.step_masks(*a, **kw)
+        return kernels.masks_and_history(*a, **kw)
     phases = type(ref.PLAIN)(**dict(vars(kernels.PHASES),
-                                    step_masks=syncing_masks))
+                                    masks_and_history=syncing_masks))
     state, _warm, chunks = _bench_state_and_chunks(cuda)
     prog = ScanGraph(state, steps=3, txns=256, reads=256, writes=256,
                      max_write_life=5_000_000, strided=True, phases=phases)

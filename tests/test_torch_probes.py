@@ -17,6 +17,19 @@ Two departures from the scripts, both forced by the kernel bodies:
   * dynwrite_kernel writes 8 of its 64 output rows and leaves the rest
     unwritten (interpret mode fills them with the dtype's minimum); the
     port defines them as zero, so only the written rows are compared.
+
+The rank joins are held to the Pallas bodies also on their edges
+(`probes.rank_edge_calls`: ties, queries equal to tile keys, prefixes
+shared up to LK - 1 limbs, uint32 limbs past 2^31, LK = 1 to 8, tiles that
+are not a power of two; ab_pallas2.py's lexjoin is signed, so its unsigned
+edge is held to a packed-key searchsorted instead). The card's algorithm
+for them (csrc/probes.cu: a tile's queries merge-sorted by ranks, a
+round a merge of runs in pairs, each query placed at its index in its run
+plus its rank in the other run; each row's upper bound among them by
+bisection into a histogram; the histogram's prefix sums as the counts) is
+emulated in numpy, round for round, and held to `rank_plain` on the same
+edges and on the scripts' first tiles; its constants are read from the
+source.
 """
 
 import ast
@@ -179,3 +192,196 @@ def test_main_raises_without_a_card(monkeypatch):
     with pytest.raises(FDBError) as ei:
         probes.main()
     assert ei.value.name == "platform_error"
+
+
+# ---------------------------------------------------------------------------
+# the rank joins: edges, and the card's algorithm emulated
+# ---------------------------------------------------------------------------
+
+EDGES = probes.rank_edge_calls("cpu")
+SOURCE = os.path.join(os.path.dirname(probes.__file__), "..", "csrc",
+                      "probes.cu")
+
+
+def pallas_join(state, queries):
+    """join_kernel over state (K, L) uint32 and queries (NT, QT, L)."""
+    nt, qt, nl = queries.shape
+    tile = state.shape[0] // nt
+    return np.asarray(pl.pallas_call(
+        lift("ab_pallas.py", "join_kernel"), grid=(nt,),
+        in_specs=[pl.BlockSpec((tile, nl), lambda i: (i, 0)),
+                  pl.BlockSpec((None, qt, nl), lambda i: (i, 0, 0))],
+        out_specs=pl.BlockSpec((None, qt), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((nt, qt), jnp.int32),
+        interpret=True)(jnp.asarray(state), jnp.asarray(queries)))
+
+
+def pallas_lexjoin(state, queries, limbs):
+    """lexjoin_kernel over state (L, K) int32 and queries (NT, L, QT)."""
+    nt, nl, qt = queries.shape
+    tile = state.shape[1] // nt
+    return np.asarray(pl.pallas_call(
+        lift("ab_pallas2.py", "lexjoin_kernel", QT=qt, TILE=tile, LK=limbs),
+        grid=(1, nt),
+        in_specs=[pl.BlockSpec((nl, tile), lambda r, i: (0, i)),
+                  pl.BlockSpec((1, nl, qt), lambda r, i: (i, 0, 0))],
+        out_specs=pl.BlockSpec((qt,), lambda r, i: (i,)),
+        out_shape=jax.ShapeDtypeStruct((nt * qt,), jnp.int32),
+        interpret=True)(jnp.asarray(state), jnp.asarray(queries)))
+
+
+def packed_ranks(state, queries, limbs, unsigned):
+    """Each query's searchsorted position among its tile's sorted keys,
+    packed into Python integers (ab_pallas2.py:89-105's check)."""
+    nt, _, qt = queries.shape
+    tile = state.shape[1] // nt
+    bits = np.uint32 if unsigned else np.int32
+    s = state.view(bits).astype(np.int64)[:limbs]
+    q = queries.view(bits).astype(np.int64)[:, :limbs]
+
+    def pack(a):
+        v = np.zeros(a.shape[1], dtype=object)
+        for lvl in range(limbs):
+            v = v * (1 << 32) + (a[lvl] + (0 if unsigned else 1 << 31))
+        return v
+    out = [np.searchsorted(np.sort(pack(s[:, t * tile:(t + 1) * tile])),
+                           pack(q[t]), side="left") for t in range(nt)]
+    return np.concatenate(out).astype(np.int32)
+
+
+@pytest.mark.parametrize("i", range(len(EDGES)))
+def test_rank_edges_equal_the_pallas_bodies(i):
+    name, (state, queries), kw = EDGES[i]
+    s, q = state.numpy(), queries.numpy()
+    if name == "probe_join":
+        want = pallas_join(s.view(np.uint32), q.view(np.uint32))
+    elif kw["unsigned"]:  # ab_pallas2.py's lexjoin is signed
+        want = packed_ranks(s, q, kw["limbs"], True)
+    else:
+        want = pallas_lexjoin(s, q, kw["limbs"])
+        np.testing.assert_array_equal(
+            want, packed_ranks(s, q, kw["limbs"], False))
+    for got in both(name, state, queries, **kw):
+        np.testing.assert_array_equal(got, want)
+
+
+def source_define(name: str) -> int:
+    with open(SOURCE) as f:
+        for line in f:
+            if line.startswith(f"#define {name} "):
+                return int(line.split()[2])
+    raise KeyError(name)
+
+
+def test_rank_constants_match_the_source():
+    assert source_define("RANK_PRIMARY") == probes.RANK_PRIMARY
+    assert source_define("RANK_MAX_QT") == probes.RANK_MAX_QT
+    assert source_define("PROBE_MAX_L") == probes.MAX_LIMBS
+    assert source_define("RANK_ROWS") >= 1
+    # the scripts' queries fit, and 2,500 queries of 8 limbs pass 48 KB
+    assert probes.rank_smem_bytes(256, 1) == 256 * 20 + 257 * 4
+    assert probes.rank_smem_bytes(1024, 5) == 1024 * 20 + 4 * 1024 * 4 + 4
+    assert probes.rank_smem_bytes(2500, 8) > 48 * 1024
+
+
+@pytest.mark.parametrize("qt", [probes.RANK_MAX_QT + 1, 1 << 14])
+def test_rank_refuses_what_does_not_fit(qt):
+    # past the 16-bit query indices; 16,384 queries of 8 limbs: 720 KB of
+    # shared memory
+    s = torch.zeros((8, 64), dtype=torch.int32, device="meta")
+    q = torch.zeros((1, 8, qt), dtype=torch.int32, device="meta")
+    with pytest.raises(FDBError) as ei:
+        probes._launch_rank("probe_lexjoin", s, q, 64, 1, qt, 8,
+                            (1, 64), (8 * qt, 1, qt), False, (qt,))
+    assert ei.value.name == "invalid_option"
+
+
+def emulate_rank(s_keys, q_keys, unsigned):
+    """csrc/probes.cu's probe_rank_kernel in numpy, round for round:
+    s_keys (NT, TILE, LK) and q_keys (NT, QT, LK) int32 bits ->
+    (NT, QT) counts."""
+    flip = np.uint32(0 if unsigned else 0x80000000)
+    s = (s_keys.view(np.uint32) ^ flip).astype(np.int64)
+    q = (q_keys.view(np.uint32) ^ flip).astype(np.int64)
+    nt, qt, _ = q.shape
+    out = np.empty((nt, qt), np.int32)
+
+    def cmp(a, b):
+        """-1, 0, 1 row by row: keys a against keys b, lexicographically."""
+        res = np.zeros(a.shape[0], np.int64)
+        for lvl in range(a.shape[1]):
+            res = np.where(res == 0, np.sign(a[:, lvl] - b[:, lvl]), res)
+        return res
+
+    def count(keys, sorted_keys, lo, n, or_equal):
+        """rank_count: positions p in [lo, lo + n) of sorted_keys below
+        each key (or at or below it), by a bisection that halves the
+        window each step."""
+        base = lo.copy()
+
+        def below(p):
+            c = cmp(keys, sorted_keys[np.clip(p, 0, len(sorted_keys) - 1)])
+            return (c > 0) | ((c == 0) & or_equal)
+        while (n > 1).any():
+            act = n > 1
+            half = n >> 1
+            base = np.where(act & below(base + half - 1), base + half, base)
+            n = np.where(act, n - half, n)
+        return base + ((n == 1) & below(base)) - lo
+
+    for t in range(nt):
+        order = np.arange(qt)  # position -> query index
+        e = np.arange(qt)
+        w = 1
+        while w < qt:
+            base = e & ~(2 * w - 1)
+            left = e - base < w
+            other = np.where(left, base + w, base)
+            n = np.where(left, np.minimum(w, qt - other), w)
+            keys = q[t, order]
+            cnt = count(keys, keys, other, np.maximum(n, 0), ~left)
+            pos = np.where(left, e, e - w) + cnt
+            assert np.array_equal(np.sort(pos), e)  # distinct places
+            new = np.empty_like(order)
+            new[pos] = order
+            order = new
+            w *= 2
+        rows = s[t]
+        u = count(rows, q[t, order], np.zeros(rows.shape[0], np.int64),
+                  np.full(rows.shape[0], qt, np.int64), True)
+        hist = np.bincount(u, minlength=qt + 1)
+        out[t, order] = np.cumsum(hist[:qt])
+    return out
+
+
+def rank_inputs(name, state, queries, kw):
+    """(s_keys, q_keys, unsigned) of a rank-join call, as numpy: the
+    arguments of `probes.rank_plain`."""
+    nt = queries.shape[0]
+    unsigned = kw.get("unsigned", name == "probe_join")
+    if name == "probe_join":
+        return (state[:, :1].reshape(nt, -1, 1).numpy(),
+                queries[:, :, :1].numpy(), unsigned)
+    lk = kw["limbs"]
+    return (state[:lk].T.reshape(nt, -1, lk).numpy(),
+            queries[:, :lk, :].transpose(1, 2).numpy(), unsigned)
+
+
+def script_tiles(name, tiles=2):
+    """The scripts' inputs of a rank join, their first `tiles` tiles."""
+    (state, queries), kw = probes.script_calls("cpu")[name]
+    rows = tiles * probes.TILE
+    state = state[:rows] if name == "probe_join" else state[:, :rows]
+    return name, (state, queries[:tiles]), kw
+
+
+@pytest.mark.parametrize("case", list(range(len(EDGES)))
+                         + ["probe_join", "probe_lexjoin"])
+def test_rank_kernel_algorithm_equals_rank_plain(case):
+    name, (state, queries), kw = (EDGES[case] if isinstance(case, int)
+                                  else script_tiles(case))
+    s_keys, q_keys, unsigned = rank_inputs(name, state, queries, kw)
+    want = probes.rank_plain(torch.from_numpy(s_keys),
+                             torch.from_numpy(q_keys), unsigned=unsigned)
+    np.testing.assert_array_equal(emulate_rank(s_keys, q_keys, unsigned),
+                                  want.numpy())

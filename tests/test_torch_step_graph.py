@@ -1,5 +1,6 @@
-"""The step's glue (K12 `step_masks`, K13 `step_verdicts`), the fixed state
-buffers and the step / scan programs of ops/step_graph.py, on the CPU.
+"""The step's glue (`step_masks`, the first part of K2's phase
+`masks_and_history`, and K13 `step_verdicts`), the fixed state buffers and
+the step / scan programs of ops/step_graph.py, on the CPU.
 
 - `step_masks` and `step_verdicts` (the plain versions the kernels are held
   to) against the JAX expressions they replace, `_combine_fn`'s readback
@@ -14,7 +15,7 @@ buffers and the step / scan programs of ops/step_graph.py, on the CPU.
   equal to the plain step and to the JAX scan, their launch accounting,
   and their refusals (an unknown evaluator or ablation, a graph on the
   CPU); both programs with the legacy evaluator against the eager step.
-The card tests of the graphs and of K12/K13 are in test_torch_kernels.py,
+The card tests of the graphs and of K2/K13 are in test_torch_kernels.py,
 which imports no JAX and so runs on the machine with the card.
 """
 
@@ -45,8 +46,8 @@ SHAPES = {
     "strided": jconf.ConflictShapes(capacity=256, txns=32, reads=64,
                                     writes=64, strided=True)}
 # the phases each step runs once, by the kernel each one launches
-STEP_PHASES = {"sort_and_rank": "endpoint_sort", "step_masks": "step_masks",
-               "history_check": "history_check",
+STEP_PHASES = {"sort_and_rank": "endpoint_sort",
+               "masks_and_history": "masks_and_history",
                "intra_levels": "intra_levels",
                "intra_sandwich": "intra_sandwich",
                "merge_compact": "merge_compact", "build_table": "sparse_table",
@@ -126,7 +127,7 @@ def np_batches(shapes, seed, steps, dense_at=()):
 
 
 # ---------------------------------------------------------------------------
-# K12 and K13's plain versions against the JAX expressions
+# the glue's plain versions (step_masks, K13) against the JAX expressions
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("layout", ["pooled", "strided"])
@@ -158,12 +159,19 @@ def test_step_masks_equal_the_jax_expressions(layout):
                           want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     assert (got[0] == T).any() and (got[0] < T).any()  # padding and reads
-    # the kernel wrapper on CPU tensors is the plain version, no launch
+    # K2's wrapper on CPU tensors is the plain version, the masks first,
+    # no launch (the history part reads a fresh state's table)
+    state = ref.init_state(shapes.capacity, L, CPU)
+    spos, cum = ref.sort_and_rank(state["bkeys"], state["bval"], tb["rb"],
+                                  tb["re"], tb["wb"], tb["we"])[4:6]
     before = dict(kernels.LAUNCHES)
-    again = kernels.step_masks(tb["rb"], tb["wb"], tb["rtxn"], tb["wtxn"],
-                               *(torch.from_numpy(ranks[k])
-                                 for k in ("rbr", "rer", "wbr", "wer")),
-                               T, shapes.strided)
+    again = kernels.masks_and_history(
+        state["table"], cum, spos, tb["rb"], tb["re"], tb["wb"], tb["rtxn"],
+        tb["wtxn"], *(torch.from_numpy(ranks[k])
+                      for k in ("rbr", "rer", "wbr", "wer")),
+        tb["snapshot"], tb["txn_valid"], state["oldest"],
+        strided=shapes.strided)
+    assert len(again) == 7
     assert all(torch.equal(a, b) for a, b in zip(again, got))
     assert kernels.LAUNCHES == before
 
