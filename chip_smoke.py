@@ -149,9 +149,29 @@ Phases, each of which must pass:
      (shard_clip) and K11 (shard_combine) on 8a's and 8c's calls and on
      edges (W = 1, 2, 4, 8; T=1; all padding; endpoints at the cuts and the
      sentinel; the strided layout at T=16,384), timed at both shapes.
+  9. the commit pipeline: the port's SimCluster (master, 2 proxies, the
+     port's resolvers with CONFLICT_BACKEND=device on the card at the
+     default knobs, 2 tlogs, 2 storage servers), driven through the
+     client API (`c.database()`, `Transaction.get`/`set`/`commit`). 9a:
+     cell A's mix with one resolver: YCSB's load (200 blind inserts of
+     100 of the 20,000 keys, 100-byte values), then 512 client actors of
+     40 attempts, each 4 zipfian reads, 4 zipfian writes and one commit
+     with no retry; every committed attempt's writes, applied in commit
+     order, must be read back through a new transaction and straight from
+     the storage server that owns each key, and no attempt may end in
+     commit_unknown_result. 9b: the Cycle workload across two resolvers
+     (1,000 nodes, 256 rotators of 10 `db.transact` rotations); the ring
+     must hold, read through a transaction and from the storage servers.
+     In both, every batch each resolver decided must equal the port's
+     OracleConflictSet replayed in version order, nothing may poison,
+     every chunk must converge on the device, K1-K4, K6-K9 and K13 must
+     launch once a resolver step and the rebase kernel once a rebase
+     (counts zeroed after the load, read after the run).
 
 `python3 chip_smoke.py --serve-cells` only serves phase 4's cells A and B
 (each reply checked against the oracle) and prints their numbers.
+`python3 chip_smoke.py --cluster` only runs phase 9, with its checks, and
+prints its numbers.
 `python3 chip_smoke.py --time-kernels` only times K1-K11, K13 and bench steps
 (cell A's traffic, phase B's, the bench at 16k and 32k, K9 at T=2^20):
 K5's whole fixpoint and one evaluation at the bench's warmed state and
@@ -168,7 +188,8 @@ T = 2^18 and 2^20; and the rank-join probes (join, lexjoin) at the
 scripts' shapes, device ms and the scripts' ms/pass (time_probes).
 
 It prints a digest of the code it runs, the kernels line
-({"kernels": [...]}), the nvidia-smi line, and last {"ok": true, "device":
+({"kernels": [...]}, each kernel with its launches on the main path and
+in phase 9, `launches_cluster`), the nvidia-smi line, and last {"ok": true, "device":
 {...}}. Any failure exits non-zero with no result line. Details go to
 chiprun_out/chip_smoke.json. The script imports nothing of JAX or of the
 JAX package.
@@ -2351,6 +2372,417 @@ def serve_phase(name, dev, capacity, n_batches, n_keys, seed, n_load=0,
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the commit pipeline under simulation
+# ---------------------------------------------------------------------------
+
+CLUSTER_CLIENTS = 512
+CLUSTER_ATTEMPTS = 40
+CLUSTER_LOAD_TXNS = 200  # YCSB's load: 200 blind inserts of 100 keys
+CLUSTER_VALUE_BYTES = 100  # one YCSB field
+CYCLE_NODES = 1_000
+CYCLE_ROTATORS = 256
+CYCLE_TXNS = 10
+# an attempt's outcomes other than a commit: the resolver's verdicts
+CLUSTER_REJECTIONS = ("not_committed", "transaction_too_old")
+
+
+def boot_cluster(dev, seed, n_resolvers, knobs=None):
+    """The port's SimCluster (2 proxies, `n_resolvers` resolvers, 2 tlogs,
+    2 storage servers) at the default knobs (with `knobs` over them: the
+    CPU tests' small shapes), its resolvers' engines on `dev`, with each
+    resolver's decided batches recorded (request and statuses, by
+    version) and its host time split as phase 4 splits it. Returns
+    (cluster, probe): `probe` holds the records, the host seconds and
+    each resolver's chunks by bucket."""
+    from foundationdb_tpu_torch.server import resolver as resolver_mod
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+
+    KNOBS.reset()
+    KNOBS.overrides(CONFLICT_BACKEND="device", CONFLICT_DEVICE=str(dev),
+                    **(knobs or {}))
+    t0 = time.perf_counter()
+    c = SimCluster(seed, n_proxies=2, n_resolvers=n_resolvers, n_tlogs=2,
+                   n_storage=2)
+    probe = {"boot_s": time.perf_counter() - t0,
+             "host": {"dispatch_s": 0.0, "drain_s": 0.0, "finish_s": 0.0},
+             "requests": [{} for _ in c.resolvers],
+             "replies": [{} for _ in c.resolvers],
+             "buckets": [{} for _ in c.resolvers]}
+    host = probe["host"]
+
+    def timed(key, fn):
+        def run_timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host[key] += time.perf_counter() - t
+        return run_timed
+
+    for i, r in enumerate(c.resolvers):
+        cs = r.conflict_set
+
+        def resolve(req, reply, fn=r._resolve_batch,
+                    seen=probe["requests"][i]):
+            seen.setdefault(req.version, req)
+            return fn(req, reply)
+
+        def finish(req, reply, statuses, fn=r._finish_batch,
+                   got=probe["replies"][i]):
+            got[req.version] = list(statuses)
+            return fn(req, reply, statuses)
+
+        def dispatch(sub, commit_version, skip, shapes, advance_floor,
+                     fn=cs.dispatch_chunk, seen=probe["buckets"][i]):
+            key = f"{shapes.reads}x{shapes.writes}"
+            seen[key] = seen.get(key, 0) + 1
+            return fn(sub, commit_version, skip, shapes, advance_floor)
+
+        r._resolve_batch = resolve
+        r._finish_batch = timed("finish_s", finish)
+        cs.detect_async = timed("dispatch_s", cs.detect_async)
+        cs.dispatch_chunk = dispatch
+    probe["drain"] = resolver_mod.drain_and_collect
+    resolver_mod.drain_and_collect = timed("drain_s", probe["drain"])
+    return c, probe
+
+
+def drive_cluster(name, dev, c, probe, load, run):
+    """Run `load()`, then `run()` (coroutine functions) on the cluster's
+    loop, with every kernel count, the chunk and rebase counts and the
+    host split zeroed between them and read after the run; then hold the
+    resolvers to the phase's checks: every decided batch (the load's too)
+    equal to the port's OracleConflictSet replayed in version order, every
+    received request decided, no poison, every chunk converged, each step
+    kernel launched once a chunk and the rebase kernel once a rebase.
+    Returns the run's numbers."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.ops.conflict import kernel_metrics
+    from foundationdb_tpu_torch.ops.conflict_oracle import OracleConflictSet
+    from foundationdb_tpu_torch.server import resolver as resolver_mod
+
+    cuda = dev.type == "cuda"
+    c.run(c.loop.spawn(load()), max_time=1e9)
+    rebases = [0]
+    rebase = ref.rebase_state
+
+    def counted_rebase(*a, **kw):
+        rebases[0] += 1
+        return rebase(*a, **kw)
+    ref.rebase_state = counted_rebase
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    counted = ("KernelDispatches", "UnconvergedChunks")
+    before = {k: kernel_metrics.as_dict()[k] for k in counted}
+    for k in probe["host"]:
+        probe["host"][k] = 0.0
+    for b in probe["buckets"]:
+        b.clear()
+    v0 = c.loop.now()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        c.run(c.loop.spawn(run()), max_time=1e9)
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        ref.rebase_state = rebase
+        resolver_mod.drain_and_collect = probe["drain"]
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    chunks, unconverged = (kernel_metrics.as_dict()[k] - before[k]
+                           for k in counted)
+    out = {
+        "phase": name, "wall_s": wall, "virtual_s": c.loop.now() - v0,
+        "chunks": chunks, "unconverged_chunks": unconverged,
+        "rebases": rebases[0], "launches": launches,
+        "buckets": probe["buckets"],
+        "host_share": {k: v / wall for k, v in probe["host"].items()},
+        "peak_device_bytes": torch.cuda.max_memory_allocated() if cuda
+        else None, "boot_s": probe["boot_s"],
+        "backends": [r.conflict_set.backend_label for r in c.resolvers],
+        "bucket_graphs": [sorted(f"{r}x{w}" for (r, w), g
+                                 in r_.conflict_set._graphs.items()
+                                 if g.graph is not None)
+                          for r_ in c.resolvers]}
+    # every batch a resolver decided, replayed in version order into the
+    # oracle; the requests are the whole run's, load included
+    t1 = time.perf_counter()
+    batches = mismatches = 0
+    for i, r in enumerate(c.resolvers):
+        reqs, got = probe["requests"][i], probe["replies"][i]
+        if set(reqs) != set(got):
+            fail(f"phase {name}: resolver {i} decided {len(got)} of the "
+                 f"{len(reqs)} batches it received")
+        oracle = OracleConflictSet()
+        for version in sorted(reqs):
+            want = oracle.detect(reqs[version].transactions, version)
+            mismatches += got[version] != want
+            batches += 1
+        state = r.conflict_set._state
+        if r._poisoned is not None or bool(state["poisoned"]):
+            fail(f"phase {name}: resolver {i}'s conflict state poisoned")
+    out["resolved_batches"] = batches
+    out["oracle_s"] = time.perf_counter() - t1
+    out["mismatched_batches"] = mismatches
+    if mismatches:
+        fail(f"phase {name}: {mismatches} of {batches} resolver replies "
+             f"differ from the oracle")
+    if cuda and any(b != "cuda" for b in out["backends"]):
+        fail(f"phase {name}: a resolver is not on the card: "
+             f"{out['backends']}")
+    if unconverged:
+        fail(f"phase {name}: {unconverged} of {chunks} chunks did not "
+             f"converge on the device")
+    for k in STEP_KERNELS if cuda else ():
+        if launches[k] != chunks:
+            fail(f"phase {name}: {launches[k]} {k} launches for {chunks} "
+                 f"resolver steps")
+    if cuda and launches["rebase_table"] != rebases[0]:
+        fail(f"phase {name}: {launches['rebase_table']} rebase launches "
+             f"for {rebases[0]} rebases")
+    return out
+
+
+def storage_read(c, key):
+    """`key`'s value read straight from the storage server that owns it,
+    at that server's latest version."""
+    from foundationdb_tpu_torch.utils.keys import partition_index
+    ss = c.storages[partition_index(c.shard_boundaries, key)]
+    return ss.data.get(key, ss.version.get())
+
+
+def cluster_ycsb_phase(dev, seed, n_clients=CLUSTER_CLIENTS,
+                       n_attempts=CLUSTER_ATTEMPTS, n_keys=20_000,
+                       knobs=None):
+    """9a: cell A's mix through the whole pipeline. YCSB's load (200
+    blind inserts of 100 keys, one 100-byte field a key), then `n_clients`
+    client actors of `n_attempts` attempts each: 4 zipfian reads, 4
+    zipfian writes of a value made from (client, attempt), one commit and
+    no retry. Every committed attempt's writes, applied in commit order
+    (version, then place in its proxy batch), make the model that the
+    client and each storage server must read back."""
+    from foundationdb_tpu_torch.core.future import all_of
+    from foundationdb_tpu_torch.utils.errors import FDBError
+
+    rng = np.random.default_rng(seed)
+    cdf, keys = zipf_keys(n_keys)
+    picks = np.searchsorted(cdf, rng.random((n_clients, n_attempts, 8)))
+    c, probe = boot_cluster(dev, seed, n_resolvers=1, knobs=knobs)
+    db = c.database()
+    # each commit's place in its proxy batch, keyed by its value
+    order: dict = {}
+    for p in c.proxies:
+        def commit_batch(batch_n, batch, t_arrival=None,
+                         fn=p._commit_batch):
+            for pos, (req, _rep, _t) in enumerate(batch):
+                if req.mutations:
+                    order[req.mutations[0].param2] = pos
+            return fn(batch_n, batch, t_arrival)
+        p._commit_batch = commit_batch
+
+    def value(tag: bytes) -> bytes:
+        return tag.ljust(CLUSTER_VALUE_BYTES, b".")
+
+    load_keys = [keys[i::CLUSTER_LOAD_TXNS] for i in range(CLUSTER_LOAD_TXNS)]
+    committed: list = []  # (version, place, keys, value)
+    outcomes: dict = {}
+
+    async def load():
+        async def insert(ks):
+            tr = db.create_transaction()
+            for k in sorted(ks):
+                tr.set(k, value(k))
+            await tr.commit()
+        await all_of([c.loop.spawn(insert(ks), name=f"load{i}")
+                      for i, ks in enumerate(load_keys)])
+
+    async def client(ci):
+        for ai in range(n_attempts):
+            idx = picks[ci, ai].tolist()
+            v = value(b"c%05d.a%03d" % (ci, ai))
+            tr = db.create_transaction()
+            try:
+                for i in idx[:4]:
+                    await tr.get(keys[i])
+                for i in idx[4:]:
+                    tr.set(keys[i], v)
+                await tr.commit()
+            except FDBError as e:
+                outcomes[e.name] = outcomes.get(e.name, 0) + 1
+                continue
+            outcomes["committed"] = outcomes.get("committed", 0) + 1
+            committed.append((tr.committed_version, order[v],
+                              [keys[i] for i in idx[4:]], v))
+
+    async def run():
+        await all_of([c.loop.spawn(client(ci), name=f"client{ci}")
+                      for ci in range(n_clients)])
+
+    out = drive_cluster("9a", dev, c, probe, load, run)
+    attempts = n_clients * n_attempts
+    out.update({"clients": n_clients, "attempts_per_client": n_attempts,
+                "attempts": attempts, "keys": n_keys,
+                "load_txns": CLUSTER_LOAD_TXNS,
+                "committed": outcomes.get("committed", 0),
+                "conflicted": outcomes.get("not_committed", 0),
+                "too_old": outcomes.get("transaction_too_old", 0),
+                "outcomes": outcomes,
+                "attempts_per_wall_s": attempts / out["wall_s"]})
+    out["commit_share"] = out["committed"] / attempts
+
+    # the model: the load, then every committed attempt in commit order
+    model = {k: value(k) for k in keys}
+    for _v, _pos, ks, v in sorted(committed, key=lambda x: x[:2]):
+        for k in ks:
+            model[k] = v
+    t0 = time.perf_counter()
+
+    async def read_back():
+        tr = db.create_transaction()
+        return await tr.get_many(keys)
+    got = c.run(c.loop.spawn(read_back()), max_time=1e9)
+    client_bad = sum(g != model[k] for k, g in zip(keys, got))
+    storage_bad = sum(storage_read(c, k) != model[k] for k in keys)
+    out["read_back_s"] = time.perf_counter() - t0
+    out["read_back_mismatches"] = {"client": client_bad,
+                                   "storage": storage_bad}
+    log("phase 9a: " + json.dumps(out))
+    if outcomes.get("commit_unknown_result"):
+        fail(f"phase 9a: {outcomes['commit_unknown_result']} attempts ended "
+             f"in commit_unknown_result")
+    if sum(outcomes.values()) != attempts:
+        fail(f"phase 9a: {sum(outcomes.values())} outcomes for {attempts} "
+             f"attempts")
+    unknown = set(outcomes) - {"committed", *CLUSTER_REJECTIONS}
+    if unknown:
+        fail(f"phase 9a: attempts ended in {sorted(unknown)}")
+    if not out["committed"] or not out["conflicted"]:
+        fail(f"phase 9a: no commit or no conflict among the attempts: "
+             f"{outcomes}")
+    if client_bad or storage_bad:
+        fail(f"phase 9a: acknowledged writes not read back: {client_bad} "
+             f"keys through a transaction, {storage_bad} from the storage "
+             f"servers")
+    return out
+
+
+def cluster_cycle_phase(dev, seed, n_nodes=CYCLE_NODES,
+                        n_rotators=CYCLE_ROTATORS, n_txns=CYCLE_TXNS,
+                        knobs=None):
+    """9b: the Cycle workload (Cycle.actor.cpp) across two resolvers: a
+    ring of `n_nodes` keys by value, spread over both resolvers' and both
+    storage servers' key ranges; `n_rotators` actors each run `n_txns`
+    three-key rotations through `db.transact`; then the ring must still
+    be one cycle through every node, read through a transaction and from
+    the storage servers alike."""
+    import random
+
+    from foundationdb_tpu_torch.core.future import all_of
+
+    rnd = random.Random(seed)
+    c, probe = boot_cluster(dev, seed, n_resolvers=2, knobs=knobs)
+    db = c.database()
+
+    def key(i):
+        return bytes([i * 251 % 256]) + b"/cycle/%04d" % i
+
+    async def setup(tr):
+        for i in range(n_nodes):
+            tr.set(key(i), b"%04d" % ((i + 1) % n_nodes))
+
+    tries = [0]
+    errors: dict = {}
+
+    async def rotate(tr):
+        if "on_error" not in vars(tr):  # count each retried attempt's error
+            def on_error(e, fn=tr.on_error):
+                name = getattr(e, "name", repr(e))
+                errors[name] = errors.get(name, 0) + 1
+                return fn(e)
+            tr.on_error = on_error
+        tries[0] += 1
+        a = key(rnd.randrange(n_nodes))
+        b_idx = int(await tr.get(a))
+        b = key(b_idx)
+        c_idx = int(await tr.get(b))
+        cc = key(c_idx)
+        d_idx = int(await tr.get(cc))
+        tr.set(a, b"%04d" % c_idx)
+        tr.set(b, b"%04d" % d_idx)
+        tr.set(cc, b"%04d" % b_idx)
+
+    async def rotator():
+        for _ in range(n_txns):
+            await db.transact(rotate)
+
+    async def run():
+        await all_of([c.loop.spawn(rotator(), name=f"rot{i}")
+                      for i in range(n_rotators)])
+
+    async def load():
+        await db.transact(setup)
+
+    out = drive_cluster("9b", dev, c, probe, load, run)
+
+    async def read_ring():
+        tr = db.create_transaction()
+        return await tr.get_many([key(i) for i in range(n_nodes)])
+    ring = [int(v) for v in c.run(c.loop.spawn(read_ring()), max_time=1e9)]
+    stored = [int(storage_read(c, key(i))) for i in range(n_nodes)]
+    seen, i = set(), 0
+    for _ in range(n_nodes):
+        seen.add(i)
+        i = ring[i]
+    committed = n_rotators * n_txns
+    out.update({"nodes": n_nodes, "rotators": n_rotators,
+                "txns_per_rotator": n_txns, "attempts": tries[0],
+                "committed": committed,
+                "conflicted": errors.get("not_committed", 0),
+                "too_old": errors.get("transaction_too_old", 0),
+                "retried_errors": errors,
+                "commit_share": committed / tries[0],
+                "attempts_per_wall_s": tries[0] / out["wall_s"],
+                "ring_holds": i == 0 and len(seen) == n_nodes,
+                "storage_equals_client": stored == ring})
+    log("phase 9b: " + json.dumps(out))
+    if errors.get("commit_unknown_result"):
+        fail(f"phase 9b: {errors['commit_unknown_result']} attempts ended in "
+             f"commit_unknown_result")
+    if tries[0] != committed + sum(errors.values()):
+        fail(f"phase 9b: {tries[0]} attempts for {committed} commits and "
+             f"{sum(errors.values())} retried errors")
+    if not out["ring_holds"]:
+        fail(f"phase 9b: the ring broke: {len(seen)} nodes from 0, back at "
+             f"{i}")
+    if not out["storage_equals_client"]:
+        fail("phase 9b: the storage servers' ring differs from the one "
+             "read through a transaction")
+    if min(sum(b.values()) for b in out["buckets"]) == 0:
+        fail(f"phase 9b: a resolver decided no chunk: {out['buckets']}")
+    return out
+
+
+def cluster_phase(dev, seed, ycsb=None, cycle=None):
+    """Phase 9: 9a and 9b, each on its own cluster (`ycsb` and `cycle`:
+    keyword arguments of each run, the CPU tests' small sizes). The roles'
+    trace events (counters, commit spans) are dropped: nothing here reads
+    them."""
+    from foundationdb_tpu_torch.utils import trace
+    trace.set_sink(lambda _fields: None)
+    try:
+        return {"9a": cluster_ycsb_phase(dev, seed + 9, **(ycsb or {})),
+                "9b": cluster_cycle_phase(dev, seed + 19, **(cycle or {}))}
+    finally:
+        trace.set_sink(None)
+
+
+# ---------------------------------------------------------------------------
 # phases 5-7: the kernel bench, the evaluator A/B and the probes
 # ---------------------------------------------------------------------------
 
@@ -3552,6 +3984,10 @@ def main(argv=None) -> int:
                     help="only serve cells A and B through the resolver "
                          "(phase 4, oracle-checked), print their numbers as "
                          "JSON and exit")
+    ap.add_argument("--cluster", action="store_true",
+                    help="only run phase 9 (the port's SimCluster, its "
+                         "resolvers on the card: 9a cell A's mix, 9b "
+                         "Cycle), print its numbers as JSON and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -3596,6 +4032,11 @@ def main(argv=None) -> int:
             for name, (out, _cs, _next) in serve_cells(dev, args.seed)}
         print(json.dumps({"card": card, "source_digest": digest,
                           "cells": cells}), flush=True)
+        return 0
+    if args.cluster:
+        print(json.dumps({"card": card, "source_digest": digest,
+                          "cluster": cluster_phase(dev, args.seed)}),
+              flush=True)
         return 0
     report["build"] = {"seconds": build_s,
                        "library": kernels.BUILD_INFO.get("library")}
@@ -3671,6 +4112,19 @@ def main(argv=None) -> int:
             "txns_per_s", "batch_latency_ms_p50", "batch_latency_ms_p99")}))
     kres.update({k: kres8[k] for k in SHARD_KERNELS})
 
+    # 9. the commit pipeline: the port's SimCluster, its resolvers on the
+    # card; 9a cell A's mix through client, proxies, resolver, tlogs and
+    # storage, 9b the Cycle workload across two resolvers
+    kernels.release_scratch()
+    torch.cuda.empty_cache()
+    cluster = report["cluster"] = cluster_phase(dev, args.seed)
+    log(f"phase 9 on {card}: " + json.dumps({
+        run: {k: cluster[run][k] for k in (
+            "attempts", "committed", "conflicted", "too_old", "commit_share",
+            "wall_s", "virtual_s", "attempts_per_wall_s", "chunks",
+            "buckets", "host_share", "peak_device_bytes")}
+        for run in cluster}))
+
     timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "library_device_ms", "host_ms",
                    "launches_per_call")
@@ -3708,6 +4162,8 @@ def main(argv=None) -> int:
         else:
             entry["launches"] = probe_run["launches"][name]
             entry["max_abs_err"] = r["max_abs_err"]
+        entry["launches_cluster"] = sum(
+            cluster[run]["launches"][name] for run in cluster)
         entry.update({k: r[k] for k in timing_keys})
         if name in SHARD_KERNELS:
             entry["bench_16384_w4"] = {k: r["bench_16384_w4"][k]

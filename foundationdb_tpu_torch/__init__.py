@@ -5,11 +5,13 @@ and names so each module has a findable counterpart. It imports torch and
 numpy, never jax and nothing of foundationdb_tpu: framework-free modules it
 needs are kept here as its own copies.
 
-It ports the resolver role end to end: the actor runtime it runs in (core),
-its request/reply structs (server/interfaces.py), the conflict engine
-(ops/conflict.py) whose device step is plain PyTorch (ops/conflict_ref.py)
-plus hand-written Hopper kernels (ops/kernels.py, csrc/*.cu). And it ports
-the kernel bench (bench.py) with the Pallas A/B probes (ops/probes.py).
+It ports the commit pipeline under simulation (server/cluster.py's
+SimCluster: master, proxies, resolvers, tlogs, storage servers, and the
+client in client/), the actor runtime it runs in (core), and the
+resolver's conflict engine (ops/conflict.py) whose device step is plain
+PyTorch (ops/conflict_ref.py) plus hand-written Hopper kernels
+(ops/kernels.py, csrc/*.cu). And it ports the kernel bench (bench.py)
+with the Pallas A/B probes (ops/probes.py).
 """
 
 __version__ = "0.1.0"

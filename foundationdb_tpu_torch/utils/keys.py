@@ -27,6 +27,8 @@ The padding sentinel 0xFFFFFFFF becomes 0x7FFFFFFF and encode(b"") becomes
 
 from __future__ import annotations
 
+from bisect import bisect_right as _bisect_right
+
 import numpy as np
 
 KEY_BYTES = 24
@@ -106,3 +108,32 @@ def from_signed_limbs(limbs: np.ndarray) -> np.ndarray:
     """Inverse of to_signed_limbs."""
     return (np.asarray(limbs, dtype=np.int32).view(np.uint32)
             ^ np.uint32(0x80000000))
+
+
+def strinc(key: bytes) -> bytes:
+    """First key not prefixed by `key` (reference: fdbclient's strinc)."""
+    k = key.rstrip(b"\xff")
+    if not k:
+        raise ValueError("key is all 0xff; no strinc exists")
+    return k[:-1] + bytes([k[-1] + 1])
+
+
+def key_after(key: bytes) -> bytes:
+    """Immediate successor in lexicographic order."""
+    return key + b"\x00"
+
+
+def partition_boundaries(n: int) -> list[bytes]:
+    """n contiguous key-space partitions: [b""] + n-1 single-byte cuts.
+    Shared by cluster builders, the recovery recruiter, and tests so shard
+    layouts can never drift between them."""
+    if n <= 1:
+        return [b""]
+    return [b""] + [bytes([int(256 * i / n)]) for i in range(1, n)]
+
+
+def partition_index(boundaries: list[bytes], key: bytes) -> int:
+    """Index of the partition owning `key` for sorted begin-boundaries
+    (boundaries[0] == b""). Shared by shard maps, resolver maps, and the
+    client location cache so ownership can never diverge between them."""
+    return max(0, _bisect_right(boundaries, key) - 1)

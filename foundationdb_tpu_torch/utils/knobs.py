@@ -4,7 +4,7 @@ Reference: flow/Knobs.cpp + fdbclient/Knobs.cpp + fdbserver/Knobs.cpp — a flat
 registry of named numeric tunables, overridable at startup.
 
 This bank is the PyTorch port's own, separate from the JAX package's: it
-holds only the knobs the port reads, and `KNOBS.reset()` here does not touch
+holds only the knobs the port reads, under the JAX bank's defaults, and `KNOBS.reset()` here does not touch
 the JAX bank (the port's tests reset it in their own fixtures).
 """
 
@@ -60,7 +60,27 @@ class Knobs:
 KNOBS = Knobs()
 
 # --- Versions / MVCC window (fdbserver/Knobs.cpp:30-34) ---
+KNOBS.init("VERSIONS_PER_SECOND", 1_000_000)
+KNOBS.init("MAX_READ_TRANSACTION_LIFE_VERSIONS", 5_000_000)
 KNOBS.init("MAX_WRITE_TRANSACTION_LIFE_VERSIONS", 5_000_000)
+KNOBS.init("MAX_VERSIONS_IN_FLIGHT", 100_000_000)
+KNOBS.init("PROXY_MASTER_LEASE_SECONDS", 2.0)  # proxy GRV fencing lease
+
+# --- Commit batching (fdbserver/Knobs.cpp:246-252, MasterProxyServer.actor.cpp:921) ---
+KNOBS.init("COMMIT_TRANSACTION_BATCH_COUNT_MAX", 32768)
+KNOBS.init("COMMIT_TRANSACTION_BATCH_INTERVAL_MIN", 0.001)
+# above the time a saturated proxy takes to fill a BYTES_MIN batch, so under
+# heavy load the byte/count triggers, not the timer, govern batch size
+KNOBS.init("COMMIT_TRANSACTION_BATCH_INTERVAL_MAX", 0.025)
+KNOBS.init("COMMIT_TRANSACTION_BATCH_BYTES_MIN", 100_000)
+KNOBS.init("COMMIT_BATCH_IDLE_INTERVAL", 0.25)  # empty-batch keepalive
+# adaptive batch sizing: the target flush interval slides from INTERVAL_MIN
+# toward INTERVAL_MAX as the smoothed commits-in rate approaches SATURATION
+KNOBS.init("COMMIT_BATCH_RATE_SATURATION", 4000.0)  # commits/s at INTERVAL_MAX
+KNOBS.init("COMMIT_BATCH_RATE_SMOOTHING", 0.1)  # EWMA weight per arrival
+# concurrent version batches in the proxy's commit pipeline: resolve(N+1)
+# overlaps tlog-push(N)
+KNOBS.init("COMMIT_PIPELINE_DEPTH", 4)
 
 # --- Conflict engine (device) ---
 # "device" (the port's engine on CONFLICT_DEVICE) | "sharded" (the
@@ -102,14 +122,72 @@ KNOBS.init("RESOLUTION_BALANCE_MIN_SAMPLES", 2048)
 # feeds the sharded engine's planner (floor 0.5).
 KNOBS.init("RESOLUTION_BALANCE_EPOCH_SECONDS", 5.0)
 
+# --- Client (fdbclient/Knobs.cpp) ---
+KNOBS.init("GRV_BATCH_INTERVAL", 0.0005)  # read-version batcher
+KNOBS.init("READ_BATCH_INTERVAL", 0.0005)  # point-read batcher
+KNOBS.init("READ_BATCH_MAX", 250)
+KNOBS.init("DEFAULT_BACKOFF", 0.01)
+# load balance (fdbrpc/LoadBalance.actor.h:159 + QueueModel): replicas by
+# smoothed latency, and a "backup request" to the next-best replica once
+# the first has been in flight MULT x its expected latency (floored)
+KNOBS.init("LOAD_BALANCE_EWMA_ALPHA", 0.2)
+KNOBS.init("LOAD_BALANCE_BACKUP_MULT", 5.0)
+KNOBS.init("LOAD_BALANCE_MIN_BACKUP_DELAY", 0.005)
+KNOBS.init("MAX_BACKOFF", 1.0)
+# client-side commit admission control: AIMD budget on in-flight commits
+# per Database, cut on transaction_throttled and on commit latency past
+# LATENCY_RATIO x the decaying-min baseline
+KNOBS.init("CLIENT_COMMIT_MAX_IN_FLIGHT", 256)
+KNOBS.init("CLIENT_COMMIT_INITIAL_IN_FLIGHT", 32)
+KNOBS.init("CLIENT_ADMISSION_LATENCY_RATIO", 6.0)
+KNOBS.init("CLIENT_ADMISSION_DECREASE", 0.7)  # multiplicative cut factor
+KNOBS.init("KEY_SIZE_LIMIT", 10_000)
+KNOBS.init("VALUE_SIZE_LIMIT", 100_000)
+KNOBS.init("TRANSACTION_SIZE_LIMIT", 10_000_000)
+
 # --- Simulation transport (flow/Knobs.cpp:51-52, fdbrpc/sim2.actor.cpp) ---
 KNOBS.init("SIM_RPC_TIMEOUT_SECONDS", 5.0)  # dropped-packet visibility bound
 KNOBS.init("SIM_MIN_LATENCY", 0.0001)
 KNOBS.init("SIM_MAX_LATENCY", 0.002)
 
+# --- TLog / storage ---
+KNOBS.init("TLOG_QUORUM_ANTIQUORUM", 0)
+KNOBS.init("TLOG_PEEK_REPLY_BYTES", 150_000)  # bounded peek pages
+KNOBS.init("TLOG_SPILL_BYTES", 1_500_000)  # in-memory cap per log
+KNOBS.init("STORAGE_ENGINE", "memory")  # "memory" | "ssd" (KeyValueStoreType)
+KNOBS.init("SSD_DATA_DIR", "")  # "" -> the platform temp dir
+KNOBS.init("REDWOOD_MAINT_INTERVAL", 0.25)  # redwood's storage poll period
+KNOBS.init("DESIRED_TOTAL_BYTES", 150_000)  # range-read reply soft limit
+
+# --- Ratekeeper (fdbserver/Ratekeeper.actor.cpp updateRate :250) ---
+KNOBS.init("RK_UPDATE_INTERVAL", 0.5)
+KNOBS.init("RK_TARGET_STORAGE_LAG_VERSIONS", 10_000_000)  # worst durability lag
+KNOBS.init("RK_TARGET_TLOG_BYTES", 2_000_000)  # worst log queue
+KNOBS.init("RK_BASE_TPS", 100_000.0)  # unthrottled budget
+KNOBS.init("RK_SMOOTHING", 0.5)  # exponential smoothing per update
+
 # --- Contention management (docs/contention.md) ---
 KNOBS.init("HOTSPOT_HALF_LIFE", 2.0)  # sketch decay half-life, seconds
 KNOBS.init("HOTSPOT_MAX_BUCKETS", 256)  # sketch size bound
 KNOBS.init("HOTSPOT_TOP_K", 8)  # ranges per RESOLVER_HOT_RANGES snapshot
+KNOBS.init("CONTENTION_THROTTLE_ENABLED", True)
+# a range whose decayed conflict rate exceeds this is throttled
+KNOBS.init("RK_THROTTLE_CONFLICT_RATE", 25.0)
+# commits/sec the WHOLE proxy fleet may release into a throttled range
+KNOBS.init("RK_THROTTLE_RELEASE_TPS", 50.0)
+KNOBS.init("RK_THROTTLE_BACKOFF", 0.25)  # server-advised client backoff, s
+KNOBS.init("RK_THROTTLE_MAX_BACKOFF", 2.0)  # advised-backoff ceiling
+
+# --- Storage read cache: a bounded version-tagged value cache over ranges
+# the HotRangeSketch flags read-hot (server/readcache.py) ---
+KNOBS.init("READ_CACHE_ENABLED", True)
+KNOBS.init("READ_CACHE_MAX_ENTRIES", 4096)  # bounded: FIFO eviction
+# one read in SAMPLE is folded into the read-hotness sketch
+KNOBS.init("READ_CACHE_SAMPLE", 16)
+KNOBS.init("READ_CACHE_TOP_K", 16)  # hot ranges eligible for caching
+# a sampled range is hot when its decayed read rate (scaled back up by the
+# sampling stride) exceeds this, in reads/sec
+KNOBS.init("READ_CACHE_HOT_RATE", 50.0)
+KNOBS.init("READ_CACHE_REFRESH", 0.5)  # hot-set recompute period, seconds
 # seconds between the resolver's periodic counter trace events
 KNOBS.init("COUNTERS_TRACE_INTERVAL", 5.0)
