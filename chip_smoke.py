@@ -167,11 +167,33 @@ Phases, each of which must pass:
      every chunk must converge on the device, K1-K4, K6-K9 and K13 must
      launch once a resolver step and the rebase kernel once a rebase
      (counts zeroed after the load, read after the run).
+ 10. recovery: the port's RecoverableCluster (3 coordinators, 5 workers;
+     an elected cluster controller recruits the master, 2 proxies, 2 of
+     the port's resolvers on the card at the default knobs, 2 tlogs and 2
+     storage servers) serving 9b's Cycle (1,000 nodes, 256 rotators of 10
+     `db.transact` rotations) while the worker that hosts the first
+     resolver is killed after 640 committed rotations and the elected
+     cluster controller after 1,600, which forces a re-election. Every
+     Resolver recruited is recorded with its process and recovery
+     version. At least two recoveries (final epoch at least 3); the ring
+     holds, read through a transaction and on every storage replica;
+     every rotation decided; every batch each resolver of each generation
+     decided equal to a fresh OracleConflictSet from its recovery
+     version, in version order; no poison; every chunk converged and ran
+     through its bucket's graph (no eager step); the step kernels launched
+     once a resolver step, net of the launches of the recruited
+     resolvers' graph captures. Printed: wall and virtual seconds,
+     attempts/s, each attempt's outcome, each recovery's virtual and wall
+     seconds from the kill to accepting commits, chunks by bucket for
+     each resolver instance, and `torch.cuda.memory_allocated` after each
+     generation (unreachable roles collected) with the peak.
 
 `python3 chip_smoke.py --serve-cells` only serves phase 4's cells A and B
 (each reply checked against the oracle) and prints their numbers.
 `python3 chip_smoke.py --cluster` only runs phase 9, with its checks, and
 prints its numbers.
+`python3 chip_smoke.py --recovery` only runs phase 10, with its checks,
+and prints its numbers.
 `python3 chip_smoke.py --time-kernels` only times K1-K11, K13 and bench steps
 (cell A's traffic, phase B's, the bench at 16k and 32k, K9 at T=2^20):
 K5's whole fixpoint and one evaluation at the bench's warmed state and
@@ -188,8 +210,9 @@ T = 2^18 and 2^20; and the rank-join probes (join, lexjoin) at the
 scripts' shapes, device ms and the scripts' ms/pass (time_probes).
 
 It prints a digest of the code it runs, the kernels line
-({"kernels": [...]}, each kernel with its launches on the main path and
-in phase 9, `launches_cluster`), the nvidia-smi line, and last {"ok": true, "device":
+({"kernels": [...]}, each kernel with its launches on the main path, in
+phase 9, `launches_cluster`, and in phase 10, `launches_recovery`), the
+nvidia-smi line, and last {"ok": true, "device":
 {...}}. Any failure exits non-zero with no result line. Details go to
 chiprun_out/chip_smoke.json. The script imports nothing of JAX or of the
 JAX package.
@@ -2783,6 +2806,393 @@ def cluster_phase(dev, seed, ycsb=None, cycle=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: recovery, the resolvers recruited anew on the card
+# ---------------------------------------------------------------------------
+
+# the rotations committed before each kill: the worker that hosts the first
+# resolver, then the elected cluster controller
+RECOVERY_KILLS = ((640, "resolver"), (1600, "cluster_controller"))
+
+
+def storage_replicas(c, info, key):
+    """`key`'s value from every storage replica that the generation `info`
+    (a DBInfo) says serves it, each read at that server's latest version."""
+    from foundationdb_tpu_torch.utils.keys import partition_index
+    addr_of = {tag: addr for addr, tag in info.storages}
+    team = info.teams()[partition_index(info.shard_boundaries, key)]
+    out = []
+    for tag in team:
+        ss = c.net.processes[addr_of[tag]].worker.roles[f"storage:{tag}"]
+        out.append(ss.data.get(key, ss.version.get()))
+    return out
+
+
+def recovery_phase(dev, seed, n_nodes=CYCLE_NODES, n_rotators=CYCLE_ROTATORS,
+                   n_txns=CYCLE_TXNS, kills=RECOVERY_KILLS, knobs=None):
+    """Phase 10: the port's RecoverableCluster (3 coordinators, 5 workers,
+    2 proxies, 2 resolvers, 2 tlogs, 2 storage servers) with its resolvers'
+    engines on `dev`, serving 9b's Cycle (`n_nodes` keys over both
+    resolvers' and both storage servers' ranges, `n_rotators` actors of
+    `n_txns` rotations through `db.transact`) while `kills` takes out, once
+    its number of rotations has committed, the worker that hosts the
+    current generation's first resolver, then the elected cluster
+    controller. Every Resolver the cluster controllers recruit is recorded
+    (its process, its recovery version, its build) and probed as in phase
+    9. Checks: at least two recoveries (final epoch >= 3); the ring holds
+    through a transaction and on every storage replica; every rotation
+    decided; every batch each resolver of each generation decided equal to
+    a fresh OracleConflictSet from that resolver's recovery version; no
+    poison; every chunk converged; on the card every chunk through its
+    bucket's graph (no eager step) and the step kernels once a resolver
+    step, net of the launches the recruited resolvers' graph captures
+    made."""
+    import gc
+    import random
+    import weakref
+
+    import torch
+
+    from foundationdb_tpu_torch.core.future import all_of
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.ops.conflict import kernel_metrics
+    from foundationdb_tpu_torch.ops.conflict_oracle import OracleConflictSet
+    from foundationdb_tpu_torch.server import resolver as resolver_mod
+    from foundationdb_tpu_torch.server.cluster import RecoverableCluster
+    from foundationdb_tpu_torch.utils import trace
+    from foundationdb_tpu_torch.utils.errors import FDBError
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+
+    cuda = dev.type == "cuda"
+    KNOBS.reset()
+    KNOBS.overrides(CONFLICT_BACKEND="device", CONFLICT_DEVICE=str(dev),
+                    **(knobs or {}))
+    rnd = random.Random(seed)
+    c = RecoverableCluster(seed, n_coordinators=3, n_workers=5, n_proxies=2,
+                           n_resolvers=2, n_tlogs=2, n_storage=2)
+    db = c.database()
+    recovered: list = []  # (epoch, virtual s, wall s) of each CCRecovered
+    events: list = []  # what triggered each recovery, and failed attempts
+
+    def sink(fields):
+        kind = fields.get("Type")
+        if kind == "CCRecovered":
+            recovered.append((fields["Epoch"], c.loop.now(),
+                              time.perf_counter()))
+        if kind in ("CCRecovered", "CCRecoveryTriggered", "CCRecoveryFailed"):
+            events.append([kind, fields.get("ID"), round(c.loop.now(), 6),
+                           fields.get("Epoch", fields.get(
+                               "Reason", fields.get("Detail")))])
+    trace.set_sink(sink)
+
+    # every Resolver the cluster controllers recruit, probed as phase 9
+    # probes its resolvers; the records hold no reference to the role
+    instances: list = []
+    roles: list = []  # weak references, beside `instances`
+    build_launches = {k: 0 for k in kernels.LAUNCHES}
+    init = resolver_mod.Resolver.__init__
+
+    def poisoned(r):
+        return r._poisoned is not None or bool(r.conflict_set._state[
+            "poisoned"])
+
+    def recorded_init(r, process, *a, **kw):
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        init(r, process, *a, **kw)
+        rec = {"process": process.address, "recovery_version": r.version.get(),
+               "built_at_virtual_s": c.loop.now(),
+               "build_s": time.perf_counter() - t0,
+               "requests": {}, "replies": {}, "buckets": {},
+               "ungraphed_chunks": 0, "eager_steps": 0, "poisoned": None}
+        for k in build_launches:
+            build_launches[k] += kernels.LAUNCHES[k] - before.get(k, 0)
+        instances.append(rec)
+        roles.append(weakref.ref(r))
+        cs = r.conflict_set
+
+        def resolve(req, reply, fn=r._resolve_batch):
+            rec["requests"].setdefault(req.version, req)
+            return fn(req, reply)
+
+        def finish(req, reply, statuses, fn=r._finish_batch):
+            rec["replies"][req.version] = list(statuses)
+            return fn(req, reply, statuses)
+
+        buckets = rec["buckets"]
+
+        def dispatch(sub, commit_version, skip, shapes, advance_floor,
+                     fn=cs.dispatch_chunk):
+            key = f"{shapes.reads}x{shapes.writes}"
+            buckets[key] = buckets.get(key, 0) + 1
+            graph = cs._graphs.get((shapes.reads, shapes.writes))
+            if graph is None or graph.graph is None:
+                rec["ungraphed_chunks"] += 1
+            return fn(sub, commit_version, skip, shapes, advance_floor)
+
+        def step(batch, fn=cs._step):
+            rec["eager_steps"] += 1
+            return fn(batch)
+
+        def shutdown(fn=r.shutdown, role=weakref.ref(r)):
+            rec["poisoned"] = poisoned(role())
+            return fn()
+
+        r._resolve_batch = resolve
+        r._finish_batch = finish
+        cs.dispatch_chunk = dispatch
+        cs._step = step
+        r.shutdown = shutdown
+
+    def key(i):
+        return bytes([i * 251 % 256]) + b"/cycle/%04d" % i
+
+    async def setup(tr):
+        for i in range(n_nodes):
+            tr.set(key(i), b"%04d" % ((i + 1) % n_nodes))
+
+    tries = [0]
+    done = [0]
+    outcomes: dict = {}
+
+    def count(name):
+        outcomes[name] = outcomes.get(name, 0) + 1
+
+    async def rotate(tr):
+        if "commit" not in vars(tr):  # each attempt's commit outcome
+            async def commit(fn=tr.commit):
+                try:
+                    await fn()
+                except FDBError as e:
+                    count(e.name)
+                    raise
+                count("committed")
+            tr.commit = commit
+        tries[0] += 1
+        try:
+            a = key(rnd.randrange(n_nodes))
+            b_idx = int(await tr.get(a))
+            b = key(b_idx)
+            c_idx = int(await tr.get(b))
+            cc = key(c_idx)
+            d_idx = int(await tr.get(cc))
+        except FDBError as e:
+            count(e.name)
+            raise
+        tr.set(a, b"%04d" % c_idx)
+        tr.set(b, b"%04d" % d_idx)
+        tr.set(cc, b"%04d" % b_idx)
+
+    async def rotator():
+        for _ in range(n_txns):
+            await db.transact(rotate, max_retries=500)
+            done[0] += 1
+
+    def footprint():
+        """Live device bytes, unreachable roles collected first."""
+        if not cuda:
+            return None
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    recoveries: list = []
+
+    async def killer():
+        for at, what in kills:
+            while done[0] < at:
+                await c.loop.delay(0.01)
+            cc = c.current_cc()
+            while cc is None:
+                await c.loop.delay(0.01)
+                cc = c.current_cc()
+            info = cc.dbinfo
+            victim = (info.resolvers[0] if what == "resolver"
+                      else cc.process.address)
+            r = {"kill": what, "victim": victim, "epoch_before": info.epoch,
+                 "rotations_before": done[0], "killed_virtual_s": c.loop.now()}
+            t0 = time.perf_counter()
+            n_seen = len(recovered)
+            c.net.kill(victim)
+            while True:
+                new = [e for e in recovered[n_seen:] if e[0] > info.epoch]
+                if new:
+                    break
+                await c.loop.delay(0.01)
+            epoch, at_virtual, at_wall = new[0]
+            r.update({"epoch_after": epoch,
+                      "virtual_s": at_virtual - r["killed_virtual_s"],
+                      "wall_s": at_wall - t0,
+                      "memory_allocated": footprint()})
+            recoveries.append(r)
+
+    async def load():
+        await db.refresh()
+        await db.transact(setup)
+
+    resolver_mod.Resolver.__init__ = recorded_init
+    rebases = [0]
+    rebase = ref.rebase_state
+
+    def counted_rebase(*a, **kw):
+        rebases[0] += 1
+        return rebase(*a, **kw)
+    try:
+        c.run(c.loop.spawn(load()), max_time=1e9)
+        generations = [{"epoch": c.current_cc().dbinfo.epoch,
+                        "memory_allocated": footprint()}]
+        ref.rebase_state = counted_rebase
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        counted = ("KernelDispatches", "UnconvergedChunks")
+        before = {k: kernel_metrics.as_dict()[k] for k in counted}
+        for k in build_launches:
+            build_launches[k] = 0
+        for rec in instances:
+            rec["buckets"].clear()
+        kernels.reset_launches()
+        v0 = c.loop.now()
+        t0 = time.perf_counter()
+        c.run(all_of([c.loop.spawn(rotator(), name=f"rot{i}")
+                      for i in range(n_rotators)]
+                     + [c.loop.spawn(killer(), name="killer")]),
+              max_time=1e9)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        run_builds = dict(build_launches)
+        chunks, unconverged = (kernel_metrics.as_dict()[k] - before[k]
+                               for k in counted)
+        virtual = c.loop.now() - v0
+        for rec in instances:  # the run's chunks (the reads below add more)
+            rec["buckets"] = dict(rec["buckets"])
+
+        async def read_ring():
+            async def read(tr):
+                return await tr.get_many([key(i) for i in range(n_nodes)])
+            ring = await db.transact(read, max_retries=500)
+            while c.current_cc() is None:  # a recovery still under way
+                await c.loop.delay(0.01)
+            return ring, c.current_cc().dbinfo
+        ring, info = c.run(c.loop.spawn(read_ring()), max_time=1e9)
+        ring = [int(v) for v in ring]
+        replicas = [storage_replicas(c, info, key(i)) for i in range(n_nodes)]
+        final_epoch = info.epoch
+        final_footprint = footprint()
+    finally:
+        resolver_mod.Resolver.__init__ = init
+        ref.rebase_state = rebase
+        trace.set_sink(None)
+    generations += [{"epoch": r["epoch_after"],
+                     "memory_allocated": r["memory_allocated"]}
+                    for r in recoveries]
+    if final_epoch != generations[-1]["epoch"]:  # a recovery no kill made
+        generations.append({"epoch": final_epoch,
+                            "memory_allocated": final_footprint})
+
+    seen, i = set(), 0
+    for _ in range(n_nodes):
+        seen.add(i)
+        i = ring[i]
+    ring_holds = i == 0 and len(seen) == n_nodes
+    replicas_equal = all(all(int(v) == ring[n] for v in vals) and vals
+                         for n, vals in enumerate(replicas))
+
+    # every batch each recruited resolver decided, replayed in version
+    # order into a fresh oracle from that resolver's recovery version
+    t1 = time.perf_counter()
+    batches = mismatches = gaps = 0
+    for rec, role in zip(instances, roles):
+        reqs, got = rec["requests"], rec["replies"]
+        order = sorted(reqs)
+        if sorted(got) != order[:len(got)]:
+            gaps += 1
+        oracle = OracleConflictSet(oldest_version=rec["recovery_version"])
+        for version in sorted(got):
+            want = oracle.detect(reqs[version].transactions, version)
+            mismatches += got[version] != want
+            batches += 1
+        r = role()
+        if r is not None:
+            rec["poisoned"] = poisoned(r)
+            rec["backend"] = r.conflict_set.backend_label
+        rec["decided_batches"] = len(got)
+        rec["undecided_batches"] = len(reqs) - len(got)
+        rec["chunks"] = sum(rec["buckets"].values())
+    oracle_s = time.perf_counter() - t1
+    committed = n_rotators * n_txns
+    out = {
+        "phase": "10", "wall_s": wall, "virtual_s": virtual,
+        "nodes": n_nodes, "rotators": n_rotators, "txns_per_rotator": n_txns,
+        "attempts": tries[0], "committed": done[0],
+        "attempts_per_wall_s": tries[0] / wall, "outcomes": outcomes,
+        "commit_unknown_results": outcomes.get("commit_unknown_result", 0),
+        "recoveries": recoveries, "final_epoch": final_epoch,
+        "recovery_events": events,
+        "generations": generations,
+        "peak_device_bytes": torch.cuda.max_memory_allocated() if cuda
+        else None,
+        "resolvers": [{k: rec[k] for k in (
+            "process", "recovery_version", "built_at_virtual_s", "build_s",
+            "buckets", "chunks", "decided_batches", "undecided_batches",
+            "ungraphed_chunks", "eager_steps", "poisoned")}
+            for rec in instances],
+        "chunks": chunks, "unconverged_chunks": unconverged,
+        "rebases": rebases[0], "launches": launches,
+        "build_launches": run_builds, "resolved_batches": batches,
+        "mismatched_batches": mismatches, "oracle_s": oracle_s,
+        "ring_holds": ring_holds, "storage_equals_client": replicas_equal}
+    log("phase 10: " + json.dumps(out))
+    if final_epoch < 3 or len(recoveries) < len(kills):
+        fail(f"phase 10: {len(recoveries)} recoveries, final epoch "
+             f"{final_epoch} (want at least 3)")
+    if done[0] != committed:
+        fail(f"phase 10: {done[0]} of {committed} rotations decided")
+    if not ring_holds:
+        fail(f"phase 10: the ring broke: {len(seen)} nodes from 0, back at "
+             f"{i}")
+    if not replicas_equal:
+        fail("phase 10: a storage replica's ring differs from the one read "
+             "through a transaction")
+    if gaps:
+        fail(f"phase 10: {gaps} resolvers left a received batch undecided "
+             f"before one they decided")
+    if mismatches:
+        fail(f"phase 10: {mismatches} of {batches} resolver replies differ "
+             f"from the oracle")
+    if any(rec["poisoned"] for rec in instances):
+        fail("phase 10: a resolver's conflict state poisoned")
+    if unconverged:
+        fail(f"phase 10: {unconverged} of {chunks} chunks did not converge "
+             f"on the device")
+    if sum(rec["chunks"] for rec in instances) != chunks:
+        fail(f"phase 10: the resolvers' {sum(r['chunks'] for r in instances)}"
+             f" chunks are not the engine's {chunks}")
+    if len({rec["recovery_version"] for rec in instances
+            if rec["chunks"]}) < 3:
+        fail("phase 10: fewer than three generations of resolvers decided "
+             "a chunk")
+    if cuda:
+        if any(rec.get("backend") not in (None, "cuda") for rec in instances):
+            fail("phase 10: a resolver is not on the card")
+        eager = sum(rec["eager_steps"] + rec["ungraphed_chunks"]
+                    for rec in instances)
+        if eager:
+            fail(f"phase 10: {eager} chunks ran outside a bucket graph")
+        for k in STEP_KERNELS:
+            if launches[k] - run_builds[k] != chunks:
+                fail(f"phase 10: {launches[k]} {k} launches, "
+                     f"{run_builds[k]} of them the recruited resolvers' "
+                     f"captures, for {chunks} resolver steps")
+        if launches["rebase_table"] - run_builds["rebase_table"] \
+                != rebases[0]:
+            fail(f"phase 10: {launches['rebase_table']} rebase launches for "
+                 f"{rebases[0]} rebases")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 5-7: the kernel bench, the evaluator A/B and the probes
 # ---------------------------------------------------------------------------
 
@@ -3988,6 +4398,10 @@ def main(argv=None) -> int:
                     help="only run phase 9 (the port's SimCluster, its "
                          "resolvers on the card: 9a cell A's mix, 9b "
                          "Cycle), print its numbers as JSON and exit")
+    ap.add_argument("--recovery", action="store_true",
+                    help="only run phase 10 (the port's RecoverableCluster, "
+                         "its recruited resolvers on the card, through two "
+                         "kills), print its numbers as JSON and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -4036,6 +4450,11 @@ def main(argv=None) -> int:
     if args.cluster:
         print(json.dumps({"card": card, "source_digest": digest,
                           "cluster": cluster_phase(dev, args.seed)}),
+              flush=True)
+        return 0
+    if args.recovery:
+        print(json.dumps({"card": card, "source_digest": digest,
+                          "recovery": recovery_phase(dev, args.seed + 29)}),
               flush=True)
         return 0
     report["build"] = {"seconds": build_s,
@@ -4125,6 +4544,17 @@ def main(argv=None) -> int:
             "buckets", "host_share", "peak_device_bytes")}
         for run in cluster}))
 
+    # 10. recovery: the port's RecoverableCluster, its resolvers recruited
+    # on the card, through a kill of the first resolver's worker and one of
+    # the elected cluster controller
+    kernels.release_scratch()
+    torch.cuda.empty_cache()
+    recovery = report["recovery"] = recovery_phase(dev, args.seed + 29)
+    log(f"phase 10 on {card}: " + json.dumps({k: recovery[k] for k in (
+        "attempts", "committed", "outcomes", "wall_s", "virtual_s",
+        "attempts_per_wall_s", "chunks", "final_epoch", "generations",
+        "peak_device_bytes")}))
+
     timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "library_device_ms", "host_ms",
                    "launches_per_call")
@@ -4164,6 +4594,7 @@ def main(argv=None) -> int:
             entry["max_abs_err"] = r["max_abs_err"]
         entry["launches_cluster"] = sum(
             cluster[run]["launches"][name] for run in cluster)
+        entry["launches_recovery"] = recovery["launches"][name]
         entry.update({k: r[k] for k in timing_keys})
         if name in SHARD_KERNELS:
             entry["bench_16384_w4"] = {k: r["bench_16384_w4"][k]

@@ -173,10 +173,6 @@ class Database:
         self.grv_proxies = list(grv_proxies or [])
         self.locations = locations or LocationCache()
         self.coordinators = list(coordinators or [])
-        if self.coordinators:
-            raise FDBError("invalid_option",
-                           "coordinator discovery (get_leader) is not "
-                           "ported yet")
         self._rng = rng or DeterministicRandom(0xDB)
         self._grv_waiters: list[Future] = []
         self._grv_armed = False
@@ -286,17 +282,46 @@ class Database:
 
     async def refresh(self, max_wait: float = 30.0):
         """Re-resolve the cluster layout via the coordinators: leader ->
-        DBInfo -> proxies + shard map. The coordinators (coordination.py's
-        get_leader) come with RecoverableCluster: not ported yet."""
-        raise FDBError("invalid_option",
-                       "coordinator discovery (get_leader) is not ported yet")
+        DBInfo -> proxies + shard map. Blocks (bounded) until a recovered
+        generation is available."""
+        from foundationdb_tpu_torch.core.sim import Endpoint
+        from foundationdb_tpu_torch.server.coordination import get_leader
+        from foundationdb_tpu_torch.server.interfaces import Token
+
+        deadline = self.loop.now() + max_wait
+        while self.loop.now() < deadline:
+            try:
+                leader = await get_leader(self.process, self.coordinators)
+                if leader:
+                    info = await self.loop.timeout(self.process.net.request(
+                        self.process, Endpoint(leader, Token.CC_GET_DBINFO),
+                        None), 2.0)
+                    if info.recovery_state == "accepting_commits" and info.proxies:
+                        self.proxies = list(info.proxies)
+                        self.grv_proxies = list(
+                            getattr(info, "grv_proxies", None) or [])
+                        addr_of_tag = {tag: addr for addr, tag in info.storages}
+                        boundaries = list(info.shard_boundaries)
+                        self.locations.update(
+                            boundaries,
+                            [[addr_of_tag[t] for t in team]
+                             for team in info.teams()])
+                        return
+            except FDBError as e:
+                if e.name == "operation_cancelled":
+                    raise
+            await self.loop.delay(0.5)
+        raise FDBError("coordinators_changed", "no recovered cluster found")
 
     async def get_status(self) -> dict:
         """Cluster status JSON via the elected CC (StatusClient.actor.cpp /
-        the \\xff\\xff/status/json read); needs get_leader, not ported
-        yet."""
-        raise FDBError("invalid_option",
-                       "coordinator discovery (get_leader) is not ported yet")
+        the \\xff\\xff/status/json read)."""
+        from foundationdb_tpu_torch.server.coordination import get_leader
+        leader = await get_leader(self.process, self.coordinators)
+        if leader is None:
+            raise FDBError("coordinators_changed", "no leader for status")
+        return await self.loop.timeout(self.process.net.request(
+            self.process, Endpoint(leader, Token.CC_GET_STATUS), None), 5.0)
 
     # -- RPC plumbing used by Transaction --
 

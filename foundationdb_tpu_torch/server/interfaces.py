@@ -69,15 +69,18 @@ _TOKEN_NAMES_CACHE: dict[int, str] | None = None
 
 
 def token_name(value: int) -> str:
-    """Reverse lookup for diagnostics: 30 -> "TLOG_COMMIT". The JAX
-    package's also covers CoordToken, which comes with coordination.py;
-    unknown values format as "token:<n>" so log lines stay greppable
-    either way."""
+    """Reverse lookup for diagnostics: 30 -> "TLOG_COMMIT". Covers
+    CoordToken too; unknown values format as "token:<n>" so log lines stay
+    greppable either way."""
     global _TOKEN_NAMES_CACHE
     names = _TOKEN_NAMES_CACHE
     if names is None:
         names = {v: k for k, v in vars(Token).items()
                  if not k.startswith("_") and isinstance(v, int)}
+        from foundationdb_tpu_torch.server.coordination import CoordToken
+        for k, v in vars(CoordToken).items():
+            if not k.startswith("_") and isinstance(v, int):
+                names.setdefault(v, k)
         _TOKEN_NAMES_CACHE = names
     return names.get(value, f"token:{value}")
 

@@ -14,13 +14,12 @@ coordinators: it peeks the cstate register (read-only, no ballot) and deposes
 itself if a newer epoch appears OR the coordinator quorum is unreachable for a
 lease period — so even a master partitioned away from the new cluster
 controller stops renewing its proxies' GRV leases within a bounded time
-(the fail-safe the recovery's grace period relies on). The port's master
-takes no coordinators yet: that lease comes with coordination.py.
+(the fail-safe the recovery's grace period relies on).
 """
 
 from __future__ import annotations
 
-from foundationdb_tpu_torch.core.sim import SimProcess
+from foundationdb_tpu_torch.core.sim import Endpoint, SimProcess
 from foundationdb_tpu_torch.server.interfaces import (
     GetCommitVersionReply, GetCommitVersionRequest, Token)
 from foundationdb_tpu_torch.utils.errors import FDBError
@@ -57,11 +56,8 @@ class Master:
         self._counters_task = trace_counters_loop(process, self.counters)
         self._lease_task = None
         if self.coordinators:
-            # the cstate lease polls the coordinators (coordination.py),
-            # which come with RecoverableCluster
-            raise FDBError("invalid_option",
-                           "the master's coordinated-state lease is not "
-                           "ported yet")
+            self._lease_task = process.spawn(self._cstate_lease_loop(),
+                                             "masterCstateLease")
 
     def shutdown(self):
         self._counters_task.cancel()
@@ -92,6 +88,40 @@ class Master:
         if req is None or req > self.epoch:
             self.deposed = True
         reply.send(None)
+
+    async def _cstate_lease_loop(self):
+        from foundationdb_tpu_torch.server.coordination import (
+            CoordToken, GenReadRequest)
+        lease = KNOBS.MASTER_CSTATE_LEASE_SECONDS
+        quorum = len(self.coordinators) // 2 + 1
+        last_confirm = self.loop.now()
+        while not self.deposed:
+            votes = 0
+            newer = False
+            # probe every coordinator CONCURRENTLY: sequential timeouts would
+            # stretch a probe round past the recovery grace period when the
+            # quorum is unreachable, exactly when fast deposition matters
+            futures = [self.loop.timeout(self.process.net.request(
+                self.process, Endpoint(addr, CoordToken.GENERATION_PEEK),
+                GenReadRequest(key="cstate", gen=0)), lease / 3)
+                for addr in self.coordinators]
+            for f in futures:
+                try:
+                    r = await f
+                except FDBError as e:
+                    if e.name == "operation_cancelled":
+                        raise
+                    continue
+                votes += 1
+                if r.value is not None and r.value.get("epoch", 0) > self.epoch:
+                    newer = True
+            if newer or (votes < quorum
+                         and self.loop.now() - last_confirm > lease):
+                self.deposed = True
+                return
+            if votes >= quorum:
+                last_confirm = self.loop.now()
+            await self.loop.delay(lease / 3)
 
     def _on_get_commit_version(self, req: GetCommitVersionRequest, reply):
         if self.deposed:

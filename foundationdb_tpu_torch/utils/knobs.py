@@ -65,6 +65,7 @@ KNOBS.init("MAX_READ_TRANSACTION_LIFE_VERSIONS", 5_000_000)
 KNOBS.init("MAX_WRITE_TRANSACTION_LIFE_VERSIONS", 5_000_000)
 KNOBS.init("MAX_VERSIONS_IN_FLIGHT", 100_000_000)
 KNOBS.init("PROXY_MASTER_LEASE_SECONDS", 2.0)  # proxy GRV fencing lease
+KNOBS.init("MASTER_CSTATE_LEASE_SECONDS", 2.0)  # master self-deposition lease
 
 # --- Commit batching (fdbserver/Knobs.cpp:246-252, MasterProxyServer.actor.cpp:921) ---
 KNOBS.init("COMMIT_TRANSACTION_BATCH_COUNT_MAX", 32768)
@@ -154,6 +155,9 @@ KNOBS.init("SIM_MAX_LATENCY", 0.002)
 KNOBS.init("TLOG_QUORUM_ANTIQUORUM", 0)
 KNOBS.init("TLOG_PEEK_REPLY_BYTES", 150_000)  # bounded peek pages
 KNOBS.init("TLOG_SPILL_BYTES", 1_500_000)  # in-memory cap per log
+# log-router pull-ahead bound, in versions past the slowest consumer's pop
+# (LogRouter.actor.cpp bounds by bytes via LOG_ROUTER_MAX_SEARCH_MEMORY)
+KNOBS.init("LOG_ROUTER_BUFFER_VERSIONS", 50_000_000)
 KNOBS.init("STORAGE_ENGINE", "memory")  # "memory" | "ssd" (KeyValueStoreType)
 KNOBS.init("SSD_DATA_DIR", "")  # "" -> the platform temp dir
 KNOBS.init("REDWOOD_MAINT_INTERVAL", 0.25)  # redwood's storage poll period
@@ -177,6 +181,10 @@ KNOBS.init("RK_THROTTLE_CONFLICT_RATE", 25.0)
 KNOBS.init("RK_THROTTLE_RELEASE_TPS", 50.0)
 KNOBS.init("RK_THROTTLE_BACKOFF", 0.25)  # server-advised client backoff, s
 KNOBS.init("RK_THROTTLE_MAX_BACKOFF", 2.0)  # advised-backoff ceiling
+# DD conflict-split trigger: sustained conflict rate on a shard splits it
+# even when its byte count is small (the hot-shard half of shardSplitter)
+KNOBS.init("DD_SHARD_SPLIT_CONFLICT_RATE", 50.0)
+KNOBS.init("DD_HOT_SHARD_ROUNDS", 2)  # consecutive hot DD rounds before split
 
 # --- Storage read cache: a bounded version-tagged value cache over ranges
 # the HotRangeSketch flags read-hot (server/readcache.py) ---
@@ -191,3 +199,18 @@ KNOBS.init("READ_CACHE_HOT_RATE", 50.0)
 KNOBS.init("READ_CACHE_REFRESH", 0.5)  # hot-set recompute period, seconds
 # seconds between the resolver's periodic counter trace events
 KNOBS.init("COUNTERS_TRACE_INTERVAL", 5.0)
+
+# storage replicas recruited per shard, every one serving reads (the CC's
+# recruitment fans each shard's tag set across failure domains; clusters
+# constructed with an explicit n_replicas override this default)
+KNOBS.init("READ_REPLICAS", 1)
+
+# --- Data distribution (fdbserver/DataDistributionTracker.actor.cpp) ---
+KNOBS.init("CC_PREEMPT_INTERVAL_SECONDS", 5.0)  # betterMasterExists poll
+KNOBS.init("DD_INTERVAL_SECONDS", 2.0)  # shard tracker poll period
+# a storage worker silent for this long is treated as permanently failed and
+# its shards are re-replicated onto a replacement (storageServerFailureTracker
+# / DD_FAILURE_TIME; short here because sim time is cheap)
+KNOBS.init("DD_STORAGE_FAILURE_SECONDS", 8.0)
+KNOBS.init("DD_SHARD_SPLIT_BYTES", 500_000)  # shardSplitter :314 threshold
+KNOBS.init("DD_SHARD_MERGE_BYTES", 50_000)  # shardMerger :379 threshold

@@ -494,12 +494,16 @@ def _register_all():
     for tid, cls in table:
         register(tid, cls)
 
-    # 37-42 (coordination) and 45 (ClusterConfig) are registered when
-    # coordination.py and clustercontroller.py are ported
+    from foundationdb_tpu_torch.server import coordination as coord
     from foundationdb_tpu_torch.server import ratekeeper as rk
+    from foundationdb_tpu_torch.server.clustercontroller import ClusterConfig
 
     for tid, cls in [
+        (37, coord.GenReadRequest), (38, coord.GenReadReply),
+        (39, coord.GenWriteRequest), (40, coord.GenWriteReply),
+        (41, coord.CandidacyRequest), (42, coord.LeaderReply),
         (43, rk.RateInfoReply), (44, rk.QueueStatsReply),
+        (45, ClusterConfig),
         (46, I.GetValuesRequest), (47, I.GetValuesReply),
     ]:
         register(tid, cls)
