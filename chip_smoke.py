@@ -187,6 +187,28 @@ Phases, each of which must pass:
      seconds from the kill to accepting commits, chunks by bucket for
      each resolver instance, and `torch.cuda.memory_allocated` after each
      generation (unreachable roles collected) with the peak.
+ 11. the randomized simulation harness (foundationdb_tpu_torch.testing):
+     11a `run_randomized_spec` for each of the ten fast specs on a seed
+     whose draw under allow_backends=("device", "sharded") fits it
+     (SIM_RUNS: every engine, two regions, double replication, sharded
+     draws at one shard a card, buggified evaluator knobs among them the
+     legacy evaluator, one sandwich round, no encode ring and a 16-bucket
+     sketch) at the harness's engine shape (T=16, 2/2, K=2,048); 11b the
+     Cycle spec (with consistency check, clogging and attrition) on a
+     double-replication device draw with its engine raised to K=65,536,
+     T=1,024, 4/4. Each spec's own checks pass (a failure prints its
+     repro line); every Resolver recruited is recorded as in phase 10 and
+     every batch it decided equals a fresh OracleConflictSet from its
+     recovery version; no poison; every engine on the card and every
+     chunk through its graph; the draw's evaluator's step kernels (with
+     K10 and K11 on a sharded draw) once a resolver step net of the
+     captures, the rebase kernel once a rebase; no unconverged chunk
+     unless the draw cuts the sandwich to one round; each device draw's
+     SpecResult equal to the port's CPU run (SIM_EXPECTED). Printed for
+     each run: the draw and its repro line, the SpecResult, the wall
+     seconds, the resolver instances with their chunks by bucket, the
+     unconverged chunks and `torch.cuda.memory_allocated` after the
+     cluster is dropped and collected.
 
 `python3 chip_smoke.py --serve-cells` only serves phase 4's cells A and B
 (each reply checked against the oracle) and prints their numbers.
@@ -194,6 +216,8 @@ Phases, each of which must pass:
 prints its numbers.
 `python3 chip_smoke.py --recovery` only runs phase 10, with its checks,
 and prints its numbers.
+`python3 chip_smoke.py --sim` only runs phase 11, with its checks, prints
+its numbers and writes them to chiprun_out/chip_smoke.json.
 `python3 chip_smoke.py --time-kernels` only times K1-K11, K13 and bench steps
 (cell A's traffic, phase B's, the bench at 16k and 32k, K9 at T=2^20):
 K5's whole fixpoint and one evaluation at the bench's warmed state and
@@ -211,7 +235,8 @@ scripts' shapes, device ms and the scripts' ms/pass (time_probes).
 
 It prints a digest of the code it runs, the kernels line
 ({"kernels": [...]}, each kernel with its launches on the main path, in
-phase 9, `launches_cluster`, and in phase 10, `launches_recovery`), the
+phase 9, `launches_cluster`, in phase 10, `launches_recovery`, and in
+phase 11, `launches_sim`), the
 nvidia-smi line, and last {"ok": true, "device":
 {...}}. Any failure exits non-zero with no result line. Details go to
 chiprun_out/chip_smoke.json. The script imports nothing of JAX or of the
@@ -2827,6 +2852,137 @@ def storage_replicas(c, info, key):
     return out
 
 
+def engine_poisoned(cs) -> bool:
+    """Whether an engine's conflict state poisoned (the sharded engine's:
+    any shard's)."""
+    shards = cs._state.get("shards", [cs._state])
+    return any(bool(shard["poisoned"]) for shard in shards)
+
+
+def engine_program(cs, shapes):
+    """The program a chunk of `shapes` replays: the sharded engine's one
+    program, or the single-device engine's bucket graph (None before it
+    exists)."""
+    program = getattr(cs, "_program", None)
+    if program is None:
+        program = cs._graphs.get((shapes.reads, shapes.writes))
+    return program
+
+
+def record_resolvers(kernels):
+    """Phases 10 and 11: a hook on `Resolver.__init__` that records every
+    Resolver built while it is installed (`hook.install()`,
+    `hook.remove()`): its process, device, recovery version, virtual and
+    wall build time, the requests it received and the statuses it replied
+    by version, its chunks by bucket, the chunks that ran outside a
+    captured graph, its eager steps, and whether it poisoned by its
+    shutdown. The launches the builds make (the graphs' captures, and the
+    sharded engine's warm-up chunk) add up in `hook.build_launches`, and
+    the chunks they dispatch in `hook.build_chunks`. The records hold no
+    reference to the role; `hook.roles` holds weak ones, beside
+    `hook.instances`."""
+    import weakref
+
+    from foundationdb_tpu_torch.ops.conflict import kernel_metrics
+    from foundationdb_tpu_torch.server import resolver as resolver_mod
+
+    init = resolver_mod.Resolver.__init__
+    hook = argparse.Namespace(instances=[], roles=[], build_chunks=0,
+                              build_launches={k: 0 for k in kernels.LAUNCHES})
+
+    def poisoned(r):
+        return r._poisoned is not None or engine_poisoned(r.conflict_set)
+    hook.poisoned = poisoned
+
+    def recorded_init(r, process, *a, **kw):
+        before = dict(kernels.LAUNCHES)
+        dispatched = kernel_metrics.as_dict()["KernelDispatches"]
+        t0 = time.perf_counter()
+        init(r, process, *a, **kw)
+        hook.build_chunks += (kernel_metrics.as_dict()["KernelDispatches"]
+                              - dispatched)
+        rec = {"process": process.address, "recovery_version": r.version.get(),
+               "built_at_virtual_s": process.net.loop.now(),
+               "build_s": time.perf_counter() - t0,
+               "device": str(getattr(r.conflict_set, "device", "host")),
+               "requests": {}, "replies": {}, "buckets": {},
+               "ungraphed_chunks": 0, "eager_steps": 0, "poisoned": None}
+        for k in hook.build_launches:
+            hook.build_launches[k] += kernels.LAUNCHES[k] - before.get(k, 0)
+        hook.instances.append(rec)
+        hook.roles.append(weakref.ref(r))
+        cs = r.conflict_set
+
+        def resolve(req, reply, fn=r._resolve_batch):
+            rec["requests"].setdefault(req.version, req)
+            return fn(req, reply)
+
+        def finish(req, reply, statuses, fn=r._finish_batch):
+            rec["replies"][req.version] = list(statuses)
+            return fn(req, reply, statuses)
+
+        buckets = rec["buckets"]
+
+        def dispatch(sub, commit_version, skip, shapes, advance_floor,
+                     fn=cs.dispatch_chunk):
+            key = f"{shapes.reads}x{shapes.writes}"
+            buckets[key] = buckets.get(key, 0) + 1
+            program = engine_program(cs, shapes)
+            if program is None or not program.graphed \
+                    or program.graph is None:
+                rec["ungraphed_chunks"] += 1
+            return fn(sub, commit_version, skip, shapes, advance_floor)
+
+        def shutdown(fn=r.shutdown, role=weakref.ref(r)):
+            rec["poisoned"] = poisoned(role())
+            return fn()
+
+        r._resolve_batch = resolve
+        r._finish_batch = finish
+        cs.dispatch_chunk = dispatch
+        if hasattr(cs, "_step"):  # the single-device engine's eager step
+            def step(batch, fn=cs._step):
+                rec["eager_steps"] += 1
+                return fn(batch)
+            cs._step = step
+        r.shutdown = shutdown
+
+    def install():
+        resolver_mod.Resolver.__init__ = recorded_init
+
+    def remove():
+        resolver_mod.Resolver.__init__ = init
+    hook.install, hook.remove = install, remove
+    return hook
+
+
+def replay_into_oracles(hook):
+    """Every batch each recorded resolver decided, replayed in version
+    order into a fresh OracleConflictSet from that resolver's recovery
+    version: (batches, mismatches, gaps); each record gains its backend,
+    device, poison, decided and undecided batches and chunks."""
+    from foundationdb_tpu_torch.ops.conflict_oracle import OracleConflictSet
+    batches = mismatches = gaps = 0
+    for rec, role in zip(hook.instances, hook.roles):
+        reqs, got = rec["requests"], rec["replies"]
+        order = sorted(reqs)
+        if sorted(got) != order[:len(got)]:
+            gaps += 1
+        oracle = OracleConflictSet(oldest_version=rec["recovery_version"])
+        for version in sorted(got):
+            want = oracle.detect(reqs[version].transactions, version)
+            mismatches += got[version] != want
+            batches += 1
+        r = role()
+        if r is not None:
+            rec["poisoned"] = hook.poisoned(r)
+            rec["backend"] = r.conflict_set.backend_label
+        rec["decided_batches"] = len(got)
+        rec["undecided_batches"] = len(reqs) - len(got)
+        rec["chunks"] = sum(rec["buckets"].values())
+    return batches, mismatches, gaps
+
+
 def recovery_phase(dev, seed, n_nodes=CYCLE_NODES, n_rotators=CYCLE_ROTATORS,
                    n_txns=CYCLE_TXNS, kills=RECOVERY_KILLS, knobs=None):
     """Phase 10: the port's RecoverableCluster (3 coordinators, 5 workers,
@@ -2848,7 +3004,6 @@ def recovery_phase(dev, seed, n_nodes=CYCLE_NODES, n_rotators=CYCLE_ROTATORS,
     made."""
     import gc
     import random
-    import weakref
 
     import torch
 
@@ -2856,8 +3011,6 @@ def recovery_phase(dev, seed, n_nodes=CYCLE_NODES, n_rotators=CYCLE_ROTATORS,
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     from foundationdb_tpu_torch.ops import kernels
     from foundationdb_tpu_torch.ops.conflict import kernel_metrics
-    from foundationdb_tpu_torch.ops.conflict_oracle import OracleConflictSet
-    from foundationdb_tpu_torch.server import resolver as resolver_mod
     from foundationdb_tpu_torch.server.cluster import RecoverableCluster
     from foundationdb_tpu_torch.utils import trace
     from foundationdb_tpu_torch.utils.errors import FDBError
@@ -2886,63 +3039,9 @@ def recovery_phase(dev, seed, n_nodes=CYCLE_NODES, n_rotators=CYCLE_ROTATORS,
     trace.set_sink(sink)
 
     # every Resolver the cluster controllers recruit, probed as phase 9
-    # probes its resolvers; the records hold no reference to the role
-    instances: list = []
-    roles: list = []  # weak references, beside `instances`
-    build_launches = {k: 0 for k in kernels.LAUNCHES}
-    init = resolver_mod.Resolver.__init__
-
-    def poisoned(r):
-        return r._poisoned is not None or bool(r.conflict_set._state[
-            "poisoned"])
-
-    def recorded_init(r, process, *a, **kw):
-        before = dict(kernels.LAUNCHES)
-        t0 = time.perf_counter()
-        init(r, process, *a, **kw)
-        rec = {"process": process.address, "recovery_version": r.version.get(),
-               "built_at_virtual_s": c.loop.now(),
-               "build_s": time.perf_counter() - t0,
-               "requests": {}, "replies": {}, "buckets": {},
-               "ungraphed_chunks": 0, "eager_steps": 0, "poisoned": None}
-        for k in build_launches:
-            build_launches[k] += kernels.LAUNCHES[k] - before.get(k, 0)
-        instances.append(rec)
-        roles.append(weakref.ref(r))
-        cs = r.conflict_set
-
-        def resolve(req, reply, fn=r._resolve_batch):
-            rec["requests"].setdefault(req.version, req)
-            return fn(req, reply)
-
-        def finish(req, reply, statuses, fn=r._finish_batch):
-            rec["replies"][req.version] = list(statuses)
-            return fn(req, reply, statuses)
-
-        buckets = rec["buckets"]
-
-        def dispatch(sub, commit_version, skip, shapes, advance_floor,
-                     fn=cs.dispatch_chunk):
-            key = f"{shapes.reads}x{shapes.writes}"
-            buckets[key] = buckets.get(key, 0) + 1
-            graph = cs._graphs.get((shapes.reads, shapes.writes))
-            if graph is None or graph.graph is None:
-                rec["ungraphed_chunks"] += 1
-            return fn(sub, commit_version, skip, shapes, advance_floor)
-
-        def step(batch, fn=cs._step):
-            rec["eager_steps"] += 1
-            return fn(batch)
-
-        def shutdown(fn=r.shutdown, role=weakref.ref(r)):
-            rec["poisoned"] = poisoned(role())
-            return fn()
-
-        r._resolve_batch = resolve
-        r._finish_batch = finish
-        cs.dispatch_chunk = dispatch
-        cs._step = step
-        r.shutdown = shutdown
+    # probes its resolvers
+    hook = record_resolvers(kernels)
+    instances, build_launches = hook.instances, hook.build_launches
 
     def key(i):
         return bytes([i * 251 % 256]) + b"/cycle/%04d" % i
@@ -3030,7 +3129,7 @@ def recovery_phase(dev, seed, n_nodes=CYCLE_NODES, n_rotators=CYCLE_ROTATORS,
         await db.refresh()
         await db.transact(setup)
 
-    resolver_mod.Resolver.__init__ = recorded_init
+    hook.install()
     rebases = [0]
     rebase = ref.rebase_state
 
@@ -3081,7 +3180,7 @@ def recovery_phase(dev, seed, n_nodes=CYCLE_NODES, n_rotators=CYCLE_ROTATORS,
         final_epoch = info.epoch
         final_footprint = footprint()
     finally:
-        resolver_mod.Resolver.__init__ = init
+        hook.remove()
         ref.rebase_state = rebase
         trace.set_sink(None)
     generations += [{"epoch": r["epoch_after"],
@@ -3102,24 +3201,7 @@ def recovery_phase(dev, seed, n_nodes=CYCLE_NODES, n_rotators=CYCLE_ROTATORS,
     # every batch each recruited resolver decided, replayed in version
     # order into a fresh oracle from that resolver's recovery version
     t1 = time.perf_counter()
-    batches = mismatches = gaps = 0
-    for rec, role in zip(instances, roles):
-        reqs, got = rec["requests"], rec["replies"]
-        order = sorted(reqs)
-        if sorted(got) != order[:len(got)]:
-            gaps += 1
-        oracle = OracleConflictSet(oldest_version=rec["recovery_version"])
-        for version in sorted(got):
-            want = oracle.detect(reqs[version].transactions, version)
-            mismatches += got[version] != want
-            batches += 1
-        r = role()
-        if r is not None:
-            rec["poisoned"] = poisoned(r)
-            rec["backend"] = r.conflict_set.backend_label
-        rec["decided_batches"] = len(got)
-        rec["undecided_batches"] = len(reqs) - len(got)
-        rec["chunks"] = sum(rec["buckets"].values())
+    batches, mismatches, gaps = replay_into_oracles(hook)
     oracle_s = time.perf_counter() - t1
     committed = n_rotators * n_txns
     out = {
@@ -3174,7 +3256,7 @@ def recovery_phase(dev, seed, n_nodes=CYCLE_NODES, n_rotators=CYCLE_ROTATORS,
         fail("phase 10: fewer than three generations of resolvers decided "
              "a chunk")
     if cuda:
-        if any(rec.get("backend") not in (None, "cuda") for rec in instances):
+        if any(rec["device"].split(":")[0] != "cuda" for rec in instances):
             fail("phase 10: a resolver is not on the card")
         eager = sum(rec["eager_steps"] + rec["ungraphed_chunks"]
                     for rec in instances)
@@ -3190,6 +3272,264 @@ def recovery_phase(dev, seed, n_nodes=CYCLE_NODES, n_rotators=CYCLE_ROTATORS,
             fail(f"phase 10: {launches['rebase_table']} rebase launches for "
                  f"{rebases[0]} rebases")
     return out
+
+
+# phase 11: the randomized harness's fast tier. Each fast spec on a seed
+# whose draw under SIM_BACKENDS fits the spec's needs (picked on the CPU,
+# as tests/test_sim_tiers.py pins its pairs); the comments are the port's
+# `ClusterDraw.draw(seed, allow_backends=SIM_BACKENDS)`: replication,
+# engine, backend, the evaluator knobs its buggified subset sets
+SIM_BACKENDS = ("device", "sharded")
+SIM_RUNS = (
+    ("cycle", 25),                 # double/memory/device, legacy
+    ("fuzz-api", 13),              # double/redwood/device, ENCODE_RING=0
+    ("zipfian-hotkey", 2),         # single/memory/device, INTRA_ROUNDS=1
+    ("zipfian-read-hotspot", 38),  # single/ssd/device, legacy
+    ("serializability", 3),        # two_region/redwood/device, legacy,
+                                   # HOTSPOT_MAX_BUCKETS=16
+    ("ryow", 7),                   # double/memory/sharded
+    ("conflict-range", 20),        # single/redwood/device, legacy,
+                                   # INTRA_ROUNDS=1
+    ("change-config", 0),          # single/ssd/device, 2 resolvers
+    ("remove-servers", 9),         # double/ssd/sharded, a spare
+    ("kill-region", 28),           # two_region/memory/device,
+                                   # INTRA_ROUNDS=1, ENCODE_RING=0
+)
+# 11b: Cycle, ConsistencyCheck, RandomClogging and Attrition on seed 131's
+# double/redwood/device draw (1 proxy, 2 resolvers, 1 tlog, 2 storage
+# servers x 2 replicas; the scan evaluator), its engine raised by the
+# spec's knobs to the default width, cells A's, 9a's and 10's: K=65,536,
+# T=1,024, 4 reads and 4 writes a txn
+SIM_WIDE = ("cycle", 131, (("CONFLICT_STATE_CAPACITY", 1 << 16),
+                          ("CONFLICT_BATCH_TXNS", 1024),
+                          ("CONFLICT_BATCH_READS_PER_TXN", 4),
+                          ("CONFLICT_BATCH_WRITES_PER_TXN", 4)))
+# each device draw's SpecResult (rotations, epochs, virtual end time) as
+# the port computes it on the CPU at the run's own knobs
+# (tests/test_torch_sim_phase11.py holds these to the port's and the JAX
+# package's CPU runs); the card must repeat them
+SIM_EXPECTED = {
+    ("cycle", 25): (487, 1, 153.3022760885728),
+    ("fuzz-api", 13): (117, 5, 154.95497356039127),
+    ("zipfian-hotkey", 2): (0, 3, 34.636478596596326),
+    ("zipfian-read-hotspot", 38): (0, 1, 147.9491943818923),
+    ("serializability", 3): (0, 2, 153.0101215492871),
+    ("conflict-range", 20): (0, 1, 149.52004355343996),
+    ("change-config", 0): (408, 3, 31.153917466907107),
+    ("kill-region", 28): (18, 4, 160.58299605360017),
+    ("cycle", 131): (210, 3, 30.621630577581907),
+}
+# the step kernels each evaluator launches once a step; the sharded engine
+# adds K10 and K11 once a chunk
+EVALUATOR_KERNELS = {
+    "scan": STEP_KERNELS,
+    "legacy": tuple(k for k in STEP_KERNELS
+                    if k not in ("intra_levels", "intra_sandwich"))
+    + ("legacy_blocked",),
+}
+
+
+def sim_spec(name, knobs=()):
+    """The harness's spec `name`, with `knobs` applied after its own (and
+    so after the draw's, as run_randomized_spec applies a spec's)."""
+    import dataclasses
+
+    from foundationdb_tpu_torch.testing import simulated_cluster as SC
+    spec = SC.SPECS[name]
+    return dataclasses.replace(spec, knobs=spec.knobs + tuple(knobs)) \
+        if knobs else spec
+
+
+def sim_run(dev, name, seed, knobs=(), expected=None):
+    """One run of phase 11: `run_randomized_spec(seed, spec)` under
+    SIM_BACKENDS with the engines on `dev`, every Resolver the cluster
+    controllers recruit recorded (`record_resolvers`). Returns the run's
+    record and its failures (strings)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.ops.conflict import kernel_metrics
+    from foundationdb_tpu_torch.testing import simulated_cluster as SC
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+
+    cuda = dev.type == "cuda"
+    spec = sim_spec(name, knobs)
+    draw = SC.ClusterDraw.draw(seed, allow_backends=SIM_BACKENDS)
+    drawn = dict(draw.knobs)
+    drawn.update(spec.knobs)
+    mode = drawn.get("CONFLICT_INTRA_MODE", KNOBS._defs[
+        "CONFLICT_INTRA_MODE"].default)
+    KNOBS.reset()
+    KNOBS.set("CONFLICT_DEVICE", str(dev))
+    hook = record_resolvers(kernels)
+    rebases = [0]
+    rebase = ref.rebase_state
+
+    def counted_rebase(*a, **kw):
+        rebases[0] += 1
+        return rebase(*a, **kw)
+    counted = ("KernelDispatches", "UnconvergedChunks")
+    before = {k: kernel_metrics.as_dict()[k] for k in counted}
+    kernels.reset_launches()
+    failures: list = []
+    result = None
+    hook.install()
+    ref.rebase_state = counted_rebase
+    t0 = time.perf_counter()
+    try:
+        result = SC.run_randomized_spec(seed, spec=spec,
+                                        allow_backends=SIM_BACKENDS)
+    except SC.SpecFailure as e:
+        failures.append(f"{name} seed {seed}: {e}")
+    finally:
+        hook.remove()
+        ref.rebase_state = rebase
+        if cuda:
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    dispatched, unconverged = (kernel_metrics.as_dict()[k] - before[k]
+                               for k in counted)
+    chunks = dispatched - hook.build_chunks  # the served chunks
+    batches, mismatches, gaps = replay_into_oracles(hook)
+    run_kernels = EVALUATOR_KERNELS[mode] + (
+        SHARD_KERNELS if draw.conflict_backend == "sharded" else ())
+    net = {k: launches[k] - hook.build_launches[k] for k in launches}
+    out = {
+        "spec": name, "seed": seed, "summary": draw.summary(),
+        "repro": draw.repro_line(name, spec.duration),
+        "backend": draw.conflict_backend, "evaluator": mode,
+        "spec_knobs": [list(kv) for kv in knobs],
+        "result": None if result is None else [
+            result.result.rotations, result.result.epochs,
+            result.result.elapsed],
+        "expected": None if expected is None else list(expected),
+        "wall_s": wall, "chunks": chunks, "unconverged_chunks": unconverged,
+        "rebases": rebases[0], "launches": launches,
+        "build_launches": dict(hook.build_launches),
+        "resolved_batches": batches, "mismatched_batches": mismatches,
+        "resolvers": [{k: rec.get(k) for k in (
+            "process", "recovery_version", "built_at_virtual_s", "build_s",
+            "device", "buckets", "chunks", "decided_batches",
+            "undecided_batches", "ungraphed_chunks", "eager_steps",
+            "poisoned")} for rec in hook.instances],
+        "memory_allocated": None}
+    where = f"{name} seed {seed}"
+    if result is not None and expected is not None \
+            and out["result"] != list(expected):
+        failures.append(f"{where}: SpecResult {out['result']}, the CPU's "
+                        f"{list(expected)}")
+    if not hook.instances or not chunks:
+        failures.append(f"{where}: no resolver decided a chunk")
+    if gaps:
+        failures.append(f"{where}: {gaps} resolvers left a received batch "
+                        f"undecided before one they decided")
+    if mismatches:
+        failures.append(f"{where}: {mismatches} of {batches} resolver "
+                        f"replies differ from the oracle")
+    if any(rec["poisoned"] for rec in hook.instances):
+        failures.append(f"{where}: a resolver's conflict state poisoned")
+    if sum(rec["chunks"] for rec in hook.instances) != chunks:
+        failures.append(f"{where}: the resolvers' chunks are not the "
+                        f"engines' {chunks}")
+    # a chunk may stay unconverged only where the draw cuts the scan
+    # sandwich to one round on the single-device engine (which then takes
+    # its exact host pass); the sharded engine runs full rounds
+    may_stop = (draw.conflict_backend == "device" and mode == "scan"
+                and drawn.get("CONFLICT_INTRA_ROUNDS") == 1)
+    if unconverged and not may_stop:
+        failures.append(f"{where}: {unconverged} of {chunks} chunks did not "
+                        f"converge")
+    if any(rec["device"].split(":")[0] != dev.type
+           for rec in hook.instances):
+        failures.append(f"{where}: an engine is not on {dev}")
+    if cuda:
+        eager = sum(rec["eager_steps"] + rec["ungraphed_chunks"]
+                    for rec in hook.instances)
+        if eager:
+            failures.append(f"{where}: {eager} chunks ran outside a graph")
+        for k in run_kernels:
+            if net[k] != chunks:
+                failures.append(f"{where}: {net[k]} {k} launches net of "
+                                f"the captures' for {chunks} resolver steps")
+        for k in set(STEP_KERNELS + SHARD_KERNELS
+                     + ("legacy_blocked",)) - set(run_kernels):
+            if launches[k]:
+                failures.append(f"{where}: {k} launched {launches[k]} times "
+                                f"under the {mode} evaluator")
+        if net["rebase_table"] != rebases[0]:
+            failures.append(f"{where}: {net['rebase_table']} rebase launches "
+                            f"for {rebases[0]} rebases")
+    return out, failures
+
+
+def sim_phase(dev, runs=SIM_RUNS, wide=SIM_WIDE):
+    """Phase 11: the port's randomized simulation harness with its
+    resolvers' engines on `dev`. 11a: `run_randomized_spec` for each of
+    `runs` ((spec, seed) pairs; by default the ten fast specs) with
+    allow_backends=SIM_BACKENDS at the harness's own engine shape
+    (_ACCEL_FAST_SHAPE: T=16, 2 reads and 2 writes a txn, K=2,048). 11b:
+    `wide` (spec, seed, knobs), the Cycle spec with its engine raised to
+    the default width. For every run: the spec's own checks pass (a
+    SpecFailure fails the phase with its repro line); every batch each
+    recruited Resolver decided equals a fresh OracleConflictSet from its
+    recovery version (a sharded draw runs one shard a card, so the oracle
+    is the clipped-oracle model there); nothing poisons; every engine is
+    on `dev`; on the card every chunk runs through its graph, the draw's
+    evaluator's step kernels (and K10, K11 on a sharded draw) launch once a
+    resolver step, net of the recruited resolvers' captures, and the
+    rebase kernel once a rebase; no chunk stays unconverged unless the
+    draw cuts the scan sandwich to one round; and each device draw's
+    SpecResult equals SIM_EXPECTED's (the port's CPU runs). Sharded draws
+    (two shards on the CPU, one on one card) are not held to it: per-shard
+    "earlier txns win" may abort other txns at another width."""
+    import gc
+
+    import torch
+
+    from foundationdb_tpu_torch.testing import simulated_cluster as SC
+    from foundationdb_tpu_torch.utils import trace
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+
+    todo = [(name, seed, ()) for name, seed in runs]
+    if wide is not None:
+        todo.append(wide)
+    trace.set_sink(lambda _fields: None)
+    out: list = []
+    failures: list = []
+    try:
+        for name, seed, knobs in todo:
+            draw = SC.ClusterDraw.draw(seed, allow_backends=SIM_BACKENDS)
+            want = SIM_EXPECTED.get((name, seed)) \
+                if draw.conflict_backend == "device" else None
+            run, bad = sim_run(dev, name, seed, knobs, want)
+            if dev.type == "cuda":
+                # the dropped cluster's cycles hold finalizers: the first
+                # collection runs them, a later one frees what they held
+                while gc.collect():
+                    pass
+                torch.cuda.synchronize()
+                run["memory_allocated"] = torch.cuda.memory_allocated()
+            log(f"phase 11 {name} seed {seed}: " + json.dumps({
+                k: run[k] for k in (
+                    "summary", "repro", "result", "wall_s", "chunks",
+                    "unconverged_chunks", "resolvers", "memory_allocated")}))
+            out.append(run)
+            failures += bad
+    finally:
+        trace.set_sink(None)
+        KNOBS.reset()
+    summary = {"phase": "11", "runs": out,
+               "wall_s": sum(r["wall_s"] for r in out),
+               "chunks": sum(r["chunks"] for r in out),
+               "launches": {k: sum(r["launches"][k] for r in out)
+                            for k in out[0]["launches"]}}
+    log("phase 11: " + json.dumps({k: summary[k] for k in (
+        "wall_s", "chunks")}))
+    if failures:
+        fail("phase 11: " + "; ".join(failures))
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -4402,6 +4742,11 @@ def main(argv=None) -> int:
                     help="only run phase 10 (the port's RecoverableCluster, "
                          "its recruited resolvers on the card, through two "
                          "kills), print its numbers as JSON and exit")
+    ap.add_argument("--sim", action="store_true",
+                    help="only run phase 11 (the randomized simulation "
+                         "harness: the ten fast specs on device and "
+                         "sharded draws, and Cycle at the default width), "
+                         "print its numbers as JSON and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -4456,6 +4801,13 @@ def main(argv=None) -> int:
         print(json.dumps({"card": card, "source_digest": digest,
                           "recovery": recovery_phase(dev, args.seed + 29)}),
               flush=True)
+        return 0
+    if args.sim:
+        out = {"card": card, "source_digest": digest, "sim": sim_phase(dev)}
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1, default=str)
+        print(json.dumps(out, default=str), flush=True)
         return 0
     report["build"] = {"seconds": build_s,
                        "library": kernels.BUILD_INFO.get("library")}
@@ -4555,6 +4907,18 @@ def main(argv=None) -> int:
         "attempts_per_wall_s", "chunks", "final_epoch", "generations",
         "peak_device_bytes")}))
 
+    # 11. the randomized simulation harness: the ten fast specs on drawn
+    # clusters (device and sharded backends, every engine, two regions,
+    # buggified knobs) and Cycle at the default width, every recruited
+    # resolver's engine on the card
+    kernels.release_scratch()
+    torch.cuda.empty_cache()
+    sim = report["sim"] = sim_phase(dev)
+    log(f"phase 11 on {card}: " + json.dumps({
+        f"{r['spec']}:{r['seed']}": {k: r[k] for k in (
+            "result", "wall_s", "chunks", "unconverged_chunks",
+            "memory_allocated")} for r in sim["runs"]}))
+
     timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "library_device_ms", "host_ms",
                    "launches_per_call")
@@ -4595,6 +4959,7 @@ def main(argv=None) -> int:
         entry["launches_cluster"] = sum(
             cluster[run]["launches"][name] for run in cluster)
         entry["launches_recovery"] = recovery["launches"][name]
+        entry["launches_sim"] = sim["launches"][name]
         entry.update({k: r[k] for k in timing_keys})
         if name in SHARD_KERNELS:
             entry["bench_16384_w4"] = {k: r["bench_16384_w4"][k]

@@ -17,7 +17,6 @@ on KeyValueStoreType, fdbclient/FDBTypes.h:472). Engines here:
   compaction, for datasets the memory engine can't hold resident. Runs on
   SimFiles under the simulator (kill-injected durability faults apply) and
   on real files over the net transport.
-  The port does not have it yet: opening it raises invalid_option.
 
 Engines are synchronous at this layer; roles call commit() at their own
 group-commit points (the event loop is cooperative, so a sync commit is a
@@ -240,7 +239,7 @@ class SSDKeyValueStore:
 
 # the KeyValueStoreType universe (FDBTypes.h:472) — "ssd-2" is an alias the
 # reference keeps for its second sqlite format; redwood is the log-structured
-# engine of the JAX package's storage/redwood.py, not ported yet
+# engine in storage/redwood.py
 VALID_STORAGE_ENGINES = ("memory", "ssd", "ssd-2", "redwood")
 
 
@@ -262,7 +261,9 @@ def open_kv_store(store_type: str, **kwargs) -> IKeyValueStore:
     if store_type in ("ssd", "ssd-2"):
         return SSDKeyValueStore(kwargs["path"])
     if store_type == "redwood":
-        raise FDBError("invalid_option",
-                       "the redwood storage engine is not ported yet")
+        from foundationdb_tpu_torch.storage.redwood import RedwoodKeyValueStore
+        return RedwoodKeyValueStore(kwargs["file0"], kwargs["file1"],
+                                    kwargs["open_file"],
+                                    kwargs.get("existing_files"))
     validate_storage_engine(store_type)  # raises with the valid list
     raise FDBError("invalid_option", f"unknown storage engine {store_type}")

@@ -15,6 +15,8 @@ import time
 from bisect import bisect_left
 from typing import Callable
 
+SevDebug, SevInfo, SevWarn, SevWarnAlways, SevError = 5, 10, 20, 30, 40
+
 _sink: Callable[[dict], None] | None = None
 
 
@@ -31,9 +33,10 @@ def _emit(fields: dict):
 
 
 class TraceEvent:
-    __slots__ = ("_fields",)
+    __slots__ = ("_fields", "_sev")
 
-    def __init__(self, event_type: str, ident=None):
+    def __init__(self, event_type: str, ident=None, severity: int = SevInfo):
+        self._sev = severity
         self._fields = {"Type": event_type, "Time": round(time.time(), 6)}
         if ident is not None:
             self._fields["ID"] = str(ident)
@@ -43,10 +46,13 @@ class TraceEvent:
         return self
 
     def error(self, e: BaseException) -> "TraceEvent":
+        self._sev = max(self._sev, SevError)
         self._fields["Error"] = repr(e)
         return self
 
     def log(self):
+        if self._sev < SevInfo:  # the reference's default minimum severity
+            return
         _emit(self._fields)
 
 

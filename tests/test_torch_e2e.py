@@ -638,7 +638,8 @@ def test_get_many_across_shards():
 
 # ---------------------------------------------------------------------------
 # Durability: the cases of tests/test_durability.py on the port's DiskQueue,
-# KV engines (redwood is not ported) and SimCluster reboots
+# KV engines (redwood's own cases: test_torch_redwood.py) and SimCluster
+# reboots
 # ---------------------------------------------------------------------------
 
 def _files(n=2, seed=0):
@@ -766,7 +767,7 @@ def test_ssd_kvstore(tmp_path):
 # Storage server restart recovery (whole-cluster, through the client API)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("engine", ["memory", "ssd"])
+@pytest.mark.parametrize("engine", ["memory", "ssd", "redwood"])
 def test_storage_server_reboot_preserves_durable_data(engine, tmp_path):
     # small MVCC window so durability advances quickly; the storage role
     # opens the configured engine via open_kv_store (IKeyValueStore.h:66)
@@ -774,6 +775,12 @@ def test_storage_server_reboot_preserves_durable_data(engine, tmp_path):
     KNOBS.set("MAX_VERSIONS_IN_FLIGHT", 1_000_000_000)
     KNOBS.set("STORAGE_ENGINE", engine)
     KNOBS.set("SSD_DATA_DIR", str(tmp_path))
+    if engine == "redwood":
+        # tiny budgets: the 30-key write set must cross a flush so the
+        # reboot recovers run files + WAL, not just the WAL
+        KNOBS.set("REDWOOD_MEMTABLE_BYTES", 256)
+        KNOBS.set("REDWOOD_BLOCK_BYTES", 512)
+        KNOBS.set("REDWOOD_COMPACTION_FAN_IN", 2)
     c = SimCluster(seed=5)
     db = c.database()
     ss_addr = c.storage_procs[0].address
