@@ -209,6 +209,33 @@ Phases, each of which must pass:
      seconds, the resolver instances with their chunks by bucket, the
      unconverged chunks and `torch.cuda.memory_allocated` after the
      cluster is dropped and collected.
+ 12. backup, restore and DR (foundationdb_tpu_torch.backup, net.http,
+     tools.fdbcli), every cluster's resolvers on the card at cell A's
+     width (K=65,536, T=1,024, 4/4): 12a a SimCluster (2 proxies, 2
+     resolvers, 2 tlogs, 2 storage servers) loaded with cell A's 20,000
+     keys and 100-byte values, backed up by a BackupAgent (8 snapshot
+     chunks and its log tailer) into a BlobStoreBackupContainer on a
+     BlobStoreServer at 127.0.0.1 while 256 clients make 20 attempts each
+     of A's mix (the first half beside the snapshot, then a point-in-time
+     marker, then the second half), restored into a fresh SimCluster on
+     the same loop to the end version and to the point in time (each
+     equal byte for byte to the source's rows read through a transaction
+     at that version), and into a RecoverableCluster where fdbcli's
+     `status` and `getrange` run; 12b a DRAgent between two SimClusters
+     on one loop (12a's load and mix), its switchover, the destination
+     equal to the source at the switchover version and taking a commit
+     after it, the primary markers flipped; 12c the backup-attrition
+     spec on seed 131's device draw raised to cell A's width
+     (BACKUP_SIM), its SpecResult equal to SIM_EXPECTED. Every Resolver
+     built is recorded as in phase 10 and every batch it decided equals
+     a fresh OracleConflictSet; no poison; every chunk through its graph;
+     the step kernels once a resolver step net of the captures; device
+     memory after each run, its clusters dropped and collected, no more
+     than after the first. Printed: each run's wall seconds, committed
+     attempts per second of wall while the backup or DR runs, snapshot
+     chunks and log rows drained, restore and switchover wall seconds,
+     the resolver instances with their chunks by bucket, and
+     `torch.cuda.memory_allocated` after each run.
 
 `python3 chip_smoke.py --serve-cells` only serves phase 4's cells A and B
 (each reply checked against the oracle) and prints their numbers.
@@ -218,6 +245,7 @@ prints its numbers.
 and prints its numbers.
 `python3 chip_smoke.py --sim` only runs phase 11, with its checks, prints
 its numbers and writes them to chiprun_out/chip_smoke.json.
+`python3 chip_smoke.py --backup` does the same for phase 12.
 `python3 chip_smoke.py --time-kernels` only times K1-K11, K13 and bench steps
 (cell A's traffic, phase B's, the bench at 16k and 32k, K9 at T=2^20):
 K5's whole fixpoint and one evaluation at the bench's warmed state and
@@ -235,8 +263,8 @@ scripts' shapes, device ms and the scripts' ms/pass (time_probes).
 
 It prints a digest of the code it runs, the kernels line
 ({"kernels": [...]}, each kernel with its launches on the main path, in
-phase 9, `launches_cluster`, in phase 10, `launches_recovery`, and in
-phase 11, `launches_sim`), the
+phase 9, `launches_cluster`, in phase 10, `launches_recovery`, in
+phase 11, `launches_sim`, and in phase 12, `launches_backup`), the
 nvidia-smi line, and last {"ok": true, "device":
 {...}}. Any failure exits non-zero with no result line. Details go to
 chiprun_out/chip_smoke.json. The script imports nothing of JAX or of the
@@ -2605,6 +2633,61 @@ def storage_read(c, key):
     return ss.data.get(key, ss.version.get())
 
 
+async def ycsb_load(c, db, keys):
+    """YCSB's load phase (9a, 12a, 12b): CLUSTER_LOAD_TXNS blind inserts
+    of every key with one CLUSTER_VALUE_BYTES field."""
+    from foundationdb_tpu_torch.core.future import all_of
+
+    async def insert(ks):
+        tr = db.create_transaction()
+        for k in sorted(ks):
+            tr.set(k, k.ljust(CLUSTER_VALUE_BYTES, b"."))
+        await tr.commit()
+    n = min(CLUSTER_LOAD_TXNS, len(keys))
+    await all_of([c.loop.spawn(insert(keys[i::n]), name=f"load{i}")
+                  for i in range(n)])
+
+
+def ycsb_traffic(seed, n_keys, n_clients, n_attempts):
+    """Cell A's traffic (9a, 12a, 12b): its keys, and each client's
+    attempts' 8 zipfian picks (4 reads, then 4 writes)."""
+    rng = np.random.default_rng(seed)
+    cdf, keys = zipf_keys(n_keys)
+    picks = np.searchsorted(cdf, rng.random((n_clients, n_attempts, 8)))
+    return keys, picks
+
+
+async def ycsb_mix(c, db, keys, picks, outcomes, first=0, on_commit=None):
+    """Cell A's mix from every client at once (`picks`: clients x attempts
+    x 8, the attempts numbered from `first`): each attempt 4 zipfian
+    reads, 4 zipfian writes of a value made from (client, attempt), one
+    commit and no retry; `outcomes` counts each attempt's end, and
+    `on_commit(tr, written_keys, value)` sees each commit."""
+    from foundationdb_tpu_torch.core.future import all_of
+    from foundationdb_tpu_torch.utils.errors import FDBError
+
+    async def client(ci):
+        for ai in range(picks.shape[1]):
+            idx = picks[ci, ai].tolist()
+            v = (b"c%05d.a%03d" % (ci, first + ai)).ljust(
+                CLUSTER_VALUE_BYTES, b".")
+            tr = db.create_transaction()
+            try:
+                for i in idx[:4]:
+                    await tr.get(keys[i])
+                for i in idx[4:]:
+                    tr.set(keys[i], v)
+                await tr.commit()
+            except FDBError as e:
+                outcomes[e.name] = outcomes.get(e.name, 0) + 1
+                continue
+            outcomes["committed"] = outcomes.get("committed", 0) + 1
+            if on_commit is not None:
+                on_commit(tr, [keys[i] for i in idx[4:]], v)
+    await all_of([c.loop.spawn(client(ci), name=f"client{ci}")
+                  for ci in range(picks.shape[0])])
+
+
 def cluster_ycsb_phase(dev, seed, n_clients=CLUSTER_CLIENTS,
                        n_attempts=CLUSTER_ATTEMPTS, n_keys=20_000,
                        knobs=None):
@@ -2615,12 +2698,7 @@ def cluster_ycsb_phase(dev, seed, n_clients=CLUSTER_CLIENTS,
     no retry. Every committed attempt's writes, applied in commit order
     (version, then place in its proxy batch), make the model that the
     client and each storage server must read back."""
-    from foundationdb_tpu_torch.core.future import all_of
-    from foundationdb_tpu_torch.utils.errors import FDBError
-
-    rng = np.random.default_rng(seed)
-    cdf, keys = zipf_keys(n_keys)
-    picks = np.searchsorted(cdf, rng.random((n_clients, n_attempts, 8)))
+    keys, picks = ycsb_traffic(seed, n_keys, n_clients, n_attempts)
     c, probe = boot_cluster(dev, seed, n_resolvers=1, knobs=knobs)
     db = c.database()
     # each commit's place in its proxy batch, keyed by its value
@@ -2637,40 +2715,17 @@ def cluster_ycsb_phase(dev, seed, n_clients=CLUSTER_CLIENTS,
     def value(tag: bytes) -> bytes:
         return tag.ljust(CLUSTER_VALUE_BYTES, b".")
 
-    load_keys = [keys[i::CLUSTER_LOAD_TXNS] for i in range(CLUSTER_LOAD_TXNS)]
     committed: list = []  # (version, place, keys, value)
     outcomes: dict = {}
 
     async def load():
-        async def insert(ks):
-            tr = db.create_transaction()
-            for k in sorted(ks):
-                tr.set(k, value(k))
-            await tr.commit()
-        await all_of([c.loop.spawn(insert(ks), name=f"load{i}")
-                      for i, ks in enumerate(load_keys)])
+        await ycsb_load(c, db, keys)
 
-    async def client(ci):
-        for ai in range(n_attempts):
-            idx = picks[ci, ai].tolist()
-            v = value(b"c%05d.a%03d" % (ci, ai))
-            tr = db.create_transaction()
-            try:
-                for i in idx[:4]:
-                    await tr.get(keys[i])
-                for i in idx[4:]:
-                    tr.set(keys[i], v)
-                await tr.commit()
-            except FDBError as e:
-                outcomes[e.name] = outcomes.get(e.name, 0) + 1
-                continue
-            outcomes["committed"] = outcomes.get("committed", 0) + 1
-            committed.append((tr.committed_version, order[v],
-                              [keys[i] for i in idx[4:]], v))
+    def on_commit(tr, ks, v):
+        committed.append((tr.committed_version, order[v], ks, v))
 
     async def run():
-        await all_of([c.loop.spawn(client(ci), name=f"client{ci}")
-                      for ci in range(n_clients)])
+        await ycsb_mix(c, db, keys, picks, outcomes, on_commit=on_commit)
 
     out = drive_cluster("9a", dev, c, probe, load, run)
     attempts = n_clients * n_attempts
@@ -2870,7 +2925,7 @@ def engine_program(cs, shapes):
 
 
 def record_resolvers(kernels):
-    """Phases 10 and 11: a hook on `Resolver.__init__` that records every
+    """Phases 10 to 12: a hook on `Resolver.__init__` that records every
     Resolver built while it is installed (`hook.install()`,
     `hook.remove()`): its process, device, recovery version, virtual and
     wall build time, the requests it received and the statuses it replied
@@ -3318,6 +3373,9 @@ SIM_EXPECTED = {
     ("change-config", 0): (408, 3, 31.153917466907107),
     ("kill-region", 28): (18, 4, 160.58299605360017),
     ("cycle", 131): (210, 3, 30.621630577581907),
+    # 12c (BACKUP_SIM): epochs -1, no cluster controller elected when the
+    # run ends (Attrition's last kill), as in the JAX harness
+    ("backup-attrition", 131): (219, -1, 44.6577044581421),
 }
 # the step kernels each evaluator launches once a step; the sharded engine
 # adds K10 and K11 once a chunk
@@ -3340,28 +3398,20 @@ def sim_spec(name, knobs=()):
         if knobs else spec
 
 
-def sim_run(dev, name, seed, knobs=(), expected=None):
-    """One run of phase 11: `run_randomized_spec(seed, spec)` under
-    SIM_BACKENDS with the engines on `dev`, every Resolver the cluster
-    controllers recruit recorded (`record_resolvers`). Returns the run's
-    record and its failures (strings)."""
+def recorded_run(dev, body):
+    """Run `body(note)` with every Resolver built during it recorded
+    (`record_resolvers`) and every kernel count, the chunk and rebase
+    counts zeroed before it and read after it. `note()` records each live
+    recorded resolver's poison and backend: a body that drops clusters
+    calls it first. Returns (what `body` returned, the run's counts: the
+    hook, wall s, launches, launches net of the builds' `net`, the served
+    chunks, the unconverged chunks and the rebases)."""
     import torch
 
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     from foundationdb_tpu_torch.ops import kernels
     from foundationdb_tpu_torch.ops.conflict import kernel_metrics
-    from foundationdb_tpu_torch.testing import simulated_cluster as SC
-    from foundationdb_tpu_torch.utils.knobs import KNOBS
 
-    cuda = dev.type == "cuda"
-    spec = sim_spec(name, knobs)
-    draw = SC.ClusterDraw.draw(seed, allow_backends=SIM_BACKENDS)
-    drawn = dict(draw.knobs)
-    drawn.update(spec.knobs)
-    mode = drawn.get("CONFLICT_INTRA_MODE", KNOBS._defs[
-        "CONFLICT_INTRA_MODE"].default)
-    KNOBS.reset()
-    KNOBS.set("CONFLICT_DEVICE", str(dev))
     hook = record_resolvers(kernels)
     rebases = [0]
     rebase = ref.rebase_state
@@ -3369,57 +3419,51 @@ def sim_run(dev, name, seed, knobs=(), expected=None):
     def counted_rebase(*a, **kw):
         rebases[0] += 1
         return rebase(*a, **kw)
+
+    def note():
+        for rec, role in zip(hook.instances, hook.roles):
+            r = role()
+            if r is not None:
+                rec["poisoned"] = hook.poisoned(r)
+                rec["backend"] = r.conflict_set.backend_label
     counted = ("KernelDispatches", "UnconvergedChunks")
     before = {k: kernel_metrics.as_dict()[k] for k in counted}
     kernels.reset_launches()
-    failures: list = []
-    result = None
     hook.install()
     ref.rebase_state = counted_rebase
     t0 = time.perf_counter()
     try:
-        result = SC.run_randomized_spec(seed, spec=spec,
-                                        allow_backends=SIM_BACKENDS)
-    except SC.SpecFailure as e:
-        failures.append(f"{name} seed {seed}: {e}")
+        value = body(note)
     finally:
         hook.remove()
         ref.rebase_state = rebase
-        if cuda:
+        if dev.type == "cuda":
             torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     dispatched, unconverged = (kernel_metrics.as_dict()[k] - before[k]
                                for k in counted)
-    chunks = dispatched - hook.build_chunks  # the served chunks
+    return value, argparse.Namespace(
+        hook=hook, wall_s=wall, launches=launches,
+        net={k: launches[k] - hook.build_launches[k] for k in launches},
+        chunks=dispatched - hook.build_chunks, unconverged=unconverged,
+        rebases=rebases[0])
+
+
+def resolver_failures(where, dev, run, run_kernels, may_stop=False):
+    """Every batch each recorded resolver of `run` (recorded_run's counts)
+    decided, replayed into a fresh oracle, and the checks phases 11 and 12
+    hold a run to: no batch different from the oracle, none received and
+    left undecided before one decided, no poison, the resolvers' chunks
+    the engines', no unconverged chunk (unless `may_stop`), every engine
+    on `dev`; on the card every chunk through its graph, each kernel of
+    `run_kernels` once a resolver step net of the builds' launches and no
+    other step kernel, and the rebase kernel once a rebase. Returns
+    (batches, mismatches, failures); each record gains its decided
+    batches and chunks."""
+    hook, chunks = run.hook, run.chunks
     batches, mismatches, gaps = replay_into_oracles(hook)
-    run_kernels = EVALUATOR_KERNELS[mode] + (
-        SHARD_KERNELS if draw.conflict_backend == "sharded" else ())
-    net = {k: launches[k] - hook.build_launches[k] for k in launches}
-    out = {
-        "spec": name, "seed": seed, "summary": draw.summary(),
-        "repro": draw.repro_line(name, spec.duration),
-        "backend": draw.conflict_backend, "evaluator": mode,
-        "spec_knobs": [list(kv) for kv in knobs],
-        "result": None if result is None else [
-            result.result.rotations, result.result.epochs,
-            result.result.elapsed],
-        "expected": None if expected is None else list(expected),
-        "wall_s": wall, "chunks": chunks, "unconverged_chunks": unconverged,
-        "rebases": rebases[0], "launches": launches,
-        "build_launches": dict(hook.build_launches),
-        "resolved_batches": batches, "mismatched_batches": mismatches,
-        "resolvers": [{k: rec.get(k) for k in (
-            "process", "recovery_version", "built_at_virtual_s", "build_s",
-            "device", "buckets", "chunks", "decided_batches",
-            "undecided_batches", "ungraphed_chunks", "eager_steps",
-            "poisoned")} for rec in hook.instances],
-        "memory_allocated": None}
-    where = f"{name} seed {seed}"
-    if result is not None and expected is not None \
-            and out["result"] != list(expected):
-        failures.append(f"{where}: SpecResult {out['result']}, the CPU's "
-                        f"{list(expected)}")
+    failures = []
     if not hook.instances or not chunks:
         failures.append(f"{where}: no resolver decided a chunk")
     if gaps:
@@ -3433,35 +3477,111 @@ def sim_run(dev, name, seed, knobs=(), expected=None):
     if sum(rec["chunks"] for rec in hook.instances) != chunks:
         failures.append(f"{where}: the resolvers' chunks are not the "
                         f"engines' {chunks}")
-    # a chunk may stay unconverged only where the draw cuts the scan
-    # sandwich to one round on the single-device engine (which then takes
-    # its exact host pass); the sharded engine runs full rounds
-    may_stop = (draw.conflict_backend == "device" and mode == "scan"
-                and drawn.get("CONFLICT_INTRA_ROUNDS") == 1)
-    if unconverged and not may_stop:
-        failures.append(f"{where}: {unconverged} of {chunks} chunks did not "
-                        f"converge")
+    if run.unconverged and not may_stop:
+        failures.append(f"{where}: {run.unconverged} of {chunks} chunks did "
+                        f"not converge")
     if any(rec["device"].split(":")[0] != dev.type
            for rec in hook.instances):
         failures.append(f"{where}: an engine is not on {dev}")
-    if cuda:
+    if dev.type == "cuda":
         eager = sum(rec["eager_steps"] + rec["ungraphed_chunks"]
                     for rec in hook.instances)
         if eager:
             failures.append(f"{where}: {eager} chunks ran outside a graph")
         for k in run_kernels:
-            if net[k] != chunks:
-                failures.append(f"{where}: {net[k]} {k} launches net of "
+            if run.net[k] != chunks:
+                failures.append(f"{where}: {run.net[k]} {k} launches net of "
                                 f"the captures' for {chunks} resolver steps")
         for k in set(STEP_KERNELS + SHARD_KERNELS
                      + ("legacy_blocked",)) - set(run_kernels):
-            if launches[k]:
-                failures.append(f"{where}: {k} launched {launches[k]} times "
-                                f"under the {mode} evaluator")
-        if net["rebase_table"] != rebases[0]:
-            failures.append(f"{where}: {net['rebase_table']} rebase launches "
-                            f"for {rebases[0]} rebases")
+            if run.launches[k]:
+                failures.append(f"{where}: {k} launched {run.launches[k]} "
+                                f"times outside the run's evaluator")
+        if run.net["rebase_table"] != run.rebases:
+            failures.append(f"{where}: {run.net['rebase_table']} rebase "
+                            f"launches for {run.rebases} rebases")
+    return batches, mismatches, failures
+
+
+RESOLVER_FIELDS = ("process", "recovery_version", "built_at_virtual_s",
+                   "build_s", "device", "backend", "buckets", "chunks",
+                   "decided_batches", "undecided_batches",
+                   "ungraphed_chunks", "eager_steps", "poisoned")
+
+
+def sim_run(dev, name, seed, knobs=(), expected=None):
+    """One run of phase 11: `run_randomized_spec(seed, spec)` under
+    SIM_BACKENDS with the engines on `dev`, every Resolver the cluster
+    controllers recruit recorded (`recorded_run`). Returns the run's
+    record and its failures (strings)."""
+    from foundationdb_tpu_torch.testing import simulated_cluster as SC
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+
+    spec = sim_spec(name, knobs)
+    draw = SC.ClusterDraw.draw(seed, allow_backends=SIM_BACKENDS)
+    drawn = dict(draw.knobs)
+    drawn.update(spec.knobs)
+    mode = drawn.get("CONFLICT_INTRA_MODE", KNOBS._defs[
+        "CONFLICT_INTRA_MODE"].default)
+    KNOBS.reset()
+    KNOBS.set("CONFLICT_DEVICE", str(dev))
+
+    def body(_note):
+        try:
+            return SC.run_randomized_spec(seed, spec=spec,
+                                          allow_backends=SIM_BACKENDS), []
+        except SC.SpecFailure as e:
+            return None, [f"{name} seed {seed}: {e}"]
+    (result, failures), run = recorded_run(dev, body)
+    run_kernels = EVALUATOR_KERNELS[mode] + (
+        SHARD_KERNELS if draw.conflict_backend == "sharded" else ())
+    # a chunk may stay unconverged only where the draw cuts the scan
+    # sandwich to one round on the single-device engine (which then takes
+    # its exact host pass); the sharded engine runs full rounds
+    may_stop = (draw.conflict_backend == "device" and mode == "scan"
+                and drawn.get("CONFLICT_INTRA_ROUNDS") == 1)
+    where = f"{name} seed {seed}"
+    batches, mismatches, bad = resolver_failures(where, dev, run,
+                                                 run_kernels, may_stop)
+    failures += bad
+    out = {
+        "spec": name, "seed": seed, "summary": draw.summary(),
+        "repro": draw.repro_line(name, spec.duration),
+        "backend": draw.conflict_backend, "evaluator": mode,
+        "spec_knobs": [list(kv) for kv in knobs],
+        "result": None if result is None else [
+            result.result.rotations, result.result.epochs,
+            result.result.elapsed],
+        "expected": None if expected is None else list(expected),
+        "wall_s": run.wall_s, "chunks": run.chunks,
+        "unconverged_chunks": run.unconverged, "rebases": run.rebases,
+        "launches": run.launches,
+        "build_launches": dict(run.hook.build_launches),
+        "resolved_batches": batches, "mismatched_batches": mismatches,
+        "resolvers": [{k: rec.get(k) for k in RESOLVER_FIELDS}
+                      for rec in run.hook.instances],
+        "memory_allocated": None}
+    if result is not None and expected is not None \
+            and out["result"] != list(expected):
+        failures.append(f"{where}: SpecResult {out['result']}, the CPU's "
+                        f"{list(expected)}")
     return out, failures
+
+
+def collected_memory(dev):
+    """`torch.cuda.memory_allocated` once what is unreachable is collected
+    (None on the CPU). A dropped cluster's cycles hold finalizers: the
+    first collection runs them, a later one frees what they held."""
+    import gc
+
+    import torch
+
+    while gc.collect():
+        pass
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
 
 
 def sim_phase(dev, runs=SIM_RUNS, wide=SIM_WIDE):
@@ -3484,10 +3604,6 @@ def sim_phase(dev, runs=SIM_RUNS, wide=SIM_WIDE):
     SpecResult equals SIM_EXPECTED's (the port's CPU runs). Sharded draws
     (two shards on the CPU, one on one card) are not held to it: per-shard
     "earlier txns win" may abort other txns at another width."""
-    import gc
-
-    import torch
-
     from foundationdb_tpu_torch.testing import simulated_cluster as SC
     from foundationdb_tpu_torch.utils import trace
     from foundationdb_tpu_torch.utils.knobs import KNOBS
@@ -3504,13 +3620,7 @@ def sim_phase(dev, runs=SIM_RUNS, wide=SIM_WIDE):
             want = SIM_EXPECTED.get((name, seed)) \
                 if draw.conflict_backend == "device" else None
             run, bad = sim_run(dev, name, seed, knobs, want)
-            if dev.type == "cuda":
-                # the dropped cluster's cycles hold finalizers: the first
-                # collection runs them, a later one frees what they held
-                while gc.collect():
-                    pass
-                torch.cuda.synchronize()
-                run["memory_allocated"] = torch.cuda.memory_allocated()
+            run["memory_allocated"] = collected_memory(dev)
             log(f"phase 11 {name} seed {seed}: " + json.dumps({
                 k: run[k] for k in (
                     "summary", "repro", "result", "wall_s", "chunks",
@@ -3529,6 +3639,411 @@ def sim_phase(dev, runs=SIM_RUNS, wide=SIM_WIDE):
         "wall_s", "chunks")}))
     if failures:
         fail("phase 11: " + "; ".join(failures))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 12: backup, restore and DR, every cluster's resolvers on the card
+# ---------------------------------------------------------------------------
+
+BACKUP_KEYS = 20_000  # cell A's keys, loaded as 9a loads them
+BACKUP_CLIENTS = 256
+BACKUP_ATTEMPTS = 20
+BACKUP_CHUNKS = 8
+BACKUP_CLI_ROWS = 25  # fdbcli's getrange default limit
+# 12c: the backup-attrition spec on seed 131's double/redwood/device draw
+# at cell A's width (SIM_WIDE's knobs): at the harness's own engine shape
+# (16 txns x 2 writes a batch) the spec's 40-key setup transaction is
+# transaction_too_large in both packages
+BACKUP_SIM = ("backup-attrition", 131, SIM_WIDE[2])
+
+
+def backup_run(name, dev, knobs, body):
+    """One run of phase 12 (12a or 12b): `body(note)` (a function that
+    boots its clusters at the port's default knobs with
+    CONFLICT_BACKEND=device on `dev`, `knobs` over them, and returns the
+    run's numbers and its failures) through `recorded_run`, held to
+    `resolver_failures` with the scan evaluator's kernels; then its
+    clusters are collected and `torch.cuda.memory_allocated` read.
+    Returns (record, failures)."""
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+
+    KNOBS.reset()
+    KNOBS.overrides(CONFLICT_BACKEND="device", CONFLICT_DEVICE=str(dev),
+                    **(knobs or {}))
+    try:
+        (out, failures), run = recorded_run(dev, body)
+    finally:
+        KNOBS.reset()
+    batches, mismatches, bad = resolver_failures(f"phase {name}", dev, run,
+                                                 STEP_KERNELS)
+    out.update({
+        "phase": name, "wall_s": run.wall_s, "chunks": run.chunks,
+        "unconverged_chunks": run.unconverged, "rebases": run.rebases,
+        "launches": run.launches,
+        "build_launches": dict(run.hook.build_launches),
+        "resolved_batches": batches, "mismatched_batches": mismatches,
+        "resolvers": [{k: rec.get(k) for k in RESOLVER_FIELDS}
+                      for rec in run.hook.instances]})
+    del run, body
+    out["memory_allocated"] = collected_memory(dev)
+    return out, failures + bad
+
+
+async def user_rows_at(db, version=None):
+    """Every user row, read through one transaction (at `version` when
+    given)."""
+    async def read(tr):
+        if version is not None:
+            tr.set_read_version(version)
+        return await tr.get_range(b"", b"\xff")
+    return [tuple(kv) for kv in await db.transact(read, max_retries=500)]
+
+
+def mix_failures(where, outcomes, attempts):
+    """An attempt ends committed or rejected by a resolver; nothing else."""
+    bad = []
+    if sum(outcomes.values()) != attempts:
+        bad.append(f"{where}: {sum(outcomes.values())} outcomes for "
+                   f"{attempts} attempts")
+    unknown = set(outcomes) - {"committed", *CLUSTER_REJECTIONS}
+    if unknown:
+        bad.append(f"{where}: attempts ended in {sorted(unknown)}")
+    if not outcomes.get("committed"):
+        bad.append(f"{where}: no attempt committed: {outcomes}")
+    return bad
+
+
+def backup_restore_phase(dev, seed, n_keys=BACKUP_KEYS,
+                         n_clients=BACKUP_CLIENTS,
+                         n_attempts=BACKUP_ATTEMPTS, chunks=BACKUP_CHUNKS,
+                         knobs=None):
+    """12a: a SimCluster (2 proxies, 2 resolvers, 2 tlogs, 2 storage
+    servers) loaded with `n_keys` of cell A's keys, backed up by a
+    BackupAgent (`chunks` snapshot chunks, and its log tailer) into a
+    BlobStoreBackupContainer on a BlobStoreServer at 127.0.0.1 while
+    `n_clients` clients make `n_attempts` attempts each of cell A's mix;
+    the first half of each client's attempts runs beside the snapshot;
+    then a marker commit fixes a point-in-time version, the second half
+    starts and the source's rows are read through a transaction at that
+    version; when the clients are done the backup stops and the rows are
+    read at its end version. Restored into a fresh
+    SimCluster (1 proxy, 1 resolver) on the same loop and network, to the
+    end version and then to the point in time, each equal to the source's
+    rows at that version byte for byte; then into a RecoverableCluster on
+    its own loop (one resolver), where fdbcli's `status` reports the
+    recovered cluster and its `getrange` prints the source's first rows."""
+    from foundationdb_tpu_torch.backup import BackupAgent, RestoreAgent
+    from foundationdb_tpu_torch.backup.container import (
+        BlobStoreBackupContainer)
+    from foundationdb_tpu_torch.net.http import BlobStoreServer
+    from foundationdb_tpu_torch.server.cluster import (RecoverableCluster,
+                                                       SimCluster)
+    from foundationdb_tpu_torch.tools.fdbcli import FdbCli, _fmt_key
+
+    keys, picks = ycsb_traffic(seed, n_keys, n_clients, n_attempts)
+    attempts = n_clients * n_attempts
+
+    def body(note):
+        srv = BlobStoreServer("127.0.0.1")
+        try:
+            return run(srv, note)
+        finally:
+            srv.close()
+
+    def run(srv, note):
+        failures: list = []
+        out: dict = {"keys": n_keys, "clients": n_clients,
+                     "attempts_per_client": n_attempts, "attempts": attempts,
+                     "snapshot_chunks_asked": chunks}
+        src = SimCluster(seed, n_proxies=2, n_resolvers=2, n_tlogs=2,
+                         n_storage=2)
+        db = src.database()
+        t0 = time.perf_counter()
+        src.run(src.loop.spawn(ycsb_load(src, db, keys)), max_time=1e9)
+        out["load_s"] = time.perf_counter() - t0
+        container = BlobStoreBackupContainer(srv.url)
+        agent = BackupAgent(db, container, chunks=chunks)
+        drained = [0]
+        drain_log = agent.drain_log
+
+        async def counted_drain(limit=500):
+            moved = await drain_log(limit)
+            drained[0] += moved
+            return moved
+        agent.drain_log = counted_drain
+        outcomes: dict = {}
+        pit: dict = {}
+        half = n_attempts // 2
+
+        async def backup():
+            await agent.start()
+            snapshot = src.loop.spawn(agent.run_agent(), name="bkAgent")
+            tailer = src.loop.spawn(agent.run_log_tailer(), name="bkTailer")
+            # the first half of every client's attempts beside the
+            # snapshot; then the point in time, and the second half
+            await ycsb_mix(src, db, keys, picks[:, :half], outcomes)
+            await snapshot
+            marker = [None]
+
+            async def fence(tr):
+                marker[0] = tr
+                tr.set(b"\xff/pit-fence", b"x")
+            await db.transact(fence, max_retries=500)
+            pit["version"] = marker[0].committed_version
+            rest = src.loop.spawn(ycsb_mix(src, db, keys, picks[:, half:],
+                                             outcomes, half), name="bkMix")
+            pit["rows"] = await user_rows_at(db, pit["version"])
+            await rest
+            end_version = await agent.stop()
+            await tailer
+            return end_version, await user_rows_at(db, end_version)
+
+        t0 = time.perf_counter()
+        end_version, truth = src.run(src.loop.spawn(backup()), max_time=1e9)
+        out["backup_s"] = time.perf_counter() - t0
+        failures += mix_failures("phase 12a", outcomes, attempts)
+        out.update({
+            "outcomes": outcomes, "committed": outcomes.get("committed", 0),
+            "committed_per_wall_s": outcomes.get("committed", 0)
+            / out["backup_s"],
+            "end_version": end_version, "pit_version": pit["version"],
+            "rows_at_end": len(truth), "rows_at_pit": len(pit["rows"]),
+            "snapshot_chunks": len(container.list_files("kvrange-")),
+            "log_files": len(container.list_files("log-")),
+            "log_rows_drained": drained[0]})
+        applied = sum(
+            len(entries) for entries in (
+                container.read_file(n) for n in container.list_files("log-")))
+        out["log_entries"] = applied
+        if truth == pit["rows"]:
+            failures.append("phase 12a: no write landed between the point "
+                            "in time and the end version")
+
+        dst = SimCluster(seed + 1, n_proxies=1, n_resolvers=1, n_tlogs=1,
+                         n_storage=1, loop=src.loop, net=src.net,
+                         name_prefix="restore-")
+        ddb = dst.database("clientR:0")
+
+        async def restore(target):
+            applied = await RestoreAgent(ddb, container).restore(
+                target_version=target)
+            return applied, await user_rows_at(ddb)
+        restores = {}
+        for label, target, want in (("end", None, truth),
+                                    ("pit", pit["version"], pit["rows"])):
+            t0 = time.perf_counter()
+            applied, got = src.run(src.loop.spawn(restore(target)),
+                                   max_time=1e9)
+            restores[label] = {"wall_s": time.perf_counter() - t0,
+                               "mutations_applied": applied,
+                               "rows": len(got), "equal": got == want}
+            if got != want:
+                failures.append(
+                    f"phase 12a: the {label} restore differs from the "
+                    f"source: {len(got)} rows against {len(want)}, "
+                    f"{len(set(got) ^ set(want))} differing")
+        out["restores"] = restores
+        note()
+        del src, dst, db, ddb
+
+        # fdbcli on a restore into a RecoverableCluster: status needs an
+        # elected cluster controller, which a SimCluster does not have
+        rc = RecoverableCluster(seed + 2, n_resolvers=1)
+        rdb = rc.database()
+
+        async def restore_rc():
+            await rdb.refresh()
+            await RestoreAgent(rdb, container).restore()
+        t0 = time.perf_counter()
+        rc.run(rc.loop.spawn(restore_rc()), max_time=1e9)
+        cli = FdbCli(rc, rdb)
+        status = cli.execute("status")
+        listed = cli.execute(f"getrange 0 z {BACKUP_CLI_ROWS}")
+        out["fdbcli"] = {"wall_s": time.perf_counter() - t0,
+                         "status": status, "getrange_lines": len(listed)}
+        note()
+        want = [f"`{_fmt_key(k)}' is `{v.decode(errors='replace')}'"
+                for k, v in truth if b"0" <= k < b"z"][:BACKUP_CLI_ROWS]
+        if not any("accepting_commits" in line for line in status) or \
+                not any("Storage servers - 2" in line for line in status):
+            failures.append(f"phase 12a: fdbcli status on the restored "
+                            f"cluster: {status}")
+        if listed[1:] != want:
+            failures.append(f"phase 12a: fdbcli getrange printed "
+                            f"{listed[:3]}..., the source's rows "
+                            f"{want[:2]}...")
+        log("phase 12a: " + json.dumps({k: out[k] for k in (
+            "committed_per_wall_s", "snapshot_chunks", "log_rows_drained",
+            "restores", "fdbcli")}))
+        return out, failures
+
+    return backup_run("12a", dev, knobs, body)
+
+
+def dr_phase(dev, seed, n_keys=BACKUP_KEYS, n_clients=BACKUP_CLIENTS,
+             n_attempts=BACKUP_ATTEMPTS, knobs=None):
+    """12b: DR between two SimClusters on one loop and network, as
+    tests/test_dr.py sets them up (the source with 2 proxies, 2 resolvers,
+    2 tlogs and 2 storage servers; the destination with 1 proxy, 1
+    resolver, 1 tlog, 2 storage servers): the source loaded as in 12a, a
+    DRAgent's initial snapshot and its drain tail running while 12a's mix
+    runs on the source, then `switchover` once the clients are done. The
+    destination's user rows must equal the source's at the switchover
+    version; afterwards the destination commits a user write, and the
+    primary markers say the destination serves writes and the source no
+    longer does. (The source keeps taking commits: neither package has a
+    database lock, and the DR agent asks its caller to quiesce writers.)"""
+    from foundationdb_tpu_torch.backup.dr import DR_PRIMARY, DRAgent
+    from foundationdb_tpu_torch.core.eventloop import EventLoop
+    from foundationdb_tpu_torch.core.sim import SimNetwork
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+    from foundationdb_tpu_torch.utils.rng import DeterministicRandom
+
+    keys, picks = ycsb_traffic(seed, n_keys, n_clients, n_attempts)
+    attempts = n_clients * n_attempts
+
+    def body(note):
+        failures: list = []
+        out: dict = {"keys": n_keys, "clients": n_clients,
+                     "attempts_per_client": n_attempts, "attempts": attempts}
+        loop = EventLoop()
+        net = SimNetwork(loop, DeterministicRandom(seed).fork())
+        a = SimCluster(seed, n_proxies=2, n_resolvers=2, n_tlogs=2,
+                       n_storage=2, loop=loop, net=net, name_prefix="a-")
+        b = SimCluster(seed + 1, n_storage=2, loop=loop, net=net,
+                       name_prefix="b-")
+        src = a.database("clientA:0")
+        dst = b.database("clientB:0")
+        t0 = time.perf_counter()
+        a.run(loop.spawn(ycsb_load(a, src, keys)), max_time=1e9)
+        out["load_s"] = time.perf_counter() - t0
+        agent = DRAgent(src, dst)
+        drained = [0]
+        drain_once = agent.drain_once
+
+        async def counted_drain(limit=200):
+            moved = await drain_once(limit)
+            drained[0] += moved
+            return moved
+        agent.drain_once = counted_drain
+        outcomes: dict = {}
+
+        async def replicate():
+            await agent.start()
+            t = time.perf_counter()
+            v0 = await agent.initial_snapshot()
+            out["snapshot_s"] = time.perf_counter() - t
+            out["snapshot_version"] = v0
+            tail = loop.spawn(agent.run(), name="drTail")
+            t = time.perf_counter()
+            await ycsb_mix(a, src, keys, picks, outcomes)
+            out["mix_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            end_version = await agent.switchover()
+            await tail
+            out["switchover_s"] = time.perf_counter() - t
+            truth = await user_rows_at(src, end_version)
+            got = await user_rows_at(dst)
+
+            async def primary(tr):
+                return await tr.get(DR_PRIMARY)
+
+            async def after(tr):
+                tr.set(b"dr/after-switchover", b"x")
+            await dst.transact(after, max_retries=100)
+            note()
+            return (end_version, truth, got,
+                    await src.transact(primary), await dst.transact(primary),
+                    await agent.applied_version(),
+                    await user_rows_at(dst))
+
+        t0 = time.perf_counter()
+        (end_version, truth, got, src_primary, dst_primary, applied,
+         later) = a.run(loop.spawn(replicate()), max_time=1e9)
+        out["dr_s"] = time.perf_counter() - t0
+        failures += mix_failures("phase 12b", outcomes, attempts)
+        out.update({
+            "outcomes": outcomes, "committed": outcomes.get("committed", 0),
+            "committed_per_wall_s": outcomes.get("committed", 0)
+            / out["mix_s"],
+            "switchover_version": end_version, "applied_version": applied,
+            "rows": len(truth), "equal": got == truth,
+            "log_rows_drained": drained[0],
+            "primary": {"source": src_primary, "destination": dst_primary}})
+        if got != truth:
+            failures.append(
+                f"phase 12b: the destination differs from the source at the "
+                f"switchover version: {len(got)} rows against {len(truth)}, "
+                f"{len(set(got) ^ set(truth))} differing")
+        if dict(later).get(b"dr/after-switchover") != b"x":
+            failures.append("phase 12b: the destination did not commit after "
+                            "the switchover")
+        if (src_primary, dst_primary) != (b"remote", b"primary"):
+            failures.append(f"phase 12b: primary markers {src_primary!r} on "
+                            f"the source, {dst_primary!r} on the destination")
+        if applied < out["snapshot_version"] or not drained[0]:
+            failures.append(f"phase 12b: the drain applied to {applied} from "
+                            f"{out['snapshot_version']}, {drained[0]} rows")
+        log("phase 12b: " + json.dumps({k: out[k] for k in (
+            "committed_per_wall_s", "snapshot_s", "switchover_s",
+            "log_rows_drained", "equal")}))
+        return out, failures
+
+    return backup_run("12b", dev, knobs, body)
+
+
+def backup_phase(dev, seed, backup=None, dr=None, sim=BACKUP_SIM):
+    """Phase 12: 12a backup and restore, 12b DR, 12c the backup-attrition
+    spec on a device draw at cell A's width (`sim_run`, its SpecResult held
+    to SIM_EXPECTED); `backup` and `dr` are keyword arguments of 12a and
+    12b (the CPU tests' small sizes). Each run drops its clusters before
+    the next, and `torch.cuda.memory_allocated` after each must not grow
+    past the first's. The roles' trace events are dropped."""
+    from foundationdb_tpu_torch.utils import trace
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+
+    cuda = dev.type == "cuda"
+    trace.set_sink(lambda _fields: None)
+    runs: list = []
+    failures: list = []
+    try:
+        for run in (lambda: backup_restore_phase(dev, seed + 12,
+                                                 **(backup or {})),
+                    lambda: dr_phase(dev, seed + 22, **(dr or {}))):
+            out, bad = run()
+            runs.append(out)
+            failures += bad
+        if sim is not None:
+            name, sim_seed, knobs = sim
+            out, bad = sim_run(dev, name, sim_seed, knobs,
+                               SIM_EXPECTED.get((name, sim_seed)))
+            out["memory_allocated"] = collected_memory(dev)
+            out["phase"] = "12c"
+            runs.append(out)
+            failures += bad
+            log("phase 12c: " + json.dumps({k: out[k] for k in (
+                "summary", "repro", "result", "expected", "wall_s", "chunks",
+                "resolvers", "memory_allocated")}))
+    finally:
+        trace.set_sink(None)
+        KNOBS.reset()
+    memory = [r["memory_allocated"] for r in runs]
+    if cuda and any(m > memory[0] for m in memory[1:]):
+        failures.append(f"phase 12: device memory grew from run to run: "
+                        f"{memory} bytes after each")
+    summary = {"phase": "12", "runs": runs, "memory_allocated": memory,
+               "wall_s": sum(r["wall_s"] for r in runs),
+               "chunks": sum(r["chunks"] for r in runs),
+               "launches": {k: sum(r["launches"][k] for r in runs)
+                            for k in runs[0]["launches"]}}
+    log("phase 12: " + json.dumps({k: summary[k] for k in (
+        "wall_s", "chunks", "memory_allocated")}))
+    log("phase 12 resolvers, chunks by bucket: " + json.dumps({
+        r["phase"]: [[x["process"], x["buckets"]] for x in r["resolvers"]]
+        for r in runs}))
+    if failures:
+        fail("phase 12: " + "; ".join(failures))
     return summary
 
 
@@ -4742,6 +5257,11 @@ def main(argv=None) -> int:
                     help="only run phase 10 (the port's RecoverableCluster, "
                          "its recruited resolvers on the card, through two "
                          "kills), print its numbers as JSON and exit")
+    ap.add_argument("--backup", action="store_true",
+                    help="only run phase 12 (backup and restore through the "
+                         "blob store, DR with a switchover, and the "
+                         "backup-attrition spec, every cluster's resolvers "
+                         "on the card), print its numbers as JSON and exit")
     ap.add_argument("--sim", action="store_true",
                     help="only run phase 11 (the randomized simulation "
                          "harness: the ten fast specs on device and "
@@ -4801,6 +5321,14 @@ def main(argv=None) -> int:
         print(json.dumps({"card": card, "source_digest": digest,
                           "recovery": recovery_phase(dev, args.seed + 29)}),
               flush=True)
+        return 0
+    if args.backup:
+        out = {"card": card, "source_digest": digest,
+               "backup": backup_phase(dev, args.seed)}
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1, default=str)
+        print(json.dumps(out, default=str), flush=True)
         return 0
     if args.sim:
         out = {"card": card, "source_digest": digest, "sim": sim_phase(dev)}
@@ -4919,6 +5447,20 @@ def main(argv=None) -> int:
             "result", "wall_s", "chunks", "unconverged_chunks",
             "memory_allocated")} for r in sim["runs"]}))
 
+    # 12. backup, restore and DR: 12a a backup through the blob store while
+    # cell A's mix runs, restored to its end and to a point in time (and
+    # read by fdbcli); 12b DR into a second cluster with a switchover; 12c
+    # the backup-attrition spec on a device draw; every cluster's resolvers
+    # on the card
+    kernels.release_scratch()
+    torch.cuda.empty_cache()
+    backup = report["backup"] = backup_phase(dev, args.seed)
+    log(f"phase 12 on {card}: " + json.dumps({
+        r["phase"]: {k: r.get(k) for k in (
+            "wall_s", "committed_per_wall_s", "snapshot_chunks",
+            "log_rows_drained", "restores", "switchover_s", "result",
+            "chunks", "memory_allocated")} for r in backup["runs"]}))
+
     timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "library_device_ms", "host_ms",
                    "launches_per_call")
@@ -4960,6 +5502,7 @@ def main(argv=None) -> int:
             cluster[run]["launches"][name] for run in cluster)
         entry["launches_recovery"] = recovery["launches"][name]
         entry["launches_sim"] = sim["launches"][name]
+        entry["launches_backup"] = backup["launches"][name]
         entry.update({k: r[k] for k in timing_keys})
         if name in SHARD_KERNELS:
             entry["bench_16384_w4"] = {k: r["bench_16384_w4"][k]

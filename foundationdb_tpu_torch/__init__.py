@@ -11,7 +11,10 @@ client in client/), the actor runtime it runs in (core), and the
 resolver's conflict engine (ops/conflict.py) whose device step is plain
 PyTorch (ops/conflict_ref.py) plus hand-written Hopper kernels
 (ops/kernels.py, csrc/*.cu). And it ports the kernel bench (bench.py)
-with the Pallas A/B probes (ops/probes.py).
+with the Pallas A/B probes (ops/probes.py), recovery, the randomized
+simulation harness (testing/), backup, restore and DR (backup/, with the
+blob store's HTTP in net/http.py), the client layers (layers/) and the
+operator tools fdbbackup and fdbcli (tools/).
 """
 
 __version__ = "0.1.0"

@@ -1,3 +1,16 @@
-"""Backup/restore subsystem: this slice has the backup key schema only
-(agent.py), which the proxy's mutation-log tee reads. The BackupAgent,
-RestoreAgent, TaskBucket and BackupContainer are not ported yet."""
+"""Backup/restore subsystem.
+
+Reference: fdbclient/FileBackupAgent.actor.cpp (continuous backup: range
+snapshots + mutation-log tail into a container), fdbclient/TaskBucket.actor.cpp
+(the fault-tolerant task queue stored in the database that drives it),
+fdbserver/Restore.actor.cpp, and the proxy's mutation-log tee
+(MasterProxyServer.actor.cpp:664-776 writing into \\xff/blog/).
+"""
+
+from foundationdb_tpu_torch.backup.agent import (
+    BackupAgent, RestoreAgent, backup_keys)
+from foundationdb_tpu_torch.backup.container import BackupContainer
+from foundationdb_tpu_torch.backup.taskbucket import TaskBucket
+
+__all__ = ["BackupAgent", "RestoreAgent", "BackupContainer", "TaskBucket",
+           "backup_keys"]

@@ -857,14 +857,64 @@ class BackupUnderAttritionWorkload(Workload):
                 tr.set(self.prefix + b"%03d" % i, b"v%d" % i)
         await db.transact(fn, max_retries=500)
 
-    # the JAX workload's start() runs a BackupAgent and its check() a
-    # RestoreAgent into a fresh SimCluster; the port has neither agent yet
-    # (ROADMAP A2.4), so both refuse where the JAX bodies import them
-
     async def start(self, db):
-        raise FDBError("invalid_option",
-                       "BackupUnderAttrition: backup is not ported yet")
+        from foundationdb_tpu_torch.backup import BackupAgent, BackupContainer
+        loop = self.cluster.loop
+        self.container = BackupContainer()
+        agent = BackupAgent(db, self.container, chunks=self.chunks)
+        await agent.start()
+
+        state = {"stop": False}
+
+        async def writer():
+            n = 0
+            while not state["stop"]:
+                async def w(tr, n=n):
+                    tr.set(self.prefix + b"%03d" % (n % self.n),
+                           b"updated%d" % n)
+                    if n % 5 == 0:
+                        tr.clear(self.prefix + b"%03d"
+                                 % ((n * 7) % self.n))
+                    tr.atomic_op(MutationType.ADD_VALUE,
+                                 self.prefix + b"counter",
+                                 (1).to_bytes(8, "little"))
+                try:
+                    await db.transact(w, max_retries=500)
+                    self.writes += 1
+                except FDBError as e:
+                    if e.name == "operation_cancelled":
+                        raise
+                n += 1
+                await loop.delay(0.1)
+        wtask = loop.spawn(writer(), name="bkWriter")
+
+        a1 = loop.spawn(agent.run_agent(), name="bkAgent")
+        tailer = loop.spawn(agent.run_log_tailer(), name="bkTailer")
+        await a1
+        await loop.delay(1.0)  # a few more teed writes past the snapshot
+        state["stop"] = True
+        await wtask  # writer fully quiesced BEFORE the backup's end version
+        self.end_version = await agent.stop()
+        await tailer
 
     async def check(self, db):
-        raise FDBError("invalid_option",
-                       "BackupUnderAttrition: restore is not ported yet")
+        from foundationdb_tpu_torch.backup import RestoreAgent
+        from foundationdb_tpu_torch.server.cluster import SimCluster
+        assert self.writes > 0, "no live writes landed during the backup"
+        assert self.end_version > 0, "backup never produced an end version"
+        c = self.cluster
+
+        async def rd(tr):
+            return await tr.get_range(self.prefix, self.prefix + b"\xff")
+        truth = await db.transact(rd, max_retries=1000)
+
+        dst = SimCluster(seed=self.rng.randint(0, 1 << 30), n_proxies=1,
+                         n_resolvers=1, n_tlogs=1, n_storage=1,
+                         loop=c.loop, net=c.net, name_prefix="bkrestore-")
+        db2 = dst.database()
+        await RestoreAgent(db2, self.container).restore()
+        got = await db2.transact(rd, max_retries=500)
+        assert got == truth, (
+            f"restore mismatch on {self.prefix!r}: {len(got)} vs "
+            f"{len(truth)} rows; missing={set(dict(truth)) - set(dict(got))} "
+            f"extra={set(dict(got)) - set(dict(truth))}")

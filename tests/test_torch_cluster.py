@@ -187,14 +187,26 @@ def test_parts_not_ported_raise_invalid_option():
     c = t_cluster.SimCluster(seed=1)
     assert {type(ss.store).__name__ for ss in c.storages} == {
         "RedwoodKeyValueStore"}
-    # backup is still to come: the harness's backup workload refuses
+    # backup came with its agents: the harness's backup workload runs a
+    # backup (test_torch_sim_tiers.py runs it whole); fdbbackup's main
+    # refuses where it would open the network transport, not ported yet
     from foundationdb_tpu_torch.testing.fuzz_workloads import (
         BackupUnderAttritionWorkload)
-    w = BackupUnderAttritionWorkload()
+    from foundationdb_tpu_torch.tools import fdbbackup
+    from foundationdb_tpu_torch.utils.rng import DeterministicRandom
+    w = BackupUnderAttritionWorkload(n_keys=8, chunks=2)
+    w.init(c, DeterministicRandom(3), stop_at=30.0)
+    db = c.database()
+    c.run(c.loop.spawn(w.setup(db)))
+    c.run(c.loop.spawn(w.start(db)), max_time=600.0)
+    assert w.writes > 0 and w.end_version > 0
+    assert w.container.list_files("kvrange-") and \
+        w.container.read_file("meta") == {"end_version": w.end_version}
     with pytest.raises(t_errors.FDBError) as ei:
-        c.run(c.loop.spawn(w.start(c.database())))
+        fdbbackup.main(["--cluster", "127.0.0.1:1", "--storage",
+                        "127.0.0.1:2", "status"])
     assert ei.value.name == "invalid_option"
-    assert "backup" in ei.value.detail and "not ported" in ei.value.detail
+    assert "transport" in ei.value.detail and "not ported" in ei.value.detail
     TKNOBS.set("STORAGE_ENGINE", "memory")
     c = t_cluster.SimCluster(seed=1)
     proc = c.net.new_process("extra:0")

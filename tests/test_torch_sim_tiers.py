@@ -303,17 +303,20 @@ def test_incompatible_explicit_spec_is_rejected():
         t_sc.run_randomized_spec(2, spec="kill-region")
 
 
-def test_backup_attrition_is_not_ported_yet():
-    """The slow spec that needs backup refuses where its workload reaches
-    the backup agent, with the repro line; the knob bank is restored."""
+def test_backup_attrition_equals_reference():
+    """The slow spec that runs a live backup under attrition and restores
+    it into a fresh cluster (test_sim_tiers.py's pinned seed 24, its full
+    35 virtual seconds) gives equal records on both harnesses; the knob
+    bank is restored."""
     before = dict(TKNOBS._values)
-    with pytest.raises(t_sc.SpecFailure) as ei:
-        t_sc.run_randomized_spec(24, spec="backup-attrition", duration=5.0)
-    err = ei.value.__cause__
-    assert isinstance(err, rec.PORT.errors.FDBError)
-    assert err.name == "invalid_option" and "not ported yet" in err.detail
-    assert "--spec backup-attrition" in str(ei.value)
+    port = both(randomized(24, "backup-attrition"))
     assert TKNOBS._values == before
+    assert port.result.spec == "backup-attrition"
+    assert port.clusters == 1
+    (backup,) = [c for name, c in port.counters
+                 if name == "BackupUnderAttritionWorkload"]
+    assert backup["writes"] > 0 and backup["end_version"] > 0
+    assert any(k.startswith(b"bk/") for k, _v in port.contents)
 
 
 def test_default_device_draw_raises_platform_error_without_a_card():
