@@ -236,6 +236,37 @@ Phases, each of which must pass:
      chunks and log rows drained, restore and switchover wall seconds,
      the resolver instances with their chunks by bucket, and
      `torch.cuda.memory_allocated` after each run.
+ 13. real-process boot (foundationdb_tpu_torch.net: transport,
+     server_main; tools: fdbbackup, trace_analyze) at cell A's width,
+     every resolver on the card: 13a one RealEventLoop in this process,
+     the roles built by `server_main.boot` from one spec (master, 2
+     proxies, 2 resolvers split at A's median key, 2 tlogs, 2 storage
+     servers, each on its own address on 127.0.0.1) and a client
+     NetTransport, every hop over TCP: A's load (20,000 keys x 100
+     bytes), then 256 clients x 20 attempts of A's mix (`ycsb_mix`);
+     every acknowledged write read back through a transaction and from
+     the storage role that owns it, every Resolver recorded as in phases
+     10-12 and every batch it decided equal to a fresh OracleConflictSet,
+     no poison, every chunk through its graph, the step kernels once a
+     resolver step net of the captures, the resolvers' readbacks on the
+     loop's worker threads (one a drain group) with at least two in
+     flight at once; 13b two `python -m
+     foundationdb_tpu_torch.net.server_main` processes with
+     FDBTPU_TRACE_DIR set (txn: master, proxy, 2 resolvers on the card,
+     tlog; storage: 2 storage servers, replicas of one shard): 9b's
+     Cycle (1,000 keys over both resolvers, 256 rotators x 10), the ring
+     whole on each replica; fdbbackup's main (`start -d`, `status`); each
+     resolver's RESOLVER_METRICS over the wire (its backend the card, K6,
+     K9 and K3 launched at least once a batch, every readback returned,
+     none unconverged); SIGTERM, each process exiting 0 within 10 s; a
+     restart of both on their data dirs (the tlog recovers its files),
+     the ring whole again and one more commit; SIGTERM again; then
+     `trace_analyze.check_well_formed` over each boot's trace files.
+     Printed: attempts/s of wall and commits, chunks by bucket, readback
+     wait seconds from the metrics, readbacks in flight at most, boot
+     and restart wall seconds, trace_analyze's per-stage p50/p99 and
+     `torch.cuda.memory_allocated` after 13a, its cluster dropped and
+     collected.
 
 `python3 chip_smoke.py --serve-cells` only serves phase 4's cells A and B
 (each reply checked against the oracle) and prints their numbers.
@@ -245,7 +276,8 @@ prints its numbers.
 and prints its numbers.
 `python3 chip_smoke.py --sim` only runs phase 11, with its checks, prints
 its numbers and writes them to chiprun_out/chip_smoke.json.
-`python3 chip_smoke.py --backup` does the same for phase 12.
+`python3 chip_smoke.py --backup` does the same for phase 12, and
+`python3 chip_smoke.py --net` for phase 13.
 `python3 chip_smoke.py --time-kernels` only times K1-K11, K13 and bench steps
 (cell A's traffic, phase B's, the bench at 16k and 32k, K9 at T=2^20):
 K5's whole fixpoint and one evaluation at the bench's warmed state and
@@ -264,7 +296,9 @@ scripts' shapes, device ms and the scripts' ms/pass (time_probes).
 It prints a digest of the code it runs, the kernels line
 ({"kernels": [...]}, each kernel with its launches on the main path, in
 phase 9, `launches_cluster`, in phase 10, `launches_recovery`, in
-phase 11, `launches_sim`, and in phase 12, `launches_backup`), the
+phase 11, `launches_sim`, in phase 12, `launches_backup`, and in phase
+13, `launches_net`: 13a's in this process plus 13b's txn process's, read
+over the wire), the
 nvidia-smi line, and last {"ok": true, "device":
 {...}}. Any failure exits non-zero with no result line. Details go to
 chiprun_out/chip_smoke.json. The script imports nothing of JAX or of the
@@ -4048,6 +4082,627 @@ def backup_phase(dev, seed, backup=None, dr=None, sim=BACKUP_SIM):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: real-process boot, the resolvers on the card
+# ---------------------------------------------------------------------------
+
+NET_KEYS = 20_000  # cell A's keys, loaded as 9a loads them
+NET_CLIENTS = 256
+NET_ATTEMPTS = 20
+NET_STOP_S = 10.0  # a SIGTERMed server process must exit 0 within this
+NET_READY_S = 300.0  # a server process's boot, its resolvers' captures in it
+NET_RUN_S = 1800.0  # wall limit of one workload over the real transport
+
+
+def net_addresses(n):
+    """`n` distinct free addresses on 127.0.0.1 (every socket held until
+    all are drawn, so no two repeat)."""
+    import socket
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def net_endpoint(address, token):
+    """A server_main spec's endpoint."""
+    return {"address": address, "token": int(token)}
+
+
+def net_proxy_role(i, listen, master, resolvers, resolver_bounds, tlogs,
+                   shard_bounds, shard_tags, proxies):
+    """A server_main spec's proxy: its master, resolver map, tlogs and
+    shard map (the bytes hex-encoded, as the spec carries them)."""
+    from foundationdb_tpu_torch.server.interfaces import Token
+    return {"role": "proxy", "listen": listen, "args": {
+        "proxy_id": i,
+        "master": net_endpoint(master, Token.MASTER_GET_COMMIT_VERSION),
+        "resolvers": {"boundaries": [b.hex() for b in resolver_bounds],
+                      "endpoints": [net_endpoint(r, Token.RESOLVER_RESOLVE)
+                                    for r in resolvers]},
+        "tlogs": [net_endpoint(t, Token.TLOG_COMMIT) for t in tlogs],
+        "shards": {"boundaries": [b.hex() for b in shard_bounds],
+                   "tags": shard_tags},
+        "other_proxies": [p for p in proxies if p != listen],
+        "n_proxies": len(proxies)}}
+
+
+def net_request(loop, client, address, token, payload=None, wall=60.0):
+    """One request over the real transport, waited for on `loop`."""
+    from foundationdb_tpu_torch.core.sim import Endpoint
+
+    async def ask():
+        return await client.request(client.process,
+                                    Endpoint(address, token), payload)
+    return loop.run_future(loop.spawn(ask()), max_time=wall)
+
+
+def net_resolver_metrics(loop, client, resolvers):
+    """Each resolver's RESOLVER_METRICS snapshot, read over the wire."""
+    from foundationdb_tpu_torch.server.interfaces import Token
+    return [net_request(loop, client, r, Token.RESOLVER_METRICS)
+            for r in resolvers]
+
+
+def count_readbacks(loop):
+    """Wrap `loop.run_blocking` to count the resolvers' readbacks (the
+    calls made from server/resolver.py; the storage servers' engine
+    commits also run there): submitted, pending until resolved on the loop
+    thread, and running on a worker thread at once. Returns the tally
+    ({"calls", "pending", "max_pending", "running", "max_running"})."""
+    import threading
+
+    from foundationdb_tpu_torch.server import resolver as resolver_mod
+
+    tally = {"calls": 0, "pending": 0, "max_pending": 0, "running": 0,
+             "max_running": 0}
+    lock = threading.Lock()
+    run_blocking = loop.run_blocking
+
+    def counted(fn):
+        code = getattr(fn, "__code__", None)
+        if code is None or code.co_filename != resolver_mod.__file__:
+            return run_blocking(fn)
+        tally["calls"] += 1
+        tally["pending"] += 1
+        tally["max_pending"] = max(tally["max_pending"], tally["pending"])
+
+        def readback():
+            with lock:
+                tally["running"] += 1
+                tally["max_running"] = max(tally["max_running"],
+                                           tally["running"])
+            try:
+                return fn()
+            finally:
+                with lock:
+                    tally["running"] -= 1
+        out = run_blocking(readback)
+
+        def done(_f):
+            tally["pending"] -= 1
+        out.add_callback(done)
+        return out
+    loop.run_blocking = counted
+    return tally
+
+
+def net_inprocess_phase(dev, seed, n_keys=NET_KEYS, n_clients=NET_CLIENTS,
+                        n_attempts=NET_ATTEMPTS, knobs=None):
+    """13a: one RealEventLoop in this process; the roles, built by the
+    port's `server_main.boot` from one spec (master, 2 proxies, 2
+    resolvers split at A's median key, 2 tlogs, 2 storage servers, each
+    on its own address on 127.0.0.1), and a client NetTransport on
+    another. A's load (`n_keys` keys x 100 bytes), then `n_clients`
+    clients x `n_attempts` attempts of A's mix (`ycsb_mix`), every hop
+    over TCP. Checks: every acknowledged write, applied in commit order,
+    read back through a transaction and from the storage role that owns
+    it; every resolver batch equal to the oracle, no poison, every chunk
+    through its graph, the step kernels once a resolver step net of the
+    captures (`backup_run`); at least two readbacks in flight on the
+    loop's worker threads at once, and one a drain group."""
+    import tempfile
+
+    from foundationdb_tpu_torch.client.database import Database, LocationCache
+    from foundationdb_tpu_torch.net import server_main
+    from foundationdb_tpu_torch.net.transport import NetTransport, RealEventLoop
+    from foundationdb_tpu_torch.server.proxy import Proxy
+    from foundationdb_tpu_torch.server.storage import StorageServer
+    from foundationdb_tpu_torch.utils.keys import (partition_boundaries,
+                                                   partition_index)
+
+    keys, picks = ycsb_traffic(seed, n_keys, n_clients, n_attempts)
+    attempts = n_clients * n_attempts
+    master, p0, p1, r0, r1, t0_, t1_, s0, s1, cli = net_addresses(10)
+    proxies, resolvers, tlogs = [p0, p1], [r0, r1], [t0_, t1_]
+    storages = [s0, s1]
+    resolver_bounds = [b"", sorted(keys)[len(keys) // 2]]
+    shard_bounds = partition_boundaries(2)
+
+    def body(note):
+        failures: list = []
+        out: dict = {"keys": n_keys, "clients": n_clients,
+                     "attempts_per_client": n_attempts, "attempts": attempts,
+                     "resolver_split": resolver_bounds[1].decode()}
+        with tempfile.TemporaryDirectory() as tmp:
+            spec = {"listen": master, "data_dir": tmp, "roles": [
+                {"role": "master", "args": {}},
+                *({"role": "resolver", "listen": r, "args": {
+                    "n_proxies": 2,
+                    "key_range_begin": resolver_bounds[i].hex(),
+                    "key_range_end": (resolver_bounds[i + 1].hex()
+                                      if i + 1 < 2 else None)}}
+                  for i, r in enumerate(resolvers)),
+                *({"role": "tlog", "listen": t, "args": {}} for t in tlogs),
+                *({"role": "storage", "listen": s, "args": {
+                    "tag": i, "tlog_addrs": tlogs[i:] + tlogs[:i]}}
+                  for i, s in enumerate(storages)),
+                *(net_proxy_role(i, p, master, resolvers, resolver_bounds,
+                                 tlogs, shard_bounds, [[0], [1]], proxies)
+                  for i, p in enumerate(proxies))]}
+            loop = RealEventLoop()
+            tally = count_readbacks(loop)
+            t0 = time.perf_counter()
+            nets, roles = server_main.boot(loop, json.loads(json.dumps(spec)))
+            out["boot_s"] = time.perf_counter() - t0
+            client = NetTransport(loop, cli)
+            client.start()
+            try:
+                out.update(run(loop, client, roles, tally, failures))
+            finally:
+                note()
+                # the asyncio loop's queued callbacks hold the roles'
+                # actors: close it too, so the cluster can be collected
+                server_main.shutdown(loop, [client, *nets], roles)
+                loop.aio.close()
+                del nets, roles, client
+        return out, failures
+
+    def run(loop, client, roles, tally, failures):
+        from foundationdb_tpu_torch.ops.conflict import kernel_metrics
+        out: dict = {}
+        waited = kernel_metrics.as_dict()["ReadbackWaitSeconds"]
+        db = Database(client.process, proxies=proxies,
+                      locations=LocationCache(shard_bounds, storages))
+        ns = argparse.Namespace(loop=loop)
+        order: dict = {}
+        for p in (r for r in roles if isinstance(r, Proxy)):
+            def commit_batch(batch_n, batch, t_arrival=None,
+                             fn=p._commit_batch):
+                for pos, (req, _rep, _t) in enumerate(batch):
+                    if req.mutations:
+                        order[req.mutations[0].param2] = pos
+                return fn(batch_n, batch, t_arrival)
+            p._commit_batch = commit_batch
+        committed: list = []
+        outcomes: dict = {}
+
+        def on_commit(tr, ks, v):
+            committed.append((tr.committed_version, order[v], ks, v))
+        t0 = time.perf_counter()
+        loop.run_future(loop.spawn(ycsb_load(ns, db, keys)),
+                        max_time=NET_RUN_S)
+        out["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loop.run_future(loop.spawn(ycsb_mix(ns, db, keys, picks, outcomes,
+                                            on_commit=on_commit)),
+                        max_time=NET_RUN_S)
+        out["mix_s"] = wall = time.perf_counter() - t0
+        failures += mix_failures("phase 13a", outcomes, attempts)
+        out.update({"outcomes": outcomes,
+                    "committed": outcomes.get("committed", 0),
+                    "attempts_per_wall_s": attempts / wall,
+                    "committed_per_wall_s": outcomes.get("committed", 0)
+                    / wall})
+        model = {k: k.ljust(CLUSTER_VALUE_BYTES, b".") for k in keys}
+        for _v, _pos, ks, v in sorted(committed, key=lambda x: x[:2]):
+            for k in ks:
+                model[k] = v
+
+        async def read_back():
+            tr = db.create_transaction()
+            return await tr.get_many(keys)
+        got = loop.run_future(loop.spawn(read_back()), max_time=NET_RUN_S)
+        ss = [r for r in roles if isinstance(r, StorageServer)]
+        stored = [ss[partition_index(shard_bounds, k)] for k in keys]
+        client_bad = sum(g != model[k] for k, g in zip(keys, got))
+        storage_bad = sum(s.data.get(k, s.version.get()) != model[k]
+                          for s, k in zip(stored, keys))
+        out["read_back_mismatches"] = {"client": client_bad,
+                                       "storage": storage_bad}
+        if client_bad or storage_bad:
+            failures.append(f"phase 13a: acknowledged writes not read back: "
+                            f"{client_bad} keys through a transaction, "
+                            f"{storage_bad} from the storage roles")
+        metrics = net_resolver_metrics(loop, client, resolvers)
+        out["resolver_metrics"] = [{k: m.get(k) for k in NET_METRICS}
+                                   for m in metrics]
+        groups = sum(m["DrainGroups"] for m in metrics)
+        out.update({"drain_groups": groups,
+                    "readbacks": tally["calls"],
+                    "max_readbacks_in_flight": tally["max_pending"],
+                    "max_readbacks_running": tally["max_running"],
+                    "readback_wait_s": metrics[0]["ReadbackWaitSeconds"]
+                    - waited})
+        if tally["calls"] != groups:
+            failures.append(f"phase 13a: {tally['calls']} readbacks on the "
+                            f"loop's threads for {groups} drain groups")
+        if tally["max_pending"] < 2:
+            failures.append(f"phase 13a: at most {tally['max_pending']} "
+                            f"readback in flight at once")
+        log("phase 13a: " + json.dumps({k: out[k] for k in (
+            "load_s", "mix_s", "attempts_per_wall_s", "committed",
+            "drain_groups", "max_readbacks_in_flight",
+            "max_readbacks_running", "readback_wait_s",
+            "read_back_mismatches")}))
+        return out
+
+    return backup_run("13a", dev, knobs, body)
+
+
+# the RESOLVER_METRICS fields phase 13 prints and checks
+NET_METRICS = ("Backend", "BatchesIn", "TxnResolved", "DrainGroups",
+               "KernelDispatches", "UnconvergedChunks", "ReadbackWaits",
+               "ReadbackWaitSeconds", "KernelLaunches.endpoint_sort",
+               "KernelLaunches.intra_levels", "KernelLaunches.intra_sandwich",
+               "TransportFramesIn", "TransportFramesOut")
+# the step kernels 13b reads over the wire: K6, K9 and K3
+NET_STEP_KERNELS = ("endpoint_sort", "intra_levels", "intra_sandwich")
+
+
+def start_server(spec, env, log_path):
+    """`python -m foundationdb_tpu_torch.net.server_main <spec>` from the
+    repository root (fork and exec: no CUDA state crosses), its stderr to
+    `log_path`; waits for its `ready` line (NET_READY_S). Returns
+    (process, boot wall s)."""
+    import select
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with open(log_path, "ab") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "foundationdb_tpu_torch.net.server_main",
+             json.dumps(spec)], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=err)
+    ready, _w, _x = select.select([proc.stdout], [], [], NET_READY_S)
+    line = proc.stdout.readline().decode() if ready else ""
+    if not line.startswith("ready"):
+        proc.kill()
+        proc.wait()
+        with open(log_path, errors="replace") as f:
+            tail = f.read()[-2000:]
+        fail(f"phase 13b: server {spec['listen']} did not print ready "
+             f"(rc {proc.returncode}, {line!r}): {tail}")
+    return proc, time.perf_counter() - t0
+
+
+def stop_servers(procs):
+    """SIGTERM every process; each must exit 0 within NET_STOP_S (one that
+    does not is killed, and the phase fails). Returns the failures."""
+    import signal
+    import subprocess
+
+    bad = []
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    for p in procs:
+        try:
+            rc = p.wait(timeout=NET_STOP_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            bad.append(f"phase 13b: pid {p.pid} did not exit within "
+                       f"{NET_STOP_S} s of SIGTERM")
+            continue
+        if rc != 0:
+            bad.append(f"phase 13b: pid {p.pid} exited {rc} on SIGTERM")
+    return bad
+
+
+def net_process_phase(dev, seed, n_nodes=CYCLE_NODES,
+                      n_rotators=CYCLE_ROTATORS, n_txns=CYCLE_TXNS,
+                      knobs=None):
+    """13b: two `server_main` OS processes with FDBTPU_TRACE_DIR set: txn
+    (master, proxy, 2 resolvers on `dev`, each on its own address, and a
+    tlog; master and resolvers fenced by '@recover:local_tlog') and
+    storage (2 storage servers, replicas of one shard). From this process:
+    9b's Cycle (`n_nodes` keys over both resolvers, `n_rotators` x
+    `n_txns`), the ring read from each replica; fdbbackup's main (`start
+    -d`, then `status`); each resolver's RESOLVER_METRICS over the wire
+    (its engine on `dev`, the step kernels at least once a batch, every
+    readback returned, none unconverged); SIGTERM (exit 0 within
+    NET_STOP_S); a restart of both processes on their data dirs, the ring
+    whole again and one more commit; SIGTERM again; then trace_analyze
+    over every trace file (`check_well_formed`, per-stage p50/p99)."""
+    import contextlib
+    import io
+    import random
+    import shutil
+    import tempfile
+
+    from foundationdb_tpu_torch.client.database import Database, LocationCache
+    from foundationdb_tpu_torch.core.future import all_of
+    from foundationdb_tpu_torch.net import server_main
+    from foundationdb_tpu_torch.net.transport import NetTransport, RealEventLoop
+    from foundationdb_tpu_torch.tools import fdbbackup, trace_analyze
+    from foundationdb_tpu_torch.utils import trace
+    from foundationdb_tpu_torch.utils.keys import partition_boundaries
+
+    failures: list = []
+    out: dict = {"nodes": n_nodes, "rotators": n_rotators,
+                 "txns_per_rotator": n_txns}
+    rnd = random.Random(seed)
+    txn, r0, r1, s0, s1 = net_addresses(5)
+    resolvers = [r0, r1]
+    resolver_bounds = partition_boundaries(2)
+    tmp = tempfile.mkdtemp()
+    # one trace directory a boot: a restarted proxy numbers its batches
+    # from 1 again, so each boot's span stream is checked on its own
+    trace_dirs = [os.path.join(tmp, "trace", f"boot{i}") for i in (1, 2)]
+    knob_spec = {"CONFLICT_BACKEND": "device", "CONFLICT_DEVICE": str(dev),
+                 **(knobs or {})}
+    recover = "@recover:local_tlog"
+    txn_spec = {"listen": txn, "data_dir": os.path.join(tmp, "txn"),
+                "knobs": knob_spec, "roles": [
+                    {"role": "master",
+                     "args": {"recovery_version": recover}},
+                    *({"role": "resolver", "listen": r, "args": {
+                        "recovery_version": recover,
+                        "key_range_begin": resolver_bounds[i].hex(),
+                        "key_range_end": (resolver_bounds[i + 1].hex()
+                                          if i + 1 < 2 else None)}}
+                      for i, r in enumerate(resolvers)),
+                    {"role": "tlog", "args": {}},
+                    net_proxy_role(0, txn, txn, resolvers, resolver_bounds,
+                                   [txn], [b""], [[0, 1]], [txn])]}
+    # the proxy listens on the spec's own address
+    txn_spec["roles"][-1].pop("listen")
+    storage_spec = {"listen": s0, "data_dir": os.path.join(tmp, "storage"),
+                    "knobs": knob_spec, "roles": [
+                        {"role": "storage",
+                         "args": {"tag": 0, "tlog_addrs": [txn]}},
+                        {"role": "storage", "listen": s1,
+                         "args": {"tag": 1, "tlog_addrs": [txn]}}]}
+    log_path = os.path.join(tmp, "servers.log")
+    procs: list = []
+    trace_file = [None]
+
+    def boot(gen):
+        """Start both servers with the boot's trace directory, and write
+        this process's own records (the client's spans) there too."""
+        env = dict(os.environ, FDBTPU_TRACE_DIR=trace_dirs[gen])
+        env.pop("FDBTPU_PROFILE", None)
+        if trace_file[0] is not None:
+            trace.g_trace_batch.dump()
+            trace_file[0].close()
+        trace_file[0] = trace.RollingTraceFile(
+            os.path.join(trace_dirs[gen], "trace.client.jsonl"))
+        trace.set_sink(trace_file[0].write)
+        boots = [start_server(s, env, log_path)
+                 for s in (txn_spec, storage_spec)]
+        return [p for p, _s in boots], [s for _p, s in boots]
+
+    def key(i):
+        return bytes([i * 251 % 256]) + b"/cycle/%04d" % i
+
+    tries = [0]
+    errors: dict = {}
+
+    async def rotate(tr):
+        if "on_error" not in vars(tr):
+            def on_error(e, fn=tr.on_error):
+                name = getattr(e, "name", repr(e))
+                errors[name] = errors.get(name, 0) + 1
+                return fn(e)
+            tr.on_error = on_error
+        tries[0] += 1
+        a = key(rnd.randrange(n_nodes))
+        b_idx = int(await tr.get(a))
+        b = key(b_idx)
+        c_idx = int(await tr.get(b))
+        cc = key(c_idx)
+        d_idx = int(await tr.get(cc))
+        tr.set(a, b"%04d" % c_idx)
+        tr.set(b, b"%04d" % d_idx)
+        tr.set(cc, b"%04d" % b_idx)
+
+    def ring_of(db):
+        async def read(tr):
+            return await tr.get_many([key(i) for i in range(n_nodes)])
+        return [int(v) for v in loop.run_future(
+            loop.spawn(db.transact(read, max_retries=500)),
+            max_time=NET_RUN_S)]
+
+    def ring_whole(ring):
+        seen, i = set(), 0
+        for _ in range(n_nodes):
+            seen.add(i)
+            i = ring[i]
+        return i == 0 and len(seen) == n_nodes
+
+    def replica_rings(where):
+        rings = [ring_of(Database(client.process, proxies=[txn],
+                                  locations=LocationCache([b""], [[s]])))
+                 for s in (s0, s1)]
+        whole = [ring_whole(r) for r in rings]
+        if not all(whole) or rings[0] != rings[1]:
+            failures.append(f"phase 13b: the ring {where}: whole on each "
+                            f"replica {whole}, replicas equal "
+                            f"{rings[0] == rings[1]}")
+        return all(whole) and rings[0] == rings[1]
+
+    loop = client = None
+    try:
+        procs, out["boot_s"] = boot(0)
+        loop = RealEventLoop()
+        client = NetTransport(loop, net_addresses(1)[0])
+        client.start()
+        db = Database(client.process, proxies=[txn],
+                      locations=LocationCache([b""], [[s0, s1]]))
+
+        async def setup(tr):
+            for i in range(n_nodes):
+                tr.set(key(i), b"%04d" % ((i + 1) % n_nodes))
+        loop.run_future(loop.spawn(db.transact(setup, max_retries=500)),
+                        max_time=NET_RUN_S)
+
+        async def rotator():
+            for _ in range(n_txns):
+                await db.transact(rotate)
+
+        async def cycle():
+            await all_of([loop.spawn(rotator(), name=f"rot{i}")
+                          for i in range(n_rotators)])
+        t0 = time.perf_counter()
+        loop.run_future(loop.spawn(cycle()), max_time=NET_RUN_S)
+        wall = time.perf_counter() - t0
+        committed = n_rotators * n_txns
+        out.update({"attempts": tries[0], "committed": committed,
+                    "retried_errors": dict(errors), "cycle_s": wall,
+                    "attempts_per_wall_s": tries[0] / wall,
+                    "committed_per_wall_s": committed / wall})
+        if set(errors) - {"not_committed", "transaction_too_old"}:
+            failures.append(f"phase 13b: attempts ended in {errors}")
+        out["ring_whole"] = replica_rings("after the Cycle")
+
+        # fdbbackup's main against the cluster: start, then status
+        backup_dir = os.path.join(tmp, "backup")
+        said = {}
+        for cmd in (["start", "-d", backup_dir], ["status"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = fdbbackup.main(["--cluster", txn, "--storage", s0, *cmd])
+            said[cmd[0]] = buf.getvalue().strip()
+            if rc != 0:
+                failures.append(f"phase 13b: fdbbackup {cmd[0]} exited {rc}")
+        out["fdbbackup"] = said
+        if not said["start"].startswith("backup started") or \
+                not said["status"].startswith("state: "):
+            failures.append(f"phase 13b: fdbbackup printed {said}")
+
+        metrics = net_resolver_metrics(loop, client, resolvers)
+        out["resolver_metrics"] = [{k: m.get(k) for k in NET_METRICS}
+                                   for m in metrics]
+        out["launches"] = {k[len("KernelLaunches."):]: v
+                           for k, v in metrics[0].items()
+                           if k.startswith("KernelLaunches.")}
+        out["readback_wait_s"] = metrics[0]["ReadbackWaitSeconds"]
+        for r, m in zip(resolvers, metrics):
+            if m["Backend"] != dev.type:
+                failures.append(f"phase 13b: resolver {r} reports backend "
+                                f"{m['Backend']!r}, not {dev.type!r}")
+            if not m["BatchesIn"]:
+                failures.append(f"phase 13b: resolver {r} took no batch")
+            for k in NET_STEP_KERNELS if dev.type == "cuda" else ():
+                if m[f"KernelLaunches.{k}"] < m["BatchesIn"]:
+                    failures.append(
+                        f"phase 13b: {m[f'KernelLaunches.{k}']} {k} launches "
+                        f"for resolver {r}'s {m['BatchesIn']} batches")
+        groups = sum(m["DrainGroups"] for m in metrics)
+        if metrics[0]["ReadbackWaits"] != groups or \
+                metrics[0]["UnconvergedChunks"]:
+            failures.append(f"phase 13b: {metrics[0]['ReadbackWaits']} "
+                            f"readbacks returned for {groups} drain groups, "
+                            f"{metrics[0]['UnconvergedChunks']} chunks "
+                            f"unconverged")
+
+        failures += stop_servers(procs)
+        t0 = time.perf_counter()
+        procs, _boot_s = boot(1)
+
+        async def one_more(tr):
+            tr.set(b"after-restart", b"%d" % n_nodes)
+        loop.run_future(loop.spawn(db.transact(one_more, max_retries=500)),
+                        max_time=NET_RUN_S)
+        out["restart_s"] = time.perf_counter() - t0
+        out["ring_whole_after_restart"] = replica_rings("after the restart")
+
+        async def read_one(tr):
+            return await tr.get(b"after-restart")
+        if loop.run_future(loop.spawn(db.transact(read_one, max_retries=500)),
+                           max_time=NET_RUN_S) != b"%d" % n_nodes:
+            failures.append("phase 13b: the commit after the restart is "
+                            "not read back")
+        failures += stop_servers(procs)
+        procs = []
+    finally:
+        stop_servers(procs)
+        trace.g_trace_batch.dump()
+        trace.set_sink(None)
+        if trace_file[0] is not None:
+            trace_file[0].close()
+        if loop is not None:
+            server_main.shutdown(loop, [client] if client else [], [])
+            loop.aio.close()
+
+    import glob
+    out["trace"] = []
+    for gen, trace_dir in enumerate(trace_dirs):
+        paths = sorted(glob.glob(os.path.join(trace_dir, "trace.*")))
+        events = trace_analyze.load_events(paths)
+        problems = trace_analyze.check_well_formed(events)
+        report = trace_analyze.analyze(events)
+        out["trace"].append({
+            "boot": gen + 1, "files": [os.path.basename(p) for p in paths],
+            "events": report["events"], "spans": report["spans"],
+            "problems": problems[:10],
+            "stages": {st: {k: v[k] for k in ("n", "p50", "p99")}
+                       for st, v in report["stages"].items()},
+            "readback_overlap_ratio": report["readback_overlap_ratio"],
+            "transport": report["transport"]})
+        if problems:
+            failures.append(f"phase 13b: trace_analyze found {len(problems)} "
+                            f"problems in boot {gen + 1}'s trace files: "
+                            f"{problems[:3]}")
+        if not report["spans"]:
+            failures.append(f"phase 13b: boot {gen + 1}'s trace files hold "
+                            f"no span")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("phase 13b: " + json.dumps({k: out.get(k) for k in (
+        "boot_s", "attempts", "committed", "cycle_s", "attempts_per_wall_s",
+        "ring_whole", "ring_whole_after_restart", "restart_s",
+        "readback_wait_s", "fdbbackup")}))
+    return out, failures
+
+
+def net_phase(dev, seed, inprocess=None, processes=None):
+    """Phase 13: 13a and 13b (`inprocess` and `processes`: keyword
+    arguments of each, the CPU tests' small sizes). The in-process roles'
+    trace events are dropped, their buffered spans too; 13b's go to the
+    servers' trace files and this process's client spans beside them."""
+    from foundationdb_tpu_torch.utils import trace
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+
+    trace.set_sink(lambda _fields: None)
+    try:
+        a, bad_a = net_inprocess_phase(dev, seed + 13, **(inprocess or {}))
+    finally:
+        trace.g_trace_batch.dump()  # 13a's buffered spans, dropped too
+        trace.set_sink(None)
+        KNOBS.reset()
+    b, bad_b = net_process_phase(dev, seed + 23, **(processes or {}))
+    summary = {"phase": "13", "13a": a, "13b": b,
+               "launches": {k: a["launches"][k] + b["launches"].get(k, 0)
+                            for k in a["launches"]}}
+    log("phase 13 per-stage p50 / p99 s (13b's first boot's trace files): "
+        + json.dumps({s: [v["p50"], v["p99"]]
+                      for s, v in b["trace"][0]["stages"].items()}))
+    log("phase 13a resolvers, chunks by bucket: " + json.dumps(
+        [[x["process"], x["buckets"]] for x in a["resolvers"]]))
+    failures = bad_a + bad_b
+    if failures:
+        fail("phase 13: " + "; ".join(failures))
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phases 5-7: the kernel bench, the evaluator A/B and the probes
 # ---------------------------------------------------------------------------
 
@@ -5262,6 +5917,11 @@ def main(argv=None) -> int:
                          "blob store, DR with a switchover, and the "
                          "backup-attrition spec, every cluster's resolvers "
                          "on the card), print its numbers as JSON and exit")
+    ap.add_argument("--net", action="store_true",
+                    help="only run phase 13 (real-process boot: 13a the "
+                         "roles over TCP in this process, 13b two "
+                         "server_main processes, their resolvers on the "
+                         "card), print its numbers as JSON and exit")
     ap.add_argument("--sim", action="store_true",
                     help="only run phase 11 (the randomized simulation "
                          "harness: the ten fast specs on device and "
@@ -5328,6 +5988,15 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1, default=str)
+        print(json.dumps(out, default=str), flush=True)
+        return 0
+    if args.net:
+        out = {"card": card, "source_digest": digest,
+               "net": net_phase(dev, args.seed)}
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1, default=str)
+        log(f"phase 13 on {card}")
         print(json.dumps(out, default=str), flush=True)
         return 0
     if args.sim:
@@ -5461,6 +6130,22 @@ def main(argv=None) -> int:
             "log_rows_drained", "restores", "switchover_s", "result",
             "chunks", "memory_allocated")} for r in backup["runs"]}))
 
+    # 13. real-process boot: 13a the roles over TCP on a real event loop in
+    # this process (the readback on its worker threads), 13b two server_main
+    # processes (Cycle, fdbbackup, the resolvers' metrics over the wire,
+    # SIGTERM and a restart, trace_analyze over their trace files)
+    kernels.release_scratch()
+    torch.cuda.empty_cache()
+    net = report["net"] = net_phase(dev, args.seed)
+    log(f"phase 13 on {card}: " + json.dumps({
+        "13a": {k: net["13a"][k] for k in (
+            "wall_s", "attempts_per_wall_s", "committed", "chunks",
+            "max_readbacks_in_flight", "readback_wait_s",
+            "memory_allocated")},
+        "13b": {k: net["13b"][k] for k in (
+            "attempts_per_wall_s", "committed", "restart_s",
+            "readback_wait_s")}}))
+
     timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "library_device_ms", "host_ms",
                    "launches_per_call")
@@ -5503,6 +6188,7 @@ def main(argv=None) -> int:
         entry["launches_recovery"] = recovery["launches"][name]
         entry["launches_sim"] = sim["launches"][name]
         entry["launches_backup"] = backup["launches"][name]
+        entry["launches_net"] = net["launches"][name]
         entry.update({k: r[k] for k in timing_keys})
         if name in SHARD_KERNELS:
             entry["bench_16384_w4"] = {k: r["bench_16384_w4"][k]

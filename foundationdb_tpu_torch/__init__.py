@@ -13,8 +13,10 @@ PyTorch (ops/conflict_ref.py) plus hand-written Hopper kernels
 (ops/kernels.py, csrc/*.cu). And it ports the kernel bench (bench.py)
 with the Pallas A/B probes (ops/probes.py), recovery, the randomized
 simulation harness (testing/), backup, restore and DR (backup/, with the
-blob store's HTTP in net/http.py), the client layers (layers/) and the
-operator tools fdbbackup and fdbcli (tools/).
+blob store's HTTP in net/http.py), the client layers (layers/), the real
+transport and the server processes (net/: transport.py, server_main.py)
+and the operator tools fdbbackup, fdbcli, fdbmonitor, networktest and
+trace_analyze (tools/).
 """
 
 __version__ = "0.1.0"

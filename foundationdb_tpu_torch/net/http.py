@@ -21,34 +21,16 @@ import socket
 import threading
 from urllib.parse import quote, unquote
 
-
-_CRC32C_TABLE: list[int] | None = None
-
-
-def _crc32c_table() -> list[int]:
-    global _CRC32C_TABLE
-    if _CRC32C_TABLE is None:
-        table = []
-        for i in range(256):
-            c = i
-            for _ in range(8):
-                c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
-            table.append(c)
-        _CRC32C_TABLE = table
-    return _CRC32C_TABLE
+from foundationdb_tpu_torch.net.native_transport import _py_crc32c
 
 
 def _crc32c(data: bytes) -> int:
     """CRC-32C (Castagnoli). The port has no C extension, so this is the
-    table-driven form only; it computes the SAME polynomial as the JAX
-    package's native module: a store written by either package must verify
-    in the other — zlib.crc32 (plain CRC-32) here would fail every
-    cross-host restore."""
-    table = _crc32c_table()
-    c = 0xFFFFFFFF
-    for b in data:
-        c = table[(c ^ b) & 0xFF] ^ (c >> 8)
-    return c ^ 0xFFFFFFFF
+    table-driven form only (the transport's framing table, shared); it
+    computes the SAME polynomial as the JAX package's native module: a
+    store written by either package must verify in the other — zlib.crc32
+    (plain CRC-32) here would fail every cross-host restore."""
+    return _py_crc32c(data)
 
 
 # ---------------------------------------------------------------- client

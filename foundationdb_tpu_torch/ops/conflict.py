@@ -28,6 +28,7 @@ the readback waits in `drain_handles` / `DetectHandle.result`.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from dataclasses import dataclass
 
@@ -55,6 +56,7 @@ _kernel_dispatches = kernel_metrics.counter("KernelDispatches")
 _unconverged_chunks = kernel_metrics.counter("UnconvergedChunks")
 _readback_waits = kernel_metrics.counter("ReadbackWaits")
 _readback_wait_seconds = kernel_metrics.counter("ReadbackWaitSeconds")
+_readback_lock = threading.Lock()
 
 _NEG_INT = ref.NEG
 _REBASE_THRESHOLD = 1 << 29
@@ -468,7 +470,11 @@ def drain_handles(handles: list["DetectHandle"]) -> None:
                 continue
             host, event = ch[3]
             if event is not None:
-                event.synchronize()
+                # the caller may be a worker thread (a real event loop's
+                # run_blocking), whose current device is 0 whatever card
+                # the engine runs on
+                with torch.cuda.device(ch[2].device):
+                    event.synchronize()
             ch[2], ch[3] = host.numpy(), None
 
 
@@ -491,8 +497,9 @@ def drain_and_collect(
     if timing is not None:
         timing["drain_seconds"] = t1 - t0
         timing["collect_seconds"] = t2 - t1
-    _readback_waits.increment()
-    _readback_wait_seconds.increment(t2 - t0)
+    with _readback_lock:  # up to four worker threads drain at once
+        _readback_waits.increment()
+        _readback_wait_seconds.increment(t2 - t0)
     return out
 
 

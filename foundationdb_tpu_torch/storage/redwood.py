@@ -62,6 +62,7 @@ import struct
 from dataclasses import dataclass, field
 from typing import Callable
 
+from foundationdb_tpu_torch.net.native_transport import _py_crc32c
 from foundationdb_tpu_torch.storage.diskqueue import DiskQueue
 from foundationdb_tpu_torch.utils import wire
 from foundationdb_tpu_torch.utils.errors import FDBError
@@ -107,28 +108,14 @@ RUN_HEADER_FIELDS = ["magic", "format_version", "run_id", "meta_seq",
 RUN_INDEX_FIELDS = ["offset", "length", "last_key_len"]
 BLOOM_HEADER_FIELDS = ["magic", "n_hashes", "n_bits", "n_keys"]
 
-_CRC32C_TABLE: list[int] | None = None
-
 
 def crc32c(data: bytes) -> int:
-    """CRC-32C (Castagnoli). The fallback computes the SAME polynomial as
-    the native module: a store written by a native-enabled host must verify
-    on a pure-Python host and vice versa (net/http.py makes the identical
+    """CRC-32C (Castagnoli), from the transport's table (the port's only
+    one). It computes the SAME polynomial as the JAX package's native
+    module: a store written by a native-enabled host must verify on a
+    pure-Python host and vice versa (net/http.py makes the identical
     argument for its trailer checksums)."""
-    global _CRC32C_TABLE
-    if _CRC32C_TABLE is None:
-        table = []
-        for i in range(256):
-            c = i
-            for _ in range(8):
-                c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
-            table.append(c)
-        _CRC32C_TABLE = table
-    t = _CRC32C_TABLE
-    c = 0xFFFFFFFF
-    for b in data:
-        c = t[(c ^ b) & 0xFF] ^ (c >> 8)
-    return c ^ 0xFFFFFFFF
+    return _py_crc32c(data)
 
 
 def _shared_prefix_len(a: bytes, b: bytes) -> int:

@@ -1,1 +1,3 @@
-"""Operator tools: fdbbackup (backup CLI) and fdbcli (the shell)."""
+"""Operator tools: fdbbackup (backup CLI), fdbcli (the shell), fdbmonitor
+(the process supervisor), networktest (the wire's throughput and latency)
+and trace_analyze (per-stage commit latency from trace files)."""

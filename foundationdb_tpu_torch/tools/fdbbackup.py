@@ -10,8 +10,8 @@ into fdbbackup (start/status/discontinue), fdbrestore, and the agents. Here:
 
 Commands drive a cluster through the ordinary client API. `connect()` is the
 cluster-file stand-in: tests (and embedders) pass a Database; the CLI main
-would build one from --cluster host:port (a proxy address), over the network
-transport the port does not have yet, so it raises invalid_option there.
+builds one from --cluster host:port (a proxy address) and --storage
+host:port, over the real transport (net/transport.py).
 """
 
 from __future__ import annotations
@@ -89,12 +89,26 @@ def main(argv=None):
                     help="storage address host:port for location seeding")
     known, rest = ap.parse_known_args(argv)
 
-    # the JAX main opens a NetTransport client here; the port has no
-    # network transport yet (ROADMAP A3), so it refuses where that opens
-    from foundationdb_tpu_torch.utils.errors import FDBError
-    raise FDBError("invalid_option",
-                   "fdbbackup: the network transport is not ported yet "
-                   f"(--cluster {known.cluster}, {len(rest)} argument(s))")
+    from foundationdb_tpu_torch.client.database import Database, LocationCache
+    from foundationdb_tpu_torch.net.transport import NetTransport, RealEventLoop
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    loop = RealEventLoop()
+    client = NetTransport(loop, f"127.0.0.1:{port}")
+    client.start()
+    try:
+        db = Database(client.process, proxies=[known.cluster],
+                      locations=LocationCache([b""], [[known.storage]]))
+        out = loop.run_future(loop.spawn(run_command(db, rest)),
+                              max_time=600.0)
+        print(out)
+    finally:
+        client.close()
+    return 0
 
 
 if __name__ == "__main__":

@@ -201,6 +201,12 @@ KNOBS.init("REDWOOD_NATIVE_READS", 1, (0,))
 KNOBS.init("REDWOOD_BLOOM_BITS_PER_KEY", 10, (0,))  # 0 -> no bloom section
 KNOBS.init("REDWOOD_BLOOM_HASHES", 6)  # double-hashing probe count
 KNOBS.init("DESIRED_TOTAL_BYTES", 150_000)  # range-read reply soft limit
+# the JAX package's C transport data plane and its client half; the port
+# has neither (no C extension), so 1 here, or NET_NATIVE_TRANSPORT=1 /
+# NET_NATIVE_CLIENT=1 in the environment, makes a NetTransport raise
+# invalid_option. Not buggified: the sim never constructs a NetTransport.
+KNOBS.init("NET_NATIVE_TRANSPORT", 0)
+KNOBS.init("NET_NATIVE_CLIENT", 0)
 
 # --- Ratekeeper (fdbserver/Ratekeeper.actor.cpp updateRate :250) ---
 KNOBS.init("RK_UPDATE_INTERVAL", 0.5)

@@ -1,10 +1,11 @@
-"""Structured trace events and commit-path spans.
+"""Structured trace events, commit-path spans and rolling trace files.
 
-The port's copy of foundationdb_tpu/utils/trace.py, trimmed to what the
-commit pipeline uses. Reference: flow/Trace.cpp (`TraceEvent("Type",
-id).detail(k, v)` structured logging), flow/Trace.h g_traceBatch and the
-proxy's LatencyBands (Stats.h). Events are JSON lines on stderr, or go to a sink set with
-`set_sink` (tests capture them that way).
+The port's copy of foundationdb_tpu/utils/trace.py. Reference:
+flow/Trace.cpp (`TraceEvent("Type", id).detail(k, v)` structured logging
+with severities, rolling files and per-type suppression), flow/Trace.h
+g_traceBatch and the proxy's LatencyBands (Stats.h). Events are JSON lines
+on stderr, or go to a sink set with `set_sink` (tests capture them that
+way; a server process installs a `RollingTraceFile`).
 """
 
 from __future__ import annotations
@@ -18,11 +19,23 @@ from typing import Callable
 SevDebug, SevInfo, SevWarn, SevWarnAlways, SevError = 5, 10, 20, 30, 40
 
 _sink: Callable[[dict], None] | None = None
+_now: Callable[[], float] = time.time
+_min_severity = SevInfo
+
+
+def set_clock(fn: Callable[[], float]):
+    global _now
+    _now = fn
 
 
 def set_sink(fn: Callable[[dict], None] | None):
     global _sink
     _sink = fn
+
+
+def set_min_severity(sev: int):
+    global _min_severity
+    _min_severity = sev
 
 
 def _emit(fields: dict):
@@ -37,7 +50,7 @@ class TraceEvent:
 
     def __init__(self, event_type: str, ident=None, severity: int = SevInfo):
         self._sev = severity
-        self._fields = {"Type": event_type, "Time": round(time.time(), 6)}
+        self._fields = {"Type": event_type, "Time": round(_now(), 6)}
         if ident is not None:
             self._fields["ID"] = str(ident)
 
@@ -51,9 +64,96 @@ class TraceEvent:
         return self
 
     def log(self):
-        if self._sev < SevInfo:  # the reference's default minimum severity
+        if self._sev < _min_severity:
             return
+        if (_suppression is not None and self._sev < SevError
+                and not _suppression.admit(self._fields)):
+            return  # rate-suppressed (errors always pass)
         _emit(self._fields)
+
+
+class RollingTraceFile:
+    """Rolling trace sink (flow/Trace.h:260 openTraceFile): JSON lines into
+    `path`, rolled to `path.<n>` when `roll_bytes` is exceeded, keeping the
+    newest `keep` rolls. Install with set_sink(rt.write)."""
+
+    def __init__(self, path: str, roll_bytes: int = 10_000_000, keep: int = 10):
+        import os
+        self.path = path
+        self.roll_bytes = roll_bytes
+        self.keep = keep
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._f = open(path, "a", buffering=1)
+
+    def write(self, fields: dict):
+        self._f.write(json.dumps(fields, default=str) + "\n")
+        if self._f.tell() >= self.roll_bytes:
+            self.roll()
+
+    def roll(self):
+        import os
+        self._f.close()
+        for i in range(self.keep - 1, 0, -1):
+            src = f"{self.path}.{i}"
+            if os.path.exists(src):
+                os.replace(src, f"{self.path}.{i + 1}")
+        os.replace(self.path, f"{self.path}.1")
+        self._f = open(self.path, "a", buffering=1)
+
+    def close(self):
+        self._f.close()
+
+
+class _Suppression:
+    """Per-type rate suppression (Trace.cpp's suppressFor): at most `limit`
+    events of one Type per `interval` seconds; excess is counted and
+    surfaced once per interval as a Suppressed event."""
+
+    def __init__(self, limit: int = 100, interval: float = 5.0):
+        self.limit = limit
+        self.interval = interval
+        self._windows: dict[str, tuple[float, int, int]] = {}
+
+    def admit(self, fields: dict) -> bool:
+        ty = fields.get("Type", "")
+        now = fields.get("Time", 0.0)
+        start, n, dropped = self._windows.get(ty, (now, 0, 0))
+        if now - start >= self.interval:
+            if dropped:
+                _emit({"Type": "TraceEventsSuppressed", "Time": now,
+                       "OfType": ty, "Dropped": dropped})
+            start, n, dropped = now, 0, 0
+        if n >= self.limit:
+            self._windows[ty] = (start, n, dropped + 1)
+            return False
+        self._windows[ty] = (start, n + 1, dropped)
+        return True
+
+
+_suppression: _Suppression | None = None
+
+
+def enable_suppression(limit: int = 100, interval: float = 5.0):
+    global _suppression
+    _suppression = _Suppression(limit, interval)
+
+
+def flush_suppressed():
+    """Emit pending Dropped counts (a chatty type that went quiet would
+    otherwise never surface its final window's suppression)."""
+    if _suppression is None:
+        return
+    for ty, (_start, _n, dropped) in list(_suppression._windows.items()):
+        if dropped:
+            _emit({"Type": "TraceEventsSuppressed", "Time": _now(),
+                   "OfType": ty, "Dropped": dropped})
+    _suppression._windows.clear()
+
+
+def disable_suppression():
+    global _suppression
+    flush_suppressed()
+    _suppression = None
 
 
 class TraceBatch:
@@ -67,13 +167,13 @@ class TraceBatch:
 
     def add_event(self, kind: str, ident, location: str, at: float | None = None):
         self._append({"Type": kind,
-                      "Time": round(time.time() if at is None else at, 6),
+                      "Time": round(_now() if at is None else at, 6),
                       "ID": str(ident), "Location": location})
 
     def add_attach(self, kind: str, ident, to: str, at: float | None = None):
         """Link two ids (e.g. a transaction to its commit batch)."""
         self._append({"Type": kind,
-                      "Time": round(time.time() if at is None else at, 6),
+                      "Time": round(_now() if at is None else at, 6),
                       "ID": str(ident), "To": str(to)})
 
     def span_begin(self, kind: str, ident, span: str, at: float | None = None):
@@ -86,7 +186,7 @@ class TraceBatch:
 
     def _span(self, kind: str, ident, span: str, phase: str, at: float | None):
         self._append({"Type": kind,
-                      "Time": round(time.time() if at is None else at, 6),
+                      "Time": round(_now() if at is None else at, 6),
                       "ID": str(ident), "Span": span, "Phase": phase})
 
     def _append(self, event: dict):

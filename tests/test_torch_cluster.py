@@ -188,8 +188,9 @@ def test_parts_not_ported_raise_invalid_option():
     assert {type(ss.store).__name__ for ss in c.storages} == {
         "RedwoodKeyValueStore"}
     # backup came with its agents: the harness's backup workload runs a
-    # backup (test_torch_sim_tiers.py runs it whole); fdbbackup's main
-    # refuses where it would open the network transport, not ported yet
+    # backup (test_torch_sim_tiers.py runs it whole); fdbbackup's main came
+    # with the network transport (test_torch_net_tools.py), whose native
+    # client plane, the JAX package's C extension, is not ported
     from foundationdb_tpu_torch.testing.fuzz_workloads import (
         BackupUnderAttritionWorkload)
     from foundationdb_tpu_torch.tools import fdbbackup
@@ -202,11 +203,13 @@ def test_parts_not_ported_raise_invalid_option():
     assert w.writes > 0 and w.end_version > 0
     assert w.container.list_files("kvrange-") and \
         w.container.read_file("meta") == {"end_version": w.end_version}
+    TKNOBS.set("NET_NATIVE_CLIENT", 1)
     with pytest.raises(t_errors.FDBError) as ei:
         fdbbackup.main(["--cluster", "127.0.0.1:1", "--storage",
                         "127.0.0.1:2", "status"])
     assert ei.value.name == "invalid_option"
     assert "transport" in ei.value.detail and "not ported" in ei.value.detail
+    TKNOBS.set("NET_NATIVE_CLIENT", 0)
     TKNOBS.set("STORAGE_ENGINE", "memory")
     c = t_cluster.SimCluster(seed=1)
     proc = c.net.new_process("extra:0")
