@@ -267,6 +267,30 @@ Phases, each of which must pass:
      and restart wall seconds, trace_analyze's per-stage p50/p99 and
      `torch.cuda.memory_allocated` after 13a, its cluster dropped and
      collected.
+ 14. the port's C extension (foundationdb_tpu_torch/native/fdb_native.c,
+     built at first use; the run fails, naming its build error, if it is
+     not available): 14a cell A's traffic (phase 4's A: K=65,536,
+     T=1,024, 4/4, 40 batches, the rebase at batch 20) served by the
+     port's Resolver on the card with every chunk's packed buffer written
+     by the C pass (`encode_conflict_ranges`), each recorded on the host
+     before its copy to the card and held byte for byte to the numpy
+     encoder and a second C pass on the same inputs (host ms a chunk of
+     each, p50 and p99), every reply equal to the oracle; the same cell
+     with the numpy encoder, txns/s and batch p50/p99 beside it and phase
+     4's A; then the strided layout at the bench's T=16,384 (3 one-chunk
+     batches of its traffic, K=2^18, 16-byte keys), each chunk held so
+     and every batch equal to the oracle; 14b 13a's one-process boot at
+     A's width with NET_NATIVE_TRANSPORT=1 and NET_NATIVE_CLIENT=1 and
+     one proxy (the GRV plane serves a lone proxy only): every resolver
+     batch equal to the oracle, every acknowledged write read back, the
+     C plane's read and GRV fast-path hits above 0, each storage server
+     and the proxy owning their plane, no connection degraded to Python,
+     and the device bytes after the run no more than before; attempts/s
+     beside 13a's. Every earlier phase runs on the C paths too: a line
+     after each phase lists which planes served natively (the encoder's
+     chunks by C and by numpy, the storage servers' store classes, the
+     wire codec, the transports' C plane counters), and one line gathers
+     them before the kernels line.
 
 `python3 chip_smoke.py --serve-cells` only serves phase 4's cells A and B
 (each reply checked against the oracle) and prints their numbers.
@@ -276,8 +300,10 @@ prints its numbers.
 and prints its numbers.
 `python3 chip_smoke.py --sim` only runs phase 11, with its checks, prints
 its numbers and writes them to chiprun_out/chip_smoke.json.
-`python3 chip_smoke.py --backup` does the same for phase 12, and
-`python3 chip_smoke.py --net` for phase 13.
+`python3 chip_smoke.py --backup` does the same for phase 12,
+`python3 chip_smoke.py --net` for phase 13, and `python3 chip_smoke.py
+--native` for phase 14 (with phase 4's A and 13a run first in the same
+call, its yardsticks).
 `python3 chip_smoke.py --time-kernels` only times K1-K11, K13 and bench steps
 (cell A's traffic, phase B's, the bench at 16k and 32k, K9 at T=2^20):
 K5's whole fixpoint and one evaluation at the bench's warmed state and
@@ -298,7 +324,8 @@ It prints a digest of the code it runs, the kernels line
 phase 9, `launches_cluster`, in phase 10, `launches_recovery`, in
 phase 11, `launches_sim`, in phase 12, `launches_backup`, and in phase
 13, `launches_net`: 13a's in this process plus 13b's txn process's, read
-over the wire), the
+over the wire, and in phase 14, `launches_native`: 14a's C-fed cell A
+plus 14b's), the
 nvidia-smi line, and last {"ok": true, "device":
 {...}}. Any failure exits non-zero with no result line. Details go to
 chiprun_out/chip_smoke.json. The script imports nothing of JAX or of the
@@ -325,7 +352,7 @@ PHASE_B_LOAD_BATCHES = 48
 
 def source_digest() -> str:
     """sha256 over the path and bytes of chip_smoke.py and of every .py,
-    .cu and .cuh file of the port package, in path order: it names the
+    .c, .cu and .cuh file of the port package, in path order: it names the
     code a run executed, so a recorded number can be tied to a commit."""
     import hashlib
     root = os.path.dirname(os.path.abspath(__file__))
@@ -334,7 +361,7 @@ def source_digest() -> str:
     for d, dirs, files in os.walk(pkg):
         dirs[:] = [x for x in dirs if not x.startswith(("_", "."))]
         paths += [os.path.relpath(os.path.join(d, f), root) for f in files
-                  if f.endswith((".py", ".cu", ".cuh"))]
+                  if f.endswith((".py", ".c", ".cu", ".cuh"))]
     h = hashlib.sha256()
     for rel in sorted(paths):
         h.update(rel.encode() + b"\0")
@@ -4193,10 +4220,11 @@ def count_readbacks(loop):
 
 
 def net_inprocess_phase(dev, seed, n_keys=NET_KEYS, n_clients=NET_CLIENTS,
-                        n_attempts=NET_ATTEMPTS, knobs=None):
+                        n_attempts=NET_ATTEMPTS, knobs=None, n_proxies=2,
+                        name="13a"):
     """13a: one RealEventLoop in this process; the roles, built by the
-    port's `server_main.boot` from one spec (master, 2 proxies, 2
-    resolvers split at A's median key, 2 tlogs, 2 storage servers, each
+    port's `server_main.boot` from one spec (master, `n_proxies` proxies,
+    2 resolvers split at A's median key, 2 tlogs, 2 storage servers, each
     on its own address on 127.0.0.1), and a client NetTransport on
     another. A's load (`n_keys` keys x 100 bytes), then `n_clients`
     clients x `n_attempts` attempts of A's mix (`ycsb_mix`), every hop
@@ -4205,11 +4233,17 @@ def net_inprocess_phase(dev, seed, n_keys=NET_KEYS, n_clients=NET_CLIENTS,
     it; every resolver batch equal to the oracle, no poison, every chunk
     through its graph, the step kernels once a resolver step net of the
     captures (`backup_run`); at least two readbacks in flight on the
-    loop's worker threads at once, and one a drain group."""
+    loop's worker threads at once, and one a drain group. Also returned:
+    the transports' C plane counters (`planes`: summed over every role's
+    transport and, apart, the client's; the tables, storage and GRV plane
+    owners) and the connections that degraded from a C plane to Python.
+    Phase 14b is this run under `knobs` that open the C planes, with one
+    proxy (`name` "14b")."""
     import tempfile
 
     from foundationdb_tpu_torch.client.database import Database, LocationCache
     from foundationdb_tpu_torch.net import server_main
+    from foundationdb_tpu_torch.net import transport as transport_mod
     from foundationdb_tpu_torch.net.transport import NetTransport, RealEventLoop
     from foundationdb_tpu_torch.server.proxy import Proxy
     from foundationdb_tpu_torch.server.storage import StorageServer
@@ -4218,8 +4252,9 @@ def net_inprocess_phase(dev, seed, n_keys=NET_KEYS, n_clients=NET_CLIENTS,
 
     keys, picks = ycsb_traffic(seed, n_keys, n_clients, n_attempts)
     attempts = n_clients * n_attempts
-    master, p0, p1, r0, r1, t0_, t1_, s0, s1, cli = net_addresses(10)
-    proxies, resolvers, tlogs = [p0, p1], [r0, r1], [t0_, t1_]
+    addrs = net_addresses(8 + n_proxies)
+    master, r0, r1, t0_, t1_, s0, s1, cli = addrs[:8]
+    proxies, resolvers, tlogs = addrs[8:], [r0, r1], [t0_, t1_]
     storages = [s0, s1]
     resolver_bounds = [b"", sorted(keys)[len(keys) // 2]]
     shard_bounds = partition_boundaries(2)
@@ -4233,7 +4268,7 @@ def net_inprocess_phase(dev, seed, n_keys=NET_KEYS, n_clients=NET_CLIENTS,
             spec = {"listen": master, "data_dir": tmp, "roles": [
                 {"role": "master", "args": {}},
                 *({"role": "resolver", "listen": r, "args": {
-                    "n_proxies": 2,
+                    "n_proxies": n_proxies,
                     "key_range_begin": resolver_bounds[i].hex(),
                     "key_range_end": (resolver_bounds[i + 1].hex()
                                       if i + 1 < 2 else None)}}
@@ -4247,6 +4282,16 @@ def net_inprocess_phase(dev, seed, n_keys=NET_KEYS, n_clients=NET_CLIENTS,
                   for i, p in enumerate(proxies))]}
             loop = RealEventLoop()
             tally = count_readbacks(loop)
+            residue_reader = transport_mod._ResidueReader
+            degraded = []
+
+            class CountedResidueReader(residue_reader):
+                """A connection a C plane handed to the Python loop."""
+
+                def __init__(self, residue, reader):
+                    degraded.append(len(residue))
+                    super().__init__(residue, reader)
+            transport_mod._ResidueReader = CountedResidueReader
             t0 = time.perf_counter()
             nets, roles = server_main.boot(loop, json.loads(json.dumps(spec)))
             out["boot_s"] = time.perf_counter() - t0
@@ -4254,7 +4299,10 @@ def net_inprocess_phase(dev, seed, n_keys=NET_KEYS, n_clients=NET_CLIENTS,
             client.start()
             try:
                 out.update(run(loop, client, roles, tally, failures))
+                out["planes"] = transport_planes(nets, client)
+                out["degraded_connections"] = len(degraded)
             finally:
+                transport_mod._ResidueReader = residue_reader
                 note()
                 # the asyncio loop's queued callbacks hold the roles'
                 # actors: close it too, so the cluster can be collected
@@ -4293,7 +4341,7 @@ def net_inprocess_phase(dev, seed, n_keys=NET_KEYS, n_clients=NET_CLIENTS,
                                             on_commit=on_commit)),
                         max_time=NET_RUN_S)
         out["mix_s"] = wall = time.perf_counter() - t0
-        failures += mix_failures("phase 13a", outcomes, attempts)
+        failures += mix_failures(f"phase {name}", outcomes, attempts)
         out.update({"outcomes": outcomes,
                     "committed": outcomes.get("committed", 0),
                     "attempts_per_wall_s": attempts / wall,
@@ -4316,7 +4364,8 @@ def net_inprocess_phase(dev, seed, n_keys=NET_KEYS, n_clients=NET_CLIENTS,
         out["read_back_mismatches"] = {"client": client_bad,
                                        "storage": storage_bad}
         if client_bad or storage_bad:
-            failures.append(f"phase 13a: acknowledged writes not read back: "
+            failures.append(f"phase {name}: acknowledged writes not read "
+                            f"back: "
                             f"{client_bad} keys through a transaction, "
                             f"{storage_bad} from the storage roles")
         metrics = net_resolver_metrics(loop, client, resolvers)
@@ -4330,19 +4379,19 @@ def net_inprocess_phase(dev, seed, n_keys=NET_KEYS, n_clients=NET_CLIENTS,
                     "readback_wait_s": metrics[0]["ReadbackWaitSeconds"]
                     - waited})
         if tally["calls"] != groups:
-            failures.append(f"phase 13a: {tally['calls']} readbacks on the "
+            failures.append(f"phase {name}: {tally['calls']} readbacks on the "
                             f"loop's threads for {groups} drain groups")
         if tally["max_pending"] < 2:
-            failures.append(f"phase 13a: at most {tally['max_pending']} "
+            failures.append(f"phase {name}: at most {tally['max_pending']} "
                             f"readback in flight at once")
-        log("phase 13a: " + json.dumps({k: out[k] for k in (
+        log(f"phase {name}: " + json.dumps({k: out[k] for k in (
             "load_s", "mix_s", "attempts_per_wall_s", "committed",
             "drain_groups", "max_readbacks_in_flight",
             "max_readbacks_running", "readback_wait_s",
             "read_back_mismatches")}))
         return out
 
-    return backup_run("13a", dev, knobs, body)
+    return backup_run(name, dev, knobs, body)
 
 
 # the RESOLVER_METRICS fields phase 13 prints and checks
@@ -4700,6 +4749,410 @@ def net_phase(dev, seed, inprocess=None, processes=None):
     if failures:
         fail("phase 13: " + "; ".join(failures))
     return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the port's C extension on the main path
+# ---------------------------------------------------------------------------
+
+# the C plane counters a phase reports (the transport's counters merge its
+# server table's; the client plane's are the transport's own)
+PLANE_COUNTERS = ("NativeFastPathHits", "NativeGetValueHits",
+                  "NativeGetValuesHits", "NativeGetRangeHits",
+                  "NativeGRVHits", "PySlowPathFalls", "ClientNativeBatches",
+                  "ClientNativeSettles", "ClientPyFalls")
+NATIVE_STRIDED_T = 16_384  # the kernel bench's T
+NATIVE_STRIDED_CHUNKS = 3
+
+
+def transport_planes(nets, client=None):
+    """The C plane counters summed over `nets` (`servers`) and, apart,
+    `client`'s; how many of `nets` run a C server table, and which own a
+    storage or GRV plane."""
+    def tally(ts):
+        out = dict.fromkeys(PLANE_COUNTERS, 0)
+        for t in ts:
+            c = t.transport_counters()
+            for k in PLANE_COUNTERS:
+                out[k] += c.get(k, 0)
+        return out
+    planes = {"servers": tally(nets),
+              "tables": sum(t.native_table is not None for t in nets),
+              "storage_owners": sum(
+                  getattr(t, "_native_storage_owner", None) is not None
+                  for t in nets),
+              "grv_owners": sum(getattr(t, "_native_grv_owner", None)
+                                is not None for t in nets),
+              "client_planes": sum(bool(t.native_client) for t in nets)}
+    if client is not None:
+        planes["client"] = tally([client])
+        planes["client_plane"] = bool(client.native_client)
+    return planes
+
+
+class NativeTally:
+    """Which planes a phase ran natively: the chunks the resolvers'
+    encoders wrote by the C pass and by numpy, the class of every storage
+    server's versioned map, the wire codec, and the C plane counters of
+    every NetTransport closed or still open at the end (`summary()`)."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        import weakref
+
+        from foundationdb_tpu_torch.net import transport as transport_mod
+        from foundationdb_tpu_torch.ops.conflict import kernel_metrics
+        from foundationdb_tpu_torch.server import storage as storage_mod
+
+        self.metrics = kernel_metrics
+        self.before = kernel_metrics.as_dict()
+        self.stores: dict = {}
+        self.counters = dict.fromkeys(PLANE_COUNTERS, 0)
+        self.transports = {"built": 0, "server_tables": 0,
+                           "client_planes": 0}
+        live = self.live = weakref.WeakSet()
+        tally = self
+        self.mods = (transport_mod, storage_mod)
+        self.saved = (transport_mod.NetTransport.__init__,
+                      transport_mod.NetTransport.close,
+                      storage_mod.make_versioned_map)
+        init, close, make = self.saved
+
+        def counted_init(t, *a, **kw):
+            init(t, *a, **kw)
+            tally.transports["built"] += 1
+            tally.transports["server_tables"] += t.native_table is not None
+            tally.transports["client_planes"] += bool(t.native_client)
+            live.add(t)
+
+        def counted_close(t):
+            if t in live:
+                live.discard(t)
+                tally.add(t)
+            return close(t)
+
+        def counted_make(*a, **kw):
+            vm = make(*a, **kw)
+            n = type(vm).__name__
+            tally.stores[n] = tally.stores.get(n, 0) + 1
+            return vm
+        transport_mod.NetTransport.__init__ = counted_init
+        transport_mod.NetTransport.close = counted_close
+        storage_mod.make_versioned_map = counted_make
+        return self
+
+    def add(self, t):
+        c = t.transport_counters()
+        for k in PLANE_COUNTERS:
+            self.counters[k] += c.get(k, 0)
+
+    def __exit__(self, *exc):
+        transport_mod, storage_mod = self.mods
+        for t in list(self.live):
+            self.add(t)
+        (transport_mod.NetTransport.__init__, transport_mod.NetTransport.close,
+         storage_mod.make_versioned_map) = self.saved
+        self.after = self.metrics.as_dict()
+        return False
+
+    def summary(self):
+        from foundationdb_tpu_torch import native
+        from foundationdb_tpu_torch.utils import wire
+        wire._ensure_registry()
+        return {"encoder_chunks": {
+                    "c": self.after["EncodedChunksC"]
+                    - self.before["EncodedChunksC"],
+                    "python": self.after["EncodedChunksPy"]
+                    - self.before["EncodedChunksPy"]},
+                "stores": self.stores,
+                "wire_codec": ("c" if wire._native is not None
+                               and wire._native is native.mod
+                               else "python"),
+                "transports": self.transports,
+                "plane_counters": self.counters}
+
+
+def native_status():
+    """The extension's build: available, its library and its error; fails
+    the run where it is not available."""
+    from foundationdb_tpu_torch import native
+    t0 = time.perf_counter()
+    ok = native.available()
+    out = {"available": ok, "seconds": time.perf_counter() - t0,
+           "build_error": native.build_error(),
+           "library": getattr(native.mod, "__file__", None)}
+    log("native extension: " + json.dumps(out))
+    if not ok:
+        fail(f"the port's C extension is not available on the card's "
+             f"machine: {native.build_error()}")
+    return out
+
+
+def record_encodes():
+    """Hook BatchEncoder's C pass: every chunk it writes is recorded (its
+    inputs, base version, shape, the C pass's host ms, and a copy of the
+    fields it wrote, taken on the host before the chunk's copy to the
+    card). Returns (records, restore)."""
+    from foundationdb_tpu_torch.ops import conflict as conf
+
+    records: list = []
+    encode_c = conf.BatchEncoder._encode_c
+
+    def recorded(self, host, txns, skip, sh):
+        t0 = time.perf_counter()
+        encode_c(self, host, txns, skip, sh)
+        ms = (time.perf_counter() - t0) * 1e3
+        records.append({
+            "txns": list(txns), "skip": None if skip is None else list(skip),
+            "shapes": sh, "base": self.base_version, "ms": ms,
+            "fields": {k: np.array(host[k], copy=True) for k in ENCODED}})
+    conf.BatchEncoder._encode_c = recorded
+
+    def restore():
+        conf.BatchEncoder._encode_c = encode_c
+    return records, restore
+
+
+# the packed batch fields the encoder writes (commit_version and
+# advance_floor are set by encode_batch after it)
+ENCODED = ("rb", "re", "wb", "we", "rtxn", "wtxn", "snapshot", "txn_valid")
+
+
+def check_encodes(records, where):
+    """Each recorded chunk encoded again on the host by the numpy path and
+    by the C pass, from its own inputs: both must equal the recorded
+    fields byte for byte. Returns (numbers, failures): host ms a chunk of
+    the C pass in the run and of both paths here, p50 and p99."""
+    import torch
+
+    from foundationdb_tpu_torch.ops.conflict import BatchEncoder
+    from foundationdb_tpu_torch.ops.step_graph import batch_views
+
+    failures, times = [], {"c_run": [], "c": [], "numpy": []}
+    for i, r in enumerate(records):
+        enc = BatchEncoder(r["shapes"], torch.device("cpu"),
+                           base_version=r["base"])
+        slot = enc._slot(r["shapes"])
+        for path, fn in (("numpy", enc._encode_numpy), ("c", enc._encode_c)):
+            buf = slot["buf"].numpy()
+            buf.fill(-1)
+            views = batch_views(buf, slot["layout"])
+            t0 = time.perf_counter()
+            fn(views, r["txns"], r["skip"], r["shapes"])
+            times[path].append((time.perf_counter() - t0) * 1e3)
+            bad = [k for k in ENCODED
+                   if views[k].tobytes() != r["fields"][k].tobytes()]
+            if bad:
+                failures.append(f"{where}: chunk {i}'s {path} encode differs "
+                                f"from the served C buffer in {bad}")
+        times["c_run"].append(r["ms"])
+
+    def pct(v):
+        a = np.asarray(v, dtype=np.float64)
+        return {"p50": float(np.percentile(a, 50)),
+                "p99": float(np.percentile(a, 99)),
+                "mean": float(a.mean())} if a.size else None
+    out = {"chunks": len(records),
+           "encode_ms": {k: pct(v) for k, v in times.items()}}
+    return out, failures
+
+
+def native_strided(dev, seed, T=NATIVE_STRIDED_T, n=NATIVE_STRIDED_CHUNKS):
+    """14a's strided half: the kernel bench's traffic (`bench.
+    _encode_batches`, its setK byte keys, one read and one write a txn)
+    through a strided DeviceConflictSet at T=`T` on the card (K=2^18,
+    16-byte keys), `n` one-chunk batches, its C-encoded chunks recorded;
+    every batch equal to the oracle. Returns (records, numbers,
+    failures)."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
+    from foundationdb_tpu_torch.ops.conflict import (DeviceConflictSet,
+                                                     kernel_metrics)
+    from foundationdb_tpu_torch.ops.conflict_oracle import OracleConflictSet
+
+    w = bench._encode_batches(n, seed, 2 * bench.WINDOW, T)
+    rb, re, wb, we = (bench_byte_keys(w[k], n) for k in ("rb", "re", "wb",
+                                                         "we"))
+    batches = []
+    for i in range(n):
+        o = i * T
+        batches.append((int(w["commit_version"][i]), [
+            TxnConflictInfo(int(w["snapshot"][i, t]), [(rb[o + t], re[o + t])],
+                            [(wb[o + t], we[o + t])]) for t in range(T)]))
+    cs = DeviceConflictSet(device=dev, capacity=bench.CAPACITY, txns=T,
+                           reads_per_txn=1, writes_per_txn=1,
+                           key_bytes=bench.KEY_BYTES, strided=True)
+    cs.warmup()
+    torch.cuda.synchronize()
+    before = kernel_metrics.as_dict()
+    records, restore = record_encodes()
+    oracle, failures, got = OracleConflictSet(), [], []
+    try:
+        t0 = time.perf_counter()
+        for version, txns in batches:
+            got.append(cs.detect(txns, version))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    after = kernel_metrics.as_dict()
+    mismatches = sum(g != oracle.detect(txns, version)
+                     for g, (version, txns) in zip(got, batches))
+    if mismatches:
+        failures.append(f"phase 14a strided: {mismatches} of {n} batches "
+                        f"differ from the oracle")
+    chunks = after["KernelDispatches"] - before["KernelDispatches"]
+    c_chunks = after["EncodedChunksC"] - before["EncodedChunksC"]
+    py_chunks = after["EncodedChunksPy"] - before["EncodedChunksPy"]
+    if not (chunks == c_chunks == len(records) == n) or py_chunks:
+        failures.append(f"phase 14a strided: {chunks} chunks, {c_chunks} "
+                        f"by C, {py_chunks} by numpy, {len(records)} "
+                        f"recorded (want {n} by C)")
+    out = {"T": T, "batches": n, "chunks": chunks, "wall_s": wall,
+           "txns_per_s": n * T / wall, "mismatched_batches": mismatches}
+    del cs
+    return records, out, failures
+
+
+def native_planes_phase(dev, seed, net_a=None, knobs=None, **inprocess):
+    """14b: 13a's one-process boot (`net_inprocess_phase`, its checks) at
+    A's width with NET_NATIVE_TRANSPORT=1 and NET_NATIVE_CLIENT=1 over
+    `knobs`, and one proxy (the GRV plane serves a lone proxy only).
+    Checks: the read and GRV fast paths hit, each storage server and the
+    proxy own their transport's plane, the client plane settled replies,
+    no connection degraded to Python, and the device bytes after the run
+    (its cluster collected) no more than before. Returns (numbers,
+    failures, its NativeTally)."""
+    from foundationdb_tpu_torch.utils import trace
+    from foundationdb_tpu_torch.utils.knobs import KNOBS
+
+    base = collected_memory(dev)
+    trace.set_sink(lambda _fields: None)
+    try:
+        with NativeTally("14b") as tally:
+            b, failures = net_inprocess_phase(
+                dev, seed, knobs={**(knobs or {}), "NET_NATIVE_TRANSPORT": 1,
+                                  "NET_NATIVE_CLIENT": 1},
+                n_proxies=1, name="14b", **inprocess)
+    finally:
+        trace.g_trace_batch.dump()
+        trace.set_sink(None)
+        KNOBS.reset()
+    planes = b["planes"]
+    srv = planes["servers"]
+    reads = (srv["NativeGetValueHits"] + srv["NativeGetValuesHits"]
+             + srv["NativeGetRangeHits"])
+    b.update({"device_bytes_before": base, "native_read_hits": reads,
+              "native_grv_hits": srv["NativeGRVHits"],
+              "beside_13a": ({k: net_a.get(k) for k in (
+                  "attempts_per_wall_s", "mix_s", "committed")}
+                  if net_a else None)})
+    if not reads:
+        failures.append(f"phase 14b: no read served by the C plane: {srv}")
+    if not srv["NativeGRVHits"]:
+        failures.append(f"phase 14b: no GRV served by the C plane: {srv}")
+    if planes["storage_owners"] != 2 or planes["grv_owners"] != 1:
+        failures.append(f"phase 14b: plane owners {planes}")
+    if not planes.get("client_plane") or not planes["client"][
+            "ClientNativeSettles"]:
+        failures.append(f"phase 14b: the client plane settled nothing: "
+                        f"{planes.get('client')}")
+    if b["degraded_connections"]:
+        failures.append(f"phase 14b: {b['degraded_connections']} "
+                        f"connections degraded from a C plane to Python")
+    if base is not None and b["memory_allocated"] > base:
+        failures.append(f"phase 14b: device bytes grew from {base} to "
+                        f"{b['memory_allocated']}")
+    log("phase 14b: " + json.dumps({k: b.get(k) for k in (
+        "attempts_per_wall_s", "mix_s", "committed", "native_read_hits",
+        "native_grv_hits", "degraded_connections", "device_bytes_before",
+        "memory_allocated", "beside_13a", "planes")}))
+    return b, failures, tally
+
+
+def native_phase(dev, seed, phase_a=None, net_a=None, inprocess=None):
+    """Phase 14 (after `native_status` found the extension built): the
+    port's C extension on the main path. 14a: cell A's
+    traffic served by the port's Resolver on the card (`serve_phase`, its
+    checks: every reply equal to the oracle, every kernel launched) with
+    every chunk's packed buffer written by the C pass, recorded on the
+    host before its copy and held byte for byte to the numpy encoder and
+    to a second C pass on the same inputs, their host ms a chunk compared;
+    the same cell served with the numpy encoder (the yardstick) and, when
+    given, beside phase 4's A (`phase_a`); then the strided layout at the
+    bench's T=16,384 for 3 chunks (`native_strided`). 14b: 13a's
+    one-process boot at A's width with NET_NATIVE_TRANSPORT=1 and
+    NET_NATIVE_CLIENT=1 and one proxy (the GRV plane serves a lone proxy
+    only), its checks, and: the read and GRV fast paths hit, no
+    connection degraded, the device bytes after it no more than before;
+    beside 13a's (`net_a`). `inprocess`: 14b's keyword arguments (the CPU
+    tests' small sizes)."""
+    from foundationdb_tpu_torch import native
+
+    failures, out = [], {"phase": "14"}
+    a_args = ("14a", dev, 1 << 16, PHASE_A_BATCHES, 20_000, seed + 1)
+    a_kw = {"jump_at": PHASE_A_BATCHES // 2}
+    # 14a: cell A, its chunks by the C pass, recorded
+    records, restore = record_encodes()
+    try:
+        with NativeTally("14a") as tally:
+            served, cs, _next = serve_phase(*a_args, **a_kw)
+    finally:
+        restore()
+    del cs
+    enc = tally.summary()["encoder_chunks"]
+    if enc["python"] or enc["c"] != len(records) or not records:
+        failures.append(f"phase 14a: encoder chunks {enc}, {len(records)} "
+                        f"recorded: the C pass did not serve every chunk")
+    checked, bad = check_encodes(records, "phase 14a")
+    failures += bad
+    del records
+    # the yardstick: the same cell with the numpy encoder, as where the
+    # extension is not built (the resolver alone runs here)
+    available = native.available
+    native.available = lambda: False
+    try:
+        with NativeTally("14a-numpy") as tally_np:
+            yard, cs, _next = serve_phase("14a-numpy", *a_args[1:], **a_kw)
+    finally:
+        native.available = available
+    del cs
+    if tally_np.summary()["encoder_chunks"]["c"]:
+        failures.append("phase 14a-numpy: a chunk took the C pass")
+    served_keys = ("txns_per_s", "batch_latency_ms_p50",
+                   "batch_latency_ms_p99", "wall_s", "chunks", "host_share")
+    out["14a"] = {"c": {k: served[k] for k in served_keys},
+                  "numpy": {k: yard[k] for k in served_keys},
+                  "phase_4a": ({k: phase_a[k] for k in served_keys}
+                               if phase_a else None),
+                  "encode": checked, "launches": served["launches"]}
+    records, s_out, bad = native_strided(dev, seed + 14)
+    failures += bad
+    s_checked, bad = check_encodes(records, "phase 14a strided")
+    failures += bad
+    del records
+    s_out["encode"] = s_checked
+    out["14a_strided"] = s_out
+    log("phase 14a: " + json.dumps({
+        "served": {k: out["14a"][k] for k in ("c", "numpy", "phase_4a")},
+        "encode_ms": checked, "strided": s_out}))
+    # 14b: the transport's C planes
+    b, bad, tally_b = native_planes_phase(dev, seed + 13, net_a,
+                                          **(inprocess or {}))
+    failures += bad
+    out["14b"] = b
+    out["native_planes"] = {"14a": tally.summary(),
+                            "14a-numpy": tally_np.summary(),
+                            "14b": tally_b.summary()}
+    out["launches"] = {k: served["launches"][k] + b["launches"].get(k, 0)
+                       for k in served["launches"]}
+    if failures:
+        fail("phase 14: " + "; ".join(failures))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5922,6 +6375,14 @@ def main(argv=None) -> int:
                          "roles over TCP in this process, 13b two "
                          "server_main processes, their resolvers on the "
                          "card), print its numbers as JSON and exit")
+    ap.add_argument("--native", action="store_true",
+                    help="only run phase 14 (the port's C extension on the "
+                         "main path: 14a cell A fed by the C encoder, each "
+                         "chunk held to numpy, beside the same cell with "
+                         "numpy's and the strided layout; 14b 13a's boot "
+                         "on the transport's C planes), with phase 4's A "
+                         "and 13a as yardsticks, print its numbers as JSON "
+                         "and exit")
     ap.add_argument("--sim", action="store_true",
                     help="only run phase 11 (the randomized simulation "
                          "harness: the ten fast specs on device and "
@@ -5953,8 +6414,8 @@ def main(argv=None) -> int:
 
     digest = source_digest()
     report["source_digest"] = digest
-    log(f"source digest (sha256 of chip_smoke.py and the package's .py, .cu "
-        f"and .cuh files): {digest}")
+    log(f"source digest (sha256 of chip_smoke.py and the package's .py, .c, "
+        f".cu and .cuh files): {digest}")
 
     # 2. the build
     t0 = time.perf_counter()
@@ -5999,6 +6460,33 @@ def main(argv=None) -> int:
         log(f"phase 13 on {card}")
         print(json.dumps(out, default=str), flush=True)
         return 0
+    if args.native:
+        native = native_status()
+        with NativeTally("4") as t4:
+            phase_a, _cs, _next = serve_phase(
+                "A", dev, 1 << 16, PHASE_A_BATCHES, 20_000, args.seed + 1,
+                jump_at=PHASE_A_BATCHES // 2)
+        del _cs
+        from foundationdb_tpu_torch.utils import trace
+        trace.set_sink(lambda _fields: None)
+        try:
+            with NativeTally("13a") as t13:
+                net_a, bad = net_inprocess_phase(dev, args.seed + 13)
+        finally:
+            trace.g_trace_batch.dump()
+            trace.set_sink(None)
+        if bad:
+            fail("phase 13a: " + "; ".join(bad))
+        log("native planes by phase: " + json.dumps(
+            {"4": t4.summary(), "13a": t13.summary()}))
+        out = {"card": card, "source_digest": digest, "native": native,
+               "phase_14": native_phase(dev, args.seed, phase_a, net_a)}
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1, default=str)
+        log(f"phase 14 on {card}")
+        print(json.dumps(out["phase_14"]["native_planes"]), flush=True)
+        return 0
     if args.sim:
         out = {"card": card, "source_digest": digest, "sim": sim_phase(dev)}
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -6006,6 +6494,9 @@ def main(argv=None) -> int:
             json.dump(out, f, indent=1, default=str)
         print(json.dumps(out, default=str), flush=True)
         return 0
+    report["native"] = native_status()
+    planes: dict = {}
+    report["native_planes"] = planes
     report["build"] = {"seconds": build_s,
                        "library": kernels.BUILD_INFO.get("library")}
     log(f"build: {build_s:.1f} s ({kernels.BUILD_INFO.get('library')})")
@@ -6033,8 +6524,11 @@ def main(argv=None) -> int:
     # phase, cut to 48 batches (196,608 of its 400,000 keys), so its state
     # holds about 400k boundaries; then every kernel is held to its plain
     # version again at B's shapes (K=2^20), from B's final state
-    (_a, (phase_a, _cs, _next)), (_b, (phase_b, cs_b, next_b)) = \
-        serve_cells(dev, args.seed)
+    with NativeTally("4") as tally:
+        (_a, (phase_a, _cs, _next)), (_b, (phase_b, cs_b, next_b)) = \
+            serve_cells(dev, args.seed)
+    planes["4"] = tally.summary()
+    log("native planes, phase 4: " + json.dumps(planes["4"]))
     report["phases"] = [phase_a, phase_b]
     kres_b: dict = {}
     check_kernels(dev, capture_calls_from(dev, cs_b, next_b), kres_b, "B",
@@ -6085,7 +6579,10 @@ def main(argv=None) -> int:
     # storage, 9b the Cycle workload across two resolvers
     kernels.release_scratch()
     torch.cuda.empty_cache()
-    cluster = report["cluster"] = cluster_phase(dev, args.seed)
+    with NativeTally("9") as tally:
+        cluster = report["cluster"] = cluster_phase(dev, args.seed)
+    planes["9"] = tally.summary()
+    log("native planes, phase 9: " + json.dumps(planes["9"]))
     log(f"phase 9 on {card}: " + json.dumps({
         run: {k: cluster[run][k] for k in (
             "attempts", "committed", "conflicted", "too_old", "commit_share",
@@ -6098,7 +6595,10 @@ def main(argv=None) -> int:
     # the elected cluster controller
     kernels.release_scratch()
     torch.cuda.empty_cache()
-    recovery = report["recovery"] = recovery_phase(dev, args.seed + 29)
+    with NativeTally("10") as tally:
+        recovery = report["recovery"] = recovery_phase(dev, args.seed + 29)
+    planes["10"] = tally.summary()
+    log("native planes, phase 10: " + json.dumps(planes["10"]))
     log(f"phase 10 on {card}: " + json.dumps({k: recovery[k] for k in (
         "attempts", "committed", "outcomes", "wall_s", "virtual_s",
         "attempts_per_wall_s", "chunks", "final_epoch", "generations",
@@ -6110,7 +6610,10 @@ def main(argv=None) -> int:
     # resolver's engine on the card
     kernels.release_scratch()
     torch.cuda.empty_cache()
-    sim = report["sim"] = sim_phase(dev)
+    with NativeTally("11") as tally:
+        sim = report["sim"] = sim_phase(dev)
+    planes["11"] = tally.summary()
+    log("native planes, phase 11: " + json.dumps(planes["11"]))
     log(f"phase 11 on {card}: " + json.dumps({
         f"{r['spec']}:{r['seed']}": {k: r[k] for k in (
             "result", "wall_s", "chunks", "unconverged_chunks",
@@ -6123,7 +6626,10 @@ def main(argv=None) -> int:
     # on the card
     kernels.release_scratch()
     torch.cuda.empty_cache()
-    backup = report["backup"] = backup_phase(dev, args.seed)
+    with NativeTally("12") as tally:
+        backup = report["backup"] = backup_phase(dev, args.seed)
+    planes["12"] = tally.summary()
+    log("native planes, phase 12: " + json.dumps(planes["12"]))
     log(f"phase 12 on {card}: " + json.dumps({
         r["phase"]: {k: r.get(k) for k in (
             "wall_s", "committed_per_wall_s", "snapshot_chunks",
@@ -6136,7 +6642,10 @@ def main(argv=None) -> int:
     # SIGTERM and a restart, trace_analyze over their trace files)
     kernels.release_scratch()
     torch.cuda.empty_cache()
-    net = report["net"] = net_phase(dev, args.seed)
+    with NativeTally("13") as tally:
+        net = report["net"] = net_phase(dev, args.seed)
+    planes["13"] = tally.summary()
+    log("native planes, phase 13: " + json.dumps(planes["13"]))
     log(f"phase 13 on {card}: " + json.dumps({
         "13a": {k: net["13a"][k] for k in (
             "wall_s", "attempts_per_wall_s", "committed", "chunks",
@@ -6145,6 +6654,25 @@ def main(argv=None) -> int:
         "13b": {k: net["13b"][k] for k in (
             "attempts_per_wall_s", "committed", "restart_s",
             "readback_wait_s")}}))
+
+    # 14. the port's C extension on the main path: 14a cell A fed by the
+    # C encoder (each chunk held to numpy's, beside the same cell with
+    # numpy's and phase 4's A) and the strided layout at T=16,384; 14b
+    # 13a's boot on the transport's C planes with one proxy
+    kernels.release_scratch()
+    torch.cuda.empty_cache()
+    native = report["native_phase"] = native_phase(dev, args.seed, phase_a,
+                                                   net["13a"])
+    planes.update(native["native_planes"])
+    log(f"phase 14 on {card}: " + json.dumps({
+        "14a": {k: native["14a"][k] for k in ("c", "numpy", "phase_4a")},
+        "14a_encode_ms": native["14a"]["encode"]["encode_ms"],
+        "14a_strided": native["14a_strided"],
+        "14b": {k: native["14b"].get(k) for k in (
+            "attempts_per_wall_s", "committed", "native_read_hits",
+            "native_grv_hits", "degraded_connections", "memory_allocated",
+            "device_bytes_before", "beside_13a")}}))
+    log(f"native planes by phase on {card}: " + json.dumps(planes))
 
     timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "library_device_ms", "host_ms",
@@ -6189,6 +6717,7 @@ def main(argv=None) -> int:
         entry["launches_sim"] = sim["launches"][name]
         entry["launches_backup"] = backup["launches"][name]
         entry["launches_net"] = net["launches"][name]
+        entry["launches_native"] = native["launches"].get(name, 0)
         entry.update({k: r[k] for k in timing_keys})
         if name in SHARD_KERNELS:
             entry["bench_16384_w4"] = {k: r["bench_16384_w4"][k]

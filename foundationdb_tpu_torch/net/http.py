@@ -21,16 +21,16 @@ import socket
 import threading
 from urllib.parse import quote, unquote
 
-from foundationdb_tpu_torch.net.native_transport import _py_crc32c
+from foundationdb_tpu_torch.net import native_transport
 
 
 def _crc32c(data: bytes) -> int:
-    """CRC-32C (Castagnoli). The port has no C extension, so this is the
-    table-driven form only (the transport's framing table, shared); it
-    computes the SAME polynomial as the JAX package's native module: a
-    store written by either package must verify in the other — zlib.crc32
-    (plain CRC-32) here would fail every cross-host restore."""
-    return _py_crc32c(data)
+    """CRC-32C (Castagnoli), the transport's (the C extension's where it is
+    built, else its table-driven fallback): the SAME polynomial in both, and
+    in the JAX package, so a store written by either package verifies in
+    the other — zlib.crc32 (plain CRC-32) here would fail every cross-host
+    restore."""
+    return native_transport.crc32c(data)
 
 
 # ---------------------------------------------------------------- client

@@ -1,19 +1,28 @@
-"""Transport framing: the frame header, CRC-32C and the batch encoder.
+"""Native transport data plane: the C framing/checksum/dispatch binding.
 
-The port's copy of foundationdb_tpu/net/native_transport.py, its pure-Python
-branches only. In the JAX package this module is the ownership layer of a C
-data plane (framing, checksum and the read-dominant fast-path tokens in its
-native extension); the port has no C extension, so `available()` and
-`client_available()` are False, and a NetTransport asked for either plane
-(the NET_NATIVE_TRANSPORT or NET_NATIVE_CLIENT knob, or the environment
-variable of that name, set to 1) raises invalid_option: it never serves the
-Python path in the native plane's place.
+The port's copy of foundationdb_tpu/net/native_transport.py. It is the thin
+ownership layer between `net/transport.py` and the C extension's transport
+section (`native/fdb_native.c`): it decides whether the native plane is
+available and enabled, resolves the wire-registry type ids + endpoint
+tokens the C fast path needs (so the C side never hardcodes a protocol
+number), and exposes the framing primitives (`frame`, `crc32c`) with
+pure-Python fallbacks that are held byte-identical by the parity fuzzes in
+tests/test_torch_native_transport.py. `crc32c` is the port's one CRC-32C:
+net/http.py and storage/redwood.py call it too.
 
-The framing primitives (`frame`, `crc32c`, `encode_batch`) are the JAX
-module's Python fallbacks, held byte-identical to it (and so to its C
-framer) by tests/test_torch_native_transport.py: a frame either package
-writes verifies in the other. The CRC-32C table here is the port's only
-one; net/http.py's blob-store checksum uses it too.
+Fast-path token table:
+
+    STORAGE_GET_VALUE       GetValueRequest      -> GetValueReply
+    STORAGE_GET_VALUES      GetValuesRequest     -> GetValuesReply
+    STORAGE_GET_KEY_VALUES  GetKeyValuesRequest  -> GetKeyValuesReply
+    PROXY_GET_READ_VERSION  GetReadVersionRequest-> GetReadVersionReply
+
+Everything else — and any frame the C parser does not byte-recognize — is
+handed back to the Python dispatcher as a slow-path tuple. The fallback
+contract is strict: the C plane may only answer when its reply would be
+byte-identical to what the Python handler's PreEncoded path would produce;
+when in doubt it falls back, and a connection whose native loop faults
+degrades (with its buffered residue) to the pure-Python serve loop.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ from __future__ import annotations
 import os
 import struct
 
-from foundationdb_tpu_torch.utils.errors import FDBError
+from foundationdb_tpu_torch import native
 
 HEADER_LEN = 25
 MAX_FRAME_BYTES = 64 * 1024 * 1024
@@ -52,14 +61,15 @@ def _py_crc32c(data: bytes, crc: int = 0) -> int:
 
 
 def crc32c(data: bytes, crc: int = 0) -> int:
-    """Frame checksum — CRC-32C (Castagnoli), the polynomial of the JAX
-    package's C framer, so a frame built by either package verifies on the
-    other."""
+    """Frame checksum — CRC-32C (Castagnoli), same polynomial native-side
+    and here, so a frame built by either framer verifies on the other."""
+    if native.available():
+        return native.mod.crc32c(data, crc)
     return _py_crc32c(data, crc)
 
 
 def py_frame(token: int, reply_id: int, kind: int, body: bytes) -> bytes:
-    """Pure-Python frame assembly."""
+    """Pure-Python frame assembly — the parity-fuzz reference framer."""
     if len(body) > MAX_FRAME_BYTES:
         raise ValueError("frame body over MAX_FRAME_BYTES")
     return _HEADER.pack(len(body), token, reply_id, kind,
@@ -67,59 +77,126 @@ def py_frame(token: int, reply_id: int, kind: int, body: bytes) -> bytes:
 
 
 def frame(token: int, reply_id: int, kind: int, body: bytes) -> bytes:
-    """Assemble one wire frame; byte-identical to the JAX package's."""
+    """Assemble one wire frame; byte-identical to the C transport_frame."""
+    if native.available():
+        return native.mod.transport_frame(token, reply_id, kind, body)
     return py_frame(token, reply_id, kind, body)
 
 
 def available() -> bool:
-    """The C transport plane: the port has no C extension."""
-    return False
-
-
-def _gate(name: str) -> bool:
-    """A native-plane gate: the environment variable wins, else the knob
-    (server_main applies the spec's knobs before the transport is
-    constructed)."""
-    env = os.environ.get(name)
-    if env is not None:
-        return env == "1"
-    from foundationdb_tpu_torch.utils.knobs import KNOBS
-    return bool(getattr(KNOBS, name, 0))
+    """True when the C extension carries the transport plane symbols."""
+    return native.available() and hasattr(native.mod, "TransportConn")
 
 
 def enabled() -> bool:
-    """The NET_NATIVE_TRANSPORT gate."""
-    return _gate("NET_NATIVE_TRANSPORT")
+    """The NET_NATIVE_TRANSPORT gate: env var wins (bench workers export
+    it), else the knob (server_main applies knobs before the transport is
+    constructed, so role processes honor config files too)."""
+    env = os.environ.get("NET_NATIVE_TRANSPORT")
+    if env is not None:
+        return env == "1"
+    try:
+        from foundationdb_tpu_torch.utils.knobs import KNOBS
+        return bool(getattr(KNOBS, "NET_NATIVE_TRANSPORT", 0))
+    except Exception:  # noqa: BLE001 — knobs unavailable == gate closed
+        return False
 
 
-def client_available() -> bool:
-    """The C client plane: the port has no C extension."""
-    return False
+def new_table():
+    """A per-transport TransportTable (dispatch config + counters), or
+    None when the native plane is unavailable."""
+    if not available():
+        return None
+    return native.mod.TransportTable()
 
 
-def client_enabled() -> bool:
-    """The NET_NATIVE_CLIENT gate."""
-    return _gate("NET_NATIVE_CLIENT")
+def new_conn(table):
+    """A per-connection TransportConn over `table`."""
+    return native.mod.TransportConn(table)
 
 
-def refuse_native() -> None:
-    """Raise where the JAX package would open a native plane: an asked-for
-    plane that the port cannot serve is an error, not the Python path."""
-    for name, on in (("NET_NATIVE_TRANSPORT", enabled()),
-                     ("NET_NATIVE_CLIENT", client_enabled())):
-        if on:
-            raise FDBError("invalid_option",
-                           f"{name}=1: the C transport plane is not ported "
-                           f"yet (the port has no C extension)")
+def storage_wire_ids() -> tuple:
+    """(tok_gv, tok_gvs, tok_gkv, tid_gv_req, tid_gv_rep, tid_gvs_req,
+    tid_gvs_rep, tid_gkv_req, tid_gkv_rep, tid_sel) for
+    TransportTable.enable_storage — resolved from the live registry so the
+    C fast path can never drift from the Python codec's type ids."""
+    from foundationdb_tpu_torch.server import interfaces as si
+    from foundationdb_tpu_torch.utils import wire
+    wire._ensure_registry()
+    return (si.Token.STORAGE_GET_VALUE, si.Token.STORAGE_GET_VALUES,
+            si.Token.STORAGE_GET_KEY_VALUES,
+            wire._BY_TYPE[si.GetValueRequest],
+            wire._BY_TYPE[si.GetValueReply],
+            wire._BY_TYPE[si.GetValuesRequest],
+            wire._BY_TYPE[si.GetValuesReply],
+            wire._BY_TYPE[si.GetKeyValuesRequest],
+            wire._BY_TYPE[si.GetKeyValuesReply],
+            wire._BY_TYPE[si.KeySelector])
 
+
+def grv_wire_ids() -> tuple:
+    """(token, tid_req, tid_rep) for TransportTable.enable_grv."""
+    from foundationdb_tpu_torch.server import interfaces as si
+    from foundationdb_tpu_torch.utils import wire
+    wire._ensure_registry()
+    return (si.Token.PROXY_GET_READ_VERSION,
+            wire._BY_TYPE[si.GetReadVersionRequest],
+            wire._BY_TYPE[si.GetReadVersionReply])
+
+
+# --------------------------------------------------------------------------
+# Client plane: batched request encode + reply pump.
+# Same ownership split as the server plane above: this module gates and
+# binds, net/transport.py adopts, tests/test_torch_native_client.py holds the C
+# side byte/decision-identical to the pure-Python references below.
+# --------------------------------------------------------------------------
 
 _REQUEST_KIND = 0  # transport.py _REQUEST; the encoder only emits requests
 
 
+def client_available() -> bool:
+    """True when the C extension carries the client plane symbols."""
+    return (native.available()
+            and hasattr(native.mod, "ClientConn")
+            and hasattr(native.mod, "transport_client_encode"))
+
+
+def client_enabled() -> bool:
+    """The NET_NATIVE_CLIENT gate: env var wins (bench workers export it),
+    else the knob — mirroring enabled() above."""
+    env = os.environ.get("NET_NATIVE_CLIENT")
+    if env is not None:
+        return env == "1"
+    try:
+        from foundationdb_tpu_torch.utils.knobs import KNOBS
+        return bool(getattr(KNOBS, "NET_NATIVE_CLIENT", 0))
+    except Exception:  # noqa: BLE001 — knobs unavailable == gate closed
+        return False
+
+
+def new_client_conn():
+    """A per-connection ClientConn reply pump, or None when the client
+    plane is unavailable (the caller runs the pure-Python reply loop)."""
+    if not client_available():
+        return None
+    from foundationdb_tpu_torch.utils import wire
+    wire._ensure_registry()  # the pump's dec_value needs the registry
+    return native.mod.ClientConn()
+
+
 def encode_batch(items) -> bytes:
     """One framed, CRC-stamped send buffer for a batch of
-    (token, reply_id, payload) requests: the exact per-request bytes the
-    transport's Python path writes."""
+    (token, reply_id, payload) requests. Raises (OverflowError for
+    payloads only the Python codec can express) instead of guessing —
+    the caller falls back to the per-request Python path."""
+    from foundationdb_tpu_torch.utils import wire
+    wire._ensure_registry()  # enc_value resolves dataclasses through it
+    return native.mod.transport_client_encode(items)
+
+
+def py_encode_batch(items) -> bytes:
+    """Pure-Python batch encoder — the parity-fuzz reference: the exact
+    per-request bytes transport.py's fallback path would write."""
     from foundationdb_tpu_torch.utils import wire
     wire._ensure_registry()
     return b"".join(

@@ -20,12 +20,14 @@ so a hostile peer can corrupt its own requests but never execute code here):
   u32 length | u64 token | u64 reply_id | u8 kind | crc32c u32 | body
 kind: 0 = request, 1 = reply, 2 = reply-error, 3 = one-way.
 
-The port's copy of foundationdb_tpu/net/transport.py. The JAX package
-serves connections through its C data plane under NET_NATIVE_TRANSPORT=1
-and sends through its C client plane under NET_NATIVE_CLIENT=1; the port
-has no C extension, so a NetTransport asked for either raises invalid_option
-at construction (net/native_transport.py `refuse_native`) and every frame
-takes the Python path below, whose bytes equal the JAX package's.
+The port's copy of foundationdb_tpu/net/transport.py. With
+NET_NATIVE_TRANSPORT=1 and a compiled extension (the port's own,
+native/fdb_native.c), incoming server-side connections are served by the C
+data plane (net/native_transport.py): framing, CRC-32C, and the
+read-dominant fast-path tokens run in C, and only slow-path frames surface
+here as Python objects (net/native_transport.py has the token table and the
+fallback contract). With NET_NATIVE_CLIENT=1 requests leave through the C
+client plane: one batched encode a peer a loop tick, and a C reply pump.
 
 On the card, RealEventLoop.run_blocking runs the resolver's device readback
 (ops/conflict.py `drain_and_collect`) on a worker thread while the loop
@@ -43,20 +45,41 @@ from foundationdb_tpu_torch.net import native_transport
 from foundationdb_tpu_torch.utils import wire
 
 from foundationdb_tpu_torch.core.eventloop import EventLoop, TaskPriority
-from foundationdb_tpu_torch.core.future import Future, Promise
+from foundationdb_tpu_torch.core.future import Future, Promise, settle_many
 from foundationdb_tpu_torch.utils.errors import FDBError
 
 _HEADER = struct.Struct(">IQQBI")
-# v2: frame checksum moved zlib.crc32 -> CRC-32C (the JAX package's native
-# plane computes Castagnoli in C; both sides must agree or every frame
-# rejects)
+# v2: frame checksum moved zlib.crc32 -> CRC-32C (the native plane computes
+# Castagnoli in C; both sides must agree or every frame rejects)
 PROTOCOL_VERSION = 2
 _CONNECT = b"fdbtpu" + bytes([PROTOCOL_VERSION])
 # hard bound on a single frame body; frames over this drop the connection
-# before the allocation
+# before the allocation, on both the Python and C paths
 _MAX_FRAME_BYTES = native_transport.MAX_FRAME_BYTES
 
 _REQUEST, _REPLY, _REPLY_ERROR, _ONE_WAY = 0, 1, 2, 3
+
+
+class _ResidueReader:
+    """StreamReader shim that replays bytes the native plane had buffered
+    when it faulted, then delegates to the real reader — the per-connection
+    fallback hands the Python serve loop a mid-stream connection without
+    losing the partial frame."""
+
+    def __init__(self, residue: bytes, reader: asyncio.StreamReader):
+        self._buf = residue
+        self._reader = reader
+
+    async def readexactly(self, n: int) -> bytes:
+        if self._buf:
+            if len(self._buf) >= n:
+                out, self._buf = self._buf[:n], self._buf[n:]
+                return out
+            need = n - len(self._buf)
+            out = self._buf + await self._reader.readexactly(need)
+            self._buf = b""
+            return out
+        return await self._reader.readexactly(n)
 
 
 def _decode_wire_error(payload) -> FDBError:
@@ -234,8 +257,6 @@ class NetTransport:
 
     def __init__(self, loop: RealEventLoop, listen_address: str,
                  data_dir: str | None = None, tls=None):
-        # the JAX package's C planes: asked for, they are an error here
-        native_transport.refuse_native()
         self.loop = loop
         self.address = listen_address
         if data_dir is None:
@@ -263,14 +284,31 @@ class NetTransport:
         # NEW connections, so these must be dropped explicitly or their
         # _on_connection read loops outlive the transport
         self._incoming: set[asyncio.StreamWriter] = set()
-        # transport counters (the Python paths: the port has no native
-        # plane, so its counters read 0)
+        # transport counters (Python paths; the native plane keeps its own
+        # and transport_counters() sums both)
         self._c_frames_in = 0
         self._c_frames_out = 0
         self._c_bytes_in = 0
         self._c_bytes_out = 0
         self._c_checksum_rejects = 0
         self._c_slow_falls = 0
+        # the native data plane: one TransportTable per transport, shared by
+        # every incoming connection's TransportConn. None = pure Python.
+        self.native_table = None
+        if native_transport.enabled() and native_transport.available():
+            self.native_table = native_transport.new_table()
+        # the native CLIENT plane (NET_NATIVE_CLIENT): batched request
+        # encode on send, ClientConn reply pump on receive. Independent
+        # gate from the server plane — a client can run native against a
+        # pure-Python server and vice versa (same wire bytes either way).
+        self.native_client = (native_transport.client_enabled()
+                              and native_transport.client_available())
+        # address -> [(token, reply_id, payload), ...] awaiting the
+        # once-per-tick batched encode + single write
+        self._send_q: dict[str, list] = {}
+        self._c_client_batches = 0
+        self._c_client_settles = 0
+        self._c_client_py_falls = 0
 
     def _spawn(self, coro) -> asyncio.Task:
         t = self.loop.aio.create_task(coro)
@@ -354,7 +392,10 @@ class NetTransport:
             raise
         w.write(_CONNECT)
         fut.set_result(w)
-        self._spawn(self._read_replies(_r, address))
+        if self.native_client:
+            self._spawn(self._native_read_replies(_r, address))
+        else:
+            self._spawn(self._read_replies(_r, address))
         return w
 
     def request(self, src, dest, payload, priority: int = 0,
@@ -394,6 +435,17 @@ class NetTransport:
             # request via _read_replies. This is the per-request hot path
             # for a client under load (every GRV/read/commit lands here
             # once the proxy connection exists).
+            if self.native_client:
+                # native client plane: park the request; the first parker
+                # schedules a same-tick flush that batch-encodes + writes
+                # every request bound for this peer in ONE C call
+                q = self._send_q.get(dest.address)
+                if q is None:
+                    q = self._send_q[dest.address] = []
+                    self.loop.aio.call_soon(self._flush_sends, dest.address,
+                                            peer.result())
+                q.append((dest.token, reply_id, payload))
+                return reply.future
             try:
                 body = wire.dumps(payload)
                 peer.result().write(
@@ -417,6 +469,43 @@ class NetTransport:
 
         self._spawn(send())
         return reply.future
+
+    def _flush_sends(self, address: str, writer) -> None:
+        """Drain the parked requests for one peer: one batched C encode,
+        one socket write. Scheduled by the first request parked in a tick,
+        so every read/GRV issued in the same loop iteration shares the
+        call. Falls back to the per-request Python encoder when any
+        payload has no native fast path (the whole-batch OverflowError
+        contract of transport_client_encode)."""
+        items = self._send_q.pop(address, None)
+        if not items:
+            return
+        try:
+            buf = native_transport.encode_batch(items)
+        except Exception:  # noqa: BLE001 — unsupported payload / native
+            # fault: re-run each request through the Python path, which
+            # stays the semantic authority (and fails bad payloads
+            # per-request instead of per-batch)
+            self._c_client_py_falls += len(items)
+            for token, reply_id, payload in items:
+                try:
+                    writer.write(self._frame(token, reply_id, _REQUEST,
+                                             wire.dumps(payload)))
+                except (OSError, wire.WireError) as e:
+                    if isinstance(e, OSError):
+                        self._peers.pop(address, None)
+                    self._fail_pending(reply_id, "encode/write failed",
+                                       None, e)
+            return
+        self._c_client_batches += 1
+        self._c_frames_out += len(items)
+        self._c_bytes_out += len(buf)
+        try:
+            writer.write(buf)
+        except OSError as e:
+            self._peers.pop(address, None)
+            for _token, reply_id, _payload in items:
+                self._fail_pending(reply_id, "write failed", None, e)
 
     def _fail_pending(self, reply_id: int, detail: str, dest=None,
                       cause: BaseException | None = None):
@@ -558,6 +647,13 @@ class NetTransport:
             if connect != _CONNECT:
                 writer.close()  # protocol mismatch (ConnectPacket check :206)
                 return
+            if self.native_table is not None:
+                residue = await self._native_serve(reader, writer)
+                if residue is None:
+                    return
+                # native plane fault on THIS connection: degrade to the
+                # Python loop, replaying whatever the plane had buffered
+                reader = _ResidueReader(residue, reader)
             await self._python_serve(reader, writer)
         except (asyncio.IncompleteReadError, ConnectionError, OSError):
             return
@@ -569,7 +665,8 @@ class NetTransport:
             writer.close()
 
     async def _python_serve(self, reader, writer):
-        """The serve loop: one frame at a time, dispatched by token."""
+        """The pure-Python serve loop — the pre-native path, and the
+        fallback target when the native plane degrades a connection."""
         while True:
             token, reply_id, kind, payload = await self._read_frame(reader)
             self._c_slow_falls += 1
@@ -582,10 +679,50 @@ class NetTransport:
                     writer.write(self._frame(0, reply_id, _REPLY_ERROR,
                                              wire.dumps("unknown_error")))
 
+    async def _native_serve(self, reader, writer):
+        """Serve this connection through the C data plane. Returns None
+        when the connection is done (EOF; protocol rejects raise), or the
+        plane's buffered residue when it faulted and the Python loop must
+        take over mid-stream (the per-connection fallback contract)."""
+        conn = native_transport.new_conn(self.native_table)
+        while True:
+            chunk = await reader.read(262144)
+            if not chunk:
+                return None  # clean EOF
+            try:
+                replies, slow, err = conn.feed(chunk)
+            except Exception:  # noqa: BLE001 — any native-plane fault
+                # (alloc failure, internal invariant trip) downgrades just
+                # this connection; correctness comes from the Python loop
+                try:
+                    residue = conn.residue()
+                except Exception:  # noqa: BLE001
+                    residue = b""
+                return residue
+            if replies is not None:
+                writer.write(replies)
+            for token, reply_id, kind, body in slow:
+                try:
+                    payload = wire.loads(body)
+                except wire.WireError as e:
+                    raise ConnectionError(f"bad wire frame: {e}") from e
+                try:
+                    self._dispatch(token, reply_id, kind, payload, writer)
+                except Exception:  # noqa: BLE001 — parity with the
+                    # Python loop: a raising handler answers, not hangs
+                    if kind == _REQUEST:
+                        writer.write(self._frame(
+                            0, reply_id, _REPLY_ERROR,
+                            wire.dumps("unknown_error")))
+            if err is not None:
+                # protocol reject (checksum mismatch / oversized frame):
+                # same decision as the Python loop — drop the connection.
+                # Replies queued earlier in this chunk were already written.
+                raise ConnectionError(err)
+
     def transport_counters(self) -> dict:
-        """Cumulative transport counters; the native plane's keys (the JAX
-        package's, so a trace rollup reads both alike) stay 0."""
-        return {
+        """Cumulative transport counters: Python paths + native plane."""
+        c = {
             "FramesIn": self._c_frames_in,
             "FramesOut": self._c_frames_out,
             "BytesIn": self._c_bytes_in,
@@ -593,10 +730,14 @@ class NetTransport:
             "ChecksumRejects": self._c_checksum_rejects,
             "NativeFastPathHits": 0,
             "PySlowPathFalls": self._c_slow_falls,
-            "ClientNativeBatches": 0,
-            "ClientNativeSettles": 0,
-            "ClientPyFalls": 0,
+            "ClientNativeBatches": self._c_client_batches,
+            "ClientNativeSettles": self._c_client_settles,
+            "ClientPyFalls": self._c_client_py_falls,
         }
+        if self.native_table is not None:
+            for k, v in self.native_table.counters().items():
+                c[k] = c.get(k, 0) + v
+        return c
 
     def _dispatch(self, token, reply_id, kind, payload, writer):
         handler = self.process.handlers.get(token)
@@ -683,3 +824,84 @@ class NetTransport:
                 h.cancel()
             if not p.is_set():
                 p.send_error(FDBError("broken_promise", "peer closed"))
+
+    async def _native_read_replies(self, reader: asyncio.StreamReader,
+                                   address: str):
+        """The native client reply pump: ClientConn.feed parses + decodes
+        every complete frame in a socket read in C, and _settle_batch
+        resolves all their futures from the one returned batch — one
+        Python call per read instead of two readexactly awaits plus a
+        header unpack + CRC + wire.loads per frame. Faults degrade this
+        connection to _read_replies mid-stream via _ResidueReader, the
+        same per-connection contract as the server plane."""
+        conn = native_transport.new_client_conn()
+        if conn is None:  # symbols probed away: pure-Python loop
+            await self._read_replies(reader, address)
+            return
+        while True:
+            try:
+                chunk = await reader.read(262144)
+            except (ConnectionError, OSError):
+                self._fail_peer(address)
+                return
+            if not chunk:
+                self._fail_peer(address)  # EOF
+                return
+            try:
+                entries, err = conn.feed(chunk)
+            except Exception:  # noqa: BLE001 — native fault: degrade this
+                # connection to the Python reply loop, replaying whatever
+                # the pump had buffered
+                try:
+                    residue = conn.residue()
+                except Exception:  # noqa: BLE001
+                    residue = b""
+                await self._read_replies(_ResidueReader(residue, reader),
+                                         address)
+                return
+            self._c_client_batches += 1
+            self._c_frames_in += len(entries)
+            self._c_bytes_in += len(chunk)
+            try:
+                self._settle_batch(entries)
+            except ConnectionError:
+                self._fail_peer(address)
+                return
+            if err is not None:
+                # protocol reject (checksum mismatch / oversized frame):
+                # entries before the reject already settled, matching the
+                # Python loop's sequential order — now drop the peer
+                self._c_checksum_rejects += err == "packet checksum mismatch"
+                self._fail_peer(address)
+                return
+
+    def _settle_batch(self, entries) -> None:
+        """Settle every future carried by one ClientConn.feed batch, in
+        frame order, in this loop tick. Entries whose body needed the
+        Python codec arrive as raw bytes (ClientPyFalls); an undecodable
+        raw body means the stream is garbage — fail that future and drop
+        the connection, the _verify_and_load decision."""
+        settlements = []
+        for reply_id, kind, payload, raw in entries:
+            entry = self._pending.pop(reply_id, None)
+            if entry is None:
+                continue  # request already completed or expired
+            if entry[2] is not None:
+                entry[2].cancel()  # drop the RPC-timeout timer now
+            if entry[0].is_set():
+                continue
+            if raw is not None:
+                self._c_client_py_falls += 1
+                try:
+                    payload = wire.loads(raw)
+                except wire.WireError as e:
+                    entry[0].send_error(
+                        FDBError("broken_promise", "peer closed"))
+                    raise ConnectionError(f"bad wire frame: {e}") from e
+            if kind == _REPLY:
+                settlements.append((entry[0], payload, None))
+            elif kind == _REPLY_ERROR:
+                settlements.append(
+                    (entry[0], None, _decode_wire_error(payload)))
+        self._c_client_settles += len(settlements)
+        settle_many(settlements)

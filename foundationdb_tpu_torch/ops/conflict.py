@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from foundationdb_tpu_torch import native
 from foundationdb_tpu_torch.ops import conflict_ref as ref
 from foundationdb_tpu_torch.ops import kernels
 from foundationdb_tpu_torch.ops.batch import (COMMITTED, CONFLICT, TOO_OLD,
@@ -50,12 +51,15 @@ from foundationdb_tpu_torch.utils.stats import CounterCollection
 # Process-wide device gauges (merged into RESOLVER_METRICS): dispatches
 # (chunks) from detect_async_impl, chunks whose sandwich did not converge
 # (their intra-batch verdicts come from the exact host pass, not the
-# device), readback-wait wall seconds from drain_and_collect.
+# device), readback-wait wall seconds from drain_and_collect, and the
+# chunks BatchEncoder encoded by the C pass and by the numpy path.
 kernel_metrics = CounterCollection("ConflictKernel")
 _kernel_dispatches = kernel_metrics.counter("KernelDispatches")
 _unconverged_chunks = kernel_metrics.counter("UnconvergedChunks")
 _readback_waits = kernel_metrics.counter("ReadbackWaits")
 _readback_wait_seconds = kernel_metrics.counter("ReadbackWaitSeconds")
+_encoded_c = kernel_metrics.counter("EncodedChunksC")
+_encoded_py = kernel_metrics.counter("EncodedChunksPy")
 _readback_lock = threading.Lock()
 
 _NEG_INT = ref.NEG
@@ -175,19 +179,57 @@ class BatchEncoder:
                      dest: torch.Tensor | None = None) -> dict:
         """One device batch (dict of tensors on the engine's device) from
         the chunk's transactions; `skip[t]` leaves txn t out (the host
-        already decided it TOO_OLD). Keys encode in bulk (utils/keys.py).
-        In the strided layout txn t's i-th range lands in slot
-        t * stride + i, and rtxn/wtxn hold the fixed slot->txn map. With
-        `dest` (a packed buffer of the shape on the device, a step graph's
-        input) the copy lands there, on the current stream."""
+        already decided it TOO_OLD). Where the C extension is built, one C
+        pass (native/fdb_native.c `encode_conflict_ranges`) writes the
+        packed buffer; else keys encode in bulk with numpy (utils/keys.py).
+        Both write the same bytes. In the strided layout txn t's i-th range
+        lands in slot t * stride + i, and rtxn/wtxn hold the fixed
+        slot->txn map. With `dest` (a packed buffer of the shape on the
+        device, a step graph's input) the copy lands there, on the current
+        stream."""
         sh = shapes or self.shapes
-        T, L = sh.txns, self.L
+        T = sh.txns
         if len(txns) > T:
             raise FDBError("internal_error",
                            f"{len(txns)} transactions exceed the chunk of {T}")
+        # the slot's previous copy has completed: both paths write only here
         slot = self._slot(sh)
         lay = slot["layout"]
         host = batch_views(slot["buf"].numpy(), lay)
+        if native.available():
+            self._encode_c(host, txns, skip, sh)
+            _encoded_c.increment()
+        else:
+            self._encode_numpy(host, txns, skip, sh)
+            _encoded_py.increment()
+        host["commit_version"][...] = self._clamp_off(commit_version)
+        host["advance_floor"][...] = int(bool(advance_floor))
+
+        dev_buf = cudaenv.to_device(slot["buf"], self.device, out=dest)
+        if self.device.type == "cuda":
+            slot["event"] = torch.cuda.Event()
+            slot["event"].record()
+        return batch_views(dev_buf, lay)
+
+    def _encode_c(self, host: dict, txns, skip, sh: ConflictShapes):
+        """The chunk's fields in one C pass over the txns, straight into
+        the slot's views (every one C-contiguous)."""
+        T = sh.txns
+        rpt, wpt = (sh.reads // T, sh.writes // T) if sh.strided else (0, 0)
+        try:
+            native.mod.encode_conflict_ranges(
+                txns, skip, host["rb"], host["re"], host["wb"], host["we"],
+                host["rtxn"], host["wtxn"], sh.key_bytes, host["snapshot"],
+                host["txn_valid"], self.base_version, rpt, wpt)
+        except ValueError as e:
+            raise FDBError("internal_error",
+                           f"the chunk exceeds its shape {sh.reads}/"
+                           f"{sh.writes}: {e}") from e
+
+    def _encode_numpy(self, host: dict, txns, skip, sh: ConflictShapes):
+        """The chunk's fields with a per-txn loop and numpy bulk encodes
+        (the path where the C extension is not built)."""
+        T = sh.txns
 
         def view(name):
             return host[name]
@@ -236,14 +278,6 @@ class BatchEncoder:
             else:
                 out.fill(T)
                 out[:len(owners)] = owners
-        view("commit_version")[...] = self._clamp_off(commit_version)
-        view("advance_floor")[...] = int(bool(advance_floor))
-
-        dev_buf = cudaenv.to_device(slot["buf"], self.device, out=dest)
-        if self.device.type == "cuda":
-            slot["event"] = torch.cuda.Event()
-            slot["event"].record()
-        return batch_views(dev_buf, lay)
 
     def split_for_capacity(self, txns):
         """Chunks of whole transactions that fit the static shape, in batch

@@ -300,16 +300,18 @@ class Proxy:
         # (version, allowance) pair. Multi-proxy and grv_only topologies
         # must confirm with peers and always fall through to Python. The
         # native path skips grv_bands and the sim validation oracle — both
-        # are inert on the real event loop where the plane runs. The port
-        # has no native transport: a network that offers one is refused.
+        # are inert on the real event loop where the plane runs.
         self._native_grv = False
         self._native_grv_hits = 0
         native_table = getattr(process.net, "native_table", None)
         if (native_table is not None and not grv_only
                 and not self.other_proxies
                 and getattr(process.net, "_native_grv_owner", None) is None):
-            raise FDBError("invalid_option",
-                           "the native GRV path is not ported yet")
+            from foundationdb_tpu_torch.net import native_transport
+            native_table.enable_grv(*native_transport.grv_wire_ids())
+            process.net._native_grv_owner = self
+            self._native_grv = True
+            self._native_grv_refresh()
         # periodic telemetry dump (the reference's traceCounters cadence):
         # bands are useless if never emitted
         self._bands_task = process.spawn(self._trace_bands_loop(),

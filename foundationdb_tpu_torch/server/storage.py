@@ -273,12 +273,41 @@ class StorageServer:
             self._maint_task.cancel()
 
     def _native_plane_update(self):
-        """The JAX package serves reads from its transport's C fast path
-        here; the port has no native transport, so a network that offers
-        one is refused rather than served around."""
-        if getattr(self.process.net, "native_table", None) is not None:
-            raise FDBError("invalid_option",
-                           "the native read plane is not ported yet")
+        """Enable/refresh/disable this server's claim on the transport's C
+        fast path. Called in the SAME synchronous block as every state
+        change that affects read correctness (version advance,
+        forget_before, rollback, shard layout) — the event loop is single-
+        threaded, so the C plane can never serve between the state change
+        and the bounds push."""
+        table = getattr(self.process.net, "native_table", None)
+        if table is None:
+            return
+        store = getattr(self.data, "_store", None)  # the C VStore, if native
+        eligible = (store is not None and self.shard_ranges is None
+                    and not self._revoked and not self._watermarks
+                    and not self._native_plane_blocked)
+        if not eligible:
+            if self._native_plane:
+                self._native_plane = False
+                if getattr(self.process.net, "_native_storage_owner",
+                           None) is self:
+                    self.process.net._native_storage_owner = None
+                table.disable_storage()
+            return
+        owner = getattr(self.process.net, "_native_storage_owner", None)
+        if owner is not None and owner is not self:
+            return  # another storage role on this transport owns the plane
+        if not self._native_plane:
+            from foundationdb_tpu_torch.net import native_transport
+            table.enable_storage(
+                store, *native_transport.storage_wire_ids(),
+                self.data.oldest_version, self.version.get(),
+                KNOBS.DESIRED_TOTAL_BYTES)
+            self.process.net._native_storage_owner = self
+            self._native_plane = True
+        else:
+            table.set_read_bounds(self.data.oldest_version,
+                                  self.version.get())
 
     def _sync_engine_counters(self):
         """Fold the engine's cumulative read-path tallies into the

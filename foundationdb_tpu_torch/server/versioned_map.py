@@ -30,8 +30,8 @@ from foundationdb_tpu_torch.utils.types import (
 class VersionedMap:
     def __init__(self, oldest_version: int = 0):
         from foundationdb_tpu_torch.utils.indexedset import make_indexed_set
-        # ordered key index (flow/IndexedSet.h analogue; the port's is
-        # the bisect-list PyIndexedSet, O(n) first-writes)
+        # ordered key index (flow/IndexedSet.h analogue; C skiplist with
+        # O(log n) inserts — bisect lists made every first-write O(n))
         self._index = make_indexed_set()
         # key -> ([versions ascending], [values]); parallel lists so the
         # hot read path is one C bisect over ints
@@ -228,7 +228,134 @@ class VersionedMap:
                    for k, c in self._chains.items())
 
 
+class NativeVersionedMap:
+    """C-backed MVCC window (native/fdb_native.c VStore): one skiplist holds
+    both the key index and the per-key version chains, so a point get is a
+    single C call (descend + chain bisect) instead of a dict probe plus a
+    Python bisect, and range reads / selector resolution never cross the
+    C↔Python boundary per key. Version policy (oldest/latest tracking,
+    order enforcement) lives here; parity with VersionedMap is fuzz-tested.
+
+    The *_encoded methods return a complete wire frame (bytes) for the
+    corresponding reply dataclass — the storage server sends them through
+    transport's pre-encoded path so a remote read reply costs zero
+    per-KV Python serialization.
+    """
+
+    def __init__(self, oldest_version: int = 0):
+        from foundationdb_tpu_torch import native
+        self._store = native.mod.VStore()
+        self.oldest_version = oldest_version
+        self.latest_version = oldest_version
+
+    # -- write path (version order enforced by caller) --
+
+    def apply(self, version: int, m: Mutation):
+        if version < self.latest_version:
+            raise FDBError("internal_error",
+                           f"mutation at {version} < latest {self.latest_version}")
+        self.latest_version = version
+        t = m.type
+        if t == MutationType.SET_VALUE:
+            self._store.put(m.param1, version, m.param2)
+        elif t == MutationType.CLEAR_RANGE:
+            self._store.clear_range(m.param1, m.param2, version)
+        elif t in ATOMIC_OPS:
+            existing = self._store.latest(m.param1)
+            self._store.put(m.param1, version,
+                            apply_atomic_op(t, existing, m.param2))
+        elif t == MutationType.NO_OP:
+            pass
+        else:
+            raise FDBError("invalid_mutation_type", str(m.type))
+
+    # -- read path --
+
+    def get(self, key: bytes, version: int) -> bytes | None:
+        self._check_version(version)
+        return self._store.get(key, version)
+
+    def get_batch(self, reads: list[tuple[bytes, int]]) -> list[tuple]:
+        return self._store.get_many(reads, self.oldest_version)
+
+    def get_batch_encoded(self, reads: list[tuple[bytes, int]]) -> bytes:
+        return self._store.get_many_encode(
+            reads, self.oldest_version, _get_values_reply_id())
+
+    def range_read(self, begin: bytes, end: bytes, version: int,
+                   limit: int = 0, limit_bytes: int = 0,
+                   reverse: bool = False) -> tuple[list[tuple[bytes, bytes]], bool]:
+        self._check_version(version)
+        return self._store.range_read(begin, end, version, limit,
+                                      limit_bytes, reverse)
+
+    def range_read_encoded(self, begin: bytes, end: bytes, version: int,
+                           limit: int, limit_bytes: int,
+                           reverse: bool) -> bytes:
+        self._check_version(version)
+        return self._store.range_read_encode(
+            begin, end, version, limit, limit_bytes, reverse,
+            _get_key_values_reply_id())
+
+    def resolve_selector(self, sel, version: int) -> bytes:
+        self._check_version(version)
+        return self._store.resolve_selector(
+            sel.key, sel.or_equal, sel.offset, version)
+
+    def _check_version(self, version: int):
+        if version < self.oldest_version:
+            raise FDBError("transaction_too_old",
+                           f"read at {version} < oldest {self.oldest_version}")
+
+    # -- GC (updateStorage analogue) --
+
+    def forget_before(self, version: int):
+        if version <= self.oldest_version:
+            return
+        self.oldest_version = version
+        self._store.forget_before(version)
+
+    def rollback(self, version: int):
+        if version >= self.latest_version:
+            return
+        self._store.rollback(version)
+        self.latest_version = version
+
+    # -- introspection --
+
+    def key_count(self) -> int:
+        return len(self._store)
+
+    def byte_size(self) -> int:
+        return self._store.byte_size()
+
+
+def _get_values_reply_id() -> int:
+    global _GV_ID
+    if _GV_ID is None:
+        from foundationdb_tpu_torch.server.interfaces import GetValuesReply
+        from foundationdb_tpu_torch.utils import wire
+        _GV_ID = wire.type_id(GetValuesReply)
+    return _GV_ID
+
+
+def _get_key_values_reply_id() -> int:
+    global _GKV_ID
+    if _GKV_ID is None:
+        from foundationdb_tpu_torch.server.interfaces import GetKeyValuesReply
+        from foundationdb_tpu_torch.utils import wire
+        _GKV_ID = wire.type_id(GetKeyValuesReply)
+    return _GKV_ID
+
+
+_GV_ID: int | None = None
+_GKV_ID: int | None = None
+
+
 def make_versioned_map(oldest_version: int = 0):
-    """The pure-Python store: the JAX package's C-backed one (its native
-    extension) is not ported."""
+    """C-backed store when the extension is present, else the pure-Python
+    one (same surface; parity fuzz-tested in tests/test_vstore_parity.py)."""
+    from foundationdb_tpu_torch import native
+    if native.available() and hasattr(native.mod, "VStore"):
+        return NativeVersionedMap(oldest_version)
     return VersionedMap(oldest_version)

@@ -46,14 +46,13 @@ returns a plan whose `.build()` is pure CPU+read-only-file work safe for
 on-loop. Decisions depend only on byte/run counts, so the same mutation
 stream produces the same flush/compaction sequence — sim-deterministic.
 
-This is the PyTorch port's copy of the JAX package's module. The JAX module
-asks its C extension (native/fdb_native.c) for the CRC, the block codec,
-the bloom filters and run handles wherever the extension is built; the
-port has no native module until it ports that extension (ROADMAP A4), so
-every one of those places takes the Python branch, the one the JAX module
-takes on a host without the extension. The codecs are bit-identical, so
-the on-disk format is the same: a store either package wrote opens in the
-other.
+This is the PyTorch port's copy of the JAX package's module. Like it, it
+asks the C extension (the port's own, native/fdb_native.c) for the block
+codec, the bloom filters and run handles wherever the extension is built,
+and takes its Python branch elsewhere; the CRC is the transport's
+(net/native_transport.py `crc32c`, C where built). The codecs are
+bit-identical, so the on-disk format is the same: a store either package
+wrote opens in the other.
 """
 
 from __future__ import annotations
@@ -62,7 +61,7 @@ import struct
 from dataclasses import dataclass, field
 from typing import Callable
 
-from foundationdb_tpu_torch.net.native_transport import _py_crc32c
+from foundationdb_tpu_torch.net import native_transport
 from foundationdb_tpu_torch.storage.diskqueue import DiskQueue
 from foundationdb_tpu_torch.utils import wire
 from foundationdb_tpu_torch.utils.errors import FDBError
@@ -108,14 +107,13 @@ RUN_HEADER_FIELDS = ["magic", "format_version", "run_id", "meta_seq",
 RUN_INDEX_FIELDS = ["offset", "length", "last_key_len"]
 BLOOM_HEADER_FIELDS = ["magic", "n_hashes", "n_bits", "n_keys"]
 
-
 def crc32c(data: bytes) -> int:
-    """CRC-32C (Castagnoli), from the transport's table (the port's only
-    one). It computes the SAME polynomial as the JAX package's native
-    module: a store written by a native-enabled host must verify on a
-    pure-Python host and vice versa (net/http.py makes the identical
-    argument for its trailer checksums)."""
-    return _py_crc32c(data)
+    """CRC-32C (Castagnoli), the transport's: the C extension's where it is
+    built, else the table-driven fallback. Both compute the SAME polynomial,
+    so a store written by a native-enabled host verifies on a pure-Python
+    host and vice versa (net/http.py makes the identical argument for its
+    trailer checksums)."""
+    return native_transport.crc32c(data)
 
 
 def _shared_prefix_len(a: bytes, b: bytes) -> int:
@@ -173,10 +171,16 @@ def py_decode_block(data: bytes) -> list[tuple[bytes, bytes]]:
 
 
 def encode_block(items: list[tuple[bytes, bytes]]) -> bytes:
+    from foundationdb_tpu_torch import native
+    if native.available() and hasattr(native.mod, "redwood_encode_block"):
+        return native.mod.redwood_encode_block(items)
     return py_encode_block(items)
 
 
 def decode_block(data: bytes) -> list[tuple[bytes, bytes]]:
+    from foundationdb_tpu_torch import native
+    if native.available() and hasattr(native.mod, "redwood_decode_block"):
+        return native.mod.redwood_decode_block(data)
     return py_decode_block(data)
 
 
@@ -231,10 +235,16 @@ def py_bloom_query(section: bytes, key: bytes) -> bool:
 
 
 def bloom_build(keys: list[bytes], bits_per_key: int, n_hashes: int) -> bytes:
+    from foundationdb_tpu_torch import native
+    if native.available() and hasattr(native.mod, "redwood_bloom_build"):
+        return native.mod.redwood_bloom_build(keys, bits_per_key, n_hashes)
     return py_bloom_build(keys, bits_per_key, n_hashes)
 
 
 def bloom_query(section: bytes, key: bytes) -> bool:
+    from foundationdb_tpu_torch import native
+    if native.available() and hasattr(native.mod, "redwood_bloom_query"):
+        return native.mod.redwood_bloom_query(section, key)
     return py_bloom_query(section, key)
 
 
@@ -333,9 +343,19 @@ class _Run:
 
 
 def _native_run_handle(raw: bytes, clears: list[tuple[bytes, bytes]]):
-    """C RedwoodRun handle for a validated image, or None: the port has no
-    native module, so every run takes the Python path."""
-    return None
+    """C RedwoodRun handle for a validated image, or None (knob off, native
+    unavailable, or the C open rejects it — degrade to the Python path, but
+    never drop a run parse_run already accepted)."""
+    if not KNOBS.REDWOOD_NATIVE_READS:
+        return None
+    from foundationdb_tpu_torch import native
+    if not (native.available() and hasattr(native.mod, "redwood_run_open")):
+        return None
+    try:
+        return native.mod.redwood_run_open(
+            bytes(raw), clears, KNOBS.REDWOOD_BLOCK_CACHE_BLOCKS)
+    except (ValueError, TypeError, MemoryError):
+        return None
 
 
 def parse_run(raw: bytes, file, name: str) -> _Run | None:
@@ -612,7 +632,12 @@ class RedwoodKeyValueStore:
             else:
                 pending_idx.append(i)
                 pending_keys.append(k)
-        # no run has a C handle, so `hs` is empty here: nothing to cascade
+        if pending_keys and hs:
+            from foundationdb_tpu_torch import native
+            vals = native.mod.redwood_runs_get_batch(hs, pending_keys)
+            for i, v in zip(pending_idx, vals):
+                out[i] = v
+            self._read_stats["native_gets"] += len(pending_keys)
         return out
 
     def get_batch_encoded(self, reads: list[tuple[bytes, int]], oldest: int,
@@ -620,9 +645,23 @@ class RedwoodKeyValueStore:
         """Complete GetValuesReply wire frame for (key, version) pairs,
         serialized in one C call — values copied straight out of the mapped
         run images, never materialized as Python objects. Returns None when
-        the native fast path is unavailable (caller encodes in Python),
-        which in the port is always."""
-        return None
+        the native fast path is unavailable (caller encodes in Python)."""
+        hs = self._native_handles()
+        if hs is None:
+            return None
+        from foundationdb_tpu_torch import native
+        if not hasattr(native.mod, "redwood_runs_get_many_encode"):
+            return None
+        # memtable/imm resolution stays in Python; False = "cascade the
+        # runs in C" (too-old reads are decided by version in C first)
+        prefilled: list = []
+        for k, _v in reads:
+            resolved, val = self._mem_lookup(k)
+            prefilled.append(val if resolved else False)
+        self._read_stats["batch_gets"] += 1
+        self._read_stats["native_gets"] += len(reads)
+        return native.mod.redwood_runs_get_many_encode(
+            hs, reads, oldest, tid, prefilled)
 
     def read_stats(self) -> dict[str, int]:
         """Cumulative read-path counters: store-level tallies merged with

@@ -2,11 +2,11 @@
 
 Reference: flow/IndexedSet.h — the balanced ordered structure everything
 size-aware hangs off (storage byte sampling, shard metrics): O(log n)
-insert/erase and O(log n) `sumTo` over key ranges. The JAX package serves
-it from a C skiplist (its native extension); the port keeps the
-pure-Python implementation with the same surface (bisect lists, O(n)
-inserts) until that extension is ported, and the factory the rest of the
-package calls.
+insert/erase and O(log n) `sumTo` over key ranges. The serving
+implementation is the C skiplist in native/fdb_native.c (IndexedSet type);
+this module adds the identical-surface pure-Python fallback (bisect lists —
+O(n) inserts, used only when no C toolchain exists) and the factory the
+rest of the codebase calls.
 
 Surface:
     insert(key, metric=1)      add or replace (re-metric) a key
@@ -73,6 +73,9 @@ class PyIndexedSet:
 
 
 def make_indexed_set():
+    from foundationdb_tpu_torch import native
+    if native.available() and hasattr(native.mod, "IndexedSet"):
+        return native.mod.IndexedSet()
     return PyIndexedSet()
 
 

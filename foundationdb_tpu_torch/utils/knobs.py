@@ -195,16 +195,17 @@ KNOBS.init("REDWOOD_BLOCK_BYTES", 16_384, (512,))  # sorted-block target size
 KNOBS.init("REDWOOD_COMPACTION_FAN_IN", 4, (2,))  # runs per level -> merge
 KNOBS.init("REDWOOD_BLOCK_CACHE_BLOCKS", 1_024, (2,))  # decoded-block cache
 KNOBS.init("REDWOOD_MAINT_INTERVAL", 0.25)  # storage-server poll period
-# the JAX package's native read path; the port has none, so its runs take
-# the Python lookup whatever this says
+# native read path (native/fdb_native.c RedwoodRun): 0 forces the
+# pure-Python lookup even when the extension is built — the parity-fuzz lever
 KNOBS.init("REDWOOD_NATIVE_READS", 1, (0,))
 KNOBS.init("REDWOOD_BLOOM_BITS_PER_KEY", 10, (0,))  # 0 -> no bloom section
 KNOBS.init("REDWOOD_BLOOM_HASHES", 6)  # double-hashing probe count
 KNOBS.init("DESIRED_TOTAL_BYTES", 150_000)  # range-read reply soft limit
-# the JAX package's C transport data plane and its client half; the port
-# has neither (no C extension), so 1 here, or NET_NATIVE_TRANSPORT=1 /
-# NET_NATIVE_CLIENT=1 in the environment, makes a NetTransport raise
-# invalid_option. Not buggified: the sim never constructs a NetTransport.
+# serve incoming connections through the C transport data plane
+# (net/native_transport.py), and send through its client half (batched C
+# request encode + C reply pump); NET_NATIVE_TRANSPORT=1 /
+# NET_NATIVE_CLIENT=1 in the environment override. Not buggified: the sim
+# never constructs a NetTransport.
 KNOBS.init("NET_NATIVE_TRANSPORT", 0)
 KNOBS.init("NET_NATIVE_CLIENT", 0)
 

@@ -25,10 +25,6 @@ The encoder/decoder are exact-type-dispatched and cursor-local: this codec
 is the single largest CPU consumer on every process of a running cluster
 (client batchers, proxy pipeline, TLog frames), so the hot paths avoid
 attribute lookups, method calls, and per-byte function calls.
-
-The port's copy of foundationdb_tpu/utils/wire.py keeps the Python codec
-only: the JAX package's C codec (its native extension) is not ported, so
-the registry below routes nothing to it.
 """
 
 from __future__ import annotations
@@ -59,6 +55,7 @@ _BY_TYPE: dict[type, int] = {}
 _FIELDS: dict[int, tuple] = {}  # id -> dataclass fields tuple
 _GETTERS: dict[int, object] = {}  # id -> attrgetter over field names
 _loaded = False
+_native = None  # the C codec (native/fdb_native.c), when buildable
 
 
 def _ensure_registry():
@@ -66,6 +63,52 @@ def _ensure_registry():
     if not _loaded:
         _loaded = True
         _register_all()
+        _install_native()
+
+
+def _install_native():
+    """Route the hot path through the C codec. The Python codec stays the
+    semantic authority: any native error falls back to it (int >64-bit,
+    subclasses, schema skew, hostile bytes -> canonical WireError)."""
+    global _native
+    try:
+        from foundationdb_tpu_torch import native
+    except Exception:  # noqa: BLE001 — no compiler is a supported config
+        return
+    if not native.available() or not hasattr(native.mod, "wire_dumps"):
+        return
+    by_id = {}
+    by_type = {}
+    for tid, cls in _BY_ID.items():
+        names = (tuple(f.name for f in _FIELDS[tid])
+                 if tid in _FIELDS else None)
+        # third slot: decode accelerator. Enums get a value -> member map
+        # (skips the metaclass __call__); vanilla dataclasses get True,
+        # licensing the C decoder to allocate + fill the instance dict
+        # directly instead of calling the generated __init__ (the pickle
+        # bypass — only sound when __init__ IS the generated assigner).
+        if isinstance(cls, type) and issubclass(cls, IntEnum):
+            extra = {int(m.value): m for m in cls}
+        elif names is not None and _plain_dataclass(cls):
+            extra = True
+        else:
+            extra = None
+        by_id[tid] = (cls, names, extra)
+        by_type[cls] = tid
+    native.mod.wire_set_registry(by_id, by_type)
+    _native = native.mod
+
+
+def _plain_dataclass(cls: type) -> bool:
+    """True when constructing == assigning each field: the dataclass's own
+    generated __init__ (co_filename "<string>"), every field in init, and
+    no __post_init__ / __slots__ hooks that the bypass would skip."""
+    init = cls.__dict__.get("__init__")
+    code = getattr(init, "__code__", None)
+    return (code is not None and code.co_filename == "<string>"
+            and not hasattr(cls, "__post_init__")
+            and "__slots__" not in cls.__dict__
+            and all(f.init for f in fields(cls)))
 
 
 def register(type_id: int, cls: type):
@@ -435,6 +478,11 @@ def dumps(obj) -> bytes:
     if type(obj) is PreEncoded:
         return obj.data
     _ensure_registry()
+    if _native is not None:
+        try:
+            return _native.wire_dumps(obj)
+        except Exception:  # noqa: BLE001 — fall back to the canonical codec
+            pass
     return _py_dumps(obj)
 
 
@@ -446,6 +494,11 @@ def _py_dumps(obj) -> bytes:
 
 def loads(data: bytes):
     _ensure_registry()
+    if _native is not None:
+        try:
+            return _native.wire_loads(data)
+        except Exception:  # noqa: BLE001 — fall back for canonical errors
+            pass
     return _py_loads(data)
 
 

@@ -144,6 +144,48 @@ def test_port_cluster_matches_jax_cluster(backend, seed):
     assert port[1]  # the committed writes are there to compare
 
 
+def native_off(monkeypatch):
+    """The port as on a box without a C compiler: every module takes its
+    Python path (the wire codec's C hook cleared too)."""
+    from foundationdb_tpu_torch import native
+    from foundationdb_tpu_torch.utils import wire
+    wire._ensure_registry()
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(wire, "_native", None)
+
+
+@pytest.mark.parametrize("backend", ["oracle", "device"])
+@pytest.mark.parametrize("seed", [3, 4])
+@pytest.mark.parametrize("extension", ["on", "off"])
+def test_port_cluster_matches_jax_cluster_with_and_without_the_extension(
+        monkeypatch, extension, backend, seed):
+    """The trajectory comparison with the port's C extension serving (the
+    storage servers' VStore, the wire codec, the resolvers' C encoder) and
+    with every module on its Python path: both equal the JAX SimCluster,
+    which takes its own extension's paths."""
+    from foundationdb_tpu_torch.ops import conflict as t_conflict
+    from foundationdb_tpu_torch.server.versioned_map import (
+        NativeVersionedMap, VersionedMap)
+    if extension == "off":
+        native_off(monkeypatch)
+    set_backend(backend)
+    plan = workload(seed, n_clients=12, n_attempts=3)
+    before = t_conflict.kernel_metrics.as_dict()
+    port = run_cluster(PORT, seed, plan)
+    after = t_conflict.kernel_metrics.as_dict()
+    jax = run_cluster(JAX, seed, plan)
+    assert port == jax
+    encoded = {k: after[k] - before[k]
+               for k in ("EncodedChunksC", "EncodedChunksPy")}
+    if backend == "device":
+        assert encoded[{"on": "EncodedChunksPy",
+                        "off": "EncodedChunksC"}[extension]] == 0
+        assert sum(encoded.values()) > 0
+    store = {"on": NativeVersionedMap, "off": VersionedMap}[extension]
+    c = t_cluster.SimCluster(seed=1)
+    assert {type(ss.data) for ss in c.storages} == {store}
+
+
 def test_port_cluster_same_seed_same_trace():
     """The counterpart of test_e2e.py's determinism test: one seed gives
     one trajectory, another seed another."""
@@ -189,8 +231,8 @@ def test_parts_not_ported_raise_invalid_option():
         "RedwoodKeyValueStore"}
     # backup came with its agents: the harness's backup workload runs a
     # backup (test_torch_sim_tiers.py runs it whole); fdbbackup's main came
-    # with the network transport (test_torch_net_tools.py), whose native
-    # client plane, the JAX package's C extension, is not ported
+    # with the network transport (test_torch_net_tools.py), and its native
+    # planes with the port's C extension (test_torch_native_transport.py)
     from foundationdb_tpu_torch.testing.fuzz_workloads import (
         BackupUnderAttritionWorkload)
     from foundationdb_tpu_torch.tools import fdbbackup
@@ -203,13 +245,7 @@ def test_parts_not_ported_raise_invalid_option():
     assert w.writes > 0 and w.end_version > 0
     assert w.container.list_files("kvrange-") and \
         w.container.read_file("meta") == {"end_version": w.end_version}
-    TKNOBS.set("NET_NATIVE_CLIENT", 1)
-    with pytest.raises(t_errors.FDBError) as ei:
-        fdbbackup.main(["--cluster", "127.0.0.1:1", "--storage",
-                        "127.0.0.1:2", "status"])
-    assert ei.value.name == "invalid_option"
-    assert "transport" in ei.value.detail and "not ported" in ei.value.detail
-    TKNOBS.set("NET_NATIVE_CLIENT", 0)
+    assert callable(fdbbackup.main)
     TKNOBS.set("STORAGE_ENGINE", "memory")
     c = t_cluster.SimCluster(seed=1)
     proc = c.net.new_process("extra:0")

@@ -1,13 +1,13 @@
 """The port's transport framing against the JAX package's Python framer.
 
-tests/test_native_transport.py holds the JAX package's C plane to its
-Python fallbacks; the port has no C plane, so its pure-Python cases run
-here on the port's net/native_transport.py and net/transport.py, held to
-the JAX module's Python fallbacks: frame assembly and CRC-32C over a
-seeded fuzz, the oversized-body reject, the Castagnoli check vector, the
-stream parse and reject decisions of a live connection over random frame
-streams, and a connection dropped at its first bad frame. The native
-planes' knobs and environment variables refuse with invalid_option.
+The pure-Python cases of tests/test_native_transport.py run here on the
+port's net/native_transport.py and net/transport.py, held to the JAX
+module's Python fallbacks: frame assembly and CRC-32C over a seeded fuzz,
+the oversized-body reject, the Castagnoli check vector, the stream parse
+and reject decisions of a live connection over random frame streams, and a
+connection dropped at its first bad frame. The native planes, asked for by
+knob or by environment variable, serve (tests/test_torch_native_server.py
+and test_torch_native_client.py hold them to the Python paths).
 """
 
 import asyncio
@@ -22,7 +22,6 @@ from foundationdb_tpu_torch.net import native_transport as nt
 from foundationdb_tpu_torch.net import transport as T
 from foundationdb_tpu_torch.net.transport import NetTransport, RealEventLoop
 from foundationdb_tpu_torch.utils import wire
-from foundationdb_tpu_torch.utils.errors import FDBError
 from foundationdb_tpu_torch.utils.knobs import KNOBS as TKNOBS
 
 from test_torch_transport import free_addr
@@ -210,27 +209,76 @@ def test_dead_conn_refuses_more_input():
         cli.close()
 
 
+def _plane_round_trip(server_native: bool, client_native: bool):
+    """One echo request over TCP, the server and client transports built
+    under the gates as they stand: (the server's C plane counters, or None
+    without the plane; the client's transport counters) after it."""
+    from foundationdb_tpu_torch.core.sim import Endpoint
+
+    loop = RealEventLoop()
+    srv = NetTransport(loop, free_addr())
+    cli = NetTransport(loop, free_addr())
+    assert (srv.native_table is not None) == server_native
+    assert cli.native_client == client_native
+    srv.start()
+    cli.start()
+    try:
+        srv.process.register(7, lambda payload, reply: reply.send(payload))
+
+        async def call():
+            return await cli.request(cli.process, Endpoint(srv.address, 7),
+                                     ["echo", b"\x00\xff", 3])
+        assert loop.run_future(loop.spawn(call()), max_time=10.0) == [
+            "echo", b"\x00\xff", 3]
+        table = srv.native_table
+        return (table.counters() if table is not None else None,
+                cli.transport_counters())
+    finally:
+        srv.close()
+        cli.close()
+
+
 @pytest.mark.parametrize("name", ["NET_NATIVE_TRANSPORT",
                                   "NET_NATIVE_CLIENT"])
 @pytest.mark.parametrize("how", ["knob", "env"])
-def test_native_planes_refuse_with_invalid_option(monkeypatch, name, how):
-    """Asking for a C plane is an error, not the Python path served in its
-    place; off (the knob's default or the variable set to 0), the
-    transport builds."""
-    assert not nt.available() and not nt.client_available()
+def test_native_planes_serve_when_asked(monkeypatch, name, how):
+    """A plane asked for by its knob or its environment variable serves:
+    the server plane parses the request frame in C (and hands the echo
+    token, which has no fast path, to Python), the client plane encodes the
+    request in a C batch and settles the reply from its C pump. Off (the
+    knob's default or the variable set to 0), the Python path serves."""
+    assert nt.available() and nt.client_available()
     if how == "knob":
         TKNOBS.set(name, 1)
     else:
         monkeypatch.setenv(name, "1")
-    with pytest.raises(FDBError) as ei:
-        NetTransport(RealEventLoop(), "127.0.0.1:1")
-    assert ei.value.name == "invalid_option"
-    assert name in ei.value.detail and "not ported" in ei.value.detail
+    server = name == "NET_NATIVE_TRANSPORT"
+    s, c = _plane_round_trip(server, not server)
+    if server:
+        assert s["FramesIn"] == 1 and s["PySlowPathFalls"] == 1
+        assert s["NativeFastPathHits"] == 0
+        assert c["ClientNativeBatches"] == 0
+    else:
+        assert s is None
+        assert c["ClientNativeBatches"] >= 1
+        assert c["ClientNativeSettles"] == 1
     if how == "knob":
         TKNOBS.set(name, 0)
     else:
         monkeypatch.setenv(name, "0")
-    NetTransport(RealEventLoop(), "127.0.0.1:1")
+    s, c = _plane_round_trip(False, False)
+    assert s is None and c["ClientNativeBatches"] == 0
+
+
+@pytest.mark.parametrize("how", ["knob", "env"])
+def test_both_native_planes_serve_together(monkeypatch, how):
+    for name in ("NET_NATIVE_TRANSPORT", "NET_NATIVE_CLIENT"):
+        if how == "knob":
+            TKNOBS.set(name, 1)
+        else:
+            monkeypatch.setenv(name, "1")
+    s, c = _plane_round_trip(True, True)
+    assert s["PySlowPathFalls"] == 1 and c["ClientNativeSettles"] == 1
 
 
 def test_batch_encoder_equals_the_jax_packages():

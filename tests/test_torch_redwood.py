@@ -206,7 +206,13 @@ def test_flush_compaction_and_reads_match_model():
     assert any(lv >= 1 for lv in store.level_shape()), store.level_shape()
     _assert_equal(store, model)
     stats = store.read_stats()
-    assert stats["native_gets"] == 0 and stats["fallback_gets"] > 0
+    # the port's C run handles serve the reads wherever the extension is
+    # built (REDWOOD_NATIVE_READS=1), the Python lookup elsewhere
+    from foundationdb_tpu_torch import native
+    if native.available():
+        assert stats["native_gets"] > 0
+    else:
+        assert stats["native_gets"] == 0 and stats["fallback_gets"] > 0
 
 
 def test_recover_after_clean_shutdown():

@@ -177,6 +177,8 @@ def _run_workload(seed: int, jax: bool = False) -> list[dict]:
 
     got: list[dict] = []
     KNOBS.set("CONFLICT_BACKEND", "oracle")
+    # spans an earlier test of this worker left buffered are not this run's
+    trace.g_trace_batch._events.clear()
     try:
         trace.set_sink(got.append)
         trace.enable_suppression()

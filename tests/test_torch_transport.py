@@ -602,18 +602,21 @@ def test_wire_frames_equal_the_jax_packages_bytes():
     assert t_nt.encode_batch(items) == j_nt.py_encode_batch(items)
 
 
-@pytest.mark.parametrize("server,client", [("jax", "port"), ("port", "jax")])
-def test_cross_package_client_and_server(tmp_path, server, client):
-    """Oracle backend: a port client against a JAX server_main cluster,
-    and a JAX client against the port's; each sees the rows it wrote and
-    the rows another client wrote before it."""
+def _cross_package(tmp_path, server, client, native=False):
+    """Oracle backend: a client of one package against a server_main
+    cluster of the other; each sees the rows it wrote and the rows another
+    client wrote before it. With `native`, the servers run the C server
+    plane (NET_NATIVE_TRANSPORT=1) and the clients the C client plane
+    (NET_NATIVE_CLIENT=1, the caller's environment); returns the clients'
+    transport counters."""
     module = {"jax": "foundationdb_tpu.net.server_main",
               "port": "foundationdb_tpu_torch.net.server_main"}[server]
     specs = cluster_specs(tmp_path, {"CONFLICT_BACKEND": "oracle"})
-    procs = []
+    env = server_env(NET_NATIVE_TRANSPORT="1") if native else None
+    procs, counters = [], {}
     try:
         for spec in specs:
-            procs.append(start_server(module, spec))
+            procs.append(start_server(module, spec, env=env))
         proxy, storage = specs[0]["listen"], specs[1]["listen"]
         # the server's own package writes first, the other package reads
         # it and writes on top
@@ -633,8 +636,10 @@ def test_cross_package_client_and_server(tmp_path, server, client):
                 db = Database(cli.process, proxies=[proxy],
                               locations=LocationCache([b""], [[storage]]))
             try:
+                assert cli.native_client == native
                 got, rows[who] = loop.run_future(
                     loop.spawn(write_and_read(db, writes)), max_time=60.0)
+                counters[who] = cli.transport_counters()
             finally:
                 cli.close()
             assert got == [v for _k, v in writes]
@@ -643,6 +648,27 @@ def test_cross_package_client_and_server(tmp_path, server, client):
     finally:
         rcs = stop_servers(procs)
     assert rcs == [0, 0]
+    return counters
+
+
+@pytest.mark.parametrize("server,client", [("jax", "port"), ("port", "jax")])
+def test_cross_package_client_and_server(tmp_path, server, client):
+    """Oracle backend: a port client against a JAX server_main cluster,
+    and a JAX client against the port's; each sees the rows it wrote and
+    the rows another client wrote before it."""
+    _cross_package(tmp_path, server, client)
+
+
+@pytest.mark.parametrize("server,client", [("jax", "port"), ("port", "jax")])
+def test_cross_package_native_planes(tmp_path, monkeypatch, server, client):
+    """The same over the C planes: each package's servers with
+    NET_NATIVE_TRANSPORT=1, its clients with NET_NATIVE_CLIENT=1; the
+    clients' replies were settled by their C reply pumps."""
+    monkeypatch.setenv("NET_NATIVE_CLIENT", "1")
+    counters = _cross_package(tmp_path, server, client, native=True)
+    for who in ("jax", "port"):
+        assert counters[who]["ClientNativeSettles"] > 0, who
+        assert counters[who]["ClientNativeBatches"] > 0, who
 
 
 def test_device_server_without_a_card_exits_before_ready(tmp_path):
@@ -683,14 +709,30 @@ def test_real_process_modules_import_no_jax():
     assert p.stdout.decode().strip() == "[]"
 
 
-def test_native_planes_refuse_in_a_server_process(tmp_path):
-    """NET_NATIVE_TRANSPORT in a spec's knobs: the process refuses with
-    invalid_option before ready instead of serving the Python path."""
+def test_native_planes_serve_in_a_server_process(tmp_path, monkeypatch):
+    """NET_NATIVE_TRANSPORT=1 in the spec's knobs: the port's server
+    processes boot with the C server plane and serve a port client on the
+    C client plane (NET_NATIVE_CLIENT=1) its reads and commits."""
     knobs = {"CONFLICT_BACKEND": "oracle", "NET_NATIVE_TRANSPORT": 1}
-    txn, _storage = cluster_specs(tmp_path, knobs)
-    p = subprocess.run(
-        [sys.executable, "-m", "foundationdb_tpu_torch.net.server_main",
-         json.dumps(txn)], capture_output=True, cwd=ROOT, env=server_env(),
-        timeout=READY_S)
-    assert p.returncode != 0 and b"ready" not in p.stdout
-    assert b"invalid_option" in p.stderr
+    monkeypatch.setenv("NET_NATIVE_CLIENT", "1")
+    txn, storage = cluster_specs(tmp_path, knobs)
+    procs = []
+    try:
+        for spec in (txn, storage):
+            procs.append(start_server(
+                "foundationdb_tpu_torch.net.server_main", spec))
+        loop, cli, db = port_client(txn["listen"], storage["listen"])
+        try:
+            assert cli.native_client
+            got, rows = loop.run_future(
+                loop.spawn(write_and_read(db, [(b"n", b"1"), (b"m", b"2")])),
+                max_time=60.0)
+            counters = cli.transport_counters()
+        finally:
+            cli.close()
+        assert got == [b"1", b"2"]
+        assert [tuple(r) for r in rows] == [(b"m", b"2"), (b"n", b"1")]
+        assert counters["ClientNativeSettles"] > 0
+    finally:
+        rcs = stop_servers(procs)
+    assert rcs == [0, 0]
