@@ -291,6 +291,28 @@ Phases, each of which must pass:
      chunks by C and by numpy, the storage servers' store classes, the
      wire codec, the transports' C plane counters), and one line gathers
      them before the kernels line.
+ 15. the C-API bindings (foundationdb_tpu_torch.bindings: fdb_c,
+     multiversion, bindingtester) and the graft entry points
+     (graft_entry): 15a two server_main processes as 13b boots them at
+     cell A's width — txn (master, 2 resolvers on the card split at A's
+     median key, each on its own address, a tlog and a proxy; every
+     Resolver recorded as in phases 10-14) and storage (one storage
+     server) — and from this process tests/test_bindingtester.py's fdb_c
+     lifecycle and error-mapping checks, its conformance runs
+     (`bindingtester.compare_runs(977, 2000)` and `(31337, 1000)` with
+     their prefixes: the C-ABI machine's and the native client's stacks
+     and final rows equal, more than 500 entries compared) and its
+     multiversion checks; each resolver's RESOLVER_METRICS over the wire
+     (its backend the card, every main-path kernel launched and K6-K9,
+     K3, K2 and K13 at least once a chunk, every readback returned, none
+     unconverged, the device bytes at the end no more than after the
+     first run); SIGTERM, each process exiting 0 within 10 s; every
+     batch the resolvers decided equal to a fresh OracleConflictSet.
+     15b `graft_entry.entry()` on the card: its step equal, field for
+     field, to the plain step on a CPU copy of its state and batch, and
+     its ms; `dryrun_multichip(torch.cuda.device_count())` on CUDA.
+     Printed: 15a's ops and seconds, attempts and commits, resolver steps
+     held to the oracle, chunks and device bytes; 15b's step ms.
 
 `python3 chip_smoke.py --serve-cells` only serves phase 4's cells A and B
 (each reply checked against the oracle) and prints their numbers.
@@ -304,6 +326,9 @@ its numbers and writes them to chiprun_out/chip_smoke.json.
 `python3 chip_smoke.py --net` for phase 13, and `python3 chip_smoke.py
 --native` for phase 14 (with phase 4's A and 13a run first in the same
 call, its yardsticks).
+`python3 chip_smoke.py --bindings` only runs phase 15, with its checks,
+after the card and build lines, and writes its numbers to
+chiprun_out/chip_smoke.json.
 `python3 chip_smoke.py --time-kernels` only times K1-K11, K13 and bench steps
 (cell A's traffic, phase B's, the bench at 16k and 32k, K9 at T=2^20):
 K5's whole fixpoint and one evaluation at the bench's warmed state and
@@ -325,7 +350,8 @@ phase 9, `launches_cluster`, in phase 10, `launches_recovery`, in
 phase 11, `launches_sim`, in phase 12, `launches_backup`, and in phase
 13, `launches_net`: 13a's in this process plus 13b's txn process's, read
 over the wire, and in phase 14, `launches_native`: 14a's C-fed cell A
-plus 14b's), the
+plus 14b's, and in phase 15, `launches_bindings`: 15a's txn process's,
+read over the wire, plus 15b's entry step), the
 nvidia-smi line, and last {"ok": true, "device":
 {...}}. Any failure exits non-zero with no result line. Details go to
 chiprun_out/chip_smoke.json. The script imports nothing of JAX or of the
@@ -4404,21 +4430,26 @@ NET_METRICS = ("Backend", "BatchesIn", "TxnResolved", "DrainGroups",
 NET_STEP_KERNELS = ("endpoint_sort", "intra_levels", "intra_sandwich")
 
 
-def start_server(spec, env, log_path):
+def start_server(spec, env, log_path, phase="13b", record=None):
     """`python -m foundationdb_tpu_torch.net.server_main <spec>` from the
     repository root (fork and exec: no CUDA state crosses), its stderr to
-    `log_path`; waits for its `ready` line (NET_READY_S). Returns
+    `log_path`; waits for its `ready` line (NET_READY_S). With `record` (a
+    path), the process is `recorded_server_main`, which writes its
+    resolvers' replay into the oracles there at its exit. Returns
     (process, boot wall s)."""
     import select
     import subprocess
 
     root = os.path.dirname(os.path.abspath(__file__))
+    cmd = ([sys.executable, "-m", "foundationdb_tpu_torch.net.server_main",
+            json.dumps(spec)] if record is None else
+           [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+            "chip_smoke.recorded_server_main(sys.argv[1], sys.argv[2]))",
+            json.dumps(spec), record])
     t0 = time.perf_counter()
     with open(log_path, "ab") as err:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "foundationdb_tpu_torch.net.server_main",
-             json.dumps(spec)], cwd=root, env=env, stdout=subprocess.PIPE,
-            stderr=err)
+        proc = subprocess.Popen(cmd, cwd=root, env=env,
+                                stdout=subprocess.PIPE, stderr=err)
     ready, _w, _x = select.select([proc.stdout], [], [], NET_READY_S)
     line = proc.stdout.readline().decode() if ready else ""
     if not line.startswith("ready"):
@@ -4426,12 +4457,12 @@ def start_server(spec, env, log_path):
         proc.wait()
         with open(log_path, errors="replace") as f:
             tail = f.read()[-2000:]
-        fail(f"phase 13b: server {spec['listen']} did not print ready "
+        fail(f"phase {phase}: server {spec['listen']} did not print ready "
              f"(rc {proc.returncode}, {line!r}): {tail}")
     return proc, time.perf_counter() - t0
 
 
-def stop_servers(procs):
+def stop_servers(procs, phase="13b"):
     """SIGTERM every process; each must exit 0 within NET_STOP_S (one that
     does not is killed, and the phase fails). Returns the failures."""
     import signal
@@ -4447,11 +4478,11 @@ def stop_servers(procs):
         except subprocess.TimeoutExpired:
             p.kill()
             p.wait()
-            bad.append(f"phase 13b: pid {p.pid} did not exit within "
+            bad.append(f"phase {phase}: pid {p.pid} did not exit within "
                        f"{NET_STOP_S} s of SIGTERM")
             continue
         if rc != 0:
-            bad.append(f"phase 13b: pid {p.pid} exited {rc} on SIGTERM")
+            bad.append(f"phase {phase}: pid {p.pid} exited {rc} on SIGTERM")
     return bad
 
 
@@ -6345,6 +6376,435 @@ def serve_cells(dev, seed):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 15: the C-API bindings and their conformance tester against server
+# processes whose resolvers run on the card, and the graft entry points
+# ---------------------------------------------------------------------------
+
+# (seed, ops, C-API prefix, native prefix): tests/test_bindingtester.py's
+# two conformance runs
+BINDINGS_RUNS = ((977, 2000, b"bt_c/", b"bt_n/"),
+                 (31337, 1000, b"bt2_c/", b"bt2_n/"))
+BINDINGS_MIN_COMPARED = 500  # stack entries compared over the runs, at least
+# the step kernels that run once a resolver step (K6-K9, K3, K2, K13); K1
+# and K4 (sparse_table, merge_compact) must launch, at least once
+ONCE_A_STEP = ("endpoint_sort", "state_merge", "endpoint_ranks",
+               "intra_levels", "intra_sandwich", "masks_and_history",
+               "step_verdicts")
+
+
+def recorded_server_main(spec_json: str, record_path: str) -> int:
+    """A `server_main` process whose resolvers are recorded as in phases
+    10-14 (`record_resolvers`) and whose RESOLVER_METRICS replies carry
+    `DeviceBytes` (`torch.cuda.memory_allocated` once what is unreachable
+    is collected; None off the card). At its exit (SIGTERM) it replays
+    every batch each resolver decided into a fresh OracleConflictSet and
+    writes the tally to `record_path`."""
+    import torch
+
+    from foundationdb_tpu_torch.net import server_main
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.server import resolver as resolver_mod
+
+    hook = record_resolvers(kernels)
+    hook.install()
+    fold = resolver_mod.fold_transport_counters
+    dev = torch.device("cuda" if json.loads(spec_json).get(
+        "knobs", {}).get("CONFLICT_DEVICE", "cuda").startswith("cuda")
+        else "cpu")
+
+    def with_device_bytes(process, snap):
+        snap["DeviceBytes"] = collected_memory(dev)
+        return fold(process, snap)
+    resolver_mod.fold_transport_counters = with_device_bytes
+    try:
+        rc = server_main.main(spec_json)
+    finally:
+        hook.remove()
+        resolver_mod.fold_transport_counters = fold
+    batches, mismatches, gaps = replay_into_oracles(hook)
+    with open(record_path, "w") as f:
+        json.dump({"batches": batches, "mismatches": mismatches,
+                   "gaps": gaps, "resolvers": [
+                       {k: rec.get(k) for k in (
+                           "process", "device", "backend", "poisoned",
+                           "decided_batches", "undecided_batches", "chunks",
+                           "buckets", "ungraphed_chunks", "eager_steps")}
+                       for rec in hook.instances]}, f)
+    return rc
+
+
+def capi_lifecycle_checks(fdb_c, cluster) -> tuple:
+    """tests/test_bindingtester.py's fdb_c.h lifecycle, future and
+    error-mapping checks on the port's surface: (network thread, database,
+    failures). The thread runs until `fdb_c.fdb_stop_network()`."""
+    import threading
+
+    bad = []
+
+    def check(ok, what):
+        if not ok:
+            bad.append(f"phase 15a: fdb_c {what}")
+    fdb_c._reset_for_tests()
+    check(fdb_c.fdb_setup_network() != 0, "setup before a version succeeded")
+    check(fdb_c.fdb_select_api_version(fdb_c.HEADER_API_VERSION + 1) != 0,
+          "selected a version above the header's")
+    check(fdb_c.fdb_select_api_version(610) == 0, "refused version 610")
+    check(fdb_c.fdb_select_api_version(610) == 0, "refused a re-select")
+    check(fdb_c.fdb_setup_network() == 0, "setup failed")
+    check(fdb_c.fdb_setup_network() != 0, "a double setup succeeded")
+    thread = threading.Thread(target=fdb_c.fdb_run_network, daemon=True)
+    thread.start()
+    err, db = fdb_c.fdb_create_database(cluster)
+    check(err == 0 and db is not None, f"create_database gave {err}")
+    if db is None:
+        return thread, None, bad
+    tr = db.create_transaction()
+    fut = tr.get(b"bt_c/none")
+    check(fut.block_until_ready() == 0 and fut.is_ready(),
+          "get did not become ready")
+    check(fut.get_value() == (0, False, None),
+          f"get of an absent key gave {fut.get_value()}")
+    fired = threading.Event()
+    fut2 = tr.get_read_version()
+    fut2.set_callback(lambda f, arg: fired.set(), None)
+    fut2.block_until_ready()
+    check(fired.wait(5.0), "callback not delivered within 5 s")
+    check(fdb_c.fdb_get_error(1020) == "not_committed", "error name of 1020")
+    check(fdb_c.fdb_error_predicate("RETRYABLE", 1020), "1020 not retryable")
+    check(fdb_c.fdb_error_predicate("MAYBE_COMMITTED", 1021),
+          "1021 not maybe-committed")
+    check(not fdb_c.fdb_error_predicate("RETRYABLE", 4100),
+          "4100 retryable")
+    return thread, db, bad
+
+
+def multiversion_checks(fdb_c) -> list:
+    """tests/test_bindingtester.py's MultiVersionApi selection rules on the
+    port's surface; returns the failures (fdb_c's version reset after)."""
+    import types
+
+    from foundationdb_tpu_torch.bindings.multiversion import MultiVersionApi
+
+    bad = []
+
+    def check(ok, what):
+        if not ok:
+            bad.append(f"phase 15a: multiversion {what}")
+
+    def fake_client(max_api):
+        m = types.SimpleNamespace()
+        m.fdb_get_max_api_version = lambda: max_api
+        m.fdb_select_api_version = lambda v: 0 if v <= max_api else 1
+        m.fdb_create_database = lambda cluster: (0, ("db", max_api))
+        return m
+
+    try:
+        api = MultiVersionApi()
+        check(api.add_external_client("v700", fake_client(700)) == 0,
+              "refused v700")
+        check(api.add_external_client("v520", fake_client(520)) == 0,
+              "refused v520")
+        check(api.add_external_client("bogus", object()) != 0,
+              "took a client without the surface")
+        check(api.fdb_select_api_version(800) != 0, "selected 800")
+        fdb_c._reset_for_tests()
+        check(api.fdb_select_api_version(600) == 0, "refused 600")
+        check(api.active_client is fdb_c, "600 did not elect the local one")
+        check(api.fdb_select_api_version(520) != 0, "re-selected 520")
+        check(api.fdb_select_api_version(600) == 0, "refused re-select 600")
+        check(api.fdb_get_max_api_version() == fdb_c.HEADER_API_VERSION,
+              "delegation missed the active client")
+        api2 = MultiVersionApi()
+        api2.add_external_client("v700", fake_client(700))
+        api2.add_external_client("v520", fake_client(520))
+        fdb_c._reset_for_tests()
+        check(api2.fdb_select_api_version(500) == 0, "refused 500")
+        check(api2.fdb_get_max_api_version() == 520, "500 did not elect v520")
+        check(api2.fdb_create_database({}) == (0, ("db", 520)),
+              "create_database missed v520")
+        api3 = MultiVersionApi()
+        api3.add_external_client("v520", fake_client(520))
+        check(api3.disable_multi_version_client_api() == 0,
+              "refused the disable option")
+        fdb_c._reset_for_tests()
+        check(api3.fdb_select_api_version(500) == 0, "pinned: refused 500")
+        check(api3.active_client is fdb_c, "the disable option did not pin")
+    finally:
+        fdb_c._reset_for_tests()
+    return bad
+
+
+def bindings_process_phase(dev, seed, runs=BINDINGS_RUNS, knobs=None,
+                           min_compared=BINDINGS_MIN_COMPARED):
+    """15a: two `server_main` processes as 13b boots them — txn (master,
+    2 resolvers on `dev` split at A's median key, each on its own address,
+    a tlog and a proxy; recorded, `recorded_server_main`) and storage (one
+    storage server) — at cell A's width (the default knobs, or `knobs`).
+    From this process: the fdb_c lifecycle and error-mapping checks, the
+    conformance runs (`bindingtester.compare_runs` through the C-ABI
+    machine and the native client, stacks and final rows equal, more than
+    `min_compared` entries), the multiversion checks; each resolver's
+    RESOLVER_METRICS over the wire after the first run and at the end
+    (its backend `dev`, every step kernel launched, K6-K9, K3, K2 and K13
+    at least once a chunk on the card, every readback returned, none
+    unconverged, DeviceBytes not grown); SIGTERM (each exits 0 within
+    NET_STOP_S); every batch the resolvers decided equal to a fresh
+    oracle's. Returns (summary, failures)."""
+    import shutil
+    import tempfile
+
+    from foundationdb_tpu_torch.bindings import bindingtester, fdb_c
+    from foundationdb_tpu_torch.client.database import Database, LocationCache
+    from foundationdb_tpu_torch.net import server_main
+    from foundationdb_tpu_torch.net.transport import NetTransport, RealEventLoop
+
+    failures: list = []
+    keys, _picks = ycsb_traffic(seed, NET_KEYS, 1, 1)
+    resolver_bounds = [b"", sorted(keys)[len(keys) // 2]]
+    txn, r0, r1, s0, cli = net_addresses(5)
+    resolvers = [r0, r1]
+    tmp = tempfile.mkdtemp()
+    knob_spec = {"CONFLICT_BACKEND": "device", "CONFLICT_DEVICE": str(dev),
+                 **(knobs or {})}
+    txn_spec = {"listen": txn, "data_dir": os.path.join(tmp, "txn"),
+                "knobs": knob_spec, "roles": [
+                    {"role": "master", "args": {}},
+                    *({"role": "resolver", "listen": r, "args": {
+                        "key_range_begin": resolver_bounds[i].hex(),
+                        "key_range_end": (resolver_bounds[i + 1].hex()
+                                          if i + 1 < 2 else None)}}
+                      for i, r in enumerate(resolvers)),
+                    {"role": "tlog", "args": {}},
+                    net_proxy_role(0, txn, txn, resolvers, resolver_bounds,
+                                   [txn], [b""], [[0]], [txn])]}
+    txn_spec["roles"][-1].pop("listen")
+    storage_spec = {"listen": s0, "data_dir": os.path.join(tmp, "storage"),
+                    "knobs": knob_spec, "roles": [
+                        {"role": "storage",
+                         "args": {"tag": 0, "tlog_addrs": [txn]}}]}
+    log_path = os.path.join(tmp, "servers.log")
+    record_path = os.path.join(tmp, "resolvers.json")
+    env = dict(os.environ)
+    env.pop("FDBTPU_TRACE_DIR", None)
+    env.pop("FDBTPU_PROFILE", None)
+    out: dict = {"runs": [list(r[:2]) for r in runs],
+                 "resolver_split": resolver_bounds[1].decode()}
+    procs, loop, client, net_thread = [], None, None, None
+    machines: list = []
+    capi_run = bindingtester.CApiMachine.run
+    native_run = bindingtester.NativeMachine.run
+
+    def kept(run):
+        def recorded(self, ops):
+            machines.append(self)
+            return run(self, ops)
+        return recorded
+    try:
+        t0 = time.perf_counter()
+        procs.append(start_server(txn_spec, env, log_path, "15a",
+                                  record=record_path)[0])
+        procs.append(start_server(storage_spec, env, log_path, "15a")[0])
+        out["boot_s"] = time.perf_counter() - t0
+        cluster = {"proxies": [txn], "boundaries": [b""], "storages": [[s0]]}
+        net_thread, capi_db, bad = capi_lifecycle_checks(fdb_c, cluster)
+        failures += bad
+        loop = RealEventLoop()
+        client = NetTransport(loop, cli)
+        client.start()
+        ndb = Database(client.process, proxies=[txn],
+                       locations=LocationCache([b""], [[s0]]))
+        bindingtester.CApiMachine.run = kept(capi_run)
+        bindingtester.NativeMachine.run = kept(native_run)
+        compared, metrics = 0, []
+        t0 = time.perf_counter()
+        for seed_i, n_ops, prefix_c, prefix_n in runs:
+            try:
+                compared += bindingtester.compare_runs(
+                    seed_i, n_ops, capi_db, loop, ndb, prefix_c=prefix_c,
+                    prefix_n=prefix_n)
+            except AssertionError as e:
+                failures.append(f"phase 15a: seed {seed_i} x {n_ops} ops: "
+                                f"{str(e)[:500]}")
+            metrics.append(net_resolver_metrics(loop, client, resolvers))
+        out["runs_s"] = time.perf_counter() - t0
+        bindingtester.CApiMachine.run = capi_run
+        bindingtester.NativeMachine.run = native_run
+        commits = [sum(1 for e in m.stack if e[0] == "commit")
+                   for m in machines]
+        out.update({
+            "ops": sum(r[1] for r in runs) * 2, "compared": compared,
+            "attempts": sum(commits),
+            "commits": sum(sum(1 for e in m.stack if e == ("commit", 0))
+                           for m in machines),
+            "ops_per_s": sum(r[1] for r in runs) * 2 / out["runs_s"]})
+        if compared <= min_compared:
+            failures.append(f"phase 15a: {compared} stack entries compared, "
+                            f"not more than {min_compared}")
+        first, last = metrics[0], metrics[-1]
+        m = last[0]
+        out["launches"] = {k[len("KernelLaunches."):]: v
+                           for k, v in m.items()
+                           if k.startswith("KernelLaunches.")}
+        out["chunks"] = m["KernelDispatches"]
+        out["device_bytes"] = [first[0]["DeviceBytes"], m["DeviceBytes"]]
+        out["resolver_metrics"] = [{k: x.get(k) for k in NET_METRICS}
+                                   for x in last]
+        for r, x in zip(resolvers, last):
+            if x["Backend"] != dev.type:
+                failures.append(f"phase 15a: resolver {r} reports backend "
+                                f"{x['Backend']!r}, not {dev.type!r}")
+        if dev.type == "cuda":
+            for k in STEP_KERNELS:
+                if not out["launches"][k]:
+                    failures.append(f"phase 15a: {k} never launched")
+            for k in ONCE_A_STEP:
+                if out["launches"][k] < m["KernelDispatches"]:
+                    failures.append(
+                        f"phase 15a: {out['launches'][k]} {k} launches for "
+                        f"{m['KernelDispatches']} chunks")
+            if m["DeviceBytes"] > first[0]["DeviceBytes"]:
+                failures.append(f"phase 15a: device bytes grew from "
+                                f"{first[0]['DeviceBytes']} to "
+                                f"{m['DeviceBytes']}")
+        groups = sum(x["DrainGroups"] for x in last)
+        if m["ReadbackWaits"] != groups or m["UnconvergedChunks"]:
+            failures.append(f"phase 15a: {m['ReadbackWaits']} readbacks "
+                            f"returned for {groups} drain groups, "
+                            f"{m['UnconvergedChunks']} chunks unconverged")
+    finally:
+        bindingtester.CApiMachine.run = capi_run
+        bindingtester.NativeMachine.run = native_run
+        if net_thread is not None:
+            fdb_c.fdb_stop_network()
+            net_thread.join(timeout=NET_STOP_S)
+            if net_thread.is_alive():
+                failures.append("phase 15a: the fdb_c network thread did "
+                                "not stop")
+        fdb_c._reset_for_tests()
+        if loop is not None:
+            server_main.shutdown(loop, [client] if client else [], [])
+            loop.aio.close()
+        t0 = time.perf_counter()
+        failures += stop_servers(procs, "15a")
+        out["stop_s"] = time.perf_counter() - t0
+    # after the network thread stopped: the checks reset fdb_c's version
+    failures += multiversion_checks(fdb_c)
+    try:
+        with open(record_path) as f:
+            rec = json.load(f)
+    except OSError as e:
+        rec = None
+        failures.append(f"phase 15a: no resolver record from the txn "
+                        f"process ({e})")
+    if rec is not None:
+        out["resolved_batches"] = rec["batches"]
+        out["mismatched_batches"] = rec["mismatches"]
+        out["resolvers"] = rec["resolvers"]
+        if rec["mismatches"] or rec["gaps"] or not rec["batches"]:
+            failures.append(f"phase 15a: {rec['mismatches']} of "
+                            f"{rec['batches']} resolver batches differ from "
+                            f"the oracle, {rec['gaps']} resolvers with gaps")
+        for r in rec["resolvers"]:
+            if r["poisoned"] or (dev.type == "cuda"
+                                 and r["ungraphed_chunks"]):
+                failures.append(f"phase 15a: resolver {r['process']} "
+                                f"poisoned {r['poisoned']}, "
+                                f"{r['ungraphed_chunks']} chunks outside "
+                                f"their graph")
+    if failures:
+        with open(log_path, errors="replace") as f:
+            log("phase 15a servers.log tail: " + f.read()[-2000:])
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("phase 15a: " + json.dumps({k: out.get(k) for k in (
+        "boot_s", "ops", "runs_s", "ops_per_s", "compared", "attempts",
+        "commits", "resolved_batches", "mismatched_batches", "chunks",
+        "device_bytes", "stop_s")}))
+    return out, failures
+
+
+def graft_phase(dev, shards=None):
+    """15b: `graft_entry.entry()` on `dev` (the knob's device when it is
+    the card): one step, every field (state, statuses, info) equal to the
+    plain step on a CPU copy of the same state and batch, and its ms; then
+    `dryrun_multichip` over `shards` (every attached card on CUDA).
+    Returns (summary, failures)."""
+    import functools
+
+    import torch
+
+    from foundationdb_tpu_torch import graft_entry
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels
+    from foundationdb_tpu_torch.ops.batch import COMMITTED
+
+    failures: list = []
+    fn, (state, batch) = graft_entry.entry(
+        None if dev.type == "cuda" else dev)
+    cpu = torch.device("cpu")
+    plain = functools.partial(ref.conflict_step,
+                              max_write_life=graft_entry.MAX_WRITE_LIFE,
+                              phases=ref.PLAIN)
+    want = plain(clone_to(state, cpu), clone_to(batch, cpu))
+    before = dict(kernels.LAUNCHES)
+    got = fn(state, batch)
+    launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    names = (["state." + k for k in want[0]] + ["statuses"]
+             + ["info." + k for k in want[2]])
+    flat_want = list(want[0].values()) + [want[1]] + list(want[2].values())
+    flat_got = ([got[0][k] for k in want[0]] + [got[1]]
+                + [got[2].get(k) for k in want[2]])
+    differ = [n for n, w, g in zip(names, flat_want, flat_got)
+              if g is None or not torch.equal(g.cpu(), w)]
+    if differ:
+        failures.append(f"phase 15b: entry()'s step differs from the plain "
+                        f"step in {differ}")
+    out = {"device": str(state["bkeys"].device), "fields": len(names),
+           "committed": int((got[1] == COMMITTED).sum()),
+           "launches": {k: v for k, v in launches.items() if v}}
+    if dev.type == "cuda":
+        out["step_ms"] = time_cuda(lambda: fn(state, batch), 20)
+        if not all(launches[k] for k in ONCE_A_STEP):
+            failures.append(f"phase 15b: entry()'s step launched "
+                            f"{out['launches']}")
+    n = shards if shards is not None else (
+        torch.cuda.device_count() if dev.type == "cuda" else 1)
+    try:
+        out["dryrun"] = graft_entry.dryrun_multichip(n, device=dev.type)
+    except Exception as e:  # a failed dryrun is this phase's failure
+        failures.append(f"phase 15b: dryrun_multichip({n}) failed: "
+                        f"{type(e).__name__}: {e}")
+    log("phase 15b: " + json.dumps(out, default=str))
+    return out, failures
+
+
+def bindings_phase(dev, seed, processes=None, shards=None):
+    """Phase 15: 15a and 15b (`processes`: keyword arguments of 15a, the
+    CPU tests' small sizes). The kernels line's `launches_bindings` is
+    15a's txn process's counts, read over the wire, plus 15b's step. The
+    clients' trace events in this process are dropped, their buffered
+    spans too."""
+    from foundationdb_tpu_torch.utils import trace
+
+    trace.set_sink(lambda _fields: None)
+    try:
+        a, bad_a = bindings_process_phase(dev, seed + 15,
+                                          **(processes or {}))
+    finally:
+        trace.g_trace_batch.dump()
+        trace.set_sink(None)
+    b, bad_b = graft_phase(dev, shards)
+    failures = bad_a + bad_b
+    if failures:
+        fail("phase 15: " + "; ".join(failures))
+    launches = dict(a.get("launches", {}))
+    for k, v in b["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return {"phase": "15", "15a": a, "15b": b, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6383,6 +6843,12 @@ def main(argv=None) -> int:
                          "on the transport's C planes), with phase 4's A "
                          "and 13a as yardsticks, print its numbers as JSON "
                          "and exit")
+    ap.add_argument("--bindings", action="store_true",
+                    help="only run phase 15 (the C-API bindings' lifecycle, "
+                         "conformance and multiversion checks against two "
+                         "server_main processes whose resolvers run on the "
+                         "card, and the graft entry points), print its "
+                         "numbers as JSON and exit")
     ap.add_argument("--sim", action="store_true",
                     help="only run phase 11 (the randomized simulation "
                          "harness: the ten fast specs on device and "
@@ -6486,6 +6952,15 @@ def main(argv=None) -> int:
             json.dump(out, f, indent=1, default=str)
         log(f"phase 14 on {card}")
         print(json.dumps(out["phase_14"]["native_planes"]), flush=True)
+        return 0
+    if args.bindings:
+        out = {"card": card, "source_digest": digest,
+               "bindings": bindings_phase(dev, args.seed)}
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1, default=str)
+        log(f"phase 15 on {card}")
+        print(json.dumps(out, default=str), flush=True)
         return 0
     if args.sim:
         out = {"card": card, "source_digest": digest, "sim": sim_phase(dev)}
@@ -6674,6 +7149,20 @@ def main(argv=None) -> int:
             "device_bytes_before", "beside_13a")}}))
     log(f"native planes by phase on {card}: " + json.dumps(planes))
 
+    # 15. the C-API bindings: 15a the fdb_c lifecycle, the conformance runs
+    # and the multiversion checks against two server_main processes whose
+    # resolvers run on the card, every resolver batch held to the oracle;
+    # 15b the graft entry's step against its plain step, and the dryrun
+    kernels.release_scratch()
+    torch.cuda.empty_cache()
+    bindings = report["bindings"] = bindings_phase(dev, args.seed)
+    log(f"phase 15 on {card}: " + json.dumps({
+        "15a": {k: bindings["15a"].get(k) for k in (
+            "ops", "runs_s", "ops_per_s", "compared", "attempts", "commits",
+            "resolved_batches", "chunks", "device_bytes")},
+        "15b": {k: bindings["15b"].get(k) for k in ("step_ms", "dryrun")}},
+        default=str))
+
     timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "library_device_ms", "host_ms",
                    "launches_per_call")
@@ -6718,6 +7207,7 @@ def main(argv=None) -> int:
         entry["launches_backup"] = backup["launches"][name]
         entry["launches_net"] = net["launches"][name]
         entry["launches_native"] = native["launches"].get(name, 0)
+        entry["launches_bindings"] = bindings["launches"].get(name, 0)
         entry.update({k: r[k] for k in timing_keys})
         if name in SHARD_KERNELS:
             entry["bench_16384_w4"] = {k: r["bench_16384_w4"][k]

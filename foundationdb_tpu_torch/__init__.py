@@ -16,7 +16,11 @@ simulation harness (testing/), backup, restore and DR (backup/, with the
 blob store's HTTP in net/http.py), the client layers (layers/), the real
 transport and the server processes (net/: transport.py, server_main.py)
 and the operator tools fdbbackup, fdbcli, fdbmonitor, networktest and
-trace_analyze (tools/).
+trace_analyze (tools/). It ports the C-ABI client bindings with their
+multiversion loader and conformance tester (bindings/), the driver entry
+points (graft_entry.py), the C extension's sanitizer harness
+(native/sanitize.py) and the static analyzers with their four rule
+families, flow, dev (torch rules), proto and nat (analysis/).
 """
 
 __version__ = "0.1.0"

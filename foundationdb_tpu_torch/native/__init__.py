@@ -24,6 +24,13 @@ Usage:
 The module is loaded from its own file and left out of `sys.modules`, so
 the JAX package's extension (same init symbol) loads beside it in one
 process, each with its own static state.
+
+Set FDBTPU_TORCH_NATIVE_SO=/path/to/lib.so to load that prebuilt library
+instead of building one (`native/sanitize.py` runs the port against an
+ASan/UBSan build this way). A path that names no file leaves the extension
+unavailable, with the reason in `build_error()`; it never builds. The name
+is the port's own: the JAX package's loader reads FDBTPU_NATIVE_SO, and one
+variable must not redirect both loaders of a process.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "fdb_native.c"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CFLAGS = ("-O3", "-shared", "-fPIC")
+OVERRIDE_ENV = "FDBTPU_TORCH_NATIVE_SO"
 
 _lock = threading.Lock()
 _loaded = False
@@ -117,8 +125,12 @@ def _ensure():
         if _loaded:
             return
         m = None
+        override = os.environ.get(OVERRIDE_ENV)
         try:
-            m = load(build())
+            if override and not os.path.exists(override):
+                _build_error = f"{OVERRIDE_ENV} does not exist: {override}"
+            else:
+                m = load(Path(override) if override else build())
         except (OSError, RuntimeError, ImportError,
                 subprocess.TimeoutExpired) as e:
             _build_error = f"{type(e).__name__}: {e}"

@@ -37,6 +37,7 @@ import torch
 
 from foundationdb_tpu_torch import native
 from foundationdb_tpu_torch.ops import conflict_ref as ref
+from foundationdb_tpu_torch.ops import encode_np
 from foundationdb_tpu_torch.ops import kernels
 from foundationdb_tpu_torch.ops.batch import (COMMITTED, CONFLICT, TOO_OLD,
                                               TxnConflictInfo)
@@ -143,8 +144,7 @@ class BatchEncoder:
         self._rings: dict = {}
 
     def _clamp_off(self, version: int) -> int:
-        off = version - self.base_version
-        return int(max(min(off, (1 << 31) - 1), _NEG_INT))
+        return encode_np.clamp_off(version, self.base_version)
 
     def _slot(self, sh: ConflictShapes) -> dict:
         ring = self._rings.setdefault((sh.reads, sh.writes), [])
@@ -228,56 +228,11 @@ class BatchEncoder:
 
     def _encode_numpy(self, host: dict, txns, skip, sh: ConflictShapes):
         """The chunk's fields with a per-txn loop and numpy bulk encodes
-        (the path where the C extension is not built)."""
-        T = sh.txns
-
-        def view(name):
-            return host[name]
-
-        rkeys_b, rkeys_e, wkeys_b, wkeys_e, rt, wt = [], [], [], [], [], []
-        # rs/ws: the strided layout's slot of each range
-        rs, ws = [], []
-        rpt, wpt = sh.reads // T, sh.writes // T
-        snap, valid = view("snapshot"), view("txn_valid")
-        snap.fill(0)
-        valid.fill(0)
-        for t, txn in enumerate(txns):
-            if skip is not None and skip[t]:
-                continue
-            valid[t] = 1
-            snap[t] = self._clamp_off(txn.read_snapshot)
-            for i, (b, e) in enumerate(txn.read_ranges):
-                rkeys_b.append(b)
-                rkeys_e.append(e)
-                rs.append(t * rpt + i)
-            rt.extend([t] * len(txn.read_ranges))
-            for i, (b, e) in enumerate(txn.write_ranges):
-                wkeys_b.append(b)
-                wkeys_e.append(e)
-                ws.append(t * wpt + i)
-            wt.extend([t] * len(txn.write_ranges))
-        if len(rt) > sh.reads or len(wt) > sh.writes:
-            raise FDBError("internal_error",
-                           f"{len(rt)} reads / {len(wt)} writes exceed the "
-                           f"chunk shape {sh.reads}/{sh.writes}")
-        kb = sh.key_bytes
-        for name, keys, slots, up in (
-                ("rb", rkeys_b, rs, False), ("re", rkeys_e, rs, True),
-                ("wb", wkeys_b, ws, False), ("we", wkeys_e, ws, True)):
-            out = view(name)
-            out.fill(ref.PAD_LIMB)
-            if keys:
-                idx = slots if sh.strided else slice(len(keys))
-                out[:, idx] = keylib.to_signed_limbs(
-                    keylib.encode_keys_bulk(keys, kb, round_up=up))
-        for name, owners, n, per in (("rtxn", rt, sh.reads, rpt),
-                                     ("wtxn", wt, sh.writes, wpt)):
-            out = view(name)
-            if sh.strided:
-                out[:] = np.arange(n, dtype=np.int32) // per
-            else:
-                out.fill(T)
-                out[:len(owners)] = owners
+        (the path where the C extension is not built; ops/encode_np.py)."""
+        encode_np.encode_numpy(
+            host, txns, skip, txns_per_chunk=sh.txns, reads=sh.reads,
+            writes=sh.writes, key_bytes=sh.key_bytes, strided=sh.strided,
+            base_version=self.base_version)
 
     def split_for_capacity(self, txns):
         """Chunks of whole transactions that fit the static shape, in batch

@@ -46,10 +46,11 @@ import numpy as np
 import torch
 
 from foundationdb_tpu_torch.ops.batch import COMMITTED, CONFLICT, TOO_OLD
+# NEG ("no version", below any clamped offset) and PAD_LIMB (the padding
+# sentinel 0xFFFFFFFF, sign-flipped) live with the torch-free encoder
+from foundationdb_tpu_torch.ops.encode_np import NEG, PAD_LIMB  # noqa: F401
 from foundationdb_tpu_torch.utils import keys as keylib
 
-NEG = -(1 << 30)  # "no version", below any clamped offset
-PAD_LIMB = 0x7FFFFFFF  # the padding sentinel 0xFFFFFFFF, sign-flipped
 EMPTY_LIMB = -(1 << 31)  # encode(b"") limbs (all zero), sign-flipped
 
 _I32 = torch.int32

@@ -178,7 +178,7 @@ class Resolver:
                 reply.send(cached)
             # unknown old version: a retransmit from before our recovery —
             # drop; the proxy retries and finds the cached reply
-            return
+            return  # protolint: ignore[PROTO002] — deliberate drop, see above
         cs = self.conflict_set
         self._c_batches.increment()
         loop = self.process.net.loop

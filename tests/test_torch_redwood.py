@@ -27,6 +27,7 @@ from foundationdb_tpu_torch.storage.redwood import RedwoodKeyValueStore
 from foundationdb_tpu_torch.utils.errors import FDBError
 from foundationdb_tpu_torch.utils.knobs import KNOBS
 from foundationdb_tpu_torch.utils.rng import DeterministicRandom
+from test_torch_native_fuzz import fuzz_codec_parity, random_items
 
 TINY = dict(REDWOOD_MEMTABLE_BYTES=512, REDWOOD_BLOCK_BYTES=128,
             REDWOOD_COMPACTION_FAN_IN=2)
@@ -83,17 +84,10 @@ class _Files:
 # block codec, CRC, bloom filters
 # ---------------------------------------------------------------------------
 
-def _random_items(rng, n):
-    keys = sorted({bytes(rng.randint(97, 103) for _ in range(
-        rng.randint(1, 12))) for _ in range(n)})
-    return [(k, bytes(rng.randint(0, 255) for _ in range(rng.randint(0, 20))))
-            for k in keys]
-
-
 def test_block_codec_roundtrip_python():
     rng = DeterministicRandom(1)
     for _ in range(50):
-        items = _random_items(rng, rng.randint(0, 30))
+        items = random_items(rng, rng.randint(0, 30))
         assert R.py_decode_block(R.py_encode_block(items)) == items
         assert R.decode_block(R.encode_block(items)) == items
 
@@ -114,30 +108,9 @@ def _jax_native():
 def test_codec_crc_and_bloom_give_the_jax_bytes(seed):
     """Seeded fuzz: the port's block images, CRCs and bloom sections are
     byte for byte the JAX package's Python ones, and its C ones where the
-    JAX extension is built (the binding authority is the Python side)."""
-    rng = DeterministicRandom(seed)
-    mod = _jax_native()
-    for _ in range(60):
-        items = _random_items(rng, rng.randint(0, 40))
-        img = R.encode_block(items)
-        assert img == JR.py_encode_block(items) == JR.encode_block(items)
-        if mod is not None and hasattr(mod, "redwood_encode_block"):
-            assert img == mod.redwood_encode_block(items)
-        assert R.decode_block(JR.encode_block(items)) == items
-        data = bytes(rng.randint(0, 255) for _ in range(rng.randint(0, 300)))
-        assert R.crc32c(data) == JR.crc32c(data)
-        keys = [k for k, _v in items]
-        bits, hashes = rng.randint(1, 16), rng.randint(1, 12)
-        bloom = R.bloom_build(keys, bits, hashes)
-        assert bloom == JR.py_bloom_build(keys, bits, hashes)
-        assert bloom == JR.bloom_build(keys, bits, hashes)
-        probe = keys + [bytes(rng.randint(97, 103) for _ in range(5))
-                        for _ in range(10)]
-        for k in probe:
-            assert R.bloom_query(bloom, k) == JR.py_bloom_query(bloom, k)
-            if k in keys:
-                assert R.bloom_query(bloom, k)
-    assert R.crc32c(b"123456789") == 0xE3069283  # the CRC-32C check value
+    JAX extension is built (the binding authority is the Python side); the
+    body is the one the sanitizer harness runs on the port's own paths."""
+    fuzz_codec_parity(seed, ref=JR, ref_native=_jax_native())
 
 
 def test_struct_layouts_are_the_jax_ones():

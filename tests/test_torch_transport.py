@@ -85,19 +85,30 @@ def server_env(**extra):
     return dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=ROOT, **extra)
 
 
-def start_server(module, spec, env=None, timeout=READY_S):
+def start_server(module, spec, env=None, timeout=READY_S, log_path=None):
     """`python -m <module> <spec>` with a deadline on its ready line; a
-    child that prints anything else, exits or hangs fails the test."""
-    p = subprocess.Popen([sys.executable, "-m", module, json.dumps(spec)],
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                         cwd=ROOT, env=env or server_env())
+    child that prints anything else, exits or hangs fails the test. With
+    `log_path` its stderr goes to that file: a process that lives through
+    a whole module writes counter records that would fill a pipe nobody
+    reads, and block."""
+    err = open(log_path, "ab") if log_path else subprocess.PIPE
+    try:
+        p = subprocess.Popen([sys.executable, "-m", module, json.dumps(spec)],
+                             stdout=subprocess.PIPE, stderr=err, cwd=ROOT,
+                             env=env or server_env())
+    finally:
+        if log_path:
+            err.close()
     ready, _w, _x = select.select([p.stdout], [], [], timeout)
     line = p.stdout.readline().decode() if ready else ""
     if not line.startswith("ready"):
         p.kill()
-        _out, err = p.communicate(timeout=STOP_S)
+        _out, said = p.communicate(timeout=STOP_S)
+        if log_path:
+            with open(log_path, "rb") as f:
+                said = f.read()
         pytest.fail(f"{module} did not print ready within {timeout} s "
-                    f"(got {line!r}): {err.decode()[-2000:]}")
+                    f"(got {line!r}): {said.decode()[-2000:]}")
     return p
 
 
