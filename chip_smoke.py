@@ -133,8 +133,9 @@ Phases, each of which must pass:
      4 bytes, where the engine cuts, differ), one 2^29 version jump (every
      shard rebases) and the load check at batch 64, which must re-cut;
      every batch equal to the same engine with the plain phases on the
-     card, the batches before the re-cut equal to the clipped-oracle model
-     (four oracles fed shard-clipped ranges, min-combined), every shard's
+     card and to the clipped-oracle model (four oracles fed shard-clipped
+     ranges, min-combined; the re-cut applied to them as the engine made
+     it, `recut_oracles`), every shard's
      state equal at the end, K10 and K11 once a chunk and the step's
      kernels W times a chunk; 8b the resolver role with
      CONFLICT_BACKEND=sharded (CONFLICT_DEVICE=cuda, CONFLICT_NUM_SHARDS=0:
@@ -313,6 +314,41 @@ Phases, each of which must pass:
      its ms; `dryrun_multichip(torch.cuda.device_count())` on CUDA.
      Printed: 15a's ops and seconds, attempts and commits, resolver steps
      held to the oracle, chunks and device bytes; 15b's step ms.
+ 16. the end-to-end driver (foundationdb_tpu_torch/bench_e2e.py): real
+     server processes over TCP (core: master, resolver, tlog and
+     ratekeeper; proxies; storage) and client worker processes, the
+     resolver's engine on the card. 16a `bench.run_e2e()`, one subprocess
+     each for the oracle and device backends at `run`'s defaults (1,500
+     clients, 5 s a phase after a 1.5 s ramp, write, read and mixed,
+     merged core, 1 storage, 2 client processes; the oracle's with the
+     2-proxy and 100-client rows): every report well formed (ops/s above
+     0, commit p50 and p99 where the phase commits, GRV p50 where a GRV
+     was timed: the driver times each client's 1st, 17th, ... GRV in a
+     reading phase, so there it is due once the window held 16
+     transactions a client), the device core's engine the card and its
+     step kernels (K6-K9, K2, K1, K3, K4, K13) once a chunk in every
+     phase that commits (none in read), read over the wire. 16b
+     `bench_e2e.run` in this process on the device backend with 2 proxies
+     and 2 storage servers, the mixed and mixed-contended phases, traced;
+     16c on the sharded backend, two shards sharing the card, the write
+     phase for 2 s. In both the core runs as `recorded_server_main`
+     (the driver's `_spawn_server` wrapped): every batch its resolver
+     decided equal to a fresh OracleConflictSet (16c: the clipped-oracle
+     model, through every re-cut the engine made), no poison, every chunk
+     through its graph, the step kernels once a chunk (16c: once a shard
+     a chunk, K10 and K11 once a chunk) net of the build's launches, the
+     core's device bytes equal after the first phase and at the end, every
+     process the driver started exiting 0 (the servers on SIGTERM within
+     10 s), and no
+     process but the core holding the card's device node while the run
+     lasts (nvidia-smi's compute-app pids are printed beside it; in a
+     container they need not be this container's). Printed: each run's
+     ops/s, committed txns/s, errors by name, error and not-committed
+     rates, GRV and commit p50/p99, CPU by process, boot seconds; 16b's
+     stages (Proxy.BatchAssembly, Proxy.Resolve, Resolver.Dispatch,
+     Client.Commit, and Client.AdmissionWait where a commit waited),
+     queueing and readback-overlap ratios; phase 16's seconds and the
+     smoke's.
 
 `python3 chip_smoke.py --serve-cells` only serves phase 4's cells A and B
 (each reply checked against the oracle) and prints their numbers.
@@ -329,6 +365,7 @@ call, its yardsticks).
 `python3 chip_smoke.py --bindings` only runs phase 15, with its checks,
 after the card and build lines, and writes its numbers to
 chiprun_out/chip_smoke.json.
+`python3 chip_smoke.py --e2e` does the same for phase 16.
 `python3 chip_smoke.py --time-kernels` only times K1-K11, K13 and bench steps
 (cell A's traffic, phase B's, the bench at 16k and 32k, K9 at T=2^20):
 K5's whole fixpoint and one evaluation at the bench's warmed state and
@@ -351,7 +388,9 @@ phase 11, `launches_sim`, in phase 12, `launches_backup`, and in phase
 13, `launches_net`: 13a's in this process plus 13b's txn process's, read
 over the wire, and in phase 14, `launches_native`: 14a's C-fed cell A
 plus 14b's, and in phase 15, `launches_bindings`: 15a's txn process's,
-read over the wire, plus 15b's entry step), the
+read over the wire, plus 15b's entry step, and in phase 16,
+`launches_e2e`: 16a's device core's in its phases, read over the wire,
+plus 16b's and 16c's cores' net of their builds), the
 nvidia-smi line, and last {"ok": true, "device":
 {...}}. Any failure exits non-zero with no result line. Details go to
 chiprun_out/chip_smoke.json. The script imports nothing of JAX or of the
@@ -3082,6 +3121,8 @@ def record_resolvers(kernels):
         r._resolve_batch = resolve
         r._finish_batch = finish
         cs.dispatch_chunk = dispatch
+        if hasattr(cs, "cut_bytes"):
+            record_cuts(cs, rec)
         if hasattr(cs, "_step"):  # the single-device engine's eager step
             def step(batch, fn=cs._step):
                 rec["eager_steps"] += 1
@@ -3098,11 +3139,73 @@ def record_resolvers(kernels):
     return hook
 
 
-def replay_into_oracles(hook):
+def record_cuts(cs, rec):
+    """Records a sharded engine's partition into `rec`: its cuts when
+    recorded (`cuts0`), each re-cut as (version, cuts) in the order the
+    engine made them (`recuts`), and the cuts each batch was decided
+    under, by version (`cuts`)."""
+    rec["cuts0"], rec["recuts"], rec["cuts"] = list(cs.cut_bytes), [], {}
+
+    def rebalance_cuts(new_cut_bytes, at_version, fn=cs.rebalance_cuts):
+        rec["recuts"].append((at_version, list(new_cut_bytes)))
+        return fn(new_cut_bytes, at_version)
+
+    def detect_async(txns, commit_version, fn=cs.detect_async):
+        handle = fn(txns, commit_version)
+        rec["cuts"][commit_version] = list(cs.cut_bytes)
+        return handle
+    cs.rebalance_cuts = rebalance_cuts
+    cs.detect_async = detect_async
+
+
+def recut_oracles(oracles, old_cuts, new_cuts, version):
+    """The clipped-oracle model through the sharded engine's
+    `rebalance_cuts(new_cuts, version)`: shard d keeps its history where
+    its new range overlaps its old one, and the rest of its new range
+    (all of it where they do not overlap) is filled at `version`, the
+    conservative value that makes a read older than the re-cut
+    conflict."""
+    n = len(oracles)
+
+    def hi_of(cuts, d):
+        return cuts[d + 1] if d + 1 < n else None
+
+    def below(a, b):  # a < b, None the top of the keyspace
+        return a is not None and (b is None or a < b)
+
+    def fill(oracle, lo, hi):
+        if not below(lo, hi):
+            return
+        if hi is not None:
+            oracle.add_range(lo, hi, version)
+            return
+        oracle._ensure_boundary(lo)
+        i = oracle._seg_of(lo)
+        oracle.vals[i:] = [max(v, version) for v in oracle.vals[i:]]
+    for d, oracle in enumerate(oracles):
+        lo, hi = new_cuts[d], hi_of(new_cuts, d)
+        a = max(lo, old_cuts[d])
+        old_hi = hi_of(old_cuts, d)
+        b = hi if below(hi, old_hi) or hi == old_hi else old_hi
+        if below(a, b):
+            fill(oracle, lo, a)
+            fill(oracle, b, hi)
+        else:
+            fill(oracle, lo, hi)
+
+
+def replay_into_oracles(hook, clipped=False):
     """Every batch each recorded resolver decided, replayed in version
     order into a fresh OracleConflictSet from that resolver's recovery
     version: (batches, mismatches, gaps); each record gains its backend,
-    device, poison, decided and undecided batches and chunks."""
+    device, poison, decided and undecided batches and chunks. With
+    `clipped`, a sharded engine's batches go to the clipped-oracle model
+    (`shard_oracle_detect`, one oracle a shard) from its recorded cuts,
+    each recorded re-cut applied to the model (`recut_oracles`) before the
+    batch it came with, so the batches after a re-cut are held too; a
+    batch the engine decided under other cuts than the model's counts as
+    a mismatch. The record gains `recuts_replayed` and `after_recut`, the
+    batches replayed after the first re-cut."""
     from foundationdb_tpu_torch.ops.conflict_oracle import OracleConflictSet
     batches = mismatches = gaps = 0
     for rec, role in zip(hook.instances, hook.roles):
@@ -3110,9 +3213,25 @@ def replay_into_oracles(hook):
         order = sorted(reqs)
         if sorted(got) != order[:len(got)]:
             gaps += 1
-        oracle = OracleConflictSet(oldest_version=rec["recovery_version"])
+        cuts = rec.get("cuts") if clipped else None
+        now = rec["cuts0"] if cuts is not None else [b""]
+        recuts = list(rec.get("recuts", ())) if cuts is not None else []
+        oracles = [OracleConflictSet(oldest_version=rec["recovery_version"])
+                   for _ in now]
+        rec["after_recut"] = rec["recuts_replayed"] = 0
         for version in sorted(got):
-            want = oracle.detect(reqs[version].transactions, version)
+            txns = reqs[version].transactions
+            while recuts and recuts[0][0] <= version:
+                at, new = recuts.pop(0)
+                recut_oracles(oracles, now, new, at)
+                now = new
+                rec["recuts_replayed"] += 1
+            if cuts is None:
+                want = oracles[0].detect(txns, version)
+            else:
+                want = shard_oracle_detect(oracles, now, txns, version)
+                mismatches += cuts.get(version, now) != now
+                rec["after_recut"] += rec["recuts_replayed"] > 0
             mismatches += got[version] != want
             batches += 1
         r = role()
@@ -5688,8 +5807,9 @@ def sharded_engine_phase(dev, seed):
     version 2^29 further (every shard rebases). Every chunk must be one
     replay of the engine's chunk graph (`graphed`). Every batch must equal the
     same engine with the plain phases on the card (its sandwich stopping at
-    the pinch, `pinch_read_sandwich`), and every batch before
-    the first rebalance the clipped-oracle model; the load check at batch
+    the pinch, `pinch_read_sandwich`), and the clipped-oracle model, each
+    re-cut applied to it before the batch the engine made it for; the
+    load check at batch
     64 must re-cut; no chunk may be unconverged and no shard poison; after
     the last batch every shard's state must equal the plain engine's,
     field for field. Launch counts are zeroed just before the run: K10 and
@@ -5723,6 +5843,8 @@ def sharded_engine_phase(dev, seed):
              f"plain engine's {plain.graphed} (want True, False)")
     eng._program.capture()  # before the counts are zeroed, as a warmup
     cuts0 = list(eng.cut_bytes)
+    cuts_now, recorded = cuts0, {}
+    record_cuts(eng, recorded)
     oracles = [OracleConflictSet() for _ in range(W)]
 
     def dispatches():
@@ -5744,11 +5866,14 @@ def sharded_engine_phase(dev, seed):
             fail(f"phase 8a: batch {i}'s statuses differ between the "
                  f"kernels and the plain phases")
         record["on"] = False
-        if first_recut is None:
-            if shard_oracle_detect(oracles, cuts0, txns, version) != got:
-                fail(f"phase 8a: batch {i} differs from the clipped-oracle "
-                     f"model")
-            model_checked += 1
+        while recorded["recuts"]:
+            at, new = recorded["recuts"].pop(0)
+            recut_oracles(oracles, cuts_now, new, at)
+            cuts_now = new
+        if shard_oracle_detect(oracles, cuts_now, txns, version) != got:
+            fail(f"phase 8a: batch {i} differs from the clipped-oracle "
+                 f"model")
+        model_checked += 1
     torch.cuda.synchronize()
     launches = {k: kernels.LAUNCHES[k] for k in PATH_KERNELS + SHARD_KERNELS}
     unconverged = kernel_metrics.as_dict()["UnconvergedChunks"] - unconverged0
@@ -5774,9 +5899,11 @@ def sharded_engine_phase(dev, seed):
     log("phase 8a: " + json.dumps(out))
     if eng.rebalances == 0:
         fail("phase 8a: the load check never re-cut the shards")
-    if model_checked < 16:
-        fail(f"phase 8a: only {model_checked} batches before the first "
-             f"re-cut were held to the clipped-oracle model")
+    if first_recut is None or first_recut < 16 \
+            or model_checked != len(batches):
+        fail(f"phase 8a: the re-cut came at batch {first_recut}, "
+             f"{model_checked} of {len(batches)} batches held to the "
+             f"clipped-oracle model")
     if unconverged or any(got_np["poisoned"]):
         fail(f"phase 8a: {unconverged} unconverged chunks, poisoned "
              f"{got_np['poisoned'].tolist()}")
@@ -6398,8 +6525,10 @@ def recorded_server_main(spec_json: str, record_path: str) -> int:
     10-14 (`record_resolvers`) and whose RESOLVER_METRICS replies carry
     `DeviceBytes` (`torch.cuda.memory_allocated` once what is unreachable
     is collected; None off the card). At its exit (SIGTERM) it replays
-    every batch each resolver decided into a fresh OracleConflictSet and
-    writes the tally to `record_path`."""
+    every batch each resolver decided into a fresh OracleConflictSet (a
+    sharded backend's into the clipped-oracle model) and writes the tally,
+    the kernel launches and those of the resolvers' builds to
+    `record_path`."""
     import torch
 
     from foundationdb_tpu_torch.net import server_main
@@ -6409,9 +6538,9 @@ def recorded_server_main(spec_json: str, record_path: str) -> int:
     hook = record_resolvers(kernels)
     hook.install()
     fold = resolver_mod.fold_transport_counters
-    dev = torch.device("cuda" if json.loads(spec_json).get(
-        "knobs", {}).get("CONFLICT_DEVICE", "cuda").startswith("cuda")
-        else "cpu")
+    knobs = json.loads(spec_json).get("knobs", {})
+    dev = torch.device("cuda" if str(knobs.get(
+        "CONFLICT_DEVICE", "cuda")).startswith("cuda") else "cpu")
 
     def with_device_bytes(process, snap):
         snap["DeviceBytes"] = collected_memory(dev)
@@ -6422,15 +6551,20 @@ def recorded_server_main(spec_json: str, record_path: str) -> int:
     finally:
         hook.remove()
         resolver_mod.fold_transport_counters = fold
-    batches, mismatches, gaps = replay_into_oracles(hook)
+    batches, mismatches, gaps = replay_into_oracles(
+        hook, clipped=knobs.get("CONFLICT_BACKEND") == "sharded")
     with open(record_path, "w") as f:
         json.dump({"batches": batches, "mismatches": mismatches,
                    "gaps": gaps, "resolvers": [
                        {k: rec.get(k) for k in (
                            "process", "device", "backend", "poisoned",
                            "decided_batches", "undecided_batches", "chunks",
-                           "buckets", "ungraphed_chunks", "eager_steps")}
-                       for rec in hook.instances]}, f)
+                           "buckets", "ungraphed_chunks", "eager_steps",
+                           "recuts_replayed", "after_recut")}
+                       for rec in hook.instances],
+                   "launches": dict(kernels.LAUNCHES),
+                   "build_launches": hook.build_launches,
+                   "build_chunks": hook.build_chunks}, f)
     return rc
 
 
@@ -6805,6 +6939,386 @@ def bindings_phase(dev, seed, processes=None, shards=None):
     return {"phase": "15", "15a": a, "15b": b, "launches": launches}
 
 
+# phase 16: the end-to-end driver (foundationdb_tpu_torch/bench_e2e.py)
+E2E_PHASES = ("write", "read", "mixed")  # run()'s defaults
+E2E_COMMIT_PHASES = ("write", "mixed", "mixed-contended")
+# 16b: a contended OLTP mix on a fanned-out commit path
+E2E_16B = {"backend": "device", "n_proxies": 2, "n_storage": 2,
+           "phases": ("mixed", "mixed-contended"), "trace": True}
+# 16c: the sharded engine, two shards sharing the card
+E2E_16C = {"backend": "sharded", "phases": ("write",), "seconds": 2.0,
+           "extra_knobs": {"CONFLICT_NUM_SHARDS": 2}}
+E2E_FIELDS = ("ops_per_sec", "committed_txns_per_sec", "error_rate",
+              "not_committed_rate", "grv_ms_p50", "grv_ms_p99",
+              "commit_ms_p50", "commit_ms_p99")
+E2E_STAGES = ("Proxy.BatchAssembly", "Proxy.Resolve", "Resolver.Dispatch",
+              "Client.Commit")
+# printed where the trace has it: a commit's wait at the client's admission
+# budget, before Client.Commit's span starts
+E2E_WAIT_STAGE = "Client.AdmissionWait"
+
+
+def e2e_report_failures(where, report, phases, backend_label=None,
+                        clients=1500, seconds=5.0):
+    """A run report's checks: it round-trips through JSON; each phase's
+    ops/s above 0, its commit p50 and p99 where the phase commits, and
+    its GRV p50 where a GRV was timed. The driver, as the reference's,
+    times the GRV of every transaction in the write and mixed-contended
+    phases, but in a reading phase only each client's 1st, 17th, 33rd...
+    (`_run_phase`): there the p50 must be present once the measured
+    window held at least 16 transactions a client, and may be absent
+    below that. The core's engine is `backend_label` where given."""
+    failures = []
+    try:
+        report = json.loads(json.dumps(report))
+    except (TypeError, ValueError) as e:
+        return [f"{where}: the report does not round-trip through JSON "
+                f"({e})"]
+    for kind in phases:
+        entry = report.get(kind)
+        if not isinstance(entry, dict):
+            failures.append(f"{where}: no {kind} phase in the report")
+            continue
+        if not entry.get("ops_per_sec", 0) > 0:
+            failures.append(f"{where}: {kind} ran {entry.get('ops_per_sec')}"
+                            f" ops/s")
+        txns = (entry.get("committed_txns_per_sec", 0) * seconds
+                + sum((entry.get("errors") or {}).values()))
+        timed = (kind in ("write", "mixed-contended")
+                 or txns >= 16 * clients)
+        want = (["grv_ms_p50"] if timed else []) + (
+            ["commit_ms_p50", "commit_ms_p99"]
+            if kind in E2E_COMMIT_PHASES else [])
+        missing = [k for k in want if k not in entry]
+        if missing:
+            failures.append(f"{where}: {kind} lacks {missing} ({txns:.0f} "
+                            f"transactions for {clients} clients)")
+    got = (report.get("resolver") or {}).get("backend")
+    if backend_label is not None and got != backend_label:
+        failures.append(f"{where}: the core's engine is {got!r}, not "
+                        f"{backend_label!r}")
+    return failures
+
+
+def e2e_summary(report, phases):
+    return {kind: {**{k: report[kind].get(k) for k in E2E_FIELDS},
+                   "errors": report[kind].get("errors"),
+                   "by_proc": report[kind]["cpu_split"]["by_proc"],
+                   "chunks": report[kind].get("resolver", {}).get("chunks")}
+            for kind in phases if isinstance(report.get(kind), dict)}
+
+
+def once_a_chunk(where, launches, chunks, kernels_once, kernels_never=(),
+                 times=1):
+    """Each of `kernels_once` launched `times` a chunk, none of
+    `kernels_never` at all."""
+    failures = []
+    if not chunks:
+        failures.append(f"{where}: no chunk ran")
+    for k in kernels_once:
+        if launches.get(k, 0) != times * chunks:
+            failures.append(f"{where}: {launches.get(k, 0)} {k} launches "
+                            f"for {chunks} chunks")
+    for k in kernels_never:
+        if launches.get(k, 0):
+            failures.append(f"{where}: {k} launched {launches[k]} times")
+    return failures
+
+
+def e2e_methodology_phase():
+    """16a: the port's `bench.run_e2e()`: one subprocess each for the oracle
+    and the device backends (the device run's core on the card), at
+    `run`'s defaults, the oracle's with bench_e2e's two extra rows. Every
+    report well formed (`e2e_report_failures`); the device core's engine
+    the card, its step kernels once a chunk in every phase and the shard
+    kernels never. Returns (summary, launches of the device run, failures)."""
+    from foundationdb_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    out = bench.run_e2e()
+    wall = time.perf_counter() - t0
+    failures, summary, launches = [], {"wall_s": wall}, {}
+    for backend in ("oracle", "device"):
+        rep = out.get(backend) or {}
+        if "error" in rep:
+            failures.append(f"phase 16a: the {backend} run failed: "
+                            f"{rep['error']}")
+            continue
+        failures += e2e_report_failures(
+            f"phase 16a {backend}", rep, E2E_PHASES,
+            "oracle" if backend == "oracle" else "cuda")
+        summary[backend] = {"boot_s": rep.get("boot_s"),
+                            "resolver": rep.get("resolver"),
+                            **e2e_summary(rep, E2E_PHASES)}
+        for row in ("n_proxies_2", "latency_100_clients"):
+            if row in rep:
+                summary[backend][row] = e2e_summary(rep[row], E2E_PHASES)
+        if backend == "device":
+            for kind in E2E_PHASES:
+                res = (rep.get(kind) or {}).get("resolver") or {}
+                if kind not in E2E_COMMIT_PHASES:  # nothing to resolve
+                    if res.get("chunks") or res.get("launches"):
+                        failures.append(f"phase 16a {kind}: {res}")
+                    continue
+                failures += once_a_chunk(
+                    f"phase 16a {kind}", res.get("launches", {}),
+                    res.get("chunks", 0), STEP_KERNELS, SHARD_KERNELS)
+                for k, v in res.get("launches", {}).items():
+                    launches[k] = launches.get(k, 0) + v
+    return summary, launches, failures
+
+
+def nvidia_nodes(pid) -> set:
+    """The /dev/nvidia* nodes that process `pid` holds open: a process
+    that made a CUDA context holds its card's node (/dev/nvidiaN)."""
+    out = set()
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                out.add(target)
+    except OSError:
+        pass
+    return out
+
+
+def compute_apps() -> list:
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return [x.strip() for x in smi.stdout.splitlines() if x.strip()]
+
+
+def e2e_recorded_run(where, dev, kw, backend_label, kernels_once,
+                     kernels_never):
+    """One `bench_e2e.run(**kw)` in this process with the core started as
+    `recorded_server_main` (the driver's `_spawn_server` wrapped for the
+    spec that holds the resolver): every batch its resolver decided held
+    to the oracle (the clipped-oracle model on the sharded backend), no
+    poison, on the card every chunk through its graph and each of
+    `kernels_once` launched once a chunk net of the build's launches,
+    none of `kernels_never`; the core's device bytes equal after the first
+    phase and at the end; every process the driver started exiting 0 (the
+    servers on SIGTERM, within the driver's 10 s); and, polled each second
+    while the run lasts, no process but the core holding a card's device
+    node. Returns (summary, net launches, failures)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from foundationdb_tpu_torch import bench_e2e
+
+    tmp = tempfile.mkdtemp(prefix="fdbtpu-smoke-16-")
+    record_path = os.path.join(tmp, "core.json")
+    spawned, labels, snaps, core = [], {}, [], {}
+    popen, spawn_server = bench_e2e._popen, bench_e2e._spawn_server
+    resolver_metrics = bench_e2e._resolver_metrics
+
+    def kept_popen(cmd, **pkw):
+        p = popen(cmd, **pkw)
+        spawned.append(p)
+        labels.setdefault(p.pid, "worker" if "--worker" in cmd else "server")
+        return p
+
+    def recorded_spawn(spec, env):
+        if not any(r["role"] == "resolver" for r in spec["roles"]):
+            p = spawn_server(spec, env)
+        else:
+            p = bench_e2e._popen(
+                [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+                 "chip_smoke.recorded_server_main(sys.argv[1], sys.argv[2]))",
+                 json.dumps(spec), record_path],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, env=env)
+            core["pid"] = p.pid
+        labels[p.pid] = os.path.basename(spec["data_dir"])
+        return p
+
+    def kept_metrics(address):
+        snap = resolver_metrics(address)
+        snaps.append(snap)
+        return snap
+
+    holders: dict = {}
+    smi: set = set()
+    stop = threading.Event()
+
+    def poll():
+        while not stop.wait(1.0):
+            for p in list(spawned):
+                if p.poll() is None:
+                    holders.setdefault(p.pid, set()).update(
+                        nvidia_nodes(p.pid))
+            if dev.type == "cuda":
+                smi.update(compute_apps())
+
+    poller = threading.Thread(target=poll, daemon=True)
+    failures: list = []
+    bench_e2e._popen = kept_popen
+    bench_e2e._spawn_server = recorded_spawn
+    bench_e2e._resolver_metrics = kept_metrics
+    poller.start()
+    t0 = time.perf_counter()
+    try:
+        report = bench_e2e.run(device=str(dev), **kw)
+    finally:
+        wall = time.perf_counter() - t0
+        stop.set()
+        poller.join()
+        bench_e2e._popen = popen
+        bench_e2e._spawn_server = spawn_server
+        bench_e2e._resolver_metrics = resolver_metrics
+    phases = kw["phases"]
+    failures += e2e_report_failures(where, report, phases, backend_label,
+                                    kw.get("clients", 1500),
+                                    kw.get("seconds", 5.0))
+    for p in spawned:
+        if p.returncode != 0:
+            failures.append(f"{where}: {labels.get(p.pid)} (pid {p.pid}) "
+                            f"exited {p.returncode}")
+    card_nodes = {pid: sorted(n for n in nodes if n[len("/dev/nvidia"):]
+                              .isdigit())
+                  for pid, nodes in holders.items()}
+    if dev.type == "cuda":
+        if not card_nodes.get(core.get("pid")):
+            failures.append(f"{where}: the core held no card's device node")
+        others = {labels.get(pid): sorted(holders[pid])
+                  for pid in holders if pid != core.get("pid")
+                  and holders[pid]}
+        if others:
+            failures.append(f"{where}: processes besides the core opened "
+                            f"the card: {others}")
+    try:
+        with open(record_path) as f:
+            rec = json.load(f)
+    except OSError as e:
+        rec = None
+        failures.append(f"{where}: no record from the core ({e})")
+    net: dict = {}
+    chunks = 0
+    if rec is not None:
+        net = {k: rec["launches"][k] - rec["build_launches"].get(k, 0)
+               for k in rec["launches"]}
+        chunks = sum(r["chunks"] or 0 for r in rec["resolvers"])
+        if rec["mismatches"] or rec["gaps"] or not rec["batches"]:
+            failures.append(f"{where}: {rec['mismatches']} of "
+                            f"{rec['batches']} resolver batches differ from "
+                            f"the oracle, {rec['gaps']} resolvers with gaps")
+        for r in rec["resolvers"]:
+            if r["poisoned"] or r["backend"] != backend_label or (
+                    dev.type == "cuda" and r["ungraphed_chunks"]):
+                failures.append(f"{where}: resolver {r['process']} backend "
+                                f"{r['backend']}, poisoned {r['poisoned']}, "
+                                f"{r['ungraphed_chunks']} chunks outside "
+                                f"their graph")
+        if dev.type == "cuda":
+            failures += once_a_chunk(where, net, chunks, kernels_once,
+                                     kernels_never)
+    device_bytes = [x.get("DeviceBytes") for x in snaps]
+    if dev.type == "cuda" and (len(device_bytes) < 2
+                               or device_bytes[1] != device_bytes[-1]):
+        failures.append(f"{where}: the core's device bytes "
+                        f"{device_bytes} (after the preload, then each "
+                        f"phase) moved after the first phase")
+    breakdown = report.get("stage_breakdown") or {}
+    stages = breakdown.get("stages") or {}
+    summary = {
+        "wall_s": wall, "boot_s": report.get("boot_s"),
+        "resolver": report.get("resolver"),
+        **e2e_summary(report, phases),
+        "resolved_batches": rec and rec["batches"],
+        "mismatched_batches": rec and rec["mismatches"],
+        "recuts": rec and sum(r["recuts_replayed"] or 0
+                              for r in rec["resolvers"]),
+        "after_recut": rec and sum(r["after_recut"] or 0
+                                   for r in rec["resolvers"]),
+        "chunks": chunks, "launches": {k: v for k, v in net.items() if v},
+        "device_bytes": device_bytes,
+        "card_nodes": {labels.get(pid): nodes
+                       for pid, nodes in card_nodes.items()},
+        "nvidia_smi_compute_apps": sorted(smi),
+        "core_pid": core.get("pid"),
+        "driver_pids": {labels.get(p.pid): p.pid for p in spawned
+                        if labels.get(p.pid) != "worker"}}
+    if stages:
+        summary["stages"] = {k: {q: stages[k][q] for q in ("n", "p50", "p99")}
+                             for k in E2E_STAGES + (E2E_WAIT_STAGE,)
+                             if k in stages}
+        summary["queueing_ratio"] = breakdown.get("queueing_ratio")
+        summary["readback_overlap_ratio"] = breakdown.get(
+            "readback_overlap_ratio")
+        missing = [k for k in E2E_STAGES if k not in stages]
+        if missing:
+            failures.append(f"{where}: no {missing} spans in the trace")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return summary, net, failures
+
+
+def e2e_phase(dev, runs=("16a", "16b", "16c"), sizes=None):
+    """Phase 16: the port's end-to-end driver through real server processes
+    whose resolvers run on `dev`. 16a `bench.run_e2e()` (benchmarking.rst's
+    point: both backends at `run`'s defaults); 16b the device backend on
+    E2E_16B (2 proxies, 2 storage, the mixed and mixed-contended phases,
+    traced), its core recorded and held to the oracle; 16c the sharded
+    backend on E2E_16C (two shards sharing the card), held to the
+    clipped-oracle model, K10 and K11 once a chunk and the step's kernels
+    once a shard a chunk. `runs` picks the parts and `sizes` overrides
+    16b's and 16c's `run` arguments (the CPU tests run them small). The
+    kernels line's `launches_e2e` is 16a's device run's launches in its
+    phases plus 16b's and 16c's net of the builds'. Returns the summary;
+    a failed check fails the smoke."""
+    from foundationdb_tpu_torch.utils import trace
+
+    sizes = sizes or {}
+    t0 = time.perf_counter()
+    out: dict = {"phase": "16"}
+    failures: list = []
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    if "16a" in runs:
+        a, counts, bad = e2e_methodology_phase()
+        out["16a"] = a
+        add(counts)
+        failures += bad
+        log("phase 16a: " + json.dumps(a, default=str))
+    trace.set_sink(lambda _fields: None)
+    try:
+        if "16b" in runs:
+            b, counts, bad = e2e_recorded_run(
+                "phase 16b", dev, dict(E2E_16B, **sizes.get("16b", {})),
+                dev.type, STEP_KERNELS, SHARD_KERNELS)
+            out["16b"] = b
+            add(counts)
+            failures += bad
+            log("phase 16b: " + json.dumps(b, default=str))
+        if "16c" in runs:
+            kw = dict(E2E_16C, **sizes.get("16c", {}))
+            shards = kw["extra_knobs"]["CONFLICT_NUM_SHARDS"]
+            c, counts, bad = e2e_recorded_run(
+                "phase 16c", dev, kw, f"{dev.type}x{shards}", SHARD_KERNELS,
+                ())
+            if dev.type == "cuda":
+                bad += once_a_chunk("phase 16c", counts, c["chunks"],
+                                    STEP_KERNELS, times=shards)
+            out["16c"] = c
+            add(counts)
+            failures += bad
+            log("phase 16c: " + json.dumps(c, default=str))
+    finally:
+        trace.g_trace_batch.dump()
+        trace.set_sink(None)
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    if failures:
+        fail("phase 16: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6849,6 +7363,13 @@ def main(argv=None) -> int:
                          "server_main processes whose resolvers run on the "
                          "card, and the graft entry points), print its "
                          "numbers as JSON and exit")
+    ap.add_argument("--e2e", action="store_true",
+                    help="only run phase 16 (the port's end-to-end driver: "
+                         "16a bench.run_e2e(), 16b the device backend on "
+                         "a fanned-out, contended run, 16c the sharded "
+                         "backend; real server processes whose resolvers "
+                         "run on the card), print its numbers as JSON and "
+                         "exit")
     ap.add_argument("--sim", action="store_true",
                     help="only run phase 11 (the randomized simulation "
                          "harness: the ten fast specs on device and "
@@ -6960,6 +7481,14 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1, default=str)
         log(f"phase 15 on {card}")
+        print(json.dumps(out, default=str), flush=True)
+        return 0
+    if args.e2e:
+        out = {"card": card, "source_digest": digest, "e2e": e2e_phase(dev)}
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1, default=str)
+        log(f"phase 16 on {card}: {out['e2e']['wall_s']:.1f} s")
         print(json.dumps(out, default=str), flush=True)
         return 0
     if args.sim:
@@ -7163,6 +7692,24 @@ def main(argv=None) -> int:
         "15b": {k: bindings["15b"].get(k) for k in ("step_ms", "dryrun")}},
         default=str))
 
+    # 16. the end-to-end driver: 16a bench.run_e2e() (both backends at the
+    # driver's defaults, in subprocesses), 16b the device backend on a
+    # fanned-out, contended run and 16c the sharded backend, each with its
+    # core recorded and every resolver batch held to the oracle
+    kernels.release_scratch()
+    torch.cuda.empty_cache()
+    e2e = report["e2e"] = e2e_phase(dev)
+    log(f"phase 16 on {card}: " + json.dumps({
+        "16a": {b: {k: e2e["16a"][b].get(k) for k in E2E_PHASES}
+                for b in ("oracle", "device")},
+        "16b": {k: e2e["16b"].get(k) for k in (
+            "mixed", "mixed-contended", "stages", "queueing_ratio",
+            "readback_overlap_ratio", "resolved_batches", "chunks",
+            "device_bytes")},
+        "16c": {k: e2e["16c"].get(k) for k in (
+            "write", "resolved_batches", "chunks", "launches")},
+        "wall_s": e2e["wall_s"]}, default=str))
+
     timing_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "library_device_ms", "host_ms",
                    "launches_per_call")
@@ -7208,6 +7755,7 @@ def main(argv=None) -> int:
         entry["launches_net"] = net["launches"][name]
         entry["launches_native"] = native["launches"].get(name, 0)
         entry["launches_bindings"] = bindings["launches"].get(name, 0)
+        entry["launches_e2e"] = e2e["launches"].get(name, 0)
         entry.update({k: r[k] for k in timing_keys})
         if name in SHARD_KERNELS:
             entry["bench_16384_w4"] = {k: r["bench_16384_w4"][k]
@@ -7225,6 +7773,8 @@ def main(argv=None) -> int:
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)
 
+    log(f"smoke: {time.perf_counter() - _T0:.1f} s, phase 16 "
+        f"{e2e['wall_s']:.1f} s, on {card}")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,13 +33,24 @@ eagerly (`graphed=False`). On one card its W shards share the card: W = 4
 is then about four steps a batch, which measures the cost of sharding, not
 its scaling.
 
-There is no CPU fallback: `run_kernel`, `run_kernel_ab` and
-`run_sharded_kernel` run on CUDA unless the caller passes device="cpu" (or
-CPU devices; the tests do, at small sizes), and raise platform_error where
-there is no card.
+`run_e2e` and `main` are the counterparts of bench.py:138-168 and
+510-540: with no flag, the bench runs the end-to-end driver first
+(bench_e2e.py, one subprocess for each of the oracle and device backends,
+before this process touches the card; FDB_TPU_BENCH_E2E=0 skips it), then
+the kernel bench at T=16,384 and T=32,768, and prints one JSON line; it
+exits 1 if either backend's e2e entry holds an error.
+
+There is no CPU fallback: `run_kernel`, `run_kernel_ab`,
+`run_sharded_kernel` and `run_e2e` run on CUDA unless the caller passes
+device="cpu" (or CPU devices; the tests do, at small sizes), and raise
+platform_error (or, for `run_e2e`, report the device run's error) where
+there is no card. So bench.py's `probe_accelerator` and
+`run_kernel_watchdogged`, which exist only to choose a CPU fallback, have
+no counterpart here; `run_devices_sweep` waits for four cards.
 
 Usage, from the repository root on a machine with the card:
 
+  python -m foundationdb_tpu_torch.bench
   python -m foundationdb_tpu_torch.bench --kernel T n_batches chunk [capacity]
   python -m foundationdb_tpu_torch.bench --ab T [n_batches] [capacity]
   python -m foundationdb_tpu_torch.bench --sharded-kernel T n_batches W [capacity]
@@ -492,8 +503,60 @@ def run_ablate(T: int, n_batches: int, capacity: int | None = None,
     return out
 
 
+def run_e2e(device: str = "cuda") -> dict:
+    """The end-to-end driver for BOTH conflict backends, one SUBPROCESS
+    each (`python -m foundationdb_tpu_torch.bench_e2e <backend>`), so that
+    a failed device run cannot take the oracle numbers down with it; run
+    before this process touches the card. The device run's engine is on
+    `device`. Returns {"oracle": {...}, "device": {...}}, a backend's entry
+    {"error": ...} where its run failed or took over 1,500 s (the
+    reference's limit)."""
+    root = str(Path(__file__).resolve().parent.parent)
+    env = dict(os.environ, PYTHONPATH=root)
+    out = {}
+    for backend in ("oracle", "device"):
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "foundationdb_tpu_torch.bench_e2e",
+                 backend, f"--device={device}"],
+                capture_output=True, text=True, timeout=1500, env=env,
+                cwd=root)
+            if proc.returncode != 0:
+                out[backend] = {"error": proc.stderr[-600:]}
+            else:
+                out[backend] = json.loads(proc.stdout)
+        except Exception as e:  # noqa: BLE001
+            out[backend] = {"error": f"{type(e).__name__}: {e}"}
+    return out
+
+
+def run_main() -> dict:
+    """bench.py's `main` on the card: the e2e driver first (in
+    subprocesses; FDB_TPU_BENCH_E2E=0 skips it), then the kernel bench at
+    T=16,384 and at T=32,768 (K=2^19: the ~450k boundaries of its history
+    overflow 2^18)."""
+    e2e = None
+    if os.environ.get("FDB_TPU_BENCH_E2E", "1") != "0":
+        e2e = run_e2e()
+    r16 = run_kernel(TXNS_PER_BATCH, N_BATCHES, CHUNK)
+    r32 = run_kernel(32768, 100, 50, capacity=1 << 19)
+    out = {"metric": "resolver_conflict_txns_per_sec", "unit": "txns/s",
+           **r16, "batch_32768": r32}
+    if e2e is not None:
+        out["e2e"] = e2e
+    return out
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
+    if not args:
+        out = run_main()
+        print(json.dumps(out))
+        failed = [b for b, r in (out.get("e2e") or {}).items() if "error" in r]
+        if failed:
+            print(f"e2e run failed: {', '.join(failed)}", file=sys.stderr)
+            return 1
+        return 0
     if len(args) >= 4 and args[0] == "--kernel":
         cap = int(args[4]) if len(args) > 4 else None
         print(json.dumps(run_kernel(int(args[1]), int(args[2]), int(args[3]),

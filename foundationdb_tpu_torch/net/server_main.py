@@ -18,10 +18,13 @@ resolvers sharing the card's context, two storage replicas) each own their
 tokens; roles without one listen on the spec's address. Every
 role is the port's; a resolver's engine runs where the knobs say, and the
 default is the card (CONFLICT_BACKEND "device", CONFLICT_DEVICE "cuda"). A
-device or sharded backend whose device is missing (a CUDA device where CUDA
-is not available) exits non-zero with platform_error before the process
-listens or prints `ready`; only a spec whose knobs say CONFLICT_DEVICE=cpu
-runs the engine's plain PyTorch path on the CPU.
+process that hosts a resolver on a device or sharded backend whose device
+is missing (a CUDA device where CUDA is not available) exits non-zero with
+platform_error before it listens or prints `ready`; only a spec whose
+knobs say CONFLICT_DEVICE=cpu runs the engine's plain PyTorch path on the
+CPU. A process without a resolver builds no engine and never touches the
+card, whatever its knobs say: only the resolvers' process holds a CUDA
+context.
 
 SIGTERM stops the loop and unwinds through `finally`: the trace and counter
 dumps, the transport's close, the readback threads joined, the roles
@@ -161,7 +164,8 @@ def main(spec_json: str) -> int:
     for k, v in spec.get("knobs", {}).items():
         KNOBS.set(k, v)
     try:
-        check_device()
+        if any(r["role"] == "resolver" for r in spec["roles"]):
+            check_device()
     except FDBError as e:
         print(f"error {e.name}: {e.detail}", file=sys.stderr, flush=True)
         return 1

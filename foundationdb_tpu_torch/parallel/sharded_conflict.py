@@ -71,16 +71,25 @@ def make_resolver_mesh(n_devices: int | None = None, device=None
     """The devices of the shards, one per shard (`make_resolver_mesh`).
     `device` (default: the CONFLICT_DEVICE knob) "cuda": cards 0..n-1, n
     every attached card when None or 0; more than are attached raises
-    invalid_option, and no CUDA at all platform_error. "cpu": n shards that
-    share the CPU (one when None or 0)."""
-    kind = torch.device(KNOBS.CONFLICT_DEVICE if device is None
-                        else device).type
+    invalid_option, and no CUDA at all platform_error. A named card
+    ("cuda:k"): n shards that share card k (one when None or 0), the
+    one-card layout of the sharded engine. "cpu": n shards that share the
+    CPU (one when None or 0)."""
+    named = torch.device(KNOBS.CONFLICT_DEVICE if device is None
+                         else device)
+    kind = named.type
     if kind == "cuda":
         if not torch.cuda.is_available():
             raise FDBError("platform_error",
                            "CUDA shards asked for, but CUDA is not available "
                            "to this process")
         avail = torch.cuda.device_count()
+        if named.index is not None:
+            if named.index >= avail:
+                raise FDBError("invalid_option",
+                               f"{named} asked for, but {avail} card(s) "
+                               f"are attached")
+            return [named] * (n_devices or 1)
         n = n_devices or avail
         if n > avail:
             raise FDBError(
@@ -537,7 +546,17 @@ class ShardedDeviceConflictSet:
         there conflict, never a false commit), retained subranges keep
         their exact history. No state moves between shards; each shard's
         keys and values are written into its fixed buffers and its table
-        rebuilt there (K1), and the cuts are written in place."""
+        rebuilt there (K1), and the cuts are written in place.
+
+        A shard keeps its keys from the new range's begin (or its old one,
+        if later) up to its old end. The JAX engine keeps them up to the
+        larger of its old and new ends and fills no suffix, so a shard
+        whose range grows upward keeps its stale values over the suffix it
+        acquires and commits a read there that another shard's write
+        should have aborted; here that suffix is filled, and a new range
+        wholly above the old one is filled whole. Keys the shard holds
+        past its new end stay, as in the JAX engine: no clipped range
+        reads them."""
         assert len(new_cut_bytes) == self.n_shards and new_cut_bytes[0] == b""
         K = self.shapes.capacity
         st = ref.sharded_state_to_numpy(self._state)
@@ -567,7 +586,7 @@ class ShardedDeviceConflictSet:
         for d in range(self.n_shards):
             lo, hi = cuts[d], cuts[d + 1]
             a = old_lo[d] if np_lt1(lo, old_lo[d]) else lo  # retained begin
-            b = old_hi[d] if np_lt1(hi, old_hi[d]) else hi  # retained end
+            b = old_hi[d]  # retained end; past it up to hi is acquired
             keys_d = st["bkeys"][d]  # (L, K)
             vals_d = st["bval"][d]
             live = np.arange(K) < int(nb[d])

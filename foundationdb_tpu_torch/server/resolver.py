@@ -135,12 +135,14 @@ class Resolver:
 
     def _on_metrics(self, req, reply):
         """Role counters plus the process-wide device gauges: dispatches,
-        readback waits, transfers and kernel launches."""
+        readback waits, transfers and kernel launches; and whether the
+        role poisoned (a lost state fails every later batch)."""
         from foundationdb_tpu_torch.ops import conflict, kernels
         from foundationdb_tpu_torch.utils import cudaenv
         snap = self.counters.as_dict()
         snap["Version"] = self.version.get()
         snap["Backend"] = getattr(self.conflict_set, "backend_label", "oracle")
+        snap["Poisoned"] = self._poisoned is not None
         snap.update(conflict.kernel_metrics.as_dict())
         snap.update(cudaenv.transfer_metrics.as_dict())
         snap.update({"KernelLaunches." + k: v

@@ -135,8 +135,9 @@ KNOBS.init("CONFLICT_INTRA_ROUNDS", 0, (1,))
 KNOBS.init("CONFLICT_ENCODE_RING", 4, (0,))
 # Shards of CONFLICT_BACKEND=sharded: how many devices the resolver's
 # key-partitioned engine spans. 0 = every attached card (on the CPU, one
-# shard); more than the attached cards raises invalid_option. A buggified
-# draw may force 1 or 2.
+# shard); more than the attached cards raises invalid_option, unless
+# CONFLICT_DEVICE names one card ("cuda:0"): its shards then share it. A
+# buggified draw may force 1 or 2.
 KNOBS.init("CONFLICT_NUM_SHARDS", 0, (1, 2))
 # resolutionBalancing (masterserver.actor.cpp:955-1012): the sharded engine
 # re-cuts its key partition from sampled range begins when per-shard load

@@ -467,11 +467,11 @@ def test_master_with_coordinators_holds_its_cstate_lease():
 def resolver_device_keys(name):
     """The resolver's metric keys that differ by design: the port reports
     its kernel launches (and, beside the dispatches, the chunks that did
-    not converge and the chunks its encoder wrote by the C pass and by
-    numpy); the JAX package its compile cache."""
+    not converge, the chunks its encoder wrote by the C pass and by numpy,
+    and whether the role poisoned); the JAX package its compile cache."""
     return (name.startswith("KernelLaunches.")
             or name in ("UnconvergedChunks", "EncodedChunksC",
-                        "EncodedChunksPy", "CompileCacheHits",
+                        "EncodedChunksPy", "Poisoned", "CompileCacheHits",
                         "CompileCacheMisses"))
 
 

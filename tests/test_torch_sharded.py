@@ -542,6 +542,29 @@ def test_safe_false_conflict_at_shard_cut():
     assert sharded.detect(batch, 20) == [CONFLICT, CONFLICT]
 
 
+def test_a_recut_that_moves_a_range_up_commits_no_stale_read():
+    """Shard 0 grows upward past its old end and shard 1's new range lies
+    wholly above its old one: the keys they acquire are filled at the
+    re-cut's version, so a read there older than writes another shard
+    took conflicts, as the oracle says. (The JAX engine keeps shard 0's
+    stale values over the acquired suffix, and shard 1's at its new
+    begin, and commits these reads.) Retained keys keep their history."""
+    cs = tsh.ShardedDeviceConflictSet(devices=["cpu"] * 3,
+                                      cut_bytes=[b"", b"\x40", b"\x80"],
+                                      **SMALL)
+    oracle = OracleConflictSet()
+    w = [TxnConflictInfo(0, [], [(b"\x50", b"\x51"), (b"\x85", b"\x86"),
+                                 (b"\x95", b"\x96"), (b"\x30", b"\x31")])]
+    assert cs.detect(w, 100) == oracle.detect(w, 100) == [COMMITTED]
+    cs.rebalance_cuts([b"", b"\x90", b"\xa0"], 110)
+    for k, want in ((b"\x50", CONFLICT), (b"\x85", CONFLICT),
+                    (b"\x95", CONFLICT), (b"\x30", CONFLICT),
+                    (b"\x30", COMMITTED)):
+        snap = 50 if want == CONFLICT else 100
+        r = [TxnConflictInfo(snap, [(k, k + b"\x00")], [])]
+        assert cs.detect(r, 120) == oracle.detect(r, 120) == [want], k
+
+
 def test_write_to_the_top_of_the_keyspace_on_the_last_shard():
     """The last shard's hi is the all-ones sentinel, which equals the
     padding key: writes that end at the top of the keyspace (an end key
