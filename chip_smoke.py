@@ -124,7 +124,13 @@ Phases, each of which must pass:
      each through its one-step scan graph, with equal statuses on every
      batch and K5 launched once a legacy step (and once for the capture's
      warm-up step);
-  7. the probes' main (ops/probes.py), the Pallas scripts' top level;
+  7. one launch's floor: probe_add on a one-element tensor, its device
+     ms (torch.profiler), ms, host ms and ms a graph replay, printed
+     first (time_floor); probe_dynwrite held to its plain version at the
+     script's shape and on its edges (offsets below zero, at and past the
+     last row, rows running past the end, C off a multiple of 4:
+     probes.dynwrite_edge_calls); then the probes' main (ops/probes.py),
+     the Pallas scripts' top level;
   8. the sharded engine (parallel/sharded_conflict.py), every shard on the
      one card, each chunk one replay of its CUDA graph (`ShardedStepGraph`:
      K10, the W shard steps, K11; the engine reports `graphed`, which must
@@ -149,7 +155,10 @@ Phases, each of which must pass:
      to their plain versions on 8a's calls (ties at the cuts), and K10
      (shard_clip) and K11 (shard_combine) on 8a's and 8c's calls and on
      edges (W = 1, 2, 4, 8; T=1; all padding; endpoints at the cuts and the
-     sentinel; the strided layout at T=16,384), timed at both shapes.
+     sentinel; the strided layout at T=16,384; and for K10 L = 1 and 17,
+     N off a multiple of 4 and N = 1, no reads or no writes, W = 1 and 64,
+     ranges below, above and across a cut, inverted and padding:
+     clip_shape_edge_calls), timed at both shapes.
   9. the commit pipeline: the port's SimCluster (master, 2 proxies, the
      port's resolvers with CONFLICT_BACKEND=device on the card at the
      default knobs, 2 tlogs, 2 storage servers), driven through the
@@ -378,8 +387,20 @@ the port: a copy of this script beside an older checkout's package times
 that checkout). Where the package has K6's sample sort, K6 is also timed
 by both of its paths at each shape, and on cell A's and the bench's
 traffic at 16, 32, 64 and 128 tiles (time_sort_paths); K13 also at
-T = 2^18 and 2^20; and the rank-join probes (join, lexjoin) at the
-scripts' shapes, device ms and the scripts' ms/pass (time_probes).
+T = 2^18 and 2^20; the rank-join probes (join, lexjoin) at the
+scripts' shapes, device ms and the scripts' ms/pass (time_probes); and
+what `--time-floor` times.
+`python3 chip_smoke.py --time-floor` only times one launch's floor
+(probe_add on one element: device ms by torch.profiler, ms, host ms, ms
+a graph replay), K10 at phase 8a's and 8c's shapes and probe_dynwrite at
+the script's shape, the same four numbers with each bound, and beside
+each kernel one fill_ of its output bytes (time_floor_and_redesigns);
+then K10 where it runs, inside the sharded bench's chunk graph at 8c's
+shape (time_clip_in_chunk). Read a kernel against max(bound, floor): a
+kernel whose bound is below the floor can come no nearer than the floor.
+A graph replay of one launch costs the host's graph launch, several
+times the floor, so it does not tell two kernels of a few microseconds
+apart.
 
 It prints a digest of the code it runs, the kernels line
 ({"kernels": [...]}, each kernel with its launches on the main path, in
@@ -5636,10 +5657,24 @@ def ab_phase(dev, T=16384, n_batches=8):
 
 
 def probes_phase(dev):
-    """Phase 7: the probes' main at the Pallas scripts' shapes."""
+    """Phase 7: one launch's floor (time_floor), printed first; then
+    probe_dynwrite held to its plain version at the script's shape and on
+    its edges (`probes.dynwrite_edge_calls`: offsets below zero, at and
+    past the last row, rows running past the end, C off a multiple of 4);
+    then the probes' main at the Pallas scripts' shapes, its launches
+    counted alone."""
     from foundationdb_tpu_torch.ops import kernels, probes
+    floor = time_floor(dev)
+    log("phase 7: one launch's floor (probe_add on one element): "
+        + json.dumps(floor))
+    dyn = [probes.script_calls(dev)["probe_dynwrite"]] \
+        + probes.dynwrite_edge_calls(dev)
+    equal_on_calls("probe_dynwrite", probes.dynwrite, probes.dynwrite_plain,
+                   dyn)
+    log(f"phase 7: probe_dynwrite equal to plain on {len(dyn)} calls")
     kernels.reset_launches()
-    out = {"ms_per_pass": probes.main(dev)}
+    out = {"floor": floor, "dynwrite_calls_equal": len(dyn),
+           "ms_per_pass": probes.main(dev)}
     out["launches"] = {k: kernels.LAUNCHES[k] for k in probes.WRAPPERS}
     log("probes: " + json.dumps(out))
     if any(v <= 0 for v in out["launches"].values()):
@@ -5704,16 +5739,85 @@ def shard_cuts(dev, W):
     return c[:W].contiguous(), c[1:].contiguous()
 
 
+# K10's shape edges (W, L, NR, NW): one limb and the widest key, column
+# counts off a multiple of 4 (1 among them), no reads or no writes, one
+# shard and 64
+CLIP_SHAPE_EDGES = ((1, 1, 5, 3), (4, 1, 1, 0), (64, 7, 1, 1),
+                    (4, 17, 6, 0), (4, 17, 0, 9), (64, 17, 13, 7),
+                    (8, 1, 4, 4), (1, 17, 1, 1), (2, 7, 4099, 4097),
+                    (64, 5, 256, 256))
+
+
+def clip_shape_edge_calls(dev):
+    """K10's inputs at CLIP_SHAPE_EDGES, sign-flipped int32 limbs drawn
+    from a seeded numpy generator: W + 1 increasing cuts from the empty
+    key's limbs (all INT_MIN) to the all-ones sentinel (PAD_LIMB), limbs
+    drawn from few values so that keys share prefixes; endpoints drawn
+    from the cuts, the cuts one below and one above in their last limb,
+    random keys and the padding key, and where a call has five columns or
+    more, its first five a range wholly below a cut, one wholly above it,
+    one straddling it, an inverted one and a padding one. Shared with
+    tests/test_torch_sharded.py, which holds the plain clip to JAX's
+    `_clip_ranges` on them."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    rng = np.random.default_rng(83)
+    lo32, pad = np.int32(-2 ** 31), np.int32(ref.PAD_LIMB)
+    out = []
+    for W, L, NR, NW in CLIP_SHAPE_EDGES:
+        vals = (np.array([lo32, -5, 0, 7, pad - 1], np.int32) if L > 1
+                else None)
+        keys = set()
+        while len(keys) < W - 1:
+            k = (rng.choice(vals, L) if vals is not None
+                 else rng.integers(-2 ** 31 + 2, 2 ** 31 - 2, 1)).astype(
+                     np.int32)
+            keys.add(tuple(int(v) for v in k))
+        cuts = np.array([(int(lo32),) * L] + sorted(keys) + [(int(pad),) * L],
+                        np.int32)
+
+        def nudge(k, delta):  # k one step away in its last limb
+            k = k.copy()
+            k[-1] = np.int32(min(max(int(k[-1]) + delta, -2 ** 31), int(pad)))
+            return k
+        near = [nudge(c, d) for c in cuts[1:-1] for d in (-1, 1)]
+        rand = (rng.choice(vals, (16, L)) if vals is not None
+                else rng.integers(-2 ** 31, 2 ** 31, (16, L))).astype(np.int32)
+        pool = np.concatenate([cuts, np.array(near, np.int32).reshape(-1, L),
+                               rand, np.full((2, L), pad, np.int32)])
+        m = cuts[(W + 1) // 2]  # a cut inside the keyspace (or the top)
+        below, above = nudge(m, -1), nudge(m, 1)
+        kinds = ((cuts[0], below), (above, np.full(L, pad, np.int32)),
+                 (below, above), (above, below),
+                 (np.full(L, pad, np.int32), np.full(L, pad, np.int32)))
+
+        def ends(n):
+            b = pool[rng.integers(0, len(pool), n)].T.copy()
+            e = pool[rng.integers(0, len(pool), n)].T.copy()
+            if n >= len(kinds):
+                for j, (kb, ke) in enumerate(kinds):
+                    b[:, j], e[:, j] = kb, ke
+            return b, e
+        rb, re = ends(NR)
+        wb, we = ends(NW)
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in (rb, re, wb, we, cuts[:W], cuts[1:])]
+        out.append((tuple(t), {}))
+    return out
+
+
 def clip_edge_calls(dev):
     """K10's edge inputs: W = 1, 2, 4 and 8 on pooled batches (T=64) whose
     ranges begin or end at the cuts, lie wholly below, above or across
     them, are inverted or empty, or run to the top of the keyspace; T=1;
     an all-padding batch; endpoints that all equal a lo or a hi row, the
-    last shard's all-ones sentinel among them; and the strided layout at
-    T=16,384 (the sharded bench's spread keys) at W = 4 and 8."""
+    last shard's all-ones sentinel among them; the strided layout at
+    T=16,384 (the sharded bench's spread keys) at W = 4 and 8; and the
+    shape edges of `clip_shape_edge_calls` (L = 1 and 17, N off a
+    multiple of 4 and N = 1, no reads or no writes, W = 1 and 64)."""
     import torch
 
-    from foundationdb_tpu_torch import bench
     from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
     from foundationdb_tpu_torch.ops.conflict import (BatchEncoder,
                                                      _resolve_shapes)
@@ -5749,13 +5853,8 @@ def clip_edge_calls(dev):
         ends = tuple(rows[torch.randint(0, W + 1, (256,), generator=g)
                           .to(dev)].T.contiguous() for _ in range(4))
         out.append((ends + (lo, hi), {}))
-    sp = bench.stage(bench._encode_spread_batches(
-        1, seed=3, version0=bench.WINDOW, T=SHARDED_BENCH_T), dev)
-    for W in (4, 8):
-        out.append((tuple(sp[k][0].contiguous() for k in ("rb", "re", "wb",
-                                                          "we"))
-                    + shard_cuts(dev, W), {}))
-    return out
+    return out + [clip_8c_call(dev, W) for W in (4, 8)] \
+        + clip_shape_edge_calls(dev)
 
 
 def combine_edge_calls(dev):
@@ -5794,8 +5893,7 @@ def equal_on_calls(name, kern, plain, calls) -> int:
         got = got if isinstance(got, tuple) else (got,)
         for i, (w, g_) in enumerate(zip(want, got)):
             if w.dtype != g_.dtype or not torch.equal(w, g_):
-                fail(f"{name} output {i} differs from its plain version on "
-                     f"the sharded engine's calls")
+                fail(f"{name} output {i} differs from its plain version")
     return len(calls)
 
 
@@ -6159,6 +6257,7 @@ def time_step_kernels(dev, reps=50):
     if hasattr(kernels, "sort_plan"):
         out["sort_paths"] = time_sort_paths(dev, reps)
     out["probes"] = time_probes(dev)
+    out["floor_and_redesigns"] = time_floor_and_redesigns(dev, reps)
     for cell, (state, batch, calls) in cells.items():
         row = out[cell] = {}
         if "sort_and_rank" in calls:
@@ -6192,6 +6291,179 @@ def time_step_kernels(dev, reps=50):
             if hasattr(kernels, "step_verdicts"):  # the package has graphs
                 row["scan"] = time_scan_graph(dev, state,
                                               batch["snapshot"].shape[0])
+    return out
+
+
+def time_floor(dev, reps=50) -> dict:
+    """One launch's floor on the card: `probes.add` (probe_add) on a
+    one-element tensor, its device ms a call by torch.profiler as every
+    kernel row is timed (profile_device), its ms a call by CUDA events,
+    its wrapper's host ms a call, and its ms a replay of a CUDA graph that
+    holds that one launch."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import probes
+    x = torch.zeros(1, dtype=torch.int32, device=dev)
+    return time_launch("probe_add", lambda: probes.add(x), reps)
+
+
+def time_launch(name, fn, reps) -> dict:
+    """Kernel wrapper `name` called as fn(): device ms a call (its device
+    functions in profile_device), ms a call (CUDA events), host ms a call
+    (`reps` enqueues, no sync) and ms a replay of a CUDA graph holding
+    the one call."""
+    import torch
+    device_ms = None
+    for _try in range(3):  # the profiler now and then reports no kernels
+        device_ms = device_ms_of(profile_device(fn, reps)[0], name)
+        if device_ms is not None:
+            break
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    out = {"device_ms": device_ms, "ms": time_cuda(fn, reps),
+           "host_ms": host_ms}
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # its scratch exists before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+    out["graph_ms"] = time_cuda(graph.replay, reps)
+    del graph
+    return out
+
+
+def clip_8a_call(dev, seed=84):
+    """K10's inputs at phase 8a's chunk shape: W = 4 cuts, 1,024 txns of 4
+    reads and 4 writes (NR = NW = 4,096, L = 7) over 16-byte random keys,
+    pooled, through the engine's encoder."""
+    from foundationdb_tpu_torch.ops.batch import TxnConflictInfo
+    from foundationdb_tpu_torch.ops.conflict import (BatchEncoder,
+                                                     _resolve_shapes)
+    rng = np.random.default_rng(seed)
+
+    def key():
+        return bytes(rng.integers(0, 256, 16).astype(np.uint8))
+    enc = BatchEncoder(_resolve_shapes(1 << 16, 1024, 4, 4), dev)
+    b = enc.encode_batch([TxnConflictInfo(
+        0, [(k, k + b"\x00") for k in (key() for _ in range(4))],
+        [(k, k + b"\x00") for k in (key() for _ in range(4))])
+        for _ in range(1024)], 100)
+    return (tuple(b[k].clone() for k in ("rb", "re", "wb", "we"))
+            + shard_cuts(dev, SHARDED_W), {})
+
+
+def clip_8c_call(dev, W=SHARDED_W):
+    """K10's inputs at phase 8c's shape: the sharded bench's first staged
+    batch at T = 16,384 (strided, NR = NW = 16,384, L = 7), W shards."""
+    from foundationdb_tpu_torch import bench
+    sp = bench.stage(bench._encode_spread_batches(
+        1, seed=3, version0=bench.WINDOW, T=SHARDED_BENCH_T), dev)
+    return (tuple(sp[k][0].contiguous() for k in ("rb", "re", "wb", "we"))
+            + shard_cuts(dev, W), {})
+
+
+def write_floor(n: int, dev, reps) -> float | None:
+    """Device ms of one `fill_` of n int32 on the card: what one launch
+    that writes a kernel's output bytes, and reads nothing, costs."""
+    import torch
+    buf = torch.empty(n, dtype=torch.int32, device=dev)
+    return busy_ms(profile_device(lambda: buf.fill_(0), reps)[0])
+
+
+def time_floor_and_redesigns(dev, reps=50) -> dict:
+    """The one-launch floor (time_floor), then K10 at phase 8a's and 8c's
+    shapes (clip_8a_call, clip_8c_call) and probe_dynwrite at the Pallas
+    script's shape, each by time_launch with its bound (work_of), and
+    beside each the device ms of one fill_ of its output bytes
+    (write_floor); then K10 inside the sharded chunk's graph
+    (time_clip_in_chunk). Each K10 and dynwrite call is first held to its
+    plain version. The same method for any version of the port, so a copy
+    of this script beside an older checkout's package times that checkout
+    alike (`--time-floor`)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_ref as ref
+    from foundationdb_tpu_torch.ops import kernels, probes
+    out = {"floor": time_floor(dev, reps)}
+    log("one launch's floor (probe_add, one element): "
+        + json.dumps(out["floor"]))
+    for label, (a, kw) in (("shard_clip_8a", clip_8a_call(dev)),
+                           ("shard_clip_8c", clip_8c_call(dev))):
+        want = ref.clip_ranges(*a)
+        for g, w in zip(kernels.clip_ranges(*a), want):
+            if not torch.equal(g, w):
+                fail(f"{label}: K10 differs from its plain version")
+        outs = tuple(torch.empty_like(w) for w in want)
+        row = out[label] = time_launch(
+            "shard_clip", lambda: kernels.clip_ranges(*a, out=outs), reps)
+        row["bound_ms"], row["bound_by"] = bound_ms(*work_of(
+            "shard_clip", a, kw))
+        row["write_floor_device_ms"] = write_floor(
+            sum(w.numel() for w in want), dev, reps)
+        del outs, want, a
+    (off, x), kw = probes.script_calls(dev)["probe_dynwrite"]
+    if not torch.equal(probes.dynwrite(off, x, **kw),
+                       probes.dynwrite_plain(off, x, **kw)):
+        fail("probe_dynwrite differs from its plain version")
+    row = out["probe_dynwrite"] = time_launch(
+        "probe_dynwrite", lambda: probes.dynwrite(off, x, **kw), reps)
+    row["bound_ms"], row["bound_by"] = bound_ms(*work_of(
+        "probe_dynwrite", (off, x), kw))
+    row["write_floor_device_ms"] = write_floor(
+        kw["rows"] * x.shape[1], dev, reps)
+    out["shard_clip_in_chunk"] = time_clip_in_chunk(dev)
+    log("floor, K10 and probe_dynwrite: " + json.dumps(out))
+    return out
+
+
+def time_clip_in_chunk(dev, W=SHARDED_W, T=SHARDED_BENCH_T, n=20,
+                       runs=3) -> dict:
+    """K10 where the sharded engine runs it: `run_sharded_kernel(T, n, W)`
+    on the card with the chunk graphed (K10, the W shard steps and K11
+    one replay a batch), `runs` times: the ms a batch of every run but
+    the middle one, which torch.profiler traces, capture included. From
+    that trace, K10's device ms a launch, and the port's kernels' device
+    ms a chunk (the step's and the shard kernels' device functions,
+    summed, over K10's launches, one a chunk: the capture's eager warm-up
+    step and the n + 1 replays), in all and by device function."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from foundationdb_tpu_torch import bench
+    ours = sum((DEVICE_FUNCTIONS[k] for k in STEP_KERNELS + SHARD_KERNELS),
+               ())
+    out: dict = {"ms_per_batch": []}
+    for i in range(runs):
+        if i != runs // 2:
+            out["ms_per_batch"].append(bench.run_sharded_kernel(
+                T, n, W, devices=[dev] * W, graphed=True)["ms_per_batch"])
+            continue
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            bench.run_sharded_kernel(T, n, W, devices=[dev] * W,
+                                     graphed=True)
+            torch.cuda.synchronize()
+        us: dict = {}
+        clip_us = clip_n = 0.0
+        for evt in prof.key_averages():
+            t = _device_us(evt)
+            if t <= 0 or not any(f in evt.key for f in ours):
+                continue
+            us[evt.key] = us.get(evt.key, 0.0) + t
+            if any(f in evt.key for f in DEVICE_FUNCTIONS["shard_clip"]):
+                clip_us, clip_n = clip_us + t, clip_n + int(evt.count)
+        out["shard_clip_launches_traced"] = int(clip_n)
+        if clip_n:
+            out["shard_clip_device_ms"] = clip_us / clip_n / 1e3
+            out["chunk_device_ms"] = sum(us.values()) / clip_n / 1e3
+            out["chunk_device_ms_by_function"] = {
+                k: v / clip_n / 1e3 for k, v in sorted(us.items())}
     return out
 
 
@@ -6434,13 +6706,11 @@ def time_sharded_chunk(dev, T=SHARDED_BENCH_T, n=20,
 
 
 def time_sharded_step(dev, reps, W=SHARDED_W, T=SHARDED_BENCH_T):
-    """K10's and K11's device, wall and host ms a call on the calls of one
-    sharded bench step (W shards on the card, T=16,384, K=2^18 a shard,
-    after two batches), K11's wall ms a call replayed alone in a CUDA
-    graph, and that whole step's device ms with the kernels, run
+    """K10's and K11's device, wall and host ms a call and ms replayed
+    alone in a CUDA graph (time_launch) on the calls of one sharded bench
+    step (W shards on the card, T=16,384, K=2^18 a shard, after two
+    batches), and that whole step's device ms with the kernels, run
     eagerly."""
-    import torch
-
     from foundationdb_tpu_torch import bench
     from foundationdb_tpu_torch.ops import conflict_ref as ref
     from foundationdb_tpu_torch.ops import kernels
@@ -6465,25 +6735,7 @@ def time_sharded_step(dev, reps, W=SHARDED_W, T=SHARDED_BENCH_T):
     for name, kern in (("shard_clip", kernels.clip_ranges),
                        ("shard_combine", kernels.shard_combine)):
         a, kw = calls[name][-1]
-        funcs, _wall = profile_device(lambda: kern(*a, **kw), reps)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            kern(*a, **kw)
-        host_ms = (time.perf_counter() - t0) / reps * 1e3
-        torch.cuda.synchronize()
-        out[name] = {"device_ms": busy_ms(funcs), "host_ms": host_ms,
-                     "ms": time_cuda(lambda: kern(*a, **kw), reps)}
-        graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            kern(*a, **kw)  # its scratch exists before the capture
-        torch.cuda.current_stream().wait_stream(side)
-        with torch.cuda.graph(graph):
-            kern(*a, **kw)
-        out[name]["graph_ms"] = time_cuda(graph.replay, reps)
-        del graph
+        out[name] = time_launch(name, lambda: kern(*a, **kw), reps)
     step = sharded_conflict_step([dev] * W, shapes, bench.WINDOW, "scan",
                                  T // 2 + 1)
     funcs, wall = profile_device(lambda: step(state, batch), 5)
@@ -7327,6 +7579,12 @@ def main(argv=None) -> int:
                     help="only time K1-K13, bench steps and the sharded "
                          "chunk on the card (time_step_kernels), print them "
                          "as JSON and exit")
+    ap.add_argument("--time-floor", action="store_true",
+                    help="only time one launch's floor (probe_add on one "
+                         "element), K10 at phase 8a's and 8c's shapes and "
+                         "inside the sharded chunk's graph, and "
+                         "probe_dynwrite at the script's, print them as "
+                         "JSON and exit")
     ap.add_argument("--serve-cells", action="store_true",
                     help="only serve cells A and B through the resolver "
                          "(phase 4, oracle-checked), print their numbers as "
@@ -7411,6 +7669,11 @@ def main(argv=None) -> int:
     if args.time_kernels:
         print(json.dumps({"card": card, "source_digest": digest,
                           "device_ms": time_step_kernels(dev)}), flush=True)
+        return 0
+    if args.time_floor:
+        print(json.dumps({"card": card, "source_digest": digest,
+                          "device_ms": time_floor_and_redesigns(dev)}),
+              flush=True)
         return 0
     if args.serve_cells:
         cells = {name: {k: out[k] for k in (

@@ -10,7 +10,9 @@
 //                  lexjoin_kernel (ab_pallas2.py:64)  query's count of the
 //                                                     tile's rows below it
 //   probe_dynwrite dynwrite_kernel (ab_pallas.py:112) rows at a device-held
-//                                                     offset
+//                                                     offset, placed as
+//                                                     the Pallas slice
+//                                                     places them
 //
 // A TPU grid runs its steps in order on one core, and the Pallas stream
 // carries its maximum across them in the output block; here blocks run in
@@ -53,10 +55,33 @@
 // state and queries, 8.4 MB. That is 2.9 and 2.5 us, far more than its
 // sort and searches cost in operations, so it is bound by bytes; add and
 // dynwrite are launch latency.
+//
+// dynwrite, redesigned. Its 32 KB output is under a launch's
+// floor (probe_add on one element: 0.00101-0.00104 ms of device time,
+// chip_smoke --time-floor on the H100 80GB HBM3 at 700 W), so what it can
+// save is what it adds to the floor. The parent (32 blocks of 256 threads,
+// a 64-bit division and a load of *off by every thread, 4-byte stores)
+// took 0.00131-0.00136 ms. Here *off is read once a block into shared
+// memory, a warp writes a row, 16 bytes a thread, with no division, and
+// the rows are split over blocks of DYN_BLOCK_BYTES (16 blocks at the
+// script's shape). A sweep of 1 to 64 blocks: one block took 0.00201 (a
+// single SM's stores), 2 and 4 took 0.0016 and 0.00139, 8 to 64
+// 0.00126-0.00133, 16 the least (0.00126-0.00127); copying x into shared memory beside the read of *off, so that no
+// load waits for it, took longer (0.00141-0.00144 at 8 to 64 blocks).
 #include "common.cuh"
 
 #define PROBE_THREADS 256
 #define PROBE_MAX_L 8
+
+// a thread's VEC neighbouring int32 columns
+template <int VEC>
+struct ProbeVec {
+  typedef int4 T;
+};
+template <>
+struct ProbeVec<1> {
+  typedef int32_t T;
+};
 
 template <bool U>
 __device__ __forceinline__ bool probe_lt(int32_t a, int32_t b) {
@@ -296,16 +321,45 @@ probe_rank_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ q,
   }
 }
 
-// out (R, C) = zeros with rows [*off, *off + NX) taken from x (NX, C); rows
-// that fall outside [0, R) are dropped
-__global__ void probe_dynwrite_kernel(const int32_t* __restrict__ off,
-                                      const int32_t* __restrict__ x, int NX,
-                                      int R, int C, int32_t* __restrict__ out) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)R * C) return;
-  const int r = (int)(idx / C), col = (int)(idx - (long long)r * C);
-  const int k = r - *off;
-  out[idx] = (k >= 0 && k < NX) ? x[(long long)k * C + col] : 0;
+// out (R, C) = zeros with x (NX, C) written from row start: the offset
+// *off (plus R where it is negative), clamped to [0, R - NX], which is
+// where the Pallas body's dynamic slice `o_ref[pl.ds(off, 8), :]` writes
+// its rows (a dynamic update slice normalises a negative start and clamps
+// it so that the rows fit). A block writes rows [r0, r1) of out, a row a
+// warp at a time (blockDim (DYN_TX, DYN_TY)), VEC columns a thread: no
+// division on the element's path, and *off read once a block, by one
+// thread, into shared memory.
+#define DYN_TX 32
+#define DYN_TY 8
+
+template <int VEC>
+__global__ void __launch_bounds__(DYN_TX * DYN_TY)
+probe_dynwrite_kernel(const int32_t* __restrict__ off,
+                      const int32_t* __restrict__ x, int NX, int R, int C,
+                      int rows_per_block, int32_t* __restrict__ out) {
+  typedef typename ProbeVec<VEC>::T T;
+  __shared__ int sh_start;
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    const int o = *off;
+    const int s = o < 0 ? o + R : o;  // no overflow: o < 0 <= R
+    sh_start = max(0, min(s, R - NX));
+  }
+  __syncthreads();
+  const int start = sh_start;
+  const int cv = C / VEC;  // VEC divides C (the host checks)
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(R, r0 + rows_per_block);
+  const T zero{};
+  for (int r = r0 + threadIdx.y; r < r1; r += DYN_TY) {
+    const int k = r - start;  // start in [0, R - NX], so no overflow
+    T* dst = reinterpret_cast<T*>(out + (size_t)r * C);
+    if (k >= 0 && k < NX) {
+      const T* src = reinterpret_cast<const T*>(x + (size_t)k * C);
+      for (int c = threadIdx.x; c < cv; c += DYN_TX) dst[c] = src[c];
+    } else {
+      for (int c = threadIdx.x; c < cv; c += DYN_TX) dst[c] = zero;
+    }
+  }
 }
 
 static int probe_blocks(long long n) {
@@ -373,12 +427,30 @@ extern "C" int fdb_probe_rank(const int32_t* s, const int32_t* q, int NT,
   return (int)cudaGetLastError();
 }
 
+// As many blocks as keep a block's rows to DYN_BLOCK_BYTES of output (16
+// at the script's 32 KB), 16-byte columns where C is a multiple of 4 and
+// both pointers are 16-byte aligned. NX may not pass R (the Pallas slice
+// cannot either).
+#define DYN_BLOCK_BYTES 2048
+
 extern "C" int fdb_probe_dynwrite(const int32_t* off, const int32_t* x,
                                   int NX, int R, int C, int32_t* out,
                                   void* stream) {
-  const long long n = (long long)R * C;
-  if (n > 0)
-    probe_dynwrite_kernel<<<probe_blocks(n), PROBE_THREADS, 0,
-                            (cudaStream_t)stream>>>(off, x, NX, R, C, out);
+  if (NX < 0 || R < 0 || C < 0 || NX > R) return (int)cudaErrorInvalidValue;
+  if ((long long)R * C == 0) return (int)cudaSuccess;
+  long long b = ((long long)R * C * 4 + DYN_BLOCK_BYTES - 1) /
+                DYN_BLOCK_BYTES;
+  if (b > R) b = R;
+  const int rows_per_block = (int)((R + b - 1) / b);
+  const int blocks = (R + rows_per_block - 1) / rows_per_block;
+  const bool vec4 = C % 4 == 0 && ((uintptr_t)x & 15u) == 0 &&
+                    ((uintptr_t)out & 15u) == 0;
+  const dim3 threads(DYN_TX, DYN_TY);
+  if (vec4)
+    probe_dynwrite_kernel<4><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        off, x, NX, R, C, rows_per_block, out);
+  else
+    probe_dynwrite_kernel<1><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        off, x, NX, R, C, rows_per_block, out);
   return (int)cudaGetLastError();
 }

@@ -100,12 +100,14 @@ the same kernel for one evaluation.
 The sharded engine (parallel/sharded_conflict.py) runs a chunk as one K10
 launch, the step of each shard, then one K11 launch; on one card the whole
 chunk is one CUDA graph. K10 writes every shard's clipped copy of the
-batch's four endpoint arrays, a thread per (shard, column), into given
-buffers. K11 takes the shards' verdicts where their steps left them:
-their device pointers travel by value in the launch's parameters, so the
-combine costs no stack and no copy; it writes the engine's readback row
-with the combined verdicts, and its committed count goes through zeroed
-scratch that the launch leaves zero.
+batch's four endpoint arrays into given buffers: a thread loads one
+column's L limbs (L a template parameter, so they sit in registers) and
+writes its clipped copy for each shard of its group, a block's array
+fixed by its grid row. K11 takes the shards' verdicts where their steps
+left them: their device pointers travel by value in the launch's
+parameters, so the combine costs no stack and no copy; it writes the
+engine's readback row with the combined verdicts, and its committed count
+goes through zeroed scratch that the launch leaves zero.
 
 The step's elementwise glue costs no launch of its own: K2 derives the
 range->txn maps (the strided layout's from the padding limb) and the masks

@@ -13,6 +13,10 @@ its launch count in `kernels.LAUNCHES`, and a plain PyTorch version:
   lexjoin   probe_lexjoin       ab_pallas2.py:64  lexjoin_kernel
   dynwrite  probe_dynwrite      ab_pallas.py:112  dynwrite_kernel
 
+dynwrite writes x's rows where the Pallas body's dynamic slice puts them:
+a negative offset counts from the end and the start is clamped so that
+the rows fit (`dynwrite_start`), as Pallas's interpret mode runs it.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. The uint32 data of ab_pallas.py travels as
 int32 tensors holding the same bits, with `unsigned=True`, so results keep
@@ -117,12 +121,25 @@ def lexjoin_plain(state, queries, *, limbs: int = LK,
     return rank_plain(s, q, unsigned=unsigned).reshape(-1)
 
 
+def dynwrite_start(off, nx: int, rows: int):
+    """Where dynwrite_kernel's `o_ref[pl.ds(off, 8), :]` writes its rows:
+    a dynamic update slice adds `rows` to a negative offset and clamps the
+    start to [0, rows - nx], so that the rows fit. off (1,) -> (1,) int64,
+    on off's device."""
+    o = off.to(torch.int64)
+    return torch.where(o < 0, o + rows, o).clamp(0, rows - nx)
+
+
 def dynwrite_plain(off, x, *, rows: int):
-    """(rows, C) zeros with x's rows at [off, off + len(x)), clipped."""
-    k = torch.arange(rows, device=x.device)[:, None] - off.to(torch.int64)
-    keep = (k >= 0) & (k < x.shape[0])
-    return torch.where(keep, x[torch.clamp(k[:, 0], 0, x.shape[0] - 1)],
-                       torch.zeros((), dtype=x.dtype, device=x.device))
+    """(rows, C) zeros with x's rows written from `dynwrite_start`."""
+    nx = x.shape[0]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if nx == 0:
+        return zero.expand(rows, x.shape[1]).clone()
+    k = torch.arange(rows, device=x.device)[:, None] - \
+        dynwrite_start(off, nx, rows)
+    keep = (k >= 0) & (k < nx)
+    return torch.where(keep, x[torch.clamp(k[:, 0], 0, nx - 1)], zero)
 
 
 # ---------------------------------------------------------------------------
@@ -230,10 +247,15 @@ def _launch_rank(name, state, queries, nk, nt, qt, lk, s_strides,
 
 def dynwrite(off, x, *, rows: int):
     """dynwrite_kernel: (rows, C) with x's rows written at the offset held
-    on the device in off (1,), zeros elsewhere."""
+    on the device in off (1,), placed as the Pallas slice places them
+    (`dynwrite_start`), zeros elsewhere. x may not have more rows than the
+    output (the Pallas slice refuses that too)."""
+    nx, c = x.shape
+    if nx > rows:
+        raise FDBError("invalid_option",
+                       f"probe_dynwrite: {nx} rows of x into {rows} rows")
     if not kernels._on_cuda("probe_dynwrite", x):
         return dynwrite_plain(off, x, rows=rows)
-    nx, c = x.shape
     kernels._check("probe_dynwrite", x.device, off=(off, _I32, (1,)),
                    x=(x, _I32, (nx, c)))
     out = torch.empty((rows, c), dtype=_I32, device=x.device)
@@ -350,6 +372,33 @@ def rank_edge_calls(device) -> list:
     high = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
     lex(rng.choice(high, (L, 2048)), rng.choice(high, (2, L, 300)), LK,
         unsigned=True)
+    return out
+
+
+def dynwrite_edge_calls(device) -> list:
+    """[(args, kwargs)] of dynwrite's edges at the script's 64 output rows,
+    x drawn from a seeded numpy generator: offsets below zero (-3, -8,
+    -20, -64, -65 and -2^31: the slice adds 64, then clamps to [0, 56]),
+    at and past the last row (64, 70, 2^31 - 1), and where the 8 rows run
+    past the end (57, 60, 63: clamped to 56), each at C = 128 (the
+    script's), 6, 5 and 1 (not multiples of 4: one int32 a thread), 4 and
+    132; x with one row, 64 rows (the whole output) and no row."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(43)
+
+    def x_of(nx, c):
+        return torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, (nx, c)).astype(np.int32)).to(dev)
+
+    def off_of(v):
+        return torch.tensor([v], dtype=_I32, device=dev)
+    out = []
+    for off in (-3, -8, -20, -64, -65, -(1 << 31), 64, 70, (1 << 31) - 1,
+                57, 60, 63, 16):
+        for c in (128, 6, 5, 1, 4, 132):
+            out.append(((off_of(off), x_of(8, c)), {"rows": 64}))
+    for nx, off in ((1, 63), (1, -1), (64, 5), (64, -70), (0, 3)):
+        out.append(((off_of(off), x_of(nx, 12)), {"rows": 64}))
     return out
 
 

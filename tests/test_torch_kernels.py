@@ -855,12 +855,48 @@ def test_history_kernel_ignores_inverted_reads(cuda):
 @pytest.mark.cuda
 def test_shard_clip_kernel_on_edge_inputs(cuda):
     # W = 1, 2, 4, 8; T=1; all padding; ends at the cuts and the sentinel;
-    # the strided layout at T=16,384 (chip_smoke.py's edges)
+    # the strided layout at T=16,384; L = 1 and 17, N off a multiple of 4,
+    # no reads or no writes, W = 64 (chip_smoke.py's edges)
     import chip_smoke
     calls = chip_smoke.clip_edge_calls(cuda)
     kernels.reset_launches()
     _equal_to_plain(kernels.clip_ranges, ref.clip_ranges, calls)
     assert kernels.LAUNCHES["shard_clip"] == len(calls)
+
+
+@pytest.mark.cuda
+def test_shard_clip_kernel_from_an_unaligned_input(cuda):
+    # the plain clip from inputs 4 bytes past a 16-byte boundary too
+    import chip_smoke
+    a, _kw = chip_smoke.clip_edge_calls(cuda)[0]
+    buf = torch.zeros(a[0].numel() + 1, dtype=torch.int32, device=cuda)
+    rb_un = buf[1:].view(a[0].shape)
+    rb_un.copy_(a[0])
+    assert rb_un.data_ptr() % 16 == 4 and rb_un.is_contiguous()
+    for g, w in zip(kernels.clip_ranges(rb_un, *a[1:]), ref.clip_ranges(*a)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_dynwrite_kernel_on_edge_inputs(cuda):
+    # offsets below zero, past the last row and where the rows run past the
+    # end; C off a multiple of 4; x unaligned (a view one column in)
+    from foundationdb_tpu_torch.ops import probes
+    calls = probes.dynwrite_edge_calls(cuda)
+    kernels.reset_launches()
+    for (off, x), kw in calls:
+        want = probes.dynwrite_plain(off, x, **kw)
+        got = probes.dynwrite(off, x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (int(off), tuple(x.shape))
+    assert kernels.LAUNCHES["probe_dynwrite"] == len(calls)
+    (off, x), kw = calls[0]  # C = 128, from a pointer 4 bytes past 16
+    buf = torch.zeros(x.numel() + 1, dtype=torch.int32, device=cuda)
+    x_un = buf[1:].view(x.shape)
+    x_un.copy_(x)
+    assert x_un.data_ptr() % 16 == 4 and x_un.is_contiguous()
+    assert torch.equal(probes.dynwrite(off, x_un, **kw),
+                       probes.dynwrite_plain(off, x, **kw))
 
 
 @pytest.mark.cuda

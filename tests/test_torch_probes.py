@@ -17,6 +17,9 @@ Two departures from the scripts, both forced by the kernel bodies:
   * dynwrite_kernel writes 8 of its 64 output rows and leaves the rest
     unwritten (interpret mode fills them with the dtype's minimum); the
     port defines them as zero, so only the written rows are compared.
+    Where they go at offsets outside [0, 56] is the dynamic slice's rule
+    (a negative offset counts from the end, the start is clamped so that
+    the rows fit), held on `probes.dynwrite_edge_calls`.
 
 The rank joins are held to the Pallas bodies also on their edges
 (`probes.rank_edge_calls`: ties, queries equal to tile keys, prefixes
@@ -138,6 +141,47 @@ def test_dynwrite(off):
                     rows=64):
         np.testing.assert_array_equal(got[off:off + 8], want[off:off + 8])
         assert not np.delete(got, np.s_[off:off + 8], axis=0).any()
+
+
+def _pallas_dynwrite(c):
+    """dynwrite_kernel at C columns, jitted once: (off, x) -> (64, C)."""
+    return jax.jit(pl.pallas_call(
+        lift("ab_pallas.py", "dynwrite_kernel"),
+        in_specs=[pl.BlockSpec((1,), lambda: (0,)),
+                  pl.BlockSpec((8, c), lambda: (0, 0))],
+        out_specs=pl.BlockSpec((64, c), lambda: (0, 0)),
+        out_shape=jax.ShapeDtypeStruct((64, c), jnp.int32),
+        interpret=True))
+
+
+@pytest.mark.parametrize("c", [128, 6, 5, 1, 4, 132])
+def test_dynwrite_edges_equal_the_pallas_body(c):
+    # offsets below zero, at and past the last row, and where the 8 rows
+    # run past the end: the Pallas slice counts a negative offset from the
+    # end and clamps the start so that the rows fit, and so must the port
+    # (probes.dynwrite_edge_calls, which the card's kernel is held to as
+    # well); C = 6, 5 and 1 are not multiples of 4
+    fn = _pallas_dynwrite(c)
+    calls = [(a, kw) for a, kw in probes.dynwrite_edge_calls("cpu")
+             if a[1].shape == (8, c)]
+    assert len(calls) == 13
+    for (off, x), kw in calls:
+        assert int(x.min()) > np.iinfo(np.int32).min  # unwritten marker
+        want = np.asarray(fn(jnp.asarray(off.numpy()),
+                             jnp.asarray(x.numpy())))
+        written = (want != np.iinfo(np.int32).min).any(axis=1)
+        assert written.sum() == 8, int(off)
+        for got in both("probe_dynwrite", off, x, **kw):
+            np.testing.assert_array_equal(got[written], want[written])
+            assert not got[~written].any()
+        start = int(probes.dynwrite_start(off, 8, 64))
+        assert written[start:start + 8].all()
+
+
+def test_dynwrite_refuses_more_rows_than_the_output():
+    with pytest.raises(FDBError):
+        probes.dynwrite(torch.zeros(1, dtype=torch.int32),
+                        torch.zeros((9, 4), dtype=torch.int32), rows=8)
 
 
 def test_stream_limbs_int32():

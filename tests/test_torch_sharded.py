@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from foundationdb_tpu.ops import conflict as jconf
 from foundationdb_tpu.parallel import sharded_conflict as jsh
 from foundationdb_tpu.utils import keys as jkeys
@@ -222,6 +223,31 @@ def test_clip_ranges_equal_jax(W):
             np.testing.assert_array_equal(
                 tkeys.from_signed_limbs(ge[d].numpy()), np.asarray(je))
         assert got[0][d].is_contiguous()
+
+
+@pytest.mark.parametrize("case", range(len(chip_smoke.CLIP_SHAPE_EDGES)))
+def test_clip_ranges_equal_jax_at_the_shape_edges(case):
+    # L = 1 and 17, N off a multiple of 4 and N = 1, no reads or no writes,
+    # W = 1 and 64; ranges below, above and across a cut, inverted ones
+    # and padding (chip_smoke.clip_shape_edge_calls, which the card's K10
+    # is held to as well)
+    (a, _kw) = chip_smoke.clip_shape_edge_calls(CPU)[case]
+    W, L, NR, NW = chip_smoke.CLIP_SHAPE_EDGES[case]
+    assert a[0].shape == (L, NR) and a[2].shape == (L, NW)
+    assert a[4].shape == (W, L)
+    got = ref.clip_ranges(*a)
+    kernels.reset_launches()
+    for g, k in zip(got, kernels.clip_ranges(*a)):  # plain on the CPU
+        assert torch.equal(g, k)
+    assert kernels.LAUNCHES["shard_clip"] == 0
+    rb, re, wb, we, lo, hi = (tkeys.from_signed_limbs(t.numpy()) for t in a)
+    for d in range(W):
+        for (b, e), (gb, ge) in (((rb, re), got[:2]), ((wb, we), got[2:])):
+            jb, je = jsh._clip_ranges(b, e, lo[d], hi[d])
+            np.testing.assert_array_equal(
+                tkeys.from_signed_limbs(gb[d].numpy()), np.asarray(jb))
+            np.testing.assert_array_equal(
+                tkeys.from_signed_limbs(ge[d].numpy()), np.asarray(je))
 
 
 @pytest.mark.parametrize("W", [1, 3, 8])
