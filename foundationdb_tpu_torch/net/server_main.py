@@ -195,11 +195,13 @@ def main(spec_json: str) -> int:
     if trace_dir:
         # per-process rolling trace file (openTraceFile): span/counter
         # records land here instead of stderr, named by listen address so
-        # trace_analyze can merge the whole cluster's files
+        # trace_analyze can merge the whole cluster's files; the conflict
+        # engine's spans time its device path onto its counters
         from foundationdb_tpu_torch.utils import trace
         trace_file = trace.RollingTraceFile(os.path.join(
             trace_dir, f"trace.{spec['listen'].replace(':', '_')}.jsonl"))
         trace.set_sink(trace_file.write)
+        trace.enable_spans(True)
     try:
         loop.aio.run_forever()
     finally:

@@ -45,6 +45,7 @@ from foundationdb_tpu_torch.ops.step_graph import (StepGraph, batch_layout,
                                                    batch_views)
 from foundationdb_tpu_torch.utils import cudaenv
 from foundationdb_tpu_torch.utils import keys as keylib
+from foundationdb_tpu_torch.utils import trace
 from foundationdb_tpu_torch.utils.errors import FDBError
 from foundationdb_tpu_torch.utils.knobs import KNOBS
 from foundationdb_tpu_torch.utils.stats import CounterCollection
@@ -52,8 +53,11 @@ from foundationdb_tpu_torch.utils.stats import CounterCollection
 # Process-wide device gauges (merged into RESOLVER_METRICS): dispatches
 # (chunks) from detect_async_impl, chunks whose sandwich did not converge
 # (their intra-batch verdicts come from the exact host pass, not the
-# device), readback-wait wall seconds from drain_and_collect, and the
-# chunks BatchEncoder encoded by the C pass and by the numpy path.
+# device), drain_and_collect's calls and the wall seconds of their wait for
+# the readbacks, the chunks BatchEncoder encoded by the C pass and by the
+# numpy path, and the readback rows DetectHandle turned into verdicts.
+# While the spans are on (utils/trace.py) the host seconds of the encode,
+# of the verdicts and of the exact host pass add to their *Seconds.
 kernel_metrics = CounterCollection("ConflictKernel")
 _kernel_dispatches = kernel_metrics.counter("KernelDispatches")
 _unconverged_chunks = kernel_metrics.counter("UnconvergedChunks")
@@ -61,6 +65,10 @@ _readback_waits = kernel_metrics.counter("ReadbackWaits")
 _readback_wait_seconds = kernel_metrics.counter("ReadbackWaitSeconds")
 _encoded_c = kernel_metrics.counter("EncodedChunksC")
 _encoded_py = kernel_metrics.counter("EncodedChunksPy")
+_encode_seconds = kernel_metrics.counter("EncodeSeconds")
+_verdict_rows = kernel_metrics.counter("VerdictRows")
+_verdict_seconds = kernel_metrics.counter("VerdictSeconds")
+_host_pass_seconds = kernel_metrics.counter("HostPassSeconds")
 _readback_lock = threading.Lock()
 
 _NEG_INT = ref.NEG
@@ -172,6 +180,7 @@ class BatchEncoder:
             return sh
         return dataclasses.replace(sh, reads=r, writes=w)
 
+    @trace.span("ConflictKernel.Encode", _encode_seconds)
     def encode_batch(self, txns: list[TxnConflictInfo], commit_version: int,
                      skip: list[bool] | None = None,
                      shapes: ConflictShapes | None = None,
@@ -488,10 +497,11 @@ def drain_and_collect(
         timing["collect_seconds"] = t2 - t1
     with _readback_lock:  # up to four worker threads drain at once
         _readback_waits.increment()
-        _readback_wait_seconds.increment(t2 - t0)
+        _readback_wait_seconds.increment(t1 - t0)
     return out
 
 
+@trace.span("ConflictKernel.HostPass", _host_pass_seconds)
 def _exact_intra_host(sub, host_too_old, eligible):
     """Exact sequential "earlier txns win" pass for an unconverged chunk.
 
@@ -534,30 +544,37 @@ class DetectHandle:
     def result(self) -> list[int]:
         if self._result is None:
             drain_handles([self])
-            out: list[int] = []
-            for sub, host_too_old, arr, _rb in self._chunks:
-                n = len(sub)
-                tc = (len(arr) - 2) // 2
-                if arr[2 * tc]:
-                    # the state overflowed and is poisoned: fatal for this
-                    # set; the owner reconstructs (clearConflictSet)
-                    raise FDBError(
-                        "internal_error",
-                        "conflict state capacity exceeded; raise "
-                        "CONFLICT_STATE_CAPACITY")
-                if arr[2 * tc + 1]:
-                    statuses = arr[:n]
-                else:
-                    _unconverged_chunks.increment()
-                    if not self._host_fallback:
-                        raise FDBError(
-                            "internal_error",
-                            "a chunk did not converge on the device, and "
-                            "this engine has no exact host pass")
-                    statuses = _exact_intra_host(sub, host_too_old,
-                                                 arr[tc:tc + n])
-                out.extend(TOO_OLD if old else int(s)
-                           for s, old in zip(statuses, host_too_old))
-            self._result = out
+            self._result = self._verdicts()
             self._chunks = None
         return self._result
+
+    @trace.span("ConflictKernel.Verdicts", _verdict_seconds)
+    def _verdicts(self) -> list[int]:
+        """The verdicts of the drained chunks' readback rows, in order."""
+        with _readback_lock:
+            _verdict_rows.increment(len(self._chunks))
+        out: list[int] = []
+        for sub, host_too_old, arr, _rb in self._chunks:
+            n = len(sub)
+            tc = (len(arr) - 2) // 2
+            if arr[2 * tc]:
+                # the state overflowed and is poisoned: fatal for this
+                # set; the owner reconstructs (clearConflictSet)
+                raise FDBError(
+                    "internal_error",
+                    "conflict state capacity exceeded; raise "
+                    "CONFLICT_STATE_CAPACITY")
+            if arr[2 * tc + 1]:
+                statuses = arr[:n]
+            else:
+                _unconverged_chunks.increment()
+                if not self._host_fallback:
+                    raise FDBError(
+                        "internal_error",
+                        "a chunk did not converge on the device, and "
+                        "this engine has no exact host pass")
+                statuses = _exact_intra_host(sub, host_too_old,
+                                             arr[tc:tc + n])
+            out.extend(TOO_OLD if old else int(s)
+                       for s, old in zip(statuses, host_too_old))
+        return out

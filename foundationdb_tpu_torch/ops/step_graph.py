@@ -30,7 +30,11 @@ graph uses alive, so `kernels.release_scratch` cannot free them under it. The ke
 (`kernels.LAUNCHES`) are incremented on the host, so a replay counts
 nothing by itself: the program records the counts its capture added (and
 takes them back: a capture launches nothing) and adds them at each
-replay.
+replay. `graph_metrics` (merged into RESOLVER_METRICS) counts the replays
+and the captures, and their host seconds: a capture's always, a replay's
+while the spans are on (`utils/trace.py`: `CudaGraphs.Replay`, the graph
+launch and its launch counts; `CudaGraphs.Capture`, the warm-up step and
+the capture).
 
 On CUDA a capture or replay that fails raises FDBError("internal_error");
 nothing runs the eager step in its place. `graphed=False` runs the same
@@ -51,9 +55,17 @@ import torch
 
 from foundationdb_tpu_torch.ops import conflict_ref as ref
 from foundationdb_tpu_torch.ops import kernels
+from foundationdb_tpu_torch.utils import trace
 from foundationdb_tpu_torch.utils.errors import FDBError
+from foundationdb_tpu_torch.utils.stats import CounterCollection
 
 _I32 = torch.int32
+
+graph_metrics = CounterCollection("CudaGraphs")
+_replays = graph_metrics.counter("GraphReplays")
+_replay_seconds = graph_metrics.counter("GraphReplaySeconds")
+_captures = graph_metrics.counter("GraphCaptures")
+_capture_seconds = graph_metrics.counter("GraphCaptureSeconds")
 
 # the batch fields of a step, with their shapes and whether they are bool
 _BOOL_FIELDS = ("txn_valid", "advance_floor")
@@ -165,8 +177,10 @@ class _Program:
         """A copy of the fixed state for the warm-up step."""
         return {k: v.clone() for k, v in self.state.items()}
 
+    @trace.span("CudaGraphs.Capture", _capture_seconds, always=True)
     def _capture(self):
         """Warm up, then capture `_body` over the fixed state."""
+        _captures.increment()
         dev = self.device
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
@@ -210,7 +224,9 @@ class _Program:
         if self.graphed and self.graph is None:
             self._capture()
 
+    @trace.span("CudaGraphs.Replay", _replay_seconds)
     def _replay(self):
+        _replays.increment()
         try:
             with torch.cuda.device(self.device):
                 self.graph.replay()

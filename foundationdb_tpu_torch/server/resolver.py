@@ -135,9 +135,10 @@ class Resolver:
 
     def _on_metrics(self, req, reply):
         """Role counters plus the process-wide device gauges: dispatches,
-        readback waits, transfers and kernel launches; and whether the
-        role poisoned (a lost state fails every later batch)."""
-        from foundationdb_tpu_torch.ops import conflict, kernels
+        readback waits, transfers, graph replays and captures, the spans'
+        seconds and kernel launches; and whether the role poisoned (a lost
+        state fails every later batch)."""
+        from foundationdb_tpu_torch.ops import conflict, kernels, step_graph
         from foundationdb_tpu_torch.utils import cudaenv
         snap = self.counters.as_dict()
         snap["Version"] = self.version.get()
@@ -145,6 +146,7 @@ class Resolver:
         snap["Poisoned"] = self._poisoned is not None
         snap.update(conflict.kernel_metrics.as_dict())
         snap.update(cudaenv.transfer_metrics.as_dict())
+        snap.update(step_graph.graph_metrics.as_dict())
         snap.update({"KernelLaunches." + k: v
                      for k, v in kernels.LAUNCHES.items()})
         snap["HotRangeBuckets"] = len(self.hot_sketch)

@@ -11,13 +11,17 @@ Every transfer of the conflict engine goes through `to_device` and
 `to_host_async`, which count calls and bytes (merged into the resolver's
 RESOLVER_METRICS, like jaxenv's `JaxTransfers`): host->device from pinned
 buffers with `non_blocking`, device->host into pinned buffers with
-`non_blocking`, completion marked by a CUDA event.
+`non_blocking`, completion marked by a CUDA event. With the spans on
+(`utils/trace.py`), the host seconds of each copy's enqueue add to
+`DevicePutSeconds` and `DeviceGetSeconds` (the spans `CudaTransfers.Put`
+and `CudaTransfers.Get`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from foundationdb_tpu_torch.utils import trace
 from foundationdb_tpu_torch.utils.errors import FDBError
 from foundationdb_tpu_torch.utils.stats import CounterCollection
 
@@ -45,6 +49,8 @@ _put_count = transfer_metrics.counter("DevicePuts")
 _put_bytes = transfer_metrics.counter("DevicePutBytes")
 _get_count = transfer_metrics.counter("DeviceGets")
 _get_bytes = transfer_metrics.counter("DeviceGetBytes")
+_put_seconds = transfer_metrics.counter("DevicePutSeconds")
+_get_seconds = transfer_metrics.counter("DeviceGetSeconds")
 
 
 def host_buffer(shape, dtype, device: torch.device) -> torch.Tensor:
@@ -64,6 +70,11 @@ def to_device(t: torch.Tensor, device: torch.device,
     tensor itself (or `out`, filled)."""
     if device.type == "cpu":
         return t if out is None else out.copy_(t)
+    return _put(t, device, out)
+
+
+@trace.span("CudaTransfers.Put", _put_seconds)
+def _put(t: torch.Tensor, device: torch.device, out: torch.Tensor | None):
     _put_count.increment()
     _put_bytes.increment(t.numel() * t.element_size())
     if out is None:
@@ -77,6 +88,11 @@ def to_host_async(t: torch.Tensor):
     on the CPU, where they are valid at once)."""
     if t.device.type == "cpu":
         return t, None
+    return _get(t)
+
+
+@trace.span("CudaTransfers.Get", _get_seconds)
+def _get(t: torch.Tensor):
     _get_count.increment()
     _get_bytes.increment(t.numel() * t.element_size())
     out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

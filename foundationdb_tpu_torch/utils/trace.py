@@ -6,12 +6,18 @@ with severities, rolling files and per-type suppression), flow/Trace.h
 g_traceBatch and the proxy's LatencyBands (Stats.h). Events are JSON lines
 on stderr, or go to a sink set with `set_sink` (tests capture them that
 way; a server process installs a `RollingTraceFile`).
+
+Spans of the device path (`span`, `enable_spans`) time the host's calls
+into the conflict engine onto `*Seconds` counters of the engine's
+CounterCollections, and name them as torch.profiler ranges.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import sys
+import threading
 import time
 from bisect import bisect_left
 from typing import Callable
@@ -235,3 +241,70 @@ class LatencyBands:
             ev.detail("gt_last", self.counts[-1])
         ev.detail("Total", self.total).detail("Max", round(self.max_seen, 6))
         ev.log()
+
+
+# ---------------------------------------------------------------------------
+# spans of the device path: host seconds on the counters, profiler ranges
+# ---------------------------------------------------------------------------
+
+# every span's name, "<CounterCollection>.<span>": the range it opens in a
+# torch.profiler trace, so a timeline can tell the port's ranges from others
+SPAN_NAMES = ("CudaTransfers.Put", "CudaGraphs.Replay", "CudaTransfers.Get",
+              "ConflictKernel.Encode", "ConflictKernel.Verdicts",
+              "ConflictKernel.HostPass", "CudaGraphs.Capture")
+
+_spans_on = False
+_span_lock = threading.Lock()  # the verdicts run in up to four threads
+_autograd_profiler = None
+
+
+def enable_spans(on: bool = True):
+    """Switch the spans on or off (off at import). Off, a span costs one
+    test of this flag; on, it adds its call's seconds to its counter and,
+    while a torch.profiler records, opens the range of its name."""
+    global _spans_on
+    _spans_on = bool(on)
+
+
+def spans_enabled() -> bool:
+    return _spans_on
+
+
+def _timed(name: str, seconds, fn, args, kwargs):
+    global _autograd_profiler
+    t0 = time.perf_counter()
+    try:
+        if _spans_on:
+            if _autograd_profiler is None:
+                import torch.autograd.profiler as _autograd_profiler
+            if _autograd_profiler._is_profiler_enabled:
+                with _autograd_profiler.record_function(name):
+                    return fn(*args, **kwargs)
+        return fn(*args, **kwargs)
+    finally:
+        dt = time.perf_counter() - t0
+        with _span_lock:
+            seconds.increment(dt)
+
+
+def span(name: str, seconds, always: bool = False):
+    """Decorator: a span named `name` (one of SPAN_NAMES) over each call of
+    the function, its seconds added to the Counter `seconds` while spans
+    are on, or at every call with `always` (for calls too rare to matter).
+    The call's count is the caller's own counter, which always counts."""
+    if name not in SPAN_NAMES:
+        raise ValueError(f"{name!r} is not one of {SPAN_NAMES}")
+
+    def wrap(fn):
+        if always:
+            @functools.wraps(fn)
+            def spanned(*args, **kwargs):
+                return _timed(name, seconds, fn, args, kwargs)
+        else:
+            @functools.wraps(fn)
+            def spanned(*args, **kwargs):
+                if not _spans_on:
+                    return fn(*args, **kwargs)
+                return _timed(name, seconds, fn, args, kwargs)
+        return spanned
+    return wrap

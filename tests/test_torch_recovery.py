@@ -468,11 +468,15 @@ def resolver_device_keys(name):
     """The resolver's metric keys that differ by design: the port reports
     its kernel launches (and, beside the dispatches, the chunks that did
     not converge, the chunks its encoder wrote by the C pass and by numpy,
-    and whether the role poisoned); the JAX package its compile cache."""
-    return (name.startswith("KernelLaunches.")
+    the readback rows it turned into verdicts, its CUDA graphs' replays
+    and captures, its spans' seconds, and whether the role poisoned); the
+    JAX package its compile cache."""
+    return (name.startswith(("KernelLaunches.", "Graph"))
             or name in ("UnconvergedChunks", "EncodedChunksC",
-                        "EncodedChunksPy", "Poisoned", "CompileCacheHits",
-                        "CompileCacheMisses"))
+                        "EncodedChunksPy", "VerdictRows", "Poisoned",
+                        "CompileCacheHits", "CompileCacheMisses",
+                        "EncodeSeconds", "VerdictSeconds", "HostPassSeconds",
+                        "DevicePutSeconds", "DeviceGetSeconds"))
 
 
 def test_refresh_and_status_answer_as_in_jax(monkeypatch):
